@@ -80,18 +80,25 @@ def projector_state_from_jax(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return out
 
 
+def _layer_leaf(name: str, x: np.ndarray) -> np.ndarray:
+    """One layer's slice of a stacked leaf in the port's layout: linear kernels
+    and LoRA adapters are transposed ([in, out] -> [out, in]; A [in, r] ->
+    [r, in]; B [r, out] -> [out, r]), norms keep theirs."""
+    return x.T if name in _LLM_LINEAR or name.endswith(("_lora_a", "_lora_b")) else x
+
+
 def llm_params_from_jax(tree: Dict[str, Any], device=None, dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-    """The JAX Llama params -> the port's {"embed", "layers": [...], ...}."""
-    extra = [k for k in tree["layers"] if k.endswith(("_scale", "_scale4", "_lora_a", "_lora_b"))]
-    if extra or "embed_scale" in tree or "lm_head_scale" in tree:
-        raise NotImplementedError(f"quantized or LoRA parameters are not yet ported to torch ({extra})")
+    """The JAX Llama params -> the port's {"embed", "layers": [...], ...}.
+    LoRA adapters (`<proj>_lora_a` [L, in, r], `<proj>_lora_b` [L, r, out])
+    come across per layer as [r, in] and [out, r]."""
+    quantized = [k for k in tree["layers"] if k.endswith(("_scale", "_scale4"))]
+    if quantized or "embed_scale" in tree or "lm_head_scale" in tree:
+        raise NotImplementedError(f"int8 / int4 parameters are not yet ported to torch ({quantized})")
     stacked = {k: np.asarray(v) for k, v in tree["layers"].items()}
     n_layers = stacked["wq"].shape[0]
     layers = []
     for i in range(n_layers):
-        layers.append({
-            k: _t(v[i].T if k in _LLM_LINEAR else v[i], device, dtype) for k, v in stacked.items()
-        })
+        layers.append({k: _t(_layer_leaf(k, v[i]), device, dtype) for k, v in stacked.items()})
     out = {
         "embed": _t(np.asarray(tree["embed"]), device, dtype),
         "layers": layers,

@@ -20,19 +20,33 @@ Cast points match the JAX order: `rms_norm` computes in fp32 and casts back;
 RoPE tables are cast to x.dtype before the rotation; `cached_attention`
 forms scores in q.dtype, softmaxes in fp32 and casts the probabilities back.
 
-Not yet ported: int8 / int4 weights and LoRA adapters (convert.py refuses
-such parameter trees), the int8 KV cache (`init_kv_cache` refuses it) and
-the Phi block (`_require_llama`); each raises NotImplementedError.
+LoRA adapters are extra per-layer leaves `<proj>_lora_a` [r, in] and
+`<proj>_lora_b` [out, r] (training/lora.py): a projection adds
+(x A^T) B^T with the adapters cast to the activation dtype, as the JAX `proj`.
+Training runs `llm_forward` with `remat`: each decoder layer under
+`torch.utils.checkpoint` (non-reentrant), recomputing the whole layer
+("full") or all but its matmul outputs ("dots") in the backward.
+
+Not yet ported: int8 / int4 weights (convert.py refuses such parameter
+trees), the int8 KV cache (`init_kv_cache` refuses it) and the Phi block
+(`_require_llama`); each raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from bridgelang_tpu_torch.ops.flash_attention import flash_attention
 
@@ -202,6 +216,35 @@ def lengths_from_mask(mask: torch.Tensor) -> torch.Tensor:
 
 # --- decoder forward ----------------------------------------------------------
 
+# Matmul ops whose outputs the "dots" policy keeps (JAX:
+# dots_with_no_batch_dims_saveable); everything else is recomputed.
+_DOT_OPS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(name: Optional[str]):
+    """The checkpoint `context_fn` for a named policy, as the JAX
+    `_remat_policy`: None/"full" recomputes the whole layer in the backward,
+    "dots" keeps matmul outputs and recomputes the rest."""
+    if name in (None, "full"):
+        return noop_context_fn
+    if name == "dots":
+        return functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    raise ValueError(f"Unknown remat policy {name!r} (use 'full' or 'dots')")
+
+
+def proj(x: torch.Tensor, lp: Params, name: str) -> torch.Tensor:
+    """Base projection plus the optional LoRA update (x A^T) B^T, with the
+    adapters cast to the activation dtype (JAX `_block.proj`)."""
+    y = F.linear(x, lp[name])
+    a = lp.get(name + "_lora_a")
+    if a is not None:
+        y = y + F.linear(F.linear(x, a.to(x.dtype)), lp[name + "_lora_b"].to(x.dtype))
+    return y
+
 
 def _block(
     cfg: LLMConfig,
@@ -223,9 +266,9 @@ def _block(
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     h_in = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = F.linear(h_in, lp["wq"]).view(B, T, H, hd)
-    k = F.linear(h_in, lp["wk"]).view(B, T, Hkv, hd)
-    v = F.linear(h_in, lp["wv"]).view(B, T, Hkv, hd)
+    q = proj(h_in, lp, "wq").view(B, T, H, hd)
+    k = proj(h_in, lp, "wk").view(B, T, Hkv, hd)
+    v = proj(h_in, lp, "wv").view(B, T, Hkv, hd)
     q = apply_rope(q, cos, sin, cfg.rotary_dim)
     k = apply_rope(k, cos, sin, cfg.rotary_dim)
 
@@ -238,9 +281,9 @@ def _block(
         cache_v[rows, cache_positions] = v.to(cache_v.dtype)
         attn_out = cached_attention(q, cache_k.to(q.dtype), cache_v.to(q.dtype), mask)
 
-    x = x + F.linear(attn_out.reshape(B, T, H * hd), lp["wo"])
+    x = x + proj(attn_out.reshape(B, T, H * hd), lp, "wo")
     h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    mlp_out = F.linear(F.silu(F.linear(h2, lp["w_gate"])) * F.linear(h2, lp["w_up"]), lp["w_down"])
+    mlp_out = proj(F.silu(proj(h2, lp, "w_gate")) * proj(h2, lp, "w_up"), lp, "w_down")
     return x + mlp_out, (k, v)
 
 
@@ -254,6 +297,8 @@ def llm_forward(
     cache_positions: Optional[torch.Tensor] = None,
     cache_write: str = "scatter",
     lengths: Optional[torch.Tensor] = None,
+    remat: bool = False,
+    remat_policy: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Run the decoder stack over input embeddings.
 
@@ -273,8 +318,16 @@ def llm_forward(
     The cache is updated IN PLACE and returned (JAX returns a new one):
     this saves a copy of the whole cache per step. Returns (hidden [B, T, D],
     cache or None).
+
+    `remat` (no cache only: the training forward) runs each layer under
+    non-reentrant `torch.utils.checkpoint` with the `remat_policy` of
+    `_remat_context`. The backward then runs each layer's forward again, so
+    the flash forward launches twice per layer per training step.
     """
     _require_llama(cfg)
+    if remat and cache is not None:
+        raise ValueError("remat is for the training forward, which runs without a KV cache")
+    context_fn = _remat_context(remat_policy) if remat else None
     cos, sin = rope_cos_sin(positions, cfg.rotary_dim, cfg.rope_theta)
     contiguous = cache is not None and cache_write == "contiguous"
     chunk_attention = cache is None or contiguous
@@ -283,7 +336,10 @@ def llm_forward(
     x = embeds
     T = x.shape[1]
     for i, lp in enumerate(params["layers"]):
-        if chunk_attention:
+        if remat:
+            x, _ = checkpoint(_block, cfg, lp, x, cos, sin, mask, None, None, lengths, use_reentrant=False,
+                              context_fn=context_fn)
+        elif chunk_attention:
             x, (k, v) = _block(cfg, lp, x, cos, sin, mask, None, None, lengths)
             if contiguous:
                 cache["k"][i, :, :T] = k.to(cache["k"].dtype)

@@ -1,7 +1,7 @@
-"""PrismaticVLM in torch: fused-backbone VLM with fuse-after-BOS and greedy
-KV-cache generation.
+"""PrismaticVLM in torch: fused-backbone VLM with fuse-after-BOS, greedy
+KV-cache generation, the training forward and the freeze stages.
 
-Counterpart of bridgelang_tpu/models/vlm.py (the serving half). The model
+Counterpart of bridgelang_tpu/models/vlm.py. The model
 object holds configs and module definitions; parameters travel separately as
 a dict {"vision", "projector", "llm"}, as in the JAX package. The vision and
 projector modules live on the `meta` device and run through
@@ -13,6 +13,12 @@ per-example lengths), then `max_new_tokens - 1` single-token decode steps in
 a Python loop. Unlike the JAX package, the prefill always takes the flash
 kernel: the JAX package's short-prompt switch to einsum attention
 (`_prefill_impl`) rests on a TPU measurement and is not ported.
+
+Training: `forward_train` / `forward_hidden` run the fused sequence through
+the decoder without a cache; attention goes through the flash kernels
+(forward and backward) with the true per-example lengths. The
+`parallel_actions` objective is not yet ported: its general mask lies outside
+the kernel's causal + length family.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from bridgelang_tpu_torch.models.projector import Projector, init_projector_para
 from bridgelang_tpu_torch.models.vision.vit import FusedViT, ViT, build_vision_backbone, init_vision_params
 from bridgelang_tpu_torch.ops.image_ops import transform_config_for_backbone
 
+IGNORE_INDEX = -100
 # Llama SPIECE_UNDERLINE token ('▁'): training prompts end with it, so inference must too.
 LLAMA_EMPTY_TOKEN = 29871
 
@@ -109,14 +116,20 @@ class PrismaticVLM:
         token_embeds: torch.Tensor,
         patch_embeds: torch.Tensor,
         attention_mask: torch.Tensor,
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[bos | patches | text...] and its [B, F] validity mask; requires
+        labels: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        """[bos | patches | text...], its [B, F] validity mask and, given
+        `labels`, the fused labels (IGNORE_INDEX over the patches); requires
         position 0 to be BOS (right padding)."""
         b, p = patch_embeds.shape[0], patch_embeds.shape[1]
         fused = torch.cat([token_embeds[:, :1], patch_embeds.to(token_embeds.dtype), token_embeds[:, 1:]], dim=1)
         patch_mask = torch.ones((b, p), dtype=attention_mask.dtype, device=attention_mask.device)
         fused_mask = torch.cat([attention_mask[:, :1], patch_mask, attention_mask[:, 1:]], dim=1)
-        return fused, fused_mask
+        fused_labels = None
+        if labels is not None:
+            patch_labels = torch.full((b, p), IGNORE_INDEX, dtype=labels.dtype, device=labels.device)
+            fused_labels = torch.cat([labels[:, :1], patch_labels, labels[:, 1:]], dim=1)
+        return fused, fused_mask, fused_labels
 
     def _causal_mask(self, fused_mask: torch.Tensor) -> torch.Tensor:
         """[B, T] validity -> [B, 1, T, T] causal + padding (+ window) bool mask."""
@@ -129,6 +142,89 @@ class PrismaticVLM:
         if window is not None:
             causal = causal & (k_idx > q_idx - window)
         return causal[None, None] & key_valid[:, None, None, :]
+
+    # --- training forward -------------------------------------------------
+
+    def forward_hidden(
+        self,
+        params: Params,
+        input_ids: torch.Tensor,
+        attention_mask: torch.Tensor,
+        pixel_values: torch.Tensor,
+        labels: torch.Tensor,
+        remat: bool = True,
+        remat_policy: Optional[str] = None,
+        parallel_actions: bool = False,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Multimodal forward -> (final hidden states [B, F, D], fused labels
+        [B, F]); the caller computes the loss with a chunked LM head
+        (training.trainer.chunked_ce_and_metrics)."""
+        if parallel_actions:
+            raise NotImplementedError(
+                "the parallel_actions objective is not yet ported: it needs generate_parallel and a general "
+                "attention mask outside the flash kernel's causal + length family")
+        patch_embeds = self.encode_vision(params, pixel_values)
+        token_embeds = embed_tokens(params["llm"], input_ids, dtype=self.dtype)
+        fused, fused_mask, fused_labels = self.fuse_after_bos(token_embeds, patch_embeds, attention_mask, labels)
+        b, t = fused.shape[:2]
+        positions = torch.arange(t, device=fused.device).expand(b, t)
+        lengths = fused_mask.sum(dim=1).to(torch.int32)  # exact under right padding
+        hidden, _ = llm_forward(
+            params["llm"], self.cfg.llm, fused, positions, self._causal_mask(fused_mask),
+            lengths=lengths, remat=remat, remat_policy=remat_policy,
+        )
+        return hidden, fused_labels
+
+    def forward_train(
+        self,
+        params: Params,
+        input_ids: torch.Tensor,
+        attention_mask: torch.Tensor,
+        pixel_values: torch.Tensor,
+        labels: torch.Tensor,
+        remat: bool = True,
+        remat_policy: Optional[str] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Multimodal forward -> (logits [B, F, V], fused labels [B, F])."""
+        hidden, fused_labels = self.forward_hidden(
+            params, input_ids, attention_mask, pixel_values, labels, remat=remat, remat_policy=remat_policy)
+        return lm_logits(params["llm"], hidden, self.cfg.llm), fused_labels
+
+    # --- freeze stages ------------------------------------------------------
+
+    def trainable_mask(self, params: Params, stage: str) -> Params:
+        """Bools in the structure of `params`: which tensors train at `stage`
+        (JAX `trainable_mask`). The layers are a list here, so "last" marks
+        every tensor of the last decoder layer plus the final norm and the
+        LM head, with no partial-tensor mask."""
+        F, T = False, True
+        group = {
+            "align": dict(vision=F, projector=T, llm=F),
+            "finetune": dict(vision=F, projector=T, llm=T),
+            "vla-train": dict(vision=F, projector=T, llm=T),
+            "full-finetune": dict(vision=T, projector=T, llm=T),
+            "vla-full-train": dict(vision=T, projector=T, llm=T),
+            "last-layer-finetune": dict(vision=F, projector=F, llm="last"),
+            "vla-last-layer-train": dict(vision=F, projector=F, llm="last"),
+            "vla-sandwich-train": dict(vision=T, projector=T, llm="last"),
+        }[stage]
+
+        from bridgelang_tpu_torch.training.trainer import tree_map  # imported here: the trainer imports this module
+
+        def fill(tree, value):
+            return tree_map(lambda _: value, tree)
+
+        llm = params["llm"]
+        if group["llm"] == "last":
+            llm_mask = fill(llm, False)
+            llm_mask["layers"][-1] = fill(llm["layers"][-1], True)
+            for name in ("final_norm", "lm_head", "final_norm_bias", "lm_head_bias"):
+                if name in llm:
+                    llm_mask[name] = True
+        else:
+            llm_mask = fill(llm, group["llm"])
+        return {"vision": fill(params["vision"], group["vision"]),
+                "projector": fill(params["projector"], group["projector"]), "llm": llm_mask}
 
     # --- generation ---------------------------------------------------------
 
@@ -148,7 +244,7 @@ class PrismaticVLM:
         dev = input_ids.device
         patch_embeds = self.encode_vision(params, pixel_values)
         token_embeds = embed_tokens(params["llm"], input_ids, dtype=self.dtype)
-        fused, fused_mask = self.fuse_after_bos(token_embeds, patch_embeds, attention_mask)
+        fused, fused_mask, _ = self.fuse_after_bos(token_embeds, patch_embeds, attention_mask)
         f_len = fused.shape[1]
         s_len = f_len + max_new_tokens
         true_len = fused_mask.sum(dim=1).to(torch.int32)  # [B]; exact under right padding

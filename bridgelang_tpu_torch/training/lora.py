@@ -1,0 +1,86 @@
+"""LoRA fine-tuning: low-rank adapters as extra per-layer tensors.
+
+Counterpart of bridgelang_tpu/training/lora.py. Adapters live inside each
+decoder layer's dict as `<proj>_lora_a` [r, in] and `<proj>_lora_b`
+[out, r] (the JAX [in, r] / [r, out] leaves transposed into nn.Linear's
+layout), so `llama.proj` picks them up, freezing is a mask that selects
+`*_lora_*` tensors, and merge-and-unload is W += B A. The alpha/r scale is
+folded into A at init (B starts at zero, so this is exact).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Sequence, Tuple
+
+import torch
+
+Params = Dict[str, Any]
+
+ALL_LINEAR = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def add_lora_params(
+    generator: torch.Generator,
+    llm_params: Params,
+    rank: int = 32,
+    alpha: float = 32.0,
+    targets: Sequence[str] = ALL_LINEAR,
+    dtype: torch.dtype = torch.float32,
+) -> Params:
+    """A copy of `llm_params` (sharing the base tensors) with adapters added
+    to each layer: A ~ N(0, 1/r) * alpha/r drawn from `generator` on its
+    device, B = 0, so the model starts unchanged."""
+    device = generator.device
+    scale = alpha / rank
+    layers = []
+    for lp in llm_params["layers"]:
+        lp = dict(lp)
+        for t in targets:
+            if t not in lp:
+                continue
+            d_out, d_in = lp[t].shape
+            a = torch.randn((rank, d_in), generator=generator, device=device, dtype=dtype).mul_(rank ** -0.5)
+            lp[t + "_lora_a"] = a.mul_(scale) if scale != 1.0 else a
+            lp[t + "_lora_b"] = torch.zeros((d_out, rank), device=device, dtype=dtype)
+        layers.append(lp)
+    return dict(llm_params, layers=layers)
+
+
+def merge_lora(llm_params: Params) -> Params:
+    """Fold adapters into float base weights (W + B A in fp32, cast back to
+    W's dtype) and drop them. int8 and int4 bases are not yet ported."""
+    layers = []
+    for lp in llm_params["layers"]:
+        if any(k.endswith(("_scale", "_scale4")) for k in lp) or any(v.dtype == torch.int8 for v in lp.values()):
+            raise NotImplementedError("merging into int8 / int4 base weights is not yet ported to torch")
+        merged = {k: v for k, v in lp.items() if "_lora_" not in k}
+        for name in list(merged):
+            a, b = lp.get(name + "_lora_a"), lp.get(name + "_lora_b")
+            if a is None or b is None:
+                continue
+            w = merged[name]
+            delta = b.detach().float() @ a.detach().float()
+            merged[name] = (w.detach().float() + delta).to(w.dtype)
+        layers.append(merged)
+    return dict(llm_params, layers=layers)
+
+
+def lora_trainable_mask(params: Params) -> Params:
+    """Bools in the structure of `params`: True only on `*_lora_*` tensors."""
+
+    def mark(tree, lora: bool):
+        if isinstance(tree, dict):
+            return {k: mark(v, lora or "_lora_" in k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [mark(v, lora) for v in tree]
+        return lora
+
+    return mark(params, False)
+
+
+def split_lora(llm_params: Params) -> Tuple[Params, Params]:
+    """(base, adapters): adapters as {"layers": [per-layer dicts]}, to save
+    on their own like a PEFT adapter directory."""
+    base = [{k: v for k, v in lp.items() if "_lora_" not in k} for lp in llm_params["layers"]]
+    adapters = [{k: v for k, v in lp.items() if "_lora_" in k} for lp in llm_params["layers"]]
+    return dict(llm_params, layers=base), {"layers": adapters}

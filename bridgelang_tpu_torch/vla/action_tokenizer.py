@@ -1,9 +1,12 @@
-"""Action de-tokenization on the device: LLM token ids -> continuous actions.
+"""Discrete action tokenization: continuous actions <-> LLM token ids.
 
-Counterpart of the device half of bridgelang_tpu/vla/action_tokenizer.py,
-with the same bit-fidelity contract:
+Counterpart of bridgelang_tpu/vla/action_tokenizer.py: the device half
+(`token_ids_to_actions`, `unnormalize_actions`, `bin_actions` on tensors) and
+the host `ActionTokenizer` the data pipeline uses. Same bit-fidelity
+contract:
   bins        = linspace(min, max, n_bins)                    # 256 edges
   bin_centers = midpoints                                     # 255 centers
+  token_id    = vocab_size - digitize(clip(action), bins)     # digitize in [1, 256]
   decode      = bin_centers[clip(vocab_size - id - 1, 0, 254)]
 where `vocab_size` is the ORIGINAL LLM vocab (32000 for Llama-2), not the
 padded embedding table.
@@ -11,7 +14,7 @@ padded embedding table.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -24,6 +27,20 @@ def make_bins(n_bins: int = DEFAULT_N_BINS, min_action: float = -1.0, max_action
     bins = np.linspace(min_action, max_action, n_bins)
     bin_centers = (bins[:-1] + bins[1:]) / 2.0
     return bins, bin_centers
+
+
+def bin_actions(
+    actions: torch.Tensor,
+    bins: torch.Tensor,
+    vocab_size: int = LLAMA2_VOCAB_SIZE,
+    min_action: float = -1.0,
+    max_action: float = 1.0,
+) -> torch.Tensor:
+    """Continuous actions -> token ids. `bucketize(right=True)` is
+    np.digitize(right=False): the count of edges <= the value."""
+    clipped = torch.clamp(actions, min_action, max_action)
+    discretized = torch.bucketize(clipped, bins.to(clipped.dtype), right=True)  # in [1, n_bins]
+    return (vocab_size - discretized).to(torch.int32)
 
 
 def token_ids_to_actions(
@@ -49,3 +66,36 @@ def unnormalize_actions(
     if mask is None:
         return unnormed
     return torch.where(mask, unnormed, normalized)
+
+
+class ActionTokenizer:
+    """Host-side action tokenizer with the reference's interface. `tokenizer`
+    is any object with `.vocab_size`, `.decode` and `.batch_decode`; only
+    `vocab_size` enters the id math."""
+
+    def __init__(self, tokenizer, bins: int = DEFAULT_N_BINS, min_action: float = -1.0, max_action: float = 1.0):
+        self.tokenizer, self.n_bins = tokenizer, bins
+        self.min_action, self.max_action = min_action, max_action
+        self.bins, self.bin_centers = make_bins(bins, min_action, max_action)
+        # Contract: action tokens overwrite the final n_bins ids of the vocab.
+        self.action_token_begin_idx: int = int(self.tokenizer.vocab_size - (self.n_bins + 1))
+
+    def encode_to_ids(self, action: np.ndarray) -> np.ndarray:
+        action = np.clip(action, float(self.min_action), float(self.max_action))
+        discretized = np.digitize(action, self.bins)
+        return (self.tokenizer.vocab_size - discretized).astype(np.int64)
+
+    def __call__(self, action: np.ndarray) -> Union[str, List[str]]:
+        ids = self.encode_to_ids(action)
+        if ids.ndim == 1:
+            return self.tokenizer.decode(list(ids))
+        return self.tokenizer.batch_decode(ids.tolist())
+
+    def decode_token_ids_to_actions(self, action_token_ids: np.ndarray) -> np.ndarray:
+        discretized = self.tokenizer.vocab_size - action_token_ids
+        discretized = np.clip(discretized - 1, a_min=0, a_max=self.bin_centers.shape[0] - 1)
+        return self.bin_centers[discretized]
+
+    @property
+    def vocab_size(self) -> int:
+        return self.n_bins

@@ -8,13 +8,29 @@ so it runs on a GPU machine without them:
 
 Tolerances: fp32 o atol 1e-4; bf16 o atol 2e-2 (kernel and plain both
 accumulate in fp32 and round once to bf16, so they may sit one bf16 ulp
-apart for |o| < 4); lse is fp32 in both, atol 1e-3.
+apart for |o| < 4); lse is fp32 in both, atol 1e-3. Backward: element by
+element, |got - want| <= rtol |want| + atol rms(want) with chip_smoke.py's
+GRAD_TOL (bf16: one bf16 ulp, 2^-7 |want|, plus 1e-3 rms for fp32 order
+differences near zero; fp32: 1e-5 and 1e-5 rms, order differences only).
 """
+
+import sys
+from pathlib import Path
 
 import pytest
 import torch
 
-from bridgelang_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from bridgelang_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+    flash_bwd_dkv,
+    flash_bwd_dq,
+)
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from chip_smoke import GRAD_TOL  # noqa: E402
 
 # (b, t, s, h, hkv, d, lengths, window, causal)
 CASES = {
@@ -60,3 +76,82 @@ def test_flash_kernel_rejects_unsupported_head_dim(cuda_device):
     q = torch.randn((1, 8, 2, 32), device=cuda_device)
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_flash_backward_kernels_match_plain(cuda_device, name, dtype):
+    b, t, s, h, hkv, d, lengths, window, causal = CASES[name]
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, do = (torch.randn((b, t, h, d), generator=g, device=cuda_device, dtype=dtype) for _ in range(2))
+    k, v = (torch.randn((b, s, hkv, d), generator=g, device=cuda_device, dtype=dtype) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    o, lse = flash_attention_plain(q, k, v, lengths=lens, causal=causal, window=window)
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    got = flash_attention_bwd(q, k, v, o, lse, do, lens, causal, window)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, lens, causal, window)
+    rtol, atol = GRAD_TOL[str(dtype).replace("torch.", "")]
+    for x, y, what in zip(got, want, ("dq", "dk", "dv")):
+        assert x.dtype == y.dtype == dtype and x.shape == y.shape, what
+        rms = float(y.float().square().mean().sqrt())
+        torch.testing.assert_close(x.float(), y.float(), atol=atol * rms, rtol=rtol, msg=what)
+    for i, L in enumerate(lengths):  # dead key slots take exactly zero gradient
+        assert not got[1][i, L:].any() and not got[2][i, L:].any()
+
+
+@pytest.mark.gpu
+def test_cuda_flash_output_has_grad_fn(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn((2, 96, 4, 64), generator=g, device=cuda_device).requires_grad_(True) for _ in range(3))
+    counts = (flash_attention.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    o, lse = flash_attention(q, k, v, lengths=torch.tensor([96, 70], device=cuda_device))
+    assert o.grad_fn is not None and not lse.requires_grad
+    o.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    assert all(x.grad is not None and torch.isfinite(x.grad).all() for x in (q, k, v))
+
+
+@pytest.mark.gpu
+def test_remat_policies_agree_through_the_kernels(cuda_device):
+    """A 2-layer fp32 decoder with LoRA adapters on the card: no remat, "full"
+    and "dots" give the same adapter gradients (atol 1e-5 of max |g|: the
+    same kernels on the same inputs), and remat runs each layer's flash
+    forward twice."""
+    from bridgelang_tpu_torch.models.llm import llama
+    from bridgelang_tpu_torch.training.lora import add_lora_params
+
+    cfg = llama.LLMConfig(vocab_size=512, padded_vocab_size=576, dim=256, n_layers=2, n_heads=2, n_kv_heads=1,
+                          intermediate_size=512)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    params = add_lora_params(g, llama.init_llm_params(g, cfg, device=cuda_device), rank=8)
+    for lp in params["layers"]:
+        for k in (k for k in lp if k.endswith("_lora_b")):
+            lp[k].normal_(0.0, 0.05, generator=g)
+    adapters = [lp[k] for lp in params["layers"] for k in sorted(lp) if "_lora_" in k]
+    for a in adapters:
+        a.requires_grad_(True)
+    b, t = 2, 96
+    x = torch.randn((b, t, cfg.dim), generator=g, device=cuda_device)
+    pos = torch.arange(t, device=cuda_device).expand(b, t)
+    lens = torch.tensor([96, 70], device=cuda_device)
+    col = torch.arange(t, device=cuda_device)
+    mask = ((col[None, :] <= col[:, None])[None] & (col < lens[:, None, None]))[:, None]
+
+    def grads(remat, policy):
+        before = flash_attention.launches
+        h, _ = llama.llm_forward(params, cfg, x, pos, mask, lengths=lens, remat=remat, remat_policy=policy)
+        out = torch.autograd.grad(h.square().sum(), adapters)
+        torch.cuda.synchronize()
+        return out, flash_attention.launches - before
+
+    ref, n_ref = grads(False, None)
+    assert n_ref == cfg.n_layers
+    for policy in ("full", "dots"):
+        got, n = grads(True, policy)
+        assert n == 2 * cfg.n_layers, policy
+        for a, r in zip(got, ref):
+            torch.testing.assert_close(a, r, atol=1e-5 * float(r.abs().max()), rtol=0, msg=policy)

@@ -83,10 +83,11 @@ def test_smoke_model_serves_on_cpu():
 
 
 def test_build_is_lazy_and_hashed():
-    assert _build.sources() == ["flash_fwd"]
+    assert _build.sources() == ["flash_bwd", "flash_fwd"]
     assert not _build._loaded  # nothing built or loaded at import
-    path = _build.library_path("flash_fwd")
-    assert path.parent == ROOT / "build" / "torch_kernels" and path.name.startswith("flash_fwd-")
+    for name in _build.sources():
+        path = _build.library_path(name)
+        assert path.parent == ROOT / "build" / "torch_kernels" and path.name.startswith(f"{name}-")
 
 
 def test_batch_buckets():
