@@ -80,32 +80,50 @@ def projector_state_from_jax(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return out
 
 
-def _layer_leaf(name: str, x: np.ndarray) -> np.ndarray:
-    """One layer's slice of a stacked leaf in the port's layout: linear kernels
-    and LoRA adapters are transposed ([in, out] -> [out, in]; A [in, r] ->
-    [r, in]; B [r, out] -> [out, r]), norms keep theirs."""
+def _packed_int4(name: str, stacked: Dict[str, np.ndarray]) -> bool:
+    """A packed int4 leaf or its scales: the JAX bytes, kept untransposed."""
+    return name.endswith("_scale4") or name + "_scale4" in stacked
+
+
+def _layer_leaf(name: str, x: np.ndarray, packed: bool) -> np.ndarray:
+    """One layer's slice of a stacked leaf in the port's layout: dense linear
+    kernels and LoRA adapters are transposed ([in, out] -> [out, in]; A
+    [in, r] -> [r, in]; B [r, out] -> [out, r]); packed int4 leaves ([in,
+    out/2] int8, scales [in/group, out] bf16) and norms keep theirs."""
+    if packed:
+        return x
     return x.T if name in _LLM_LINEAR or name.endswith(("_lora_a", "_lora_b")) else x
 
 
 def llm_params_from_jax(tree: Dict[str, Any], device=None, dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """The JAX Llama params -> the port's {"embed", "layers": [...], ...}.
     LoRA adapters (`<proj>_lora_a` [L, in, r], `<proj>_lora_b` [L, r, out])
-    come across per layer as [r, in] and [out, r]."""
-    quantized = [k for k in tree["layers"] if k.endswith(("_scale", "_scale4"))]
-    if quantized or "embed_scale" in tree or "lm_head_scale" in tree:
-        raise NotImplementedError(f"int8 / int4 parameters are not yet ported to torch ({quantized})")
+    come across per layer as [r, in] and [out, r]. Quantized trees
+    (ops/quant.py): packed int4 layers come across byte for byte; the int8
+    embedding keeps [V, D] and its [V, 1] scale; the int8 head [D, V] and its
+    [1, V] scale are transposed to [V, D] and [V, 1]. Quantized leaves keep
+    their dtypes whatever `dtype` is. int8 decoder layers (`<proj>_scale`)
+    are not yet ported and raise."""
+    int8_layers = [k for k in tree["layers"] if k.endswith("_scale")]
+    if int8_layers:
+        raise NotImplementedError(f"int8 decoder layers are not yet ported to torch ({int8_layers})")
     stacked = {k: np.asarray(v) for k, v in tree["layers"].items()}
     n_layers = stacked["wq"].shape[0]
     layers = []
     for i in range(n_layers):
-        layers.append({k: _t(_layer_leaf(k, v[i]), device, dtype) for k, v in stacked.items()})
-    out = {
-        "embed": _t(np.asarray(tree["embed"]), device, dtype),
-        "layers": layers,
-        "final_norm": _t(np.asarray(tree["final_norm"]), device, dtype),
-        "lm_head": _t(np.asarray(tree["lm_head"]).T, device, dtype),
-    }
-    return out
+        layer = {}
+        for k, v in stacked.items():
+            packed = _packed_int4(k, stacked)
+            layer[k] = _t(_layer_leaf(k, v[i], packed), device, None if packed else dtype)
+        layers.append(layer)
+    top = {"embed": np.asarray(tree["embed"]), "layers": layers, "final_norm": np.asarray(tree["final_norm"]),
+           "lm_head": np.asarray(tree["lm_head"]).T}
+    if "embed_scale" in tree:
+        top["embed_scale"] = np.asarray(tree["embed_scale"])
+    if "lm_head_scale" in tree:
+        top["lm_head_scale"] = np.asarray(tree["lm_head_scale"]).T
+    return {k: v if k == "layers" else _t(v, device, None if v.dtype == np.int8 or k.endswith("_scale") else dtype)
+            for k, v in top.items()}
 
 
 def params_from_jax(np_tree: Dict[str, Any], device=None, dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:

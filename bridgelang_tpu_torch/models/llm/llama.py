@@ -27,8 +27,16 @@ Training runs `llm_forward` with `remat`: each decoder layer under
 `torch.utils.checkpoint` (non-reentrant), recomputing the whole layer
 ("full") or all but its matmul outputs ("dots") in the backward.
 
-Not yet ported: int8 / int4 weights (convert.py refuses such parameter
-trees), the int8 KV cache (`init_kv_cache` refuses it) and the Phi block
+Quantized weights (ops/quant.py): a packed-int4 projection keeps the JAX
+package's bytes, `<proj>` [in, out/2] int8 with `<proj>_scale4`
+[in/group, out] bf16, and `proj` runs it through the int4 kernels
+(ops/int4_matmul.py); the int8 embedding [V, D] and head [V, D] carry
+`embed_scale` / `lm_head_scale` [V, 1]. Under the "dots" remat policy the int4
+kernel's output is recomputed in the backward: its launch is no aten `mm`,
+so `_save_dots` does not keep it.
+
+Not yet ported: int8 decoder layers (`<proj>_scale`, the w8a8 int8 branch),
+the int8 KV cache (`init_kv_cache` refuses it) and the Phi block
 (`_require_llama`); each raises NotImplementedError.
 """
 
@@ -49,6 +57,8 @@ from torch.utils.checkpoint import (
 )
 
 from bridgelang_tpu_torch.ops.flash_attention import flash_attention
+from bridgelang_tpu_torch.ops.int4_matmul import matmul_int4, matmul_int4_a8
+from bridgelang_tpu_torch.ops.quant import INT4_COLUMN_PARALLEL
 
 Params = Dict[str, Any]
 
@@ -236,10 +246,23 @@ def _remat_context(name: Optional[str]):
     raise ValueError(f"Unknown remat policy {name!r} (use 'full' or 'dots')")
 
 
-def proj(x: torch.Tensor, lp: Params, name: str) -> torch.Tensor:
+def proj(x: torch.Tensor, lp: Params, name: str, cfg: LLMConfig) -> torch.Tensor:
     """Base projection plus the optional LoRA update (x A^T) B^T, with the
-    adapters cast to the activation dtype (JAX `_block.proj`)."""
-    y = F.linear(x, lp[name])
+    adapters cast to the activation dtype (JAX `_block.proj`).
+
+    A packed-int4 weight (sibling `<name>_scale4`) goes through the int4
+    kernels with no chunk-length gate: `matmul_int4_a8` when `cfg.w8a8` (the
+    serving posture), else `matmul_int4` (the QLoRA forward). Column-parallel
+    leaves take `cfg.int4_shards` as their pack's shard count; row-parallel
+    leaves are packed unblocked (`quantize_llm_int4`) and run as one block."""
+    s4 = lp.get(name + "_scale4")
+    if s4 is not None:
+        shards = cfg.int4_shards if name in INT4_COLUMN_PARALLEL else 1
+        y = (matmul_int4_a8 if cfg.w8a8 else matmul_int4)(x, lp[name], s4, shards)
+    elif name + "_scale" in lp:
+        raise NotImplementedError(f"{name}: int8 decoder weights are not yet ported to torch")
+    else:
+        y = F.linear(x, lp[name])
     a = lp.get(name + "_lora_a")
     if a is not None:
         y = y + F.linear(F.linear(x, a.to(x.dtype)), lp[name + "_lora_b"].to(x.dtype))
@@ -266,9 +289,9 @@ def _block(
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     h_in = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = proj(h_in, lp, "wq").view(B, T, H, hd)
-    k = proj(h_in, lp, "wk").view(B, T, Hkv, hd)
-    v = proj(h_in, lp, "wv").view(B, T, Hkv, hd)
+    q = proj(h_in, lp, "wq", cfg).view(B, T, H, hd)
+    k = proj(h_in, lp, "wk", cfg).view(B, T, Hkv, hd)
+    v = proj(h_in, lp, "wv", cfg).view(B, T, Hkv, hd)
     q = apply_rope(q, cos, sin, cfg.rotary_dim)
     k = apply_rope(k, cos, sin, cfg.rotary_dim)
 
@@ -281,9 +304,9 @@ def _block(
         cache_v[rows, cache_positions] = v.to(cache_v.dtype)
         attn_out = cached_attention(q, cache_k.to(q.dtype), cache_v.to(q.dtype), mask)
 
-    x = x + proj(attn_out.reshape(B, T, H * hd), lp, "wo")
+    x = x + proj(attn_out.reshape(B, T, H * hd), lp, "wo", cfg)
     h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    mlp_out = proj(F.silu(proj(h2, lp, "w_gate")) * proj(h2, lp, "w_up"), lp, "w_down")
+    mlp_out = proj(F.silu(proj(h2, lp, "w_gate", cfg)) * proj(h2, lp, "w_up", cfg), lp, "w_down", cfg)
     return x + mlp_out, (k, v)
 
 
@@ -350,11 +373,24 @@ def llm_forward(
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    emb = F.embedding(input_ids.long(), params["embed"])
+    """Token embeddings; an int8 table ([V, D] with `embed_scale` [V, 1])
+    gathers codes and scales and multiplies them in `dtype` (bf16 when not
+    given), as the JAX package."""
+    table = params["embed"]
+    ids = input_ids.long()
+    if table.dtype == torch.int8:
+        dt = dtype or torch.bfloat16
+        return table[ids].to(dt) * params["embed_scale"][ids].to(dt)
+    emb = F.embedding(ids, table)
     return emb.to(dtype) if dtype is not None else emb
 
 
 def lm_logits(params: Params, hidden: torch.Tensor, cfg: LLMConfig) -> torch.Tensor:
-    """Logits over the PADDED vocabulary (argmax runs over all of it)."""
+    """Logits over the PADDED vocabulary (argmax runs over all of it). An
+    int8 head ([V, D] with `lm_head_scale` [V, 1]) runs in the hidden dtype
+    and scales each vocabulary column after the product, as the JAX package."""
     _require_llama(cfg)
-    return F.linear(hidden, params["lm_head"])
+    head = params["lm_head"]
+    if head.dtype == torch.int8:
+        return F.linear(hidden, head.to(hidden.dtype)) * params["lm_head_scale"].to(hidden.dtype)[:, 0]
+    return F.linear(hidden, head)

@@ -5,7 +5,9 @@ decoder layer's dict as `<proj>_lora_a` [r, in] and `<proj>_lora_b`
 [out, r] (the JAX [in, r] / [r, out] leaves transposed into nn.Linear's
 layout), so `llama.proj` picks them up, freezing is a mask that selects
 `*_lora_*` tensors, and merge-and-unload is W += B A. The alpha/r scale is
-folded into A at init (B starts at zero, so this is exact).
+folded into A at init (B starts at zero, so this is exact). Over a packed
+int4 base (QLoRA) the adapters are full-width: A [r, in], B [out, r] with
+out twice the packed width.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 from typing import Any, Dict, Sequence, Tuple
 
 import torch
+
+from bridgelang_tpu_torch.ops.quant import INT4_COLUMN_PARALLEL, _quantize4_2d, dequant_int4
 
 Params = Dict[str, Any]
 
@@ -38,7 +42,10 @@ def add_lora_params(
         for t in targets:
             if t not in lp:
                 continue
-            d_out, d_in = lp[t].shape
+            if t + "_scale4" in lp:  # packed int4 [in, out/2]: the out-paired nibbles halve the stored width
+                d_in, d_out = lp[t].shape[0], 2 * lp[t].shape[1]
+            else:
+                d_out, d_in = lp[t].shape
             a = torch.randn((rank, d_in), generator=generator, device=device, dtype=dtype).mul_(rank ** -0.5)
             lp[t + "_lora_a"] = a.mul_(scale) if scale != 1.0 else a
             lp[t + "_lora_b"] = torch.zeros((d_out, rank), device=device, dtype=dtype)
@@ -46,21 +53,34 @@ def add_lora_params(
     return dict(llm_params, layers=layers)
 
 
-def merge_lora(llm_params: Params) -> Params:
-    """Fold adapters into float base weights (W + B A in fp32, cast back to
-    W's dtype) and drop them. int8 and int4 bases are not yet ported."""
+def merge_lora(llm_params: Params, int4_shards: int = 1) -> Params:
+    """Fold adapters into the base weights and drop them. Float bases:
+    W + B A in fp32, cast back to W's dtype. Packed int4 bases (a QLoRA
+    run): per layer, dequantize to fp32 [in, out], add (B A)^T, and
+    requantize with the group read off the scales' shape (JAX lora.py:86-93).
+    `int4_shards` must equal the base's pack-time n_shards. int8 bases are
+    not yet ported and raise."""
     layers = []
     for lp in llm_params["layers"]:
-        if any(k.endswith(("_scale", "_scale4")) for k in lp) or any(v.dtype == torch.int8 for v in lp.values()):
-            raise NotImplementedError("merging into int8 / int4 base weights is not yet ported to torch")
+        if any(k.endswith("_scale") for k in lp):
+            raise NotImplementedError("merging into int8 base weights is not yet ported to torch")
         merged = {k: v for k, v in lp.items() if "_lora_" not in k}
-        for name in list(merged):
+        for name in [k for k in merged if not k.endswith("_scale4")]:
             a, b = lp.get(name + "_lora_a"), lp.get(name + "_lora_b")
             if a is None or b is None:
                 continue
             w = merged[name]
-            delta = b.detach().float() @ a.detach().float()
-            merged[name] = (w.detach().float() + delta).to(w.dtype)
+            delta = b.detach().float() @ a.detach().float()  # [out, in]
+            s4 = merged.get(name + "_scale4")
+            if s4 is not None:
+                shards = int4_shards if name in INT4_COLUMN_PARALLEL else 1
+                w32 = dequant_int4(w, s4, dtype=torch.float32, n_shards=shards)  # [in, out]
+                group = w32.shape[0] // s4.shape[0]
+                merged[name], merged[name + "_scale4"] = _quantize4_2d(w32 + delta.t(), group, n_shards=shards)
+            elif w.dtype == torch.int8:
+                raise NotImplementedError("merging into int8 base weights is not yet ported to torch")
+            else:
+                merged[name] = (w.detach().float() + delta).to(w.dtype)
         layers.append(merged)
     return dict(llm_params, layers=layers)
 

@@ -16,6 +16,12 @@ Parameters update IN PLACE (the JAX step returns new ones): a train step
 changes the trainable tensors of `state.params` and the moments in
 `state.opt_state`. Trainable tensors get `requires_grad`; frozen ones get no
 gradient buffer.
+
+Over a packed-int4 base (QLoRA) the frozen projections run through the int4
+kernels (`matmul_int4`, with `w8a8` off) and their input gradient through a
+transient dequantization. Under "dots" remat the int4 kernel's output is not
+kept: its launch is no aten `mm`, so the backward recomputes it, as "full"
+does.
 """
 
 from __future__ import annotations
@@ -100,14 +106,20 @@ def tree_map(fn, tree):
 
 def trainable_tensors(params: Params, trainable_mask: Optional[Params]) -> List[torch.Tensor]:
     """The tensors to train, in a fixed order: those the mask marks, or every
-    floating-point tensor without a mask."""
+    floating-point tensor without a mask. Integer tensors (packed int4 and
+    int8 weights) never train: a mask that marks one raises."""
     leaves = tree_leaves(params)
     if trainable_mask is None:
         return [p for p in leaves if p.is_floating_point()]
     flags = tree_leaves(trainable_mask)
     if len(flags) != len(leaves):
         raise ValueError(f"trainable_mask has {len(flags)} leaves, params {len(leaves)}")
-    return [p for p, m in zip(leaves, flags) if m]
+    chosen = [p for p, m in zip(leaves, flags) if m]
+    bad = [p for p in chosen if not p.is_floating_point()]
+    if bad:
+        raise ValueError(f"trainable_mask marks {len(bad)} integer (quantized) tensors, which cannot train; "
+                         "train adapters over a quantized base (training.lora.lora_trainable_mask)")
+    return chosen
 
 
 # --- optimizer ---------------------------------------------------------------------

@@ -1,46 +1,64 @@
 #!/usr/bin/env python3
 """Smoke run of the torch port on one NVIDIA GPU (H100): `python3 chip_smoke.py`.
 
-Run from the root of a checkout. Phases, each of which fails the run:
-  1. build    compile every bridgelang_tpu_torch/csrc/*.cu with nvcc (sm_90a),
-              all sources in parallel; print the build seconds, the ptxas
-              register report, and the card's name and power limit.
-  2. kernels  the flash-attention forward kernel against its plain torch
-              version at the serving path's shapes (bf16, H=32, D=128, ragged
-              lengths, B in {1, 4}) and at GQA, S > T, window and fp32 cases;
-              the two backward kernels (dQ, dK/dV) against the plain backward
-              at the training shape (B=16, T=S=352, bf16, ragged lengths) and
-              at the same four other cases, element by element (GRAD_TOL),
-              with exactly zero gradient for dead key slots. Then time each
-              kernel, its plain version and a PyTorch yardstick
-              (F.scaled_dot_product_attention with the equivalent boolean
-              mask, forward or autograd backward; the port never calls it),
-              beside the bound from bytes and FLOPs.
-  3. serve    OpenVLA-7B (prism-dinosiglip-224px+7b) at full width in bf16,
-              random weights drawn on the card from a seed; the port's
-              VLAServer answers POST /act: batch-1 requests, then one
-              micro-batch of 4 concurrent requests. Kernel launch counts are
-              zeroed before and read after: each model pass must launch the
-              flash kernel once per decoder layer (32). Prefill and decode
-              times come from generate_greedy with 1 and 7 new tokens; a
-              torch.profiler pass over batch-1 predicts gives device time,
-              idle share and the top kernels.
-  4. train    LoRA fine-tuning of the same bf16 7B weights: r=32 fp32
-              adapters on all seven projections, adapter-only AdamW (lr 5e-4,
-              constant), batch 16 from DummyDataset through RLDSBatchTransform
-              and the collator (96 tokens + 256 patches = 352), raw frames
-              preprocessed in the step, full remat. One warm step, 6 timed
-              steps: each must launch flash_fwd 64 times (32 layers, forward
-              and recompute) and each backward kernel 32 times; losses finite
-              and falling. One profiled step; then one warm and 2 timed
-              steps under "dots" remat (scripts/finetune.py's default), with
-              the same launch counts; then merge the adapters and predict one
-              action through the merged weights.
-  5. parity   a depth-cut fp32 model with the same weights on the card
-              (through the kernels) and on the CPU (plain versions): the
-              action token ids must be equal, and one LoRA train step must
-              give the same loss (1e-5 relative) and adapter gradients
-              (1e-4 of max |g|).
+Run from the root of a checkout. Phases (`--phases`, all by default), each
+of which fails the run:
+  build    compile every bridgelang_tpu_torch/csrc/*.cu with nvcc (sm_90a),
+           all sources in parallel; print the build seconds, the ptxas
+           register report, and the card's name and power limit.
+  kernels  the flash-attention forward kernel against its plain torch
+           version at the serving path's shapes (bf16, H=32, D=128, ragged
+           lengths, B in {1, 4}) and at GQA, S > T, window and fp32 cases;
+           the two backward kernels (dQ, dK/dV) against the plain backward
+           at the training shape (B=16, T=S=352, bf16, ragged lengths) and
+           at the same four other cases, element by element (GRAD_TOL),
+           with exactly zero gradient for dead key slots; the two int4
+           kernels (int4_mm_a8, int4_mm) against their plain versions at
+           the three 7B projection shapes (a8 at M 1, 352, 1408; bf16 at M
+           1, 352, 5632), group 256, fp32 activations, a shard-blocked pack
+           and a ragged M (INT4_TOL). Then each kernel, its plain version, a
+           PyTorch yardstick (F.scaled_dot_product_attention with the
+           equivalent boolean mask, forward or autograd backward; F.linear
+           over the int4 weight dequantized to bf16 ahead of time; the port
+           never calls either) and the bound from bytes and operations.
+  serve    OpenVLA-7B (prism-dinosiglip-224px+7b) at full width in bf16,
+           random weights drawn on the card from a seed; the port's
+           VLAServer answers POST /act: batch-1 requests, then one
+           micro-batch of 4 concurrent requests. Kernel launch counts are
+           zeroed before and read after: each model pass must launch the
+           flash kernel once per decoder layer (32). Prefill and decode
+           times come from generate_greedy with 1 and 7 new tokens; a
+           torch.profiler pass over batch-1 predicts gives device time,
+           idle share and the top kernels.
+  train    LoRA fine-tuning of the same bf16 7B weights: r=32 fp32
+           adapters on all seven projections, adapter-only AdamW (lr 5e-4,
+           constant), batch 16 from DummyDataset through RLDSBatchTransform
+           and the collator (96 tokens + 256 patches = 352), raw frames
+           preprocessed in the step, full remat. One warm step, 6 timed
+           steps: each must launch flash_fwd 64 times (32 layers, forward
+           and recompute) and each backward kernel 32 times; losses finite
+           and falling. One profiled step; then one warm and 2 timed
+           steps under "dots" remat (scripts/finetune.py's default), with
+           the same launch counts; then merge the adapters and predict one
+           action through the merged weights.
+  int4     the same decoder packed to int4 by quantize_llm_int4 (group
+           128; int8 embedding and head) and the bf16 layers freed; with
+           LLMConfig.w8a8 on, the same serving as `serve`: every decoder pass
+           must launch int4_mm_a8 224 times (7 projections x 32 layers), 7
+           passes per predict, and each predict flash_fwd 32 times (the
+           prefill); generate timings, a profile, model and peak GB.
+  qlora    r=32 fp32 adapters over that int4 base with w8a8 off, as `train`
+           (batch 16, 352 tokens, full remat, one warm and 6 timed steps):
+           each step launches int4_mm 448 times (forward and recompute) and
+           the flash kernels 64/32/32; losses finite and falling; merge into
+           the int4 base (dequantize, add, requantize) and predict one
+           action through the merged int4 weights.
+  parity   a depth-cut fp32 model with the same weights on the card
+           (through the kernels) and on the CPU (plain versions): the
+           action token ids must be equal, and one LoRA train step must
+           give the same loss (1e-5 relative) and adapter gradients
+           (1e-4 of max |g|); then the same cut packed to int4: equal ids
+           with w8a8 on and off, and one QLoRA step under the same rule.
 Then one line {"kernels": [...]}, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout,
 it exits non-zero and prints no result.
@@ -91,6 +109,23 @@ FWD_ATOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # only. A kernel that drops a tile's share of a sum moves entries by about a
 # typical entry, far past either term.
 GRAD_TOL = {"bfloat16": (2.0 ** -7, 1e-3), "float32": (1e-5, 1e-5)}
+# The int4 kernels against their plain versions, per element as GRAD_TOL.
+# a8: the f32 output before the token scale; the group sums are exact
+# integers on both sides, so only the fp32 order of the scale-accumulate may
+# differ (the kernel follows the plain order, so 0 is expected). bf16: one
+# bf16 ulp plus 1e-3 rms, as GRAD_TOL. fp32: order only.
+INT4_TOL = {"a8": (1e-5, 1e-6), "bfloat16": (2.0 ** -7, 1e-3), "float32": (1e-5, 1e-5)}
+INT4_GROUP = 128         # quantize_llm_int4's default group, the serving pack
+INT4_SHAPES_7B = {"wq": (4096, 4096), "w_gate": (4096, 11008), "w_down": (11008, 4096)}  # (K, N) per projection
+INT4_PER_PASS = 7 * N_LAYERS_7B   # int4 launches per decoder pass: 7 projections x 32 layers
+ACTION_DIM = 7           # decoder passes per predict: the prefill and 6 decode steps
+QLORA_STEPS = 6          # timed QLoRA steps after one warm step
+PEAK_OPS = {"a8": 1979e12, "bfloat16": 989e12, "float32": 67e12}  # int8 and bf16 tensor cores; fp32 FMAs
+KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "int4_mm_a8", "int4_mm")
+# substrings of the kernels' names in a profiler trace
+PROFILE_NAMES = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq", "flash_bwd_dkv": "flash_bwd_dkv",
+                 "int4_mm_a8": "int4_mm_tc_kernel<true", "int4_mm bf16": "int4_mm_tc_kernel<false",
+                 "int4_mm fp32": "int4_mm_f32"}
 
 
 def log(msg: str) -> None:
@@ -308,6 +343,139 @@ def check_kernels(serve_t: int):
     return rows, max(worst.values())
 
 
+def int4_bound_ms(m: int, k: int, n: int, group: int, mode: str):
+    """Least time for one int4 product: max(bytes / HBM rate, 2 M K N / peak).
+    Bytes: x (int8, bf16 or fp32) and the packed weights and bf16 scales read
+    once, the output (f32 for a8, else x's type) written once."""
+    x_b = {"a8": 1, "bfloat16": 2, "float32": 4}[mode]
+    out_b = 4 if mode == "a8" else x_b
+    n_bytes = m * k * x_b + k * n // 2 + (k // group) * n * 2 + m * n * out_b
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 2.0 * m * k * n / PEAK_OPS[mode]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_int4_kernels() -> dict:
+    """Both int4 kernels against their plain versions at the 7B shapes (a8 at
+    the serving M: decode 1, prefill 352, micro-batch 1408; bf16 at the QLoRA
+    M: 1, 352, 5632), plus group 256, fp32 activations, a shard-blocked pack
+    and a ragged M, element by element under INT4_TOL; then kernel, plain,
+    yardstick (F.linear over the weight dequantized to bf16 ahead of time;
+    the port never calls it) and bound at the path's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from bridgelang_tpu_torch.ops import int4_matmul as im
+    from bridgelang_tpu_torch.ops.quant import _quantize4_2d, dequant_int4, quantize_activations_per_token
+
+    weights = {}
+
+    def packed_weights(shape, group, n_shards=1):
+        key = (shape, group, n_shards)
+        if key not in weights:
+            k, n = INT4_SHAPES_7B[shape]
+            g = torch.Generator(device="cuda").manual_seed(400 + len(weights))
+            w = torch.randn((k, n), generator=g, device="cuda").mul_(k ** -0.5)
+            weights[key] = _quantize4_2d(w, group, n_shards=n_shards)
+        return weights[key]
+
+    def use(got, want, mode):
+        rtol, atol = INT4_TOL[mode]
+        w = want.float()
+        allowed = (rtol * w.abs() + atol * w.square().mean().sqrt()).clamp_min(torch.finfo(torch.float32).tiny)
+        return float(((got.float() - w).abs() / allowed).max()), float((got.float() - w).abs().max())
+
+    # (shape, mode, M, group, n_shards)
+    cases = [(sh, "a8", m, INT4_GROUP, 1) for sh in INT4_SHAPES_7B for m in (1, 352, 1408)]
+    cases += [(sh, "bfloat16", m, INT4_GROUP, 1) for sh in INT4_SHAPES_7B for m in (1, 352, 5632)]
+    cases += [("w_gate", "a8", 352, 256, 1), ("w_down", "bfloat16", 352, 256, 1), ("w_gate", "float32", 352, 128, 1),
+              ("wq", "float32", 37, 256, 1), ("w_down", "a8", 37, 128, 1), ("w_gate", "bfloat16", 37, 128, 1),
+              ("w_gate", "bfloat16", 37, 128, 2), ("w_gate", "a8", 352, 128, 2)]  # 5504-wide blocks
+    timed = {("wq", "a8", 1), ("w_gate", "a8", 1), ("w_down", "a8", 1), ("wq", "a8", 352), ("w_gate", "a8", 352),
+             ("w_down", "a8", 352), ("wq", "bfloat16", 5632), ("w_gate", "bfloat16", 5632),
+             ("w_down", "bfloat16", 5632)}
+    worst = {"a8": (0.0, 0.0), "float": (0.0, 0.0)}
+    rows, blocked = [], []
+    for i, (shape, mode, m, group, n_shards) in enumerate(cases):
+        k, n = INT4_SHAPES_7B[shape]
+        packed, scales = packed_weights(shape, group, n_shards)
+        g = torch.Generator(device="cuda").manual_seed(500 + i)
+        x = torch.randn((m, k), generator=g, device="cuda")
+        name = f"{shape} {mode} M={m} group={group}" + (f" n_shards={n_shards}" if n_shards > 1 else "")
+        if n_shards > 1:  # the blocked route through the model-facing function, against its plain twin
+            xin = x.to(torch.bfloat16) if mode != "a8" else x
+            fn = im.matmul_int4_a8 if mode == "a8" else im.matmul_int4
+            wrapper = im.int4_mm_a8 if mode == "a8" else im.int4_mm
+            before = wrapper.launches
+            got = fn(xin, packed, scales, n_shards)
+            torch.cuda.synchronize()
+            if wrapper.launches != before + n_shards:
+                fail(f"int4 case {name}: expected one kernel launch per shard block")
+            w2, ns = packed.shape[1] // n_shards, n // n_shards
+            if mode == "a8":
+                q, xs = quantize_activations_per_token(xin)
+                want = torch.cat([im.int4_matmul_a8_plain(q, packed[:, d * w2:(d + 1) * w2], scales[:, d * ns:(d + 1) * ns])
+                                  for d in range(n_shards)], dim=1)
+                got = got.float() / xs  # back to the kernel's output before the token scale
+                tol_mode = "float32"  # one fp32 rounding each way around the token scale
+            else:
+                want = torch.cat([im.int4_matmul_plain(xin, packed[:, d * w2:(d + 1) * w2], scales[:, d * ns:(d + 1) * ns])
+                                  for d in range(n_shards)], dim=1)
+                tol_mode = mode
+            # the blocked route (one launch per block, read in place) against one launch over a whole pack
+            xk = quantize_activations_per_token(xin)[0] if mode == "a8" else xin
+            whole_p, whole_s = packed_weights(shape, group)
+            blocked_ms = cuda_ms(lambda: im._int4_route_blocked(xk, packed, scales, mode == "a8", n_shards), 20)
+            whole_ms = cuda_ms(lambda: im._int4_route(xk, whole_p, whole_s, mode == "a8"), 20)
+            blocked.append(dict(case=name, blocked_ms=blocked_ms, whole_ms=whole_ms))
+            log(f"timing int4 {name}: blocked route {blocked_ms:.4f} ms, one launch over the unblocked pack "
+                f"{whole_ms:.4f} ms")
+        elif mode == "a8":
+            xin, _ = quantize_activations_per_token(x)
+            got = im.int4_mm_a8(xin, packed, scales)
+            torch.cuda.synchronize()
+            want = im.int4_matmul_a8_plain(xin, packed, scales)
+            tol_mode = "a8"
+        else:
+            xin = x.to(getattr(torch, mode))
+            got = im.int4_mm(xin, packed, scales)
+            torch.cuda.synchronize()
+            want = im.int4_matmul_plain(xin, packed, scales)
+            tol_mode = mode
+        if got.shape != (m, n) or not torch.isfinite(got).all():
+            fail(f"int4 kernel case {name}: shape {tuple(got.shape)} or non-finite output")
+        share, err = use(got, want, tol_mode)
+        rtol, atol = INT4_TOL[tol_mode]
+        log(f"kernel int4 {name}: max|err| {err:.3e} (max|want| {float(want.float().abs().max()):.4g}), "
+            f"rule |err| <= {rtol:.3g}|want| + {atol:g} rms(want), tolerance use {share:.3g} "
+            f"{'ok' if share <= 1.0 else 'FAIL'}")
+        if share > 1.0:
+            fail(f"int4 kernel disagrees with its plain version in case {name}")
+        key = "a8" if mode == "a8" else "float"
+        worst[key] = (max(worst[key][0], err), max(worst[key][1], share))
+
+        if (shape, mode, m) in timed and group == INT4_GROUP and n_shards == 1:
+            kfn = (lambda: im.int4_mm_a8(xin, packed, scales)) if mode == "a8" else (lambda: im.int4_mm(xin, packed, scales))
+            pfn = ((lambda: im.int4_matmul_a8_plain(xin, packed, scales)) if mode == "a8"
+                   else (lambda: im.int4_matmul_plain(xin, packed, scales)))
+            kernel_ms = cuda_ms(kfn, 50 if m < 5632 else 10)
+            plain_ms = cuda_ms(pfn, 3, warmup=1)
+            w_bf = dequant_int4(packed, scales, torch.bfloat16).t().contiguous()  # [N, K], ahead of time
+            x_bf = x.to(torch.bfloat16)
+            library_ms = cuda_ms(lambda: F.linear(x_bf, w_bf), 50 if m < 5632 else 10)
+            del w_bf
+            b_ms, b_by = int4_bound_ms(m, k, n, group, mode)
+            rows.append(dict(case=name, mode=mode, shape=f"M={m} K={k} N={n} group={group}", m=m, k=k, n=n,
+                             kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                             bound_by=b_by, max_abs_err=err, tolerance_use=share))
+            log(f"timing int4 {name}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"F.linear over bf16 weights (yardstick) {library_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+                f"kernel / bound {kernel_ms / b_ms:.1f}")
+        del x, xin, got, want
+    weights.clear()
+    torch.cuda.empty_cache()
+    return dict(rows=rows, worst=worst, blocked=blocked)
+
+
 # --- phase 3: full-width serving --------------------------------------------------
 
 STATS = {"bridge_orig": {"action": {
@@ -378,7 +546,7 @@ def first_token(model, params, frame, instruction) -> int:
 def profile_device(label: str, fn, reps: int) -> dict:
     """torch.profiler over `reps` calls of `fn` (warmed up by the caller):
     wall ms per call, device kernel ms per call (sum of kernel durations on
-    the one stream), the device's idle share, launches per call, the flash
+    the one stream), the device's idle share, launches per call, the port's
     kernels' share and the top kernels."""
     import torch
     from torch.autograd import DeviceType
@@ -400,7 +568,7 @@ def profile_device(label: str, fn, reps: int) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    flash = {k: sum(v for n, v in by_name.items() if k in n) for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    flash = {k: sum(v for n, v in by_name.items() if sub in n) for k, sub in PROFILE_NAMES.items()}
     log(f"profile ({label}, {reps} calls): wall {wall_ms:.2f} ms, device kernels {busy_ms:.2f} ms "
         f"({len(kernels) / reps:.0f} launches), device idle {100 * (1 - busy_ms / wall_ms):.1f}%, "
         + ", ".join(f"{k} {v:.3f} ms ({100 * v / busy_ms:.1f}%)" for k, v in flash.items() if v))
@@ -426,14 +594,18 @@ def check_action(action, what: str) -> None:
         fail(f"{what}: expected 7 finite floats, got {a!r}")
 
 
-def serve(model, params, n_single: int):
+def serve(model, params, n_single: int, per_pass: dict) -> dict:
+    """VLAServer /act: `n_single` batch-1 requests, then a micro-batch of 4
+    concurrent ones. Launch counts are zeroed before each and read after;
+    each of the server's model passes (one predict: the prefill and the
+    decode steps) must launch each kernel `per_pass[name]` times (the others
+    never)."""
     import torch
 
-    from bridgelang_tpu_torch.ops.flash_attention import flash_attention
     from bridgelang_tpu_torch.serving.server import VLAServer, client_act
 
     imgs = frames(4, seed=7)
-    flash_attention.launches = 0
+    reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
 
     single = VLAServer(model, params, max_batch=1, device=model.device)
@@ -451,12 +623,14 @@ def serve(model, params, n_single: int):
         httpd.shutdown()
         httpd.server_close()
         single.close()
-    launches_single = flash_attention.launches
+    counts_single = launch_counts()
     log(f"batch-1: {n_single} x HTTP 200 with 7 floats; latency ms {[round(x, 1) for x in lat]}; "
-        f"model passes {passes_single}; flash launches {launches_single}")
-    if passes_single != n_single or launches_single != N_LAYERS_7B * passes_single:
-        fail(f"expected {N_LAYERS_7B} flash launches per model pass, got {launches_single} over {passes_single}")
+        f"model passes {passes_single}; launches {counts_single}")
+    if passes_single != n_single:
+        fail(f"expected {n_single} model passes, got {passes_single}")
+    expect_counts(counts_single, {k: v * passes_single for k, v in per_pass.items()}, "batch-1 serving")
 
+    reset_launch_counts()
     batched = VLAServer(model, params, max_batch=4, batch_window_ms=2000.0, device=model.device)
     httpd = batched.serve_background(port=0)
     results, errors = [None] * 4, []
@@ -485,30 +659,43 @@ def serve(model, params, n_single: int):
         fail(f"micro-batched requests failed: {errors}")
     for i, action in enumerate(results):
         check_action(action, f"micro-batched request {i}")
-    launches_batched = flash_attention.launches - launches_single
+    counts_batched = launch_counts()
     log(f"micro-batch of 4 (instruction lengths {[len(s) for s in INSTRUCTIONS]}): 4 x HTTP 200 with 7 floats "
-        f"in {batch_ms:.1f} ms; model passes {passes_batched}; flash launches {launches_batched}")
-    if passes_batched < 1 or launches_batched != N_LAYERS_7B * passes_batched:
-        fail(f"expected {N_LAYERS_7B} flash launches per model pass, got {launches_batched} over {passes_batched}")
+        f"in {batch_ms:.1f} ms; model passes {passes_batched}; launches {counts_batched}")
+    if passes_batched < 1:
+        fail("the micro-batch ran no model pass")
+    expect_counts(counts_batched, {k: v * passes_batched for k, v in per_pass.items()}, "micro-batched serving")
     return dict(latencies_ms=lat, median_ms=statistics.median(lat[1:] if len(lat) > 1 else lat),
                 batch4_ms=batch_ms, batch4_passes=passes_batched,
-                launches=flash_attention.launches, passes=passes_single + passes_batched,
-                max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+                launches={k: counts_single[k] + counts_batched[k] for k in KERNEL_NAMES},
+                passes=passes_single + passes_batched, max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
 # --- phase 4: LoRA fine-tuning ------------------------------------------------------
 
 
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, which counts its launches in `.launches`."""
+    from bridgelang_tpu_torch.ops.flash_attention import flash_attention, flash_bwd_dkv, flash_bwd_dq
+    from bridgelang_tpu_torch.ops.int4_matmul import int4_mm, int4_mm_a8
+
+    return dict(zip(KERNEL_NAMES, (flash_attention, flash_bwd_dq, flash_bwd_dkv, int4_mm_a8, int4_mm)))
+
+
 def reset_launch_counts() -> None:
-    from bridgelang_tpu_torch.ops.flash_attention import flash_attention, flash_bwd_dkv, flash_bwd_dq
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
 
-    flash_attention.launches = flash_bwd_dq.launches = flash_bwd_dkv.launches = 0
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
-def launch_counts() -> tuple:
-    from bridgelang_tpu_torch.ops.flash_attention import flash_attention, flash_bwd_dkv, flash_bwd_dq
-
-    return flash_attention.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches
+def expect_counts(counts: dict, want: dict, what: str) -> None:
+    """Fail unless each kernel launched exactly as `want` says (0 when not named)."""
+    full = {name: want.get(name, 0) for name in KERNEL_NAMES}
+    if counts != full:
+        fail(f"{what}: expected launches {full}, got {counts}")
 
 
 def lora_batch(model, batch_size: int, seed: int) -> dict:
@@ -542,8 +729,25 @@ def with_lora(params: dict, device, seed: int, b_std: float = 0.0) -> dict:
     return dict(params, llm=llm)
 
 
-def train_lora(model, params, seed: int) -> dict:
-    """Full-depth LoRA fine-tuning on the card; returns its numbers."""
+def base_param_count(llm: dict) -> int:
+    """Decoder parameters without adapters, a packed int4 byte counting as
+    its two weights."""
+    n = sum(llm[k].numel() for k in ("embed", "final_norm", "lm_head"))
+    for lp in llm["layers"]:
+        for k, t in lp.items():
+            if "_lora_" not in k and not k.endswith("_scale4"):
+                n += t.numel() * (2 if k + "_scale4" in lp else 1)
+    return n
+
+
+def train_adapters(model, params, seed: int, label: str, steps: int, per_step: dict,
+                   serve_model=None, dots_steps: int = 0) -> dict:
+    """Full-depth fine-tuning of r=32 adapters over `params` on the card
+    (`label`: "train" for the bf16 base, "qlora" for the int4 one): one warm
+    step and `steps` timed ones, each launching each kernel `per_step[name]`
+    times; a profiled step; `dots_steps` more under "dots" remat; then the
+    adapters merged into the base and one action predicted through it with
+    `serve_model`."""
     import numpy as np
     import torch
 
@@ -561,20 +765,20 @@ def train_lora(model, params, seed: int) -> dict:
     batch = lora_batch(model, TRAIN_BATCH, seed)
     b, f = batch["input_ids"].shape[0], batch["input_ids"].shape[1] + model.num_patches
     tokens = b * f
-    llm_leaves = [(k, t) for lp in lora_params["llm"]["layers"] for k, t in lp.items()]
-    n_lora = sum(t.numel() for k, t in llm_leaves if "_lora_" in k)
-    n_base = sum(t.numel() for k, t in llm_leaves if "_lora_" not in k)
-    n_base += sum(lora_params["llm"][k].numel() for k in ("embed", "final_norm", "lm_head"))
+    n_lora = sum(t.numel() for lp in lora_params["llm"]["layers"] for k, t in lp.items() if "_lora_" in k)
+    n_base = base_param_count(lora_params["llm"])
     n_vis = sum(t.numel() for part in ("vision", "projector") for t in tree_leaves(params[part]))
     vis_tokens = b * (model.num_patches + 5)  # bench.py's count: DINOv2's 256 patches + class + 4 registers
     flops = 4.0 * n_base * tokens + 6.0 * n_lora * tokens + 2.0 * n_vis * vis_tokens
-    log(f"train: OpenVLA-7B bf16 base ({n_base / 1e9:.3f} B LLM params) + r={LORA_RANK} fp32 adapters "
+    base_kind = "packed-int4 (group 128)" if label == "qlora" else "bf16"
+    log(f"{label}: OpenVLA-7B {base_kind} base ({n_base / 1e9:.3f} B LLM params) + r={LORA_RANK} fp32 adapters "
         f"({n_lora / 1e6:.1f} M params), batch {b} x {f} fused tokens, full remat, AdamW lr {LORA_LR}; "
         f"useful FLOPs per step {flops:.4g}")
 
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, times, totals = [], [], [0, 0, 0]
-    for i in range(1 + TRAIN_STEPS):
+    losses, times, totals = [], [], dict.fromkeys(KERNEL_NAMES, 0)
+    for i in range(1 + steps):
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
@@ -583,66 +787,116 @@ def train_lora(model, params, seed: int) -> dict:
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
         counts = launch_counts()
-        totals = [a + c for a, c in zip(totals, counts)]
+        totals = {k: totals[k] + counts[k] for k in KERNEL_NAMES}
         losses.append(loss)
-        log(f"train step {i}{' (warm)' if i == 0 else ''}: loss {loss:.4f}, grad_norm {float(m['grad_norm']):.4f}, "
+        log(f"{label} step {i}{' (warm)' if i == 0 else ''}: loss {loss:.4f}, grad_norm {float(m['grad_norm']):.4f}, "
             f"action_accuracy {float(m['action_accuracy']):.3f}, l1 {float(m['l1_loss']):.4f}, "
-            f"{times[-1]:.1f} ms; launches flash_fwd {counts[0]}, dq {counts[1]}, dkv {counts[2]}")
+            f"{times[-1]:.1f} ms; launches {counts}")
         if not np.isfinite(loss):
-            fail(f"train step {i}: non-finite loss {loss}")
-        if counts != (2 * N_LAYERS_7B, N_LAYERS_7B, N_LAYERS_7B):
-            fail(f"train step {i}: expected launches (64, 32, 32) of (flash_fwd, dq, dkv), got {counts}")
+            fail(f"{label} step {i}: non-finite loss {loss}")
+        expect_counts(counts, per_step, f"{label} step {i}")
     if float(np.mean(losses[-3:])) >= losses[0]:
-        fail(f"the mean of the last 3 losses does not fall below the first on a fixed batch: {losses}")
+        fail(f"{label}: the mean of the last 3 losses does not fall below the first on a fixed batch: {losses}")
     step_ms = statistics.median(times[1:])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     share = flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
-    log(f"train: median step {step_ms:.1f} ms over {TRAIN_STEPS} steps ({[round(t, 1) for t in times[1:]]}), "
+    log(f"{label}: median step {step_ms:.1f} ms over {steps} steps ({[round(t, 1) for t in times[1:]]}), "
         f"{tokens / (step_ms / 1e3):.1f} tokens/s, useful-FLOP share {100 * share:.2f}% of 989 TFLOP/s, "
         f"peak memory {peak_gb:.2f} GB; losses {[round(x, 4) for x in losses]}")
-    prof = profile_device("LoRA train step B=16", lambda: step(state, batch), 1)
+    prof = profile_device(f"{label} step B={b}", lambda: step(state, batch), 1)
 
-    # scripts/finetune.py's default policy, "dots": matmul outputs are saved
-    # and the rest recomputed. The flash launch is no aten op, so it reruns.
-    dots_step = make_vla_train_step(model, optimizer, trainable_mask=mask, compute_dtype=torch.bfloat16,
-                                    image_transform=model.image_transform, remat=True, remat_policy="dots")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    dots_times = []
-    for i in range(1 + DOTS_STEPS):
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        state, m = dots_step(state, batch)
-        loss = float(m["loss"])
+    dots = None
+    if dots_steps:
+        # scripts/finetune.py's default policy, "dots": matmul outputs are saved
+        # and the rest recomputed. The flash launch is no aten op, so it reruns.
+        dots_step = make_vla_train_step(model, optimizer, trainable_mask=mask, compute_dtype=torch.bfloat16,
+                                        image_transform=model.image_transform, remat=True, remat_policy="dots")
         torch.cuda.synchronize()
-        dots_times.append(1e3 * (time.perf_counter() - t0))
-        counts = launch_counts()
-        log(f"train step dots {i}{' (warm)' if i == 0 else ''}: loss {loss:.4f}, {dots_times[-1]:.1f} ms; "
-            f"launches flash_fwd {counts[0]}, dq {counts[1]}, dkv {counts[2]}")
-        if not np.isfinite(loss):
-            fail(f"dots train step {i}: non-finite loss {loss}")
-        if counts != (2 * N_LAYERS_7B, N_LAYERS_7B, N_LAYERS_7B):
-            fail(f"dots train step {i}: expected launches (64, 32, 32) of (flash_fwd, dq, dkv), got {counts}")
-    dots_ms = statistics.median(dots_times[1:])
-    dots = dict(step_ms=dots_ms, step_times_ms=dots_times[1:], warm_ms=dots_times[0],
-                tokens_per_s=tokens / (dots_ms / 1e3), flop_share=flops / (dots_ms / 1e3) / PEAK_FLOPS["bfloat16"],
-                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    log(f"train dots remat: median step {dots_ms:.1f} ms over {DOTS_STEPS} steps, {dots['tokens_per_s']:.1f} tokens/s, "
-        f"useful-FLOP share {100 * dots['flop_share']:.2f}%, peak memory {dots['peak_memory_gb']:.2f} GB")
+        torch.cuda.reset_peak_memory_stats()
+        dots_times = []
+        for i in range(1 + dots_steps):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            state, m = dots_step(state, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            dots_times.append(1e3 * (time.perf_counter() - t0))
+            counts = launch_counts()
+            log(f"{label} step dots {i}{' (warm)' if i == 0 else ''}: loss {loss:.4f}, {dots_times[-1]:.1f} ms; "
+                f"launches {counts}")
+            if not np.isfinite(loss):
+                fail(f"{label} dots step {i}: non-finite loss {loss}")
+            expect_counts(counts, per_step, f"{label} dots step {i}")
+        dots_ms = statistics.median(dots_times[1:])
+        dots = dict(step_ms=dots_ms, step_times_ms=dots_times[1:], warm_ms=dots_times[0],
+                    tokens_per_s=tokens / (dots_ms / 1e3), flop_share=flops / (dots_ms / 1e3) / PEAK_FLOPS["bfloat16"],
+                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        log(f"{label} dots remat: median step {dots_ms:.1f} ms over {dots_steps} steps, "
+            f"{dots['tokens_per_s']:.1f} tokens/s, useful-FLOP share {100 * dots['flop_share']:.2f}%, "
+            f"peak memory {dots['peak_memory_gb']:.2f} GB")
+        del dots_step
 
     trained = state.params
-    del state, optimizer, step, dots_step
+    del state, optimizer, step
     merged = dict(params, llm=merge_lora(trained["llm"]))
     del trained
-    action = model.predict_action(merged, frames(1, seed=9)[0], INSTRUCTIONS[0])
-    check_action(action, "predict_action through the merged weights")
-    log(f"merged LoRA weights: predict_action -> {np.round(action, 4).tolist()}")
+    action = (serve_model or model).predict_action(merged, frames(1, seed=9)[0], INSTRUCTIONS[0])
+    check_action(action, f"{label}: predict_action through the merged weights")
+    log(f"{label}: merged weights ({base_kind}): predict_action -> {np.round(action, 4).tolist()}")
     del merged
     torch.cuda.empty_cache()
     return dict(step_ms=step_ms, step_times_ms=times[1:], warm_ms=times[0], tokens_per_step=tokens,
                 tokens_per_s=tokens / (step_ms / 1e3), useful_flops=flops, flop_share=share, peak_memory_gb=peak_gb,
-                losses=losses, profile=prof, launches=dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), totals)),
-                steps=1 + TRAIN_STEPS, dots=dots)
+                losses=losses, profile=prof, launches=totals, steps=1 + steps, dots=dots)
+
+
+# --- phase int4: w4a8 serving over the packed-int4 decoder ---------------------------
+
+
+def int4_model(model, w8a8: bool):
+    """The same OpenVLA with `LLMConfig.w8a8` set (the weights travel apart)."""
+    import dataclasses
+
+    from bridgelang_tpu_torch.models.vla import OpenVLA
+
+    cfg = dataclasses.replace(model.cfg, llm=dataclasses.replace(model.cfg.llm, w8a8=w8a8))
+    out = OpenVLA(cfg, model.norm_stats, tokenizer=model.tokenizer, dtype=model.dtype, device=model.device)
+    out.image_transform = model.image_transform
+    return out
+
+
+def tensor_gb(tree) -> float:
+    from bridgelang_tpu_torch.training.trainer import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)) / 1e9
+
+
+def serve_int4(model4, params4) -> dict:
+    """w4a8 /act over the packed-int4 7B: generate timings, a profile, then
+    the server: 224 int4_mm_a8 launches per decoder pass, 7 decoder passes
+    per predict (1568), and 32 flash_fwd launches per predict (the prefill's)."""
+    import torch
+
+    imgs = frames(2, seed=3)
+    tok_a = first_token(model4, params4, imgs[0], INSTRUCTIONS[0])
+    tok_b = first_token(model4, params4, imgs[1], INSTRUCTIONS[0])
+    log(f"int4: prefill argmax: frame A -> {tok_a}, frame B -> {tok_b}")
+    if tok_a == tok_b:
+        fail("int4: prefill argmax is the same for two different frames: inputs do not flow")
+    t1 = time_generate(model4, params4, imgs[0], INSTRUCTIONS[0], 1)
+    t7 = time_generate(model4, params4, imgs[0], INSTRUCTIONS[0], 7)
+    log(f"int4 generate_greedy B=1: 1 token {t1:.2f} ms (vision + prefill + LM head), 7 tokens {t7:.2f} ms, "
+        f"decode {(t7 - t1) / 6:.2f} ms/token")
+    prof = profile_predict(model4, params4)
+    served = serve(model4, params4, N_SINGLE_REQUESTS,
+                   {"flash_fwd": N_LAYERS_7B, "int4_mm_a8": ACTION_DIM * INT4_PER_PASS})
+    served.update(prefill_ms=t1, decode_ms_per_token=(t7 - t1) / 6, profile=prof, model_gb=tensor_gb(params4),
+                  llm_gb=tensor_gb(params4["llm"]))
+    log(f"int4 serve: median batch-1 /act {served['median_ms']:.1f} ms; micro-batch of 4 {served['batch4_ms']:.1f} ms; "
+        f"model {served['model_gb']:.2f} GB (decoder + embedding + head {served['llm_gb']:.2f} GB); "
+        f"peak memory {served['max_memory_gb']:.2f} GB")
+    torch.cuda.empty_cache()
+    return served
 
 
 # --- phase 5: card vs CPU ----------------------------------------------------------
@@ -659,18 +913,17 @@ class GradRecorder:
         self.optimizer.update(grads, state, params)
 
 
-def parity_card_vs_cpu(seed: int):
+def parity_card_vs_cpu(seed: int) -> dict:
+    """Card against CPU on a full-width, depth-cut fp32 model: float weights,
+    then the same decoder packed to int4 (w8a8 on and off)."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from bridgelang_tpu_torch.models.llm.tokenizer import ByteFallbackTokenizer
     from bridgelang_tpu_torch.models.vision.vit import VIT_CONFIGS
     from bridgelang_tpu_torch.models.vla import OpenVLA
     from bridgelang_tpu_torch.models.vlm import VLMConfig
-    from bridgelang_tpu_torch.ops.flash_attention import flash_attention
-    from bridgelang_tpu_torch.ops.image_ops import frames_to_tensor, preprocess_batch
 
     base = VLMConfig()
     # Full widths, depth cut: 2 decoder layers, 3-block towers (tap after block 1).
@@ -688,24 +941,59 @@ def parity_card_vs_cpu(seed: int):
         "llm": {k: ([{n: t.cpu() for n, t in lp.items()} for lp in v] if k == "layers" else v.cpu())
                 for k, v in p_gpu["llm"].items()},
     }
+    results = {"float": parity_pair(gpu, cpu, p_gpu, p_cpu, seed, "fp32", {"flash_fwd": 2}, {})}
+
+    # The same cut with its decoder packed to int4 on the card (one pack,
+    # copied to the CPU): w4a8 and bf16-path tokens, and a QLoRA step.
+    from bridgelang_tpu_torch.ops.quant import quantize_llm_int4
+    from bridgelang_tpu_torch.training.trainer import tree_map
+
+    llm4 = quantize_llm_int4(p_gpu["llm"], group=INT4_GROUP)
+    p4_gpu = dict(p_gpu, llm=llm4)
+    p4_cpu = dict(p_cpu, llm=tree_map(lambda t: t.cpu(), llm4))
+    n_int4 = 7 * cfg.llm.n_layers  # per model pass
+    for w8a8 in (True, False):
+        kernel = "int4_mm_a8" if w8a8 else "int4_mm"
+        results[f"int4_w8a8_{w8a8}"] = parity_pair(
+            int4_model(gpu, w8a8), int4_model(cpu, w8a8), p4_gpu, p4_cpu, seed, f"int4 w8a8={w8a8}",
+            {"flash_fwd": 2, kernel: 7 * n_int4}, {kernel: 2 * n_int4}, train=not w8a8)
+    return results
+
+
+def parity_pair(gpu, cpu, p_gpu, p_cpu, seed: int, label: str, gen_counts: dict, train_counts: dict,
+                train: bool = True) -> dict:
+    """Card (kernels) against CPU (plain versions) on one depth-cut model:
+    7 greedy tokens for two prompts must be equal, with the card launching
+    `gen_counts` and the CPU nothing; then (`train`) one adapter train step
+    must give the same loss (1e-5 relative) and adapter gradients (1e-4 of
+    max |g|), the card launching the flash kernels (4, 2, 2) times plus
+    `train_counts`."""
+    import numpy as np
+    import torch
+
+    from bridgelang_tpu_torch.ops.image_ops import frames_to_tensor, preprocess_batch
+
     imgs = frames(2, seed=11)
     ids, mask = gpu.pad_prompt([gpu.prepare_prompt_ids(t) for t in INSTRUCTIONS[:2]])
     out = {}
     for name, model, params in (("cuda", gpu, p_gpu), ("cpu", cpu, p_cpu)):
         dev = model.device
         pix = preprocess_batch(frames_to_tensor(np.stack(imgs), dev), model.image_transform)
-        before = flash_attention.launches
+        reset_launch_counts()
         tok = model.generate_greedy(params, torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev),
                                     pix, max_new_tokens=7)
-        out[name] = (tok.cpu(), flash_attention.launches - before)
-    log(f"parity: depth-cut fp32 model, tokens cuda {out['cuda'][0].tolist()} (flash launches {out['cuda'][1]}), "
-        f"cpu {out['cpu'][0].tolist()} (flash launches {out['cpu'][1]})")
-    if out["cuda"][1] != 2 or out["cpu"][1] != 0:
-        fail("the card run must launch the kernel once per layer and the CPU run never")
+        out[name] = (tok.cpu(), launch_counts())
+    log(f"parity ({label}): depth-cut model, tokens cuda {out['cuda'][0].tolist()} (launches {out['cuda'][1]}), "
+        f"cpu {out['cpu'][0].tolist()}")
+    expect_counts(out["cuda"][1], gen_counts, f"parity ({label}) card generate")
+    expect_counts(out["cpu"][1], {}, f"parity ({label}) CPU generate")
     if not torch.equal(out["cuda"][0], out["cpu"][0]):
-        fail("action token ids differ between the card (kernel) and the CPU (plain version)")
+        fail(f"parity ({label}): action token ids differ between the card (kernels) and the CPU (plain versions)")
+    result = {"tokens": out["cuda"][0].tolist()}
+    if not train:
+        return result
 
-    # One LoRA train step on each side, the same adapters (B drawn too, so
+    # One adapter train step on each side, the same adapters (B drawn too, so
     # that every adapter has a gradient) and the same batch.
     from bridgelang_tpu_torch.training.lora import lora_trainable_mask
     from bridgelang_tpu_torch.training.trainer import (
@@ -727,19 +1015,28 @@ def parity_card_vs_cpu(seed: int):
     (l_gpu, g_gpu, n_gpu), (l_cpu, g_cpu, n_cpu) = step_out["cuda"], step_out["cpu"]
     g_max = max(float(g.abs().max()) for g in g_cpu)
     g_err = max(float((a - b).abs().max()) for a, b in zip(g_gpu, g_cpu))
-    log(f"parity: one LoRA train step, loss cuda {l_gpu:.7f} cpu {l_cpu:.7f} (rel {abs(l_gpu - l_cpu) / abs(l_cpu):.2e}, "
-        f"tol 1e-5); adapter grads max|cuda-cpu| {g_err:.3e} vs max|g| {g_max:.3e} (tol 1e-4 x max|g|); "
-        f"launches cuda {n_gpu} cpu {n_cpu}")
-    if n_gpu != (4, 2, 2) or n_cpu != (0, 0, 0):
-        fail("the card's train step must launch (flash_fwd, dq, dkv) (4, 2, 2) times on 2 layers, the CPU's never")
+    log(f"parity ({label}): one adapter train step, loss cuda {l_gpu:.7f} cpu {l_cpu:.7f} "
+        f"(rel {abs(l_gpu - l_cpu) / abs(l_cpu):.2e}, tol 1e-5); adapter grads max|cuda-cpu| {g_err:.3e} vs "
+        f"max|g| {g_max:.3e} (tol 1e-4 x max|g|); launches cuda {n_gpu}")
+    expect_counts(n_gpu, {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2, **train_counts},
+                  f"parity ({label}) card train step")
+    expect_counts(n_cpu, {}, f"parity ({label}) CPU train step")
     if abs(l_gpu - l_cpu) > 1e-5 * abs(l_cpu) or g_err > 1e-4 * g_max:
-        fail("the LoRA train step disagrees between the card (kernels) and the CPU (plain versions)")
-    return dict(loss_rel_err=abs(l_gpu - l_cpu) / abs(l_cpu), grad_err=g_err, grad_max=g_max)
+        fail(f"parity ({label}): the train step disagrees between the card (kernels) and the CPU (plain versions)")
+    return dict(result, loss_rel_err=abs(l_gpu - l_cpu) / abs(l_cpu), grad_err=g_err, grad_max=g_max)
+
+
+def kernel_entry(name: str, source: str, replaces: str, launches: dict, timing: dict, **extra) -> dict:
+    """One kernel's object in the {"kernels": [...]} line; `launches` is its
+    count on each main path's run."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(launches.values()), "launches_by_path": launches, **{k: timing[k] for k in keys}, **extra}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description="torch port smoke run on one GPU")
-    ap.add_argument("--phases", default="build,kernels,serve,train,parity",
+    ap.add_argument("--phases", default="build,kernels,serve,train,int4,qlora,parity",
                     help="comma-separated subset, for bring-up; the full run is the default")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -753,7 +1050,8 @@ def main() -> None:
         from bridgelang_tpu_torch.ops import _build
     except ImportError as e:
         fail(f"run from the root of a checkout of the repository ({e})")
-    # Full fp32 matmuls and convolutions, so phase 5 compares fp32 with fp32.
+    # Full fp32 matmuls and convolutions, so the parity phase compares fp32
+    # with fp32 and the int4 plain versions' group dots stay exact.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -770,20 +1068,19 @@ def main() -> None:
 
     model = params = None
     serve_t = 352
-    if phases & {"serve", "train"}:
+    if phases & {"serve", "train", "int4", "qlora"}:
         model, params = build_7b(SEED)
         ids, _ = model.pad_prompt([model.prepare_prompt_ids(INSTRUCTIONS[0])])
         serve_t = ids.shape[1] + model.num_patches
         log(f"serving prefill length: {ids.shape[1]}-token prompt bucket + {model.num_patches} patches = {serve_t}")
-    timing_rows, max_err, bwd_timing, bwd_err, bwd_readings = [], None, None, None, None
+    timing_rows, max_err, bwd_timing, bwd_err, bwd_readings, int4_checks = [], None, None, None, None, None
     if "kernels" in phases:
         timing_rows, max_err = check_kernels(serve_t)
         bwd_timing, bwd_err, bwd_readings = check_backward_kernels()
+        int4_checks = check_int4_kernels()
 
     served = None
     if "serve" in phases:
-        from bridgelang_tpu_torch.ops.flash_attention import flash_attention
-
         imgs = frames(2, seed=3)
         tok_a = first_token(model, params, imgs[0], INSTRUCTIONS[0])
         tok_b = first_token(model, params, imgs[1], INSTRUCTIONS[0])
@@ -795,57 +1092,88 @@ def main() -> None:
         log(f"generate_greedy B=1: 1 token {t1:.2f} ms (vision + prefill + LM head), 7 tokens {t7:.2f} ms, "
             f"decode {(t7 - t1) / 6:.2f} ms/token")
         prof = profile_predict(model, params)
-        served = serve(model, params, N_SINGLE_REQUESTS)
+        served = serve(model, params, N_SINGLE_REQUESTS, {"flash_fwd": N_LAYERS_7B})
         served.update(prefill_ms=t1, decode_ms_per_token=(t7 - t1) / 6, profile=prof)
         log(f"serve: median batch-1 /act {served['median_ms']:.1f} ms; micro-batch of 4 {served['batch4_ms']:.1f} ms; "
             f"peak memory {served['max_memory_gb']:.2f} GB")
-        flash_attention.launches = 0
 
     trained = None
     if "train" in phases:
-        trained = train_lora(model, params, SEED)
+        trained = train_adapters(model, params, SEED, "train", TRAIN_STEPS,
+                                 {"flash_fwd": 2 * N_LAYERS_7B, "flash_bwd_dq": N_LAYERS_7B,
+                                  "flash_bwd_dkv": N_LAYERS_7B}, dots_steps=DOTS_STEPS)
+
+    served4 = qlora = None
+    if phases & {"int4", "qlora"}:
+        from bridgelang_tpu_torch.ops.quant import quantize_llm_int4
+
+        # The bf16 decoder packed one matrix at a time; the bf16 leaves go with `params`.
+        t0 = time.perf_counter()
+        params = dict(params, llm=quantize_llm_int4(params["llm"], group=INT4_GROUP))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"int4: decoder packed (group {INT4_GROUP}) in {time.perf_counter() - t0:.1f} s; decoder + int8 "
+            f"embedding and head {tensor_gb(params['llm']):.2f} GB, card holds {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        model4 = int4_model(model, w8a8=True)
+        if "int4" in phases:
+            served4 = serve_int4(model4, params)
+        if "qlora" in phases:
+            qlora = train_adapters(int4_model(model, w8a8=False), params, SEED, "qlora", QLORA_STEPS,
+                                   {"flash_fwd": 2 * N_LAYERS_7B, "flash_bwd_dq": N_LAYERS_7B,
+                                    "flash_bwd_dkv": N_LAYERS_7B, "int4_mm": 2 * INT4_PER_PASS},
+                                   serve_model=model4)
+        del model4
     del model, params
     torch.cuda.empty_cache()
 
     parity = parity_card_vs_cpu(SEED) if "parity" in phases else None
 
     if timing_rows:
-        row = timing_rows[0]  # the serving shape at batch 1
-        serve_launches = served["launches"] if served else 0
-        train_launches = trained["launches"] if trained else {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-        entry = {
-            "name": "flash_fwd", "route": "cuda", "source": "bridgelang_tpu_torch/csrc/flash_fwd.cu",
-            "replaces": "bridgelang_tpu/ops/flash_attention.py:59",
-            "launches": serve_launches + train_launches["flash_fwd"],
-            "launches_by_path": {"serve": serve_launches, "train": train_launches["flash_fwd"]},
-            "launches_per_predict": served["launches"] / served["passes"] if served else 0,
-            "max_abs_err": max_err, "ms": row["kernel_ms"], "kernel_ms": row["kernel_ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "shape": row["shape"], "timings": timing_rows,
-        }
+        zero = dict.fromkeys(KERNEL_NAMES, 0)
+        by_path = {"serve": (served or {}).get("launches", zero), "train": (trained or {}).get("launches", zero),
+                   "int4_serve": (served4 or {}).get("launches", zero), "qlora": (qlora or {}).get("launches", zero)}
+
+        def launches(name):
+            return {path: counts[name] for path, counts in by_path.items()}
+
+        row = dict(timing_rows[0], ms=timing_rows[0]["kernel_ms"], max_abs_err=max_err)  # serving shape, B=1
+        entry = kernel_entry("flash_fwd", "bridgelang_tpu_torch/csrc/flash_fwd.cu",
+                             "bridgelang_tpu/ops/flash_attention.py:59", launches("flash_fwd"), row,
+                             shape=row["shape"], timings=timing_rows)
         if served:
-            entry["serve"] = {k: served[k] for k in ("median_ms", "prefill_ms", "decode_ms_per_token",
-                                                      "batch4_ms", "batch4_passes", "passes", "max_memory_gb",
-                                                      "profile")}
+            entry["serve"] = {k: served[k] for k in ("median_ms", "prefill_ms", "decode_ms_per_token", "batch4_ms",
+                                                      "batch4_passes", "passes", "max_memory_gb", "profile")}
         if trained:
             entry["train"] = trained
         if parity:
-            entry["train_parity"] = parity
+            entry["parity"] = parity
         entries = [entry]
         for name, line, ms_key, err in (("flash_bwd_dq", "bridgelang_tpu/ops/flash_attention.py:116", "dq_ms", "dq"),
                                         ("flash_bwd_dkv", "bridgelang_tpu/ops/flash_attention.py:156", "dkv_ms", "dkv")):
             bound, bound_by = bwd_timing["bounds"][err]
-            entries.append({
-                "name": name, "route": "cuda", "source": "bridgelang_tpu_torch/csrc/flash_bwd.cu", "replaces": line,
-                "launches": train_launches[name],
-                "launches_per_train_step": train_launches[name] / trained["steps"] if trained else 0,
-                "max_abs_err": bwd_err[err], "ms": bwd_timing[ms_key], "plain_ms": bwd_timing["plain_ms"],
-                "tolerance_use": max(r[w]["use"] for r in bwd_readings.values()
-                                     for w in ({"dq": ("dq",), "dkv": ("dk", "dv")}[err])),
-                "bound_ms": bound, "bound_by": bound_by, "library_ms": bwd_timing["library_ms"],
-                "shape": bwd_timing["shape"],
-                "note": "plain_ms and library_ms compute dq, dk and dv together",
-            })
+            timing = dict(max_abs_err=bwd_err[err], ms=bwd_timing[ms_key], plain_ms=bwd_timing["plain_ms"],
+                          bound_ms=bound, bound_by=bound_by, library_ms=bwd_timing["library_ms"])
+            entries.append(kernel_entry(
+                name, "bridgelang_tpu_torch/csrc/flash_bwd.cu", line, launches(name), timing,
+                tolerance_use=max(r[w]["use"] for r in bwd_readings.values()
+                                  for w in ({"dq": ("dq",), "dkv": ("dk", "dv")}[err])),
+                shape=bwd_timing["shape"], note="plain_ms and library_ms compute dq, dk and dv together"))
+        # headline shapes: w_gate at decode (the most launched a8 shape) and at the QLoRA M
+        for name, line, mode, m, key in (("int4_mm_a8", "bridgelang_tpu/ops/int4_matmul.py:114", "a8", 1, "a8"),
+                                         ("int4_mm", "bridgelang_tpu/ops/int4_matmul.py:60", "bfloat16", 5632, "float")):
+            rows = [r for r in int4_checks["rows"] if r["mode"] == mode]
+            head = next(r for r in rows if r["m"] == m and r["n"] == 11008)
+            timing = dict(head, ms=head["kernel_ms"], max_abs_err=int4_checks["worst"][key][0])
+            extra = {"tolerance_use": int4_checks["worst"][key][1], "shape": head["shape"], "timings": rows,
+                     "blocked": [b for b in int4_checks["blocked"] if (" a8 " in b["case"]) == (mode == "a8")]}
+            if name == "int4_mm_a8" and served4:
+                extra["int4_serve"] = {k: served4[k] for k in ("median_ms", "prefill_ms", "decode_ms_per_token",
+                                                                "batch4_ms", "batch4_passes", "passes", "max_memory_gb",
+                                                                "model_gb", "llm_gb", "profile")}
+            if name == "int4_mm" and qlora:
+                extra["qlora"] = qlora
+            entries.append(kernel_entry(name, "bridgelang_tpu_torch/csrc/int4_matmul.cu", line, launches(name),
+                                        timing, **extra))
         print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,9 @@ apart for |o| < 4); lse is fp32 in both, atol 1e-3. Backward: element by
 element, |got - want| <= rtol |want| + atol rms(want) with chip_smoke.py's
 GRAD_TOL (bf16: one bf16 ulp, 2^-7 |want|, plus 1e-3 rms for fp32 order
 differences near zero; fp32: 1e-5 and 1e-5 rms, order differences only).
+The int4 kernels: chip_smoke.py's INT4_TOL, per element as the backward (a8:
+f32 before the token scale, order only; bf16: one bf16 ulp plus 1e-3 rms;
+fp32: order only).
 """
 
 import sys
@@ -30,7 +33,7 @@ from bridgelang_tpu_torch.ops.flash_attention import (
 )
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import GRAD_TOL  # noqa: E402
+from chip_smoke import GRAD_TOL, INT4_SHAPES_7B, INT4_TOL  # noqa: E402
 
 # (b, t, s, h, hkv, d, lengths, window, causal)
 CASES = {
@@ -155,3 +158,142 @@ def test_remat_policies_agree_through_the_kernels(cuda_device):
         assert n == 2 * cfg.n_layers, policy
         for a, r in zip(got, ref):
             torch.testing.assert_close(a, r, atol=1e-5 * float(r.abs().max()), rtol=0, msg=policy)
+
+
+# --- the packed-int4 matmul kernels -------------------------------------------------------
+
+# (K, N, group): 7B's wq, w_gate and w_down at group 128, and w_gate at group 256
+INT4_SHAPES = {**{name: (k, n, 128) for name, (k, n) in INT4_SHAPES_7B.items()},
+               "w_gate_g256": (*INT4_SHAPES_7B["w_gate"], 256)}
+
+
+def _int4_weights(k, n, group, device, seed):
+    from bridgelang_tpu_torch.ops.quant import _quantize4_2d
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return _quantize4_2d(torch.randn((k, n), generator=g, device=device), group)
+
+
+def _int4_tolerance_use(got, want, key):
+    rtol, atol = INT4_TOL[key]
+    w = want.float()
+    allowed = (rtol * w.abs() + atol * w.square().mean().sqrt()).clamp_min(torch.finfo(torch.float32).tiny)
+    return float(((got.float() - w).abs() / allowed).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 37, 352])
+@pytest.mark.parametrize("mode", ["a8", "bfloat16", "float32"])
+@pytest.mark.parametrize("shape", sorted(INT4_SHAPES))
+def test_int4_kernels_match_plain(cuda_device, shape, mode, m):
+    from bridgelang_tpu_torch.ops import int4_matmul as im
+
+    k, n, group = INT4_SHAPES[shape]
+    packed, scales = _int4_weights(k, n, group, cuda_device, seed=7)
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    x = torch.randn((m, k), generator=g, device=cuda_device)
+    before = (im.int4_mm.launches, im.int4_mm_a8.launches)
+    if mode == "a8":
+        q, _ = im.quantize_activations_per_token(x)
+        got = im.int4_mm_a8(q, packed, scales)
+        torch.cuda.synchronize()
+        want = im.int4_matmul_a8_plain(q, packed, scales)
+        assert (im.int4_mm.launches, im.int4_mm_a8.launches) == (before[0], before[1] + 1)
+    else:
+        x = x.to(getattr(torch, mode))
+        got = im.int4_mm(x, packed, scales)
+        torch.cuda.synchronize()
+        want = im.int4_matmul_plain(x, packed, scales)
+        assert (im.int4_mm.launches, im.int4_mm_a8.launches) == (before[0] + 1, before[1])
+    assert got.shape == want.shape == (m, n) and got.dtype == want.dtype
+    assert torch.isfinite(got).all()
+    assert _int4_tolerance_use(got, want, mode) <= 1.0
+
+
+@pytest.mark.gpu
+def test_cuda_int4_never_reaches_the_plain_version(cuda_device, monkeypatch):
+    from bridgelang_tpu_torch.ops import int4_matmul as im
+
+    packed, scales = _int4_weights(4096, 4096, 128, cuda_device, seed=9)
+    x = torch.randn((5, 4096), device=cuda_device, dtype=torch.bfloat16)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(im, "_grouped_plain", refuse)
+    monkeypatch.setattr(im, "dequant_int4", refuse)
+    im.matmul_int4(x, packed, scales)
+    im.matmul_int4_a8(x, packed, scales)
+    torch.cuda.synchronize()
+    coarse = scales.float().repeat_interleave(2, dim=0).to(torch.bfloat16)  # 64 groups of 64 rows: no kernel shape
+    assert not im.cuda_kernel_shape_ok(4096, 4096, 64)
+    for fn in (im.matmul_int4, im.matmul_int4_a8):  # refused, not routed to a library matmul
+        with pytest.raises(ValueError):
+            fn(x, packed, coarse)
+
+
+@pytest.mark.gpu
+def test_cuda_int4_reads_a_column_slice_in_place(cuda_device):
+    """A column block of a wider pack (row stride of the whole pack) launches
+    on the slice itself and equals the kernel on a contiguous copy."""
+    from bridgelang_tpu_torch.ops import int4_matmul as im
+
+    packed, scales = _int4_weights(4096, 4096, 128, cuda_device, seed=11)
+    x = torch.randn((37, 4096), device=cuda_device, dtype=torch.bfloat16)
+    p_view, s_view = packed[:, 1024:], scales[:, 2048:]
+    assert not p_view.is_contiguous()
+    got = im.int4_mm(x, p_view, s_view)
+    want = im.int4_mm(x, p_view.contiguous(), s_view.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("a8", [False, True])
+def test_cuda_int4_blocked_7b_gate_launches_once_per_block(cuda_device, a8):
+    """7B's w_gate packed for 2 shards: each 5504-wide column block is a
+    kernel shape (N/2 = 2752 = 64 x 43) though not the JAX package's (its
+    N % 256 rule), so it launches once per block and never falls back."""
+    from bridgelang_tpu_torch.ops import int4_matmul as im
+    from bridgelang_tpu_torch.ops.quant import _quantize4_2d
+
+    k, n = INT4_SHAPES_7B["w_gate"]
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    packed, scales = _quantize4_2d(torch.randn((k, n), generator=g, device=cuda_device), 128, n_shards=2)
+    assert im.cuda_kernel_shape_ok(k, n // 2, k // 128) and not im.int4_kernel_eligible(k, n // 2, k // 128)
+    x = torch.randn((37, k), generator=g, device=cuda_device)
+    x = x if a8 else x.to(torch.bfloat16)  # a8: fp32 x, so the output is the kernel's f32 times the token scale
+    wrapper = im.int4_mm_a8 if a8 else im.int4_mm
+    before = wrapper.launches
+    got = (im.matmul_int4_a8 if a8 else im.matmul_int4)(x, packed, scales, n_shards=2)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2 and got.shape == (37, n)
+    w2 = packed.shape[1] // 2
+    blocks = [(packed[:, d * w2:(d + 1) * w2], scales[:, d * (n // 2):(d + 1) * (n // 2)]) for d in range(2)]
+    if a8:
+        q, xs = im.quantize_activations_per_token(x)
+        want = torch.cat([im.int4_matmul_a8_plain(q, p, s) for p, s in blocks], dim=1)
+        use = _int4_tolerance_use(got.float() / xs, want, "float32")  # one fp32 rounding each way
+    else:
+        want = torch.cat([im.int4_matmul_plain(x, p, s) for p, s in blocks], dim=1)
+        use = _int4_tolerance_use(got, want, "bfloat16")
+    assert use <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("a8", [False, True])
+def test_cuda_int4_output_has_grad_fn(cuda_device, a8):
+    from bridgelang_tpu_torch.ops import int4_matmul as im
+    from bridgelang_tpu_torch.ops.quant import dequant_int4
+
+    packed, scales = _int4_weights(4096, 11008, 128, cuda_device, seed=10)
+    x = torch.randn((2, 40, 4096), device=cuda_device, dtype=torch.bfloat16, requires_grad=True)
+    before = im.int4_mm_a8.launches if a8 else im.int4_mm.launches
+    y = (im.matmul_int4_a8 if a8 else im.matmul_int4)(x, packed, scales)
+    assert y.grad_fn is not None and y.shape == (2, 40, 11008)
+    g = torch.randn_like(y)
+    (dx,) = torch.autograd.grad(y, x, g)
+    torch.cuda.synchronize()
+    assert (im.int4_mm_a8.launches if a8 else im.int4_mm.launches) == before + 1  # the backward launches none
+    want = g.float() @ dequant_int4(packed, scales, torch.float32).t()
+    torch.testing.assert_close(dx.float(), want, atol=2e-2 * float(want.abs().max()), rtol=2 ** -7)
