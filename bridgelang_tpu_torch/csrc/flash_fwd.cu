@@ -11,31 +11,41 @@
 // kernel's replicated STAT_W lane width is dropped.
 //
 // Layouts are the public API's: q/o [B, T, H, D], k/v [B, S, Hkv, D], all
-// contiguous, so no transpose runs before or after the kernel.
-//
-// Design. One thread block per (64-query tile, head, example): blocks run in
+// contiguous, so no transpose runs before or after the kernel. Both variants
+// run one thread block per (64-query tile, head, example): blocks run in
 // parallel, so the TPU kernel's sequential grid walk becomes a loop inside
 // the block over 64-key tiles from `lower` to `upper`, with the TPU kernel's
-// causal, length and window bounds (flash_attention.py:69-77). Each key tile
-// is staged into shared memory as fp32; rows past the valid length are
-// zero-filled, so a dead cache slot holding non-finite values cannot leak
-// into a row through a zero probability. 128 threads: two per query row.
-// Thread pair (2r, 2r+1) splits the row's 64 scores by key parity and its
-// D accumulators by alternating float4 groups; the pair combines its row max
-// and row sum with one shuffle. Shared rows are padded by 4 floats so that
-// the pair's and the warp's 16-byte reads fall in distinct banks. The
-// products run on the fp32 FMA units.
+// causal, length and window bounds (flash_attention.py:69-77). Key rows past
+// the valid length are zero-filled, so a dead cache slot holding non-finite
+// values cannot leak into a row through a zero probability.
 //
-// Bound at the serving shape. At B=1, T=S=304, H=32, D=128 in bf16, q+k+v+o
-// move about 4 * 304 * 4096 * 2 B = 10 MB: ~3 us at 3.35 TB/s. The causal
-// products are ~0.8 GFLOP: ~0.8 us at the 989 TFLOP/s bf16 tensor-core peak.
-// So the work is bound by HBM bytes. What this simple design leaves on the
-// table: it does the products on the FP32 FMA pipes (67 TFLOP/s peak, and
-// the shared-memory operand reads limit it further) instead of the tensor
-// cores (mma.sync / wgmma), so it is compute-bound far above the byte bound;
-// it stages tiles with plain loads instead of cp.async/TMA, so loads do not
-// overlap the arithmetic; a 64-query tile gives only B * H * ceil(T/64)
-// blocks (160 at B=1, T=304), about one wave on 132 SMs.
+// bf16: FlashAttention-2 on the tensor cores. 4 warps, each owning 16 query
+// rows. QK^T and PV run on mma.sync m16n8k16 (bf16 in, fp32 sums), their
+// operands loaded with ldmatrix (.trans for V) from shared tiles swizzled by
+// 16-byte chunk (chunk ^ row % 8), so neither the cp.async stores nor the
+// ldmatrix reads conflict on banks. Q's fragments are loaded once and stay in
+// registers; the probabilities stay in registers too: the fp32 score
+// accumulators are exponentiated in place, rounded to bf16 and reused as the
+// A operand of PV. K and V tiles go through a cp.async double buffer (the
+// src-size-0 form zero-fills rows past `len`), so the next tile's loads
+// overlap this tile's products. Scores are scaled in fp32 with log2(e)
+// folded in and exponentiated with exp2f; the causal, length and window
+// masks run only on the tiles that cross an edge. Output rows are staged
+// through the (then idle) Q tile and written as 16-byte stores.
+//
+// fp32: the products on the FMA units (two threads per query row, tiles
+// staged as fp32), kept for the card-vs-CPU fp32 parity run, which needs
+// fp32 products: TF32 or bf16 rounding would move its token ids.
+//
+// Bound at the main path's shapes. Train (B=16, T=S=352, H=32, D=128): q, k,
+// v and o are 4 x 16 x 352 x 4096 x 2 B = 184 MB, 55 us at 3.35 TB/s; the
+// causal products are ~16 GFLOP, 16 us at the 989 TFLOP/s bf16 peak. Serve
+// (B=1): 11.5 MB, 3.5 us. So the work is bound by bytes, and mma.sync's
+// share of the bf16 peak keeps the operations term under the byte term at
+// these lengths. What the design still leaves: no wgmma or
+// TMA (not needed while bytes bind), no persistent scheduling (the causal
+// tiles are issued heaviest first instead), and at B=1 only 6 x 32 = 192
+// blocks, about 1.5 waves on 132 SMs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,59 +55,46 @@ namespace {
 
 constexpr int BQ = 64;   // query rows per block
 constexpr int BK = 64;   // keys per tile
-constexpr int NT = 128;  // threads per block: two per query row
-constexpr int PAD = 4;   // floats of padding per staged row
+constexpr int NT = 128;  // threads per block
 constexpr float NEG_INF = -1e30f;  // the TPU kernel's mask value
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// --- fp32: FMA units ------------------------------------------------------------
+
+constexpr int PAD = 4;   // floats of padding per staged row
+
 template <int D>
-constexpr size_t smem_bytes() {
+constexpr size_t smem_bytes_f32() {
   return sizeof(float) * ((size_t)(BQ + 2 * BK) * (D + PAD) + (size_t)BQ * (BK + 1));
 }
 
-__device__ inline void store_out(float* p, float x) { *p = x; }
-__device__ inline void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// Stage `BK` rows of D elements into shared fp32 rows of stride D + PAD.
+// Stage `BK` rows of D floats into shared rows of stride D + PAD.
 // Row r comes from src + (row0 + r) * row_stride; rows r >= n_valid are zero.
-template <typename T, int D>
-__device__ inline void stage_tile(float* dst, const T* __restrict__ src, long row_stride, int row0,
+template <int D>
+__device__ inline void stage_tile(float* dst, const float* __restrict__ src, long row_stride, int row0,
                                   int n_valid, float scale) {
-  constexpr int V = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int VPR = D / V;         // loads per row
+  constexpr int VPR = D / 4;  // float4 loads per row
   for (int i = threadIdx.x; i < BK * VPR; i += NT) {
     const int r = i / VPR;
-    const int c = (i % VPR) * V;
-    float vals[V];
+    const int c = (i % VPR) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < n_valid) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + (long)(row0 + r) * row_stride + c);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        if constexpr (sizeof(T) == 2) {
-          vals[j] = __bfloat162float(e[j]) * scale;
-        } else {
-          vals[j] = e[j] * scale;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j) vals[j] = 0.f;
+      val = *reinterpret_cast<const float4*>(src + (long)(row0 + r) * row_stride + c);
+      val = make_float4(val.x * scale, val.y * scale, val.z * scale, val.w * scale);
     }
-    float* d = dst + r * (D + PAD) + c;
-#pragma unroll
-    for (int j = 0; j < V; j += 4) {
-      *reinterpret_cast<float4*>(d + j) = make_float4(vals[j], vals[j + 1], vals[j + 2], vals[j + 3]);
-    }
+    *reinterpret_cast<float4*>(dst + r * (D + PAD) + c) = val;
   }
 }
 
-template <typename T, int D>
+// Thread pair (2r, 2r+1) owns query row r: it splits the row's 64 scores by
+// key parity and its D accumulators by alternating float4 groups, and
+// combines its row max and row sum with one shuffle.
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ lengths, T* __restrict__ o, float* __restrict__ lse,
-                 int T_len, int S, int H, int Hkv, int causal, int window, float scale) {
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     const int* __restrict__ lengths, float* __restrict__ o, float* __restrict__ lse,
+                     int T_len, int S, int H, int Hkv, int causal, int window, float scale) {
   extern __shared__ float4 smem4[];
   float* sq = reinterpret_cast<float*>(smem4);  // [BQ][D + PAD], pre-scaled queries
   float* sk = sq + BQ * (D + PAD);              // [BK][D + PAD]
@@ -116,11 +113,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   const long q_stride = (long)H * D;
   const long kv_stride = (long)Hkv * D;
-  const T* qb = q + ((long)b * T_len * H + h) * D;
-  const T* kb = k + ((long)b * S * Hkv + hk) * D;
-  const T* vb = v + ((long)b * S * Hkv + hk) * D;
+  const float* qb = q + ((long)b * T_len * H + h) * D;
+  const float* kb = k + ((long)b * S * Hkv + hk) * D;
+  const float* vb = v + ((long)b * S * Hkv + hk) * D;
 
-  stage_tile<T, D>(sq, qb, q_stride, q0, min(BQ, T_len - q0), scale);
+  stage_tile<D>(sq, qb, q_stride, q0, min(BQ, T_len - q0), scale);
 
   int upper = cdiv(len, BK);
   if (causal) upper = min(cdiv(q0 + BQ, BK), upper);
@@ -139,8 +136,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int kt = lower; kt < upper; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's reads of sk/sv are done
-    stage_tile<T, D>(sk, kb, kv_stride, k0, min(BK, len - k0), 1.f);
-    stage_tile<T, D>(sv, vb, kv_stride, k0, min(BK, len - k0), 1.f);
+    stage_tile<D>(sk, kb, kv_stride, k0, min(BK, len - k0), 1.f);
+    stage_tile<D>(sv, vb, kv_stride, k0, min(BK, len - k0), 1.f);
     __syncthreads();
 
     // Scores for keys k0 + 2j + half.
@@ -204,34 +201,305 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   if (r_glob < T_len) {
     const float l_safe = (l_i == 0.f) ? 1.f : l_i;
-    T* orow = o + ((long)b * T_len * H + (long)r_glob * H + h) * D;
+    float* orow = o + ((long)b * T_len * H + (long)r_glob * H + h) * D;
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       const int d = 4 * (2 * g + half);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) store_out(orow + d + c, acc[4 * g + c] / l_safe);
+      for (int c = 0; c < 4; ++c) orow[d + c] = acc[4 * g + c] / l_safe;
     }
     if (half == 0) lse[((long)b * H + h) * T_len + r_glob] = m_i + logf(l_safe);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* lengths, void* o, void* lse,
-                   int B, int T_len, int S, int H, int Hkv, int causal, int window, float scale,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
+// --- bf16: tensor cores -----------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled (nothing read) unless `valid`.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// Byte offset of 16-byte chunk `c` of row `r` in a [64][D] bf16 tile.
+template <int D>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (uint32_t)(r * (D * 2) + ((c ^ (r & 7)) << 4));
+}
+
+// cp.async 64 rows of D bf16 into a swizzled tile: row r from
+// src + (row0 + r) * stride, zero-filled where row0 + r >= n_valid.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* __restrict__ src, long stride, int row0,
+                                          int n_valid) {
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int j = 0; j < 64 * CH / NT; ++j) {
+    const int i = threadIdx.x + j * NT;
+    const int r = i / CH, c = i % CH;
+    const bool ok = row0 + r < n_valid;
+    cp_async16(dst + swz<D>(r, c), src + (long)(ok ? row0 + r : 0) * stride + c * 8, ok);
   }
+}
+
+template <int D>
+constexpr size_t smem_bytes_bf16() {
+  return (size_t)5 * 64 * D * 2;  // Q, then K and V twice each
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 2)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                      const int* __restrict__ lengths, bf16* __restrict__ o, float* __restrict__ lse, int T_len,
+                      int S, int H, int Hkv, int causal, int window, float scale_log2) {
+  constexpr int TILE = 64 * D * 2;  // bytes of one 64-row tile
+  constexpr int KS = D / 16;        // mma k-steps over the head dim
+  constexpr int NO = D / 8;         // output n-tiles per warp
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t sQ = smem_u32(smem);
+  const uint32_t sK = sQ + TILE;      // buffers sK + buf * TILE
+  const uint32_t sV = sK + 2 * TILE;  // buffers sV + buf * TILE
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest causal rows start first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int len = max(0, min(lengths[b], S));
+  const long q_stride = (long)H * D, kv_stride = (long)Hkv * D;
+  const bf16* qb = q + ((long)b * T_len * H + h) * D;
+  const bf16* kb = k + ((long)b * S * Hkv + hk) * D;
+  const bf16* vb = v + ((long)b * S * Hkv + hk) * D;
+
+  int upper = cdiv(len, BK);
+  if (causal) upper = min(cdiv(q0 + BQ, BK), upper);
+  int lower = 0;
+  if (window > 0) lower = max(0, (q0 - window + 1) / BK);
+
+  load_tile<D>(sQ, qb, q_stride, q0, T_len);
+  if (lower < upper) {
+    load_tile<D>(sK, kb, kv_stride, lower * BK, len);
+    load_tile<D>(sV, vb, kv_stride, lower * BK, len);
+  }
+  cp_async_commit();
+
+  const int row_lo = q0 + warp * 16 + g;  // this thread's rows: row_lo and row_lo + 8
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // running max, log2 units
+  float l_run[2] = {0.f, 0.f};               // this thread's share of the row sums
+  uint32_t qf[KS][4];
+
+  for (int kt = lower; kt < upper; ++kt) {
+    const int buf = (kt - lower) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile kt has landed, and every warp is done with tile kt - 1
+    if (kt == lower) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        ldsm_x4(qf[ks], sQ + swz<D>(warp * 16 + (lane & 15), 2 * ks + (lane >> 4)));
+    }
+    if (kt + 1 < upper) {
+      load_tile<D>(sK + (buf ^ 1) * TILE, kb, kv_stride, (kt + 1) * BK, len);
+      load_tile<D>(sV + (buf ^ 1) * TILE, vb, kv_stride, (kt + 1) * BK, len);
+    }
+    cp_async_commit();
+    const uint32_t kbuf = sK + buf * TILE, vbuf = sV + buf * TILE;
+    const int k0 = kt * BK;
+
+    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys.
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {  // keys 16p .. 16p + 15
+        uint32_t r[4];
+        const int i = lane >> 3;
+        ldsm_x4(r, kbuf + swz<D>(16 * p + (i >> 1) * 8 + (lane & 7), 2 * ks + (i & 1)));
+        mma_bf16(s[2 * p], qf[ks], r[0], r[1]);
+        mma_bf16(s[2 * p + 1], qf[ks], r[2], r[3]);
+      }
+    }
+
+    const bool edge = (k0 + BK > len) || (causal && k0 + BK - 1 > q0) || (window > 0 && k0 <= q0 + BQ - 1 - window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (edge) {
+          const int row = row_lo + (e >> 1) * 8, col = k0 + 8 * j + 2 * t + (e & 1);
+          bool ok = col < len;
+          if (causal) ok = ok && col <= row;
+          if (window > 0) ok = ok && col > row - window;
+          x = ok ? x : -INFINITY;
+        }
+        s[j][e] = x;
+      }
+    }
+
+    // Online softmax per row (rows g and g + 8; a row's 64 scores sit in one quad).
+    float alpha[2], base[2];
+#pragma unroll
+    for (int hrow = 0; hrow < 2; ++hrow) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hrow], s[j][2 * hrow + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[hrow], mx);
+      base[hrow] = (m_new == -INFINITY) ? 0.f : m_new;  // a row with no valid key yet keeps p = 0
+      alpha[hrow] = exp2f(m_run[hrow] - base[hrow]);
+      m_run[hrow] = m_new;
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[j][e] - base[e >> 1]);
+        psum[e >> 1] += p;
+        s[j][e] = p;
+      }
+    }
+#pragma unroll
+    for (int hrow = 0; hrow < 2; ++hrow) l_run[hrow] = l_run[hrow] * alpha[hrow] + psum[hrow];
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // O += P V: P's accumulator layout is PV's A-fragment layout.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // keys 16kk .. 16kk + 15
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t r[4];
+        const int i = lane >> 3;
+        ldsm_x4_t(r, vbuf + swz<D>(16 * kk + (i & 1) * 8 + (lane & 7), 2 * dp + (i >> 1)));
+        mma_bf16(acc[2 * dp], pa, r[0], r[1]);
+        mma_bf16(acc[2 * dp + 1], pa, r[2], r[3]);
+      }
+    }
+  }
+  cp_async_wait_all();  // a block with no key tile still has its Q load in flight
+
+  float inv[2];
+#pragma unroll
+  for (int hrow = 0; hrow < 2; ++hrow) {
+    float l = l_run[hrow];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[hrow] = (l == 0.f) ? 0.f : 1.f / l;
+    const int row = row_lo + 8 * hrow;
+    if (t == 0 && row < T_len)
+      lse[((long)b * H + h) * T_len + row] = (l == 0.f) ? NEG_INF : (m_run[hrow] + log2f(l)) * LN2;
+  }
+
+  // Stage the warp's 16 output rows in its own rows of the Q tile (read only
+  // by this warp, into registers, before its first key tile), then write
+  // them as 16-byte rows.
+  uint8_t* sQp = smem;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+#pragma unroll
+    for (int hrow = 0; hrow < 2; ++hrow) {
+      const int r = warp * 16 + g + 8 * hrow;
+      *reinterpret_cast<uint32_t*>(sQp + swz<D>(r, j) + 4 * t) =
+          pack_bf16(acc[j][2 * hrow] * inv[hrow], acc[j][2 * hrow + 1] * inv[hrow]);
+    }
+  }
+  __syncwarp();
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int j = 0; j < 16 * CH / 32; ++j) {
+    const int i = lane + 32 * j;
+    const int r = i / CH, c = i % CH;
+    const int row = q0 + warp * 16 + r;
+    if (row < T_len)
+      *reinterpret_cast<uint4*>(o + ((long)b * T_len * H + (long)row * H + h) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(sQp + swz<D>(warp * 16 + r, c));
+  }
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes, bool& configured) {
+  if (configured) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) configured = true;
+  return err;
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* lengths, void* o, void* lse, int B,
+                       int T_len, int S, int H, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes_f32<D>();
+  static bool configured = false;
+  cudaError_t err = set_smem(flash_fwd_f32_kernel<D>, smem, configured);
+  if (err != cudaSuccess) return err;
   const dim3 grid(cdiv(T_len, BQ), H, B);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(lengths), static_cast<T*>(o), static_cast<float*>(lse),
-      T_len, S, H, Hkv, causal, window, scale);
+  flash_fwd_f32_kernel<D><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(lengths), static_cast<float*>(o), static_cast<float*>(lse), T_len, S, H, Hkv,
+      causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* lengths, void* o, void* lse, int B,
+                        int T_len, int S, int H, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes_bf16<D>();
+  static bool configured = false;
+  cudaError_t err = set_smem(flash_fwd_bf16_kernel<D>, smem, configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cdiv(T_len, BQ), H, B);
+  flash_fwd_bf16_kernel<D><<<grid, NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const int*>(lengths), static_cast<bf16*>(o), static_cast<float*>(lse), T_len, S, H, Hkv, causal,
+      window, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -244,12 +512,19 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
                          int window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
+    return launch_f32<64>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
   if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
+    return launch_f32<128>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
+    return launch_bf16<64>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
+    return launch_bf16<128>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one block (bytes), for the build report.
+extern "C" int flash_fwd_smem_bytes(int D, int dtype) {
+  if (D != 64 && D != 128) return -1;
+  if (dtype == 1) return (int)(D == 64 ? smem_bytes_bf16<64>() : smem_bytes_bf16<128>());
+  return (int)(D == 64 ? smem_bytes_f32<64>() : smem_bytes_f32<128>());
 }

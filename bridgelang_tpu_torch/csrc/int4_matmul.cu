@@ -8,9 +8,9 @@
 //                  (mma.sync m16n8k32 s8 -> s32), exact int32 sums per
 //                  quantization group.
 //   int4_mm     <- `_kernel` (float activations): x [M, K] in bf16 (bf16
-//                  tensor cores, mma.sync m16n8k16, fp32 sums) or in fp32 (an
-//                  FMA variant: no TF32 and no bf16 rounding of x, as the
-//                  JAX kernel's dot promotes f32 x bf16 to f32) -> x's dtype.
+//                  tensor cores, fp32 sums: wgmma at M > 64, mma.sync
+//                  m16n8k16 at M <= 64) or in fp32 (the FMA units) -> x's
+//                  dtype.
 //
 // Weights: the JAX package's `out-paired-lobias/v2` bytes, packed [K, N/2]
 // int8: byte [r, c] holds code[r, c] + 8 in the low nibble and
@@ -35,24 +35,45 @@
 // equals its plain version bit for bit; the float kernels differ from theirs
 // only in the fp32 order of each group's dot.
 //
-// Design. A block computes BM rows x 64 packed columns (128 output columns:
-// 64 low, 64 high). The K loop stages 64 input rows at a time: the activation
-// tile as is, the weight tile unpacked into two K-contiguous code planes (low
-// and high nibbles) in shared memory, the 4 x 4 byte transposes done with
-// __byte_perm, so that each mma B fragment is one 32-bit shared load. Warps
-// are 2 along N (32 packed columns each, 4 n8 tiles per half) and 1, 2 or 4
-// along M (16 or 32 rows each); a group's partial sums stay in the mma
-// accumulators and fold into fp32 accumulators at the group's end.
+// Three designs, chosen by the launcher from the type and M:
 //
-// Bound. Decode (M = 1) streams the packed bytes once: 7B's w_gate is 22.5 MB
-// + 0.7 MB of scales, ~6.9 us at 3.35 TB/s; the kernel is bound by bytes
-// there and a 16-row mma tile wastes 15/16 of its products, which costs
-// nothing against that bound. QLoRA (M = 5632, bf16) is bound by operations:
-// 2 x 5632 x 4096 x 11008 = 5.1e11 for w_gate, ~0.51 ms at 989 TFLOP/s, which
-// is why even this first version uses the tensor cores. Left for later:
-// cp.async/TMA staging overlapped with the products (here one buffer,
-// __syncthreads around each stage), wgmma, split-K for the decode shapes
-// (N/2 / 64 blocks: 32 for 4096-wide outputs, under one wave of 132 SMs).
+// bf16 at M > 64 (QLoRA: M = 16 x 352 = 5632): wgmma with the weights in
+// registers. The product runs transposed, out^T = W^T x^T: a block owns 64
+// packed columns (128 outputs) x 128 activation rows; warpgroup 0 computes
+// the 64 low-nibble columns, warpgroup 1 the 64 high-nibble ones, each as
+// wgmma m64n128k16 whose A operand (64 output columns x 16 k) is dequantized
+// in registers and whose B operand is the activation tile in shared memory.
+// ldmatrix.trans of the packed bytes, read as b16, hands lane (g, t) bytes 2g
+// and 2g+1 of a 16-byte row for k = 2t and 2t+1, which is the A fragment of
+// two output columns after a shift, a mask and an OR with bf16 128 (0x4300 |
+// v = 128 + v, exact) and one bf16 subtract: no byte transposes and no code
+// planes in shared memory. A 5-stage cp.async ring (activations [128][64]
+// in the 128-byte-swizzled K-major layout wgmma reads, packed bytes [64][64])
+// runs 3 stages ahead of the products; a stage's A fragments are built while
+// the previous stage's wgmma run. Each group's sums land in one accumulator
+// set (the group's first wgmma overwrites it) and fold into a second in group
+// order after the group's wgmma complete.
+// Bound: 2 M K N operations, 0.51 ms for w_gate at the 989 TFLOP/s bf16
+// peak; the kernel runs at ~37 % of it (PERF.md). Tried and not kept: a
+// producer warp feeding the ring by TMA with mbarriers (slower here), and 256
+// output columns per block with one accumulator rescaled at each group's end
+// (barely faster, for extra roundings and zero-scale masking). A build
+// without the global loads ran markedly faster, so more reuse per staged
+// byte comes next; persistent blocks are not done either.
+//
+// bf16 at M <= 64 and int8 (a8) at any M: mma.sync (m16n8k16 bf16 or
+// m16n8k32 s8) from planes in shared memory. A block computes BM rows x 64
+// packed columns; the K loop stages 64 input rows at a time: the activation
+// tile as is, the weight tile unpacked into two K-contiguous code planes with
+// 4 x 4 byte transposes (__byte_perm), so that each B fragment is one 32-bit
+// shared load. Warps are 2 along N and 1, 2 or 4 along M. Decode (M = 1)
+// streams the packed bytes once: w_gate's 22.5 MB + 0.7 MB of scales, ~6.9
+// us at 3.35 TB/s, so it is bound by bytes and a 16-row mma tile wastes 15/16
+// of its products at no cost against that bound. Not done: overlapped
+// staging, split-K for decode's under-one-wave grids (N/2 / 64 blocks).
+//
+// fp32: the FMA units (no TF32 and no bf16 rounding of x, as the JAX
+// kernel's dot promotes f32 x bf16 to f32), for the card-vs-CPU parity run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -163,8 +184,8 @@ __device__ __forceinline__ uint32_t ld32(const void* p) { return *reinterpret_ca
 // acc += float(y) * s, product and sum rounded separately (the plain order).
 __device__ __forceinline__ float fold(float acc, float y, float s) { return __fadd_rn(acc, __fmul_rn(y, s)); }
 
-// One kernel for both tensor-core variants. A8: E = int8, int32 partial sums,
-// f32 output; else E = bf16, fp32 partial sums, bf16 output.
+// The mma.sync kernel: int8 (a8) at any M, bf16 at M <= 64. A8: E = int8,
+// int32 partial sums, f32 output; else E = bf16, fp32 partial sums, bf16 output.
 template <bool A8, int WARPS_M, int MT>
 __global__ void __launch_bounds__(WARPS_M * 64)
 int4_mm_tc_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ packed,
@@ -276,6 +297,221 @@ int4_mm_tc_kernel(const void* __restrict__ xv, const uint8_t* __restrict__ packe
   }
 }
 
+// --- bf16 activations at M > 64: wgmma with the weights in registers -----------------
+
+namespace wg {
+
+constexpr int BM = 128;     // activation rows per block: the wgmma N
+constexpr int STAGES = 5;   // cp.async ring depth; loads run STAGES - 2 stages ahead
+constexpr int NT = 256;     // two warpgroups: low-nibble and high-nibble output halves
+constexpr int X_TILE = BM * BK * 2;  // [128][64] bf16, rows of 8 16-byte chunks
+constexpr int W_TILE = BK * BN2;     // [64][64] packed bytes, rows of 4 16-byte chunks
+constexpr int STAGE = X_TILE + W_TILE;  // 20 KB, a multiple of 1024: every activation tile stays 1024-aligned
+constexpr size_t SMEM = (size_t)STAGES * STAGE + 1024;  // + slack to align the ring to 1024 bytes
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Swizzled byte offsets: activation row r, chunk c of 8 (the canonical
+// 128-byte-swizzled K-major layout wgmma reads); packed row k, chunk c of 4.
+// Eight rows read at one chunk by ldmatrix land in 8 distinct bank groups.
+__device__ __forceinline__ uint32_t x_off(int r, int c) { return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4)); }
+__device__ __forceinline__ uint32_t w_off(int k, int c) { return (uint32_t)(k * 64 + ((c ^ ((k >> 1) & 3)) << 4)); }
+
+// One ring slot: activation rows m0.., columns k0..k0+63 (rows past M
+// zero-filled, nothing read) and packed rows k0..k0+63, columns n0..n0+63.
+__device__ __forceinline__ void load_stage(uint32_t slot, const __nv_bfloat16* __restrict__ x,
+                                           const uint8_t* __restrict__ packed, int M, int K, int ldp, int m0,
+                                           int n0, int k0) {
+#pragma unroll
+  for (int j = 0; j < BM * 8 / NT; ++j) {
+    const int i = threadIdx.x + j * NT;
+    const int r = i >> 3, c = i & 7;
+    const bool ok = m0 + r < M;
+    cp_async16(slot + x_off(r, c), x + (long)(ok ? m0 + r : 0) * K + k0 + c * 8, ok);
+  }
+  const int r = threadIdx.x >> 2, c = threadIdx.x & 3;  // 64 rows x 4 chunks: one per thread
+  cp_async16(slot + X_TILE + w_off(r, c), packed + (long)(k0 + r) * ldp + n0 + c * 16, true);
+}
+
+// Shared-memory matrix descriptor of a K-major, 128-byte-swizzled bf16 tile
+// whose rows are 128 bytes: start address, leading offset 1 (unused when
+// swizzled), stride 1024 bytes between 8-row groups, swizzle mode 1.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pins the accumulators after a wait, so no read of them moves above it.
+__device__ __forceinline__ void fence_regs(float d[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64 x 128] (+)= A[64 x 16] (registers, the mma.m16n8k16 A layout per
+// warp) x B[16 x 128] (shared, K-major); scale_d == 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n128k16(float d[64], const uint32_t a[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// ldmatrix.trans of packed bytes read as b16 hands lane (g, t), for k = 2t
+// and 2t+1, bytes 2g and 2g+1 of a 16-byte row: r = [k0 c_even, k0 c_odd,
+// k1 c_even, k1 c_odd] (byte 0 lowest). dequant takes the nibble at bit `sh`
+// of bytes 0 and 2 (sh 0 / 4: the even column's low / high nibble; 8 / 12:
+// the odd column's) into a bf16 pair, k0 in the low half. The nibble lands in
+// the mantissa of bf16 128 (0x4300 | v = 128 + v, exact); `kbits` 0x43084308
+// also flips a high nibble's sign bit, which makes the signed code code + 8,
+// as the low nibble stores it; subtracting 136 leaves the code, exactly.
+__device__ __forceinline__ uint32_t dequant(uint32_t r, int sh, uint32_t kbits) {
+  uint32_t v = ((r >> sh) & 0x000F000Fu) ^ kbits, bias = 0x43084308u;
+  __nv_bfloat162 c = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v), *reinterpret_cast<__nv_bfloat162*>(&bias));
+  return *reinterpret_cast<uint32_t*>(&c);
+}
+
+// The product computed transposed: out^T [N, M] = W^T [N, K] x^T [K, M]. A
+// block computes 64 packed columns x 128 activation rows. Warpgroup 0 owns
+// the 64 low-nibble output columns n0.., warpgroup 1 the 64 high-nibble ones
+// N/2 + n0..; both read the same staged packed bytes and activations. Its
+// warp w holds wgmma rows 16w..16w+15: row g is packed column n0 + 16w + 2g,
+// row g + 8 is n0 + 16w + 2g + 1, because ldmatrix.trans of the packed bytes
+// hands lane (g, t) bytes 2g and 2g+1 of a 16-byte row, for k = 2t and 2t+1:
+// the A fragment dequantizes in registers from one ldmatrix, with no
+// shuffle. The activation tile is wgmma's B operand, straight from the ring.
+// Each group's sums land in `part` (the first wgmma of a group overwrites
+// it) and fold into `acc` in group order, as the plain version does.
+__global__ void __launch_bounds__(NT, 1)
+int4_mm_bf16_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
+                          const __nv_bfloat16* __restrict__ scales, __nv_bfloat16* __restrict__ out, int M, int K,
+                          int N2, int group, int ldp, int lds, int ldo) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  const int hi = threadIdx.x / 128;  // warpgroup: 0 low nibbles, 1 high nibbles
+  const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN2;
+  const int nk = K / BK, gsteps = group / BK;
+  const int sh_even = hi ? 4 : 0, sh_odd = hi ? 12 : 8;
+  const uint32_t kbits = hi ? 0x43084308u : 0x43004300u;
+  constexpr int P = STAGES - 2;
+
+#pragma unroll
+  for (int s = 0; s < P; ++s) {
+    if (s < nk) load_stage(base + s * STAGE, x, packed, M, K, ldp, m0, n0, s * BK);
+    cp_async_commit();
+  }
+
+  float part[64], acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) part[i] = acc[i] = 0.0f;
+  uint32_t a[2][4][4];  // [stage parity][k16 step][fragment register]
+  const int col = n0 + 16 * warp + 2 * g;  // packed column of wgmma row g; row g + 8 is col + 1
+  const __nv_bfloat16* scol = scales + (hi ? N2 : 0) + col;
+
+  for (int s0 = 0; s0 < nk; s0 += 2) {  // K is a multiple of 128: stages come in pairs
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int s = s0 + h;
+      cp_async_wait<P - 1>();
+      fence_proxy_async();  // this thread's copies are visible to wgmma's reads
+      __syncthreads();  // stage s has landed; both warpgroups are done with stage s - 2
+      if (s + P < nk) load_stage(base + ((s + P) % STAGES) * STAGE, x, packed, M, K, ldp, m0, n0, (s + P) * BK);
+      cp_async_commit();
+
+      const uint32_t xs = base + (s % STAGES) * STAGE, ws = xs + X_TILE;
+#pragma unroll
+      for (int kp = 0; kp < 2; ++kp) {  // k16 steps 2kp and 2kp + 1: packed rows 32kp .. 32kp + 31
+        uint32_t r[4];
+        ldsm_x4_t(r, ws + w_off(32 * kp + 8 * (lane >> 3) + (lane & 7), warp));
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          a[h][2 * kp + j][0] = dequant(r[2 * j], sh_even, kbits);      // row g, k 2t, 2t+1
+          a[h][2 * kp + j][1] = dequant(r[2 * j], sh_odd, kbits);       // row g + 8
+          a[h][2 * kp + j][2] = dequant(r[2 * j + 1], sh_even, kbits);  // row g, k 2t + 8, 2t + 9
+          a[h][2 * kp + j][3] = dequant(r[2 * j + 1], sh_odd, kbits);   // row g + 8
+        }
+      }
+      wgmma_fence();
+      const bool fresh = s % gsteps == 0;  // a group's first stage: its sums restart
+#pragma unroll
+      for (int ks = 0; ks < BK / 16; ++ks)
+        wgmma_m64n128k16(part, a[h][ks], desc_sw128(xs + 32 * ks), (fresh && ks == 0) ? 0 : 1);
+      wgmma_commit();
+      if ((s + 1) % gsteps == 0) {  // the group ends: fold its sums, in group order
+        wgmma_wait<0>();
+        fence_regs(part);
+        const float2 sc = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(scol + (long)((s + 1) / gsteps - 1) * lds));
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = fold(acc[i], part[i], (i & 2) ? sc.y : sc.x);
+      } else {
+        wgmma_wait<1>();  // stage s - 1 is done: its A registers and ring slot may be reused
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // acc[4j + e]: wgmma row g (e < 2) or g + 8, activation row m0 + 8j + 2t + (e & 1).
+  __nv_bfloat16* o = out + (hi ? N2 : 0) + col;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int row = m0 + 8 * j + 2 * t;
+    if (row < M)
+      *reinterpret_cast<__nv_bfloat162*>(o + (long)row * ldo) = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 2]);
+    if (row + 1 < M)
+      *reinterpret_cast<__nv_bfloat162*>(o + (long)(row + 1) * ldo) =
+          __floats2bfloat162_rn(acc[4 * j + 1], acc[4 * j + 3]);
+  }
+}
+
+int launch(const void* x, const void* packed, const void* scales, void* out, int M, int K, int N2, int group, int ldp,
+           int lds, int ldo, cudaStream_t st) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(int4_mm_bf16_wgmma_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const dim3 grid(N2 / BN2, cdiv(M, BM));
+  int4_mm_bf16_wgmma_kernel<<<grid, NT, SMEM, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
+      static_cast<const __nv_bfloat16*>(scales), static_cast<__nv_bfloat16*>(out), M, K, N2, group, ldp, lds, ldo);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
 // fp32 activations on the FMA units: a block computes 32 rows x 64 packed
 // columns; thread (ty, tx) owns packed column tx (both output halves) for
 // rows 8 ty .. 8 ty + 7 and sums each group's dot over k in order.
@@ -380,6 +616,7 @@ extern "C" int int4_mm(const void* x, const void* packed, const void* scales, vo
                        int group, int ldp, int lds, int ldo, int dtype, void* stream) {
   if (!shapes_ok(M, K, N2, group, ldp, lds, ldo)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && M > 64) return wg::launch(x, packed, scales, out, M, K, N2, group, ldp, lds, ldo, st);
   if (dtype == 1) return launch_tc_for<false>(M, x, packed, scales, out, K, N2, group, ldp, lds, ldo, st);
   if (dtype == 0) {
     const dim3 grid(N2 / BN2, cdiv(M, F_BM));
@@ -390,3 +627,6 @@ extern "C" int int4_mm(const void* x, const void* packed, const void* scales, vo
   }
   return (int)cudaErrorInvalidValue;
 }
+
+// Dynamic shared memory of one int4_mm block (bytes; 0: static only), for the build report.
+extern "C" int int4_mm_smem_bytes(int M, int dtype) { return (dtype == 1 && M > 64) ? (int)wg::SMEM : 0; }

@@ -20,7 +20,9 @@ of which fails the run:
            PyTorch yardstick (F.scaled_dot_product_attention with the
            equivalent boolean mask, forward or autograd backward; F.linear
            over the int4 weight dequantized to bf16 ahead of time; the port
-           never calls either) and the bound from bytes and operations.
+           never calls either) and the bound from bytes and operations, with
+           each timed shape's share of the bound and its ratio to the
+           yardstick.
   serve    OpenVLA-7B (prism-dinosiglip-224px+7b) at full width in bf16,
            random weights drawn on the card from a seed; the port's
            VLAServer answers POST /act: batch-1 requests, then one
@@ -124,8 +126,8 @@ PEAK_OPS = {"a8": 1979e12, "bfloat16": 989e12, "float32": 67e12}  # int8 and bf1
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "int4_mm_a8", "int4_mm")
 # substrings of the kernels' names in a profiler trace
 PROFILE_NAMES = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq", "flash_bwd_dkv": "flash_bwd_dkv",
-                 "int4_mm_a8": "int4_mm_tc_kernel<true", "int4_mm bf16": "int4_mm_tc_kernel<false",
-                 "int4_mm fp32": "int4_mm_f32"}
+                 "int4_mm_a8": "int4_mm_tc_kernel<true", "int4_mm bf16": "int4_mm_bf16_wgmma",
+                 "int4_mm bf16 M<=64": "int4_mm_tc_kernel<false", "int4_mm fp32": "int4_mm_f32"}
 
 
 def log(msg: str) -> None:
@@ -337,9 +339,10 @@ def check_kernels(serve_t: int):
             b_ms, b_by = bound_ms(q, k, v, lens, window)
             rows.append(dict(case=name, shape=f"B={b} T={t} S={s} H={h} D={d} bf16", kernel_ms=kernel_ms,
                              plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-                             max_abs_err=err_o))
+                             bound_share=b_ms / kernel_ms, vs_library=kernel_ms / library_ms, max_abs_err=err_o))
             log(f"timing {name}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"sdpa (yardstick) {library_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+                f"sdpa (yardstick) {library_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
+                f"share of bound {b_ms / kernel_ms:.3f}, kernel / sdpa {kernel_ms / library_ms:.2f}")
     return rows, max(worst.values())
 
 
@@ -466,10 +469,11 @@ def check_int4_kernels() -> dict:
             b_ms, b_by = int4_bound_ms(m, k, n, group, mode)
             rows.append(dict(case=name, mode=mode, shape=f"M={m} K={k} N={n} group={group}", m=m, k=k, n=n,
                              kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                             bound_by=b_by, max_abs_err=err, tolerance_use=share))
+                             bound_by=b_by, bound_share=b_ms / kernel_ms, vs_library=kernel_ms / library_ms,
+                             max_abs_err=err, tolerance_use=share))
             log(f"timing int4 {name}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"F.linear over bf16 weights (yardstick) {library_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
-                f"kernel / bound {kernel_ms / b_ms:.1f}")
+                f"F.linear over bf16 weights (yardstick) {library_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
+                f"share of bound {b_ms / kernel_ms:.3f}, kernel / F.linear {kernel_ms / library_ms:.2f}")
         del x, xin, got, want
     weights.clear()
     torch.cuda.empty_cache()
@@ -1026,6 +1030,32 @@ def parity_pair(gpu, cpu, p_gpu, p_cpu, seed: int, label: str, gen_counts: dict,
     return dict(result, loss_rel_err=abs(l_gpu - l_cpu) / abs(l_cpu), grad_err=g_err, grad_max=g_max)
 
 
+def report_build(logs: dict) -> None:
+    """Each kernel's ptxas report (registers, spills, static shared memory)
+    and the dynamic shared memory its launcher asks for."""
+    import ctypes
+    import re
+
+    from bridgelang_tpu_torch.ops import _build
+
+    for source, text in logs.items():
+        fn = "?"
+        for line in text.splitlines():
+            found = re.search(r"(?:entry function|Function properties for) '?(\w+)", line)
+            if found:
+                short = re.search(r"(?:flash|int4)\w*?kernel(?:IL?[^E]*E)?", found.group(1))
+                fn = short.group(0) if short else found.group(1)[:60]
+            if "registers" in line or "spill" in line or "(C7" in line or "error" in line.lower():
+                log(f"  {source}: {fn}: {line.strip()}")
+    smem = ctypes.c_int
+    flash = _build.load("flash_fwd").flash_fwd_smem_bytes
+    int4 = _build.load("int4_matmul").int4_mm_smem_bytes
+    flash.argtypes, int4.argtypes = [smem, smem], [smem, smem]
+    log("dynamic shared memory per block: flash_fwd bf16 D=128 {} B, D=64 {} B, fp32 D=128 {} B; "
+        "int4_mm bf16 M>64 {} B, M<=64 {} B".format(flash(128, 1), flash(64, 1), flash(128, 0), int4(5632, 1),
+                                                    int4(64, 1)))
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: dict, timing: dict, **extra) -> dict:
     """One kernel's object in the {"kernels": [...]} line; `launches` is its
     count on each main path's run."""
@@ -1061,10 +1091,7 @@ def main() -> None:
     t0 = time.perf_counter()
     logs = _build.build_all()
     log(f"build: {len(logs)} source(s) in {time.perf_counter() - t0:.1f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"  {name}: {line.strip()}")
+    report_build(logs)
 
     model = params = None
     serve_t = 352

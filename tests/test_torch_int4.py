@@ -24,7 +24,10 @@ Tolerances, and why:
 * decoder logits over int4: atol 1e-4 * max|logit| (fp32 through two layers;
   with w8a8 an activation code may round the other way on a near-half tie,
   which moves a logit by far less).
-* greedy token ids over int4 w4a8: exactly equal.
+* greedy token ids over int4: exactly equal with w8a8 off; with w8a8 on,
+  teacher-forced logits within 0.05 max|logit| and equal argmax wherever
+  the top-2 margin clears twice that (near-half activation ties, see
+  `test_int4_w4a8_greedy_token_ids_equal_jax`).
 """
 
 import dataclasses
@@ -373,19 +376,79 @@ def int4_vla_pair():
     return jmodel, jparams, tmodel, params_from_jax(_np(jparams))
 
 
-def test_int4_w4a8_greedy_token_ids_equal_jax(int4_vla_pair):
+def _with_w8a8(jmodel, tmodel, w8a8):
+    """Both models over the same int4 weights with `LLMConfig.w8a8` set."""
+    jm2 = JOpenVLA(dataclasses.replace(jmodel.cfg, llm=dataclasses.replace(jmodel.cfg.llm, w8a8=w8a8)),
+                   TINY_NORM_STATS, tokenizer=JTokenizer(), dtype=jnp.float32)
+    tm2 = OpenVLA(dataclasses.replace(tmodel.cfg, llm=dataclasses.replace(tmodel.cfg.llm, w8a8=w8a8)),
+                  norm_stats_from_json(TINY_NORM_STATS), tokenizer=ByteFallbackTokenizer(), dtype=torch.float32,
+                  device="cpu")
+    jm2.image_transform, tm2.image_transform = jmodel.image_transform, tmodel.image_transform
+    return jm2, tm2
+
+
+W4A8_LOGIT_BAND = 0.05  # b = 0.05 max|logit| per step: tie noise measured <= 0.016, a real fault is O(1)
+
+
+@pytest.mark.parametrize("w8a8", [False, True])
+def test_int4_w4a8_greedy_token_ids_equal_jax(int4_vla_pair, w8a8):
+    """Greedy ids over the int4 decoder, the port against the JAX package on
+    the same pixels.
+
+    w8a8 off (fp32 activations x int4 weights): the hidden states agree to
+    ~2e-6 relative, so the ids are equal.
+
+    w8a8 on: each activation row is rounded to int8 codes, and a value that
+    sits within ~1e-6 of a half tie rounds one way on XLA-CPU and the other
+    on torch-CPU (their fp32 orders differ by that much). Such a flipped code
+    moves hidden states by up to ~2e-2 relative at scattered rows; measured
+    over both examples' 14 steps, the logits moved by at most 0.33
+    (0.016 max|logit|, max|logit| 21-28), enough to flip a greedy id where
+    the top two sit 0.13-0.19 apart, and how often depends on the host. So
+    the ids are not compared step by step. Instead both packages'
+    `forward_train` run teacher-forced over the JAX greedy sequence (the same
+    ids and pixels), and at every step |logit_port - logit_jax| <= b =
+    0.05 max|logit_jax|: a wrong nibble, group scale or token scale moves
+    logits by O(1). Where the JAX top-2 margin exceeds 2b no tie can flip the
+    argmax, so there the port's argmax must be the JAX id; at least 4 of the
+    14 steps must clear 2b (6 do: JAX margins 3.06, 0.13, 0.39, 4.03, 1.44,
+    5.57, 1.19 and 1.11, 0.17, 4.07, 4.82, 3.13, 0.68, 0.19)."""
     jmodel, jparams, tmodel, tparams = int4_vla_pair
+    jmodel, tmodel = _with_w8a8(jmodel, tmodel, w8a8)
     _check_eligible(LLM, 128)
     frames = np.random.default_rng(17).integers(0, 256, size=(2, 48, 64, 3), dtype=np.uint8)
     ids, mask = jmodel.pad_prompt([jmodel.prepare_prompt_ids(t) for t in INSTRUCTIONS])
     pixels = np.array(jimg.preprocess_batch(jnp.asarray(frames), jmodel.image_transform))
     j_tok = np.asarray(jmodel.generate_greedy(jparams, jnp.asarray(ids), jnp.asarray(mask), jnp.asarray(pixels),
                                               max_new_tokens=7))
-    t_tok = tmodel.generate_greedy(tparams, torch.from_numpy(ids), torch.from_numpy(mask), torch.from_numpy(pixels),
-                                   max_new_tokens=7).numpy()
-    np.testing.assert_array_equal(t_tok, j_tok)
     assert ((j_tok >= 31744) & (j_tok < 32000)).mean() > 0.5, "decoding should land in the action range"
     assert not np.array_equal(j_tok[0], j_tok[1])
+    if not w8a8:
+        t_tok = tmodel.generate_greedy(tparams, torch.from_numpy(ids), torch.from_numpy(mask),
+                                       torch.from_numpy(pixels), max_new_tokens=7).numpy()
+        np.testing.assert_array_equal(t_tok, j_tok)
+        return
+
+    cleared = 0
+    for i, text in enumerate(INSTRUCTIONS):  # one example at a time: no padding inside the sequence
+        seq = np.concatenate([jmodel.prepare_prompt_ids(text), j_tok[i, :-1]]).astype(np.int32)[None]
+        ones = np.ones_like(seq)
+        jl, _ = jmodel.forward_train(jparams, jnp.asarray(seq), jnp.asarray(ones), jnp.asarray(pixels[i:i + 1]),
+                                     jnp.asarray(seq), remat=False)
+        with torch.no_grad():
+            tl, _ = tmodel.forward_train(tparams, torch.from_numpy(seq), torch.from_numpy(ones),
+                                         torch.from_numpy(pixels[i:i + 1]), torch.from_numpy(seq), remat=False)
+        want = np.asarray(jl)[0, -7:]  # the logits that chose each of the 7 ids
+        got = tl.numpy()[0, -7:]
+        for step in range(7):
+            band = W4A8_LOGIT_BAND * float(np.abs(want[step]).max())
+            diff = float(np.abs(got[step] - want[step]).max())
+            assert diff <= band, f"example {i} step {step}: |dlogit| {diff:.4f} > {band:.4f}"
+            top2 = np.sort(want[step])[-2:]
+            if top2[1] - top2[0] > 2 * band:
+                cleared += 1
+                assert int(np.argmax(got[step])) == int(j_tok[i, step]), f"example {i} step {step}"
+    assert cleared >= 4, f"only {cleared} of 14 steps clear the 2b margin: the id check is near empty"
 
 
 def test_int4_w4a8_predict_action_batch_matches_jax(int4_vla_pair, monkeypatch):

@@ -33,7 +33,7 @@ from bridgelang_tpu_torch.ops.flash_attention import (
 )
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import GRAD_TOL, INT4_SHAPES_7B, INT4_TOL  # noqa: E402
+from chip_smoke import FWD_ATOL, GRAD_TOL, INT4_SHAPES_7B, INT4_TOL  # noqa: E402
 
 # (b, t, s, h, hkv, d, lengths, window, causal)
 CASES = {
@@ -71,6 +71,67 @@ def test_flash_kernel_matches_plain(cuda_device, name, dtype, atol):
     for i, L in enumerate(lengths):
         rows = min(L, t)
         torch.testing.assert_close(o[i, :rows].float(), po[i, :rows].float(), atol=atol, rtol=0)
+        torch.testing.assert_close(lse[i, :, :rows], plse[i, :, :rows], atol=1e-3, rtol=0)
+
+
+# The bf16 tensor-core forward at its edges: (b, t, s, h, hkv, d, lengths, window).
+# T at, under and over the 64-row tile; keys longer than queries with lengths
+# under T (prefill into a preallocated cache, length 1 included); GQA; window.
+BF16_FWD_CASES = {
+    "t1": (2, 1, 1, 4, 4, 128, [1, 1], None),
+    "t63_d64": (2, 63, 63, 4, 4, 64, [63, 40], None),
+    "t64": (2, 64, 64, 4, 4, 128, [64, 64], None),
+    "t65_d64": (2, 65, 65, 4, 4, 64, [65, 1], None),
+    "t352": (1, 352, 352, 32, 32, 128, [352], None),
+    "cache_s_gt_t": (3, 96, 160, 8, 8, 128, [70, 1, 96], None),
+    "cache_s_gt_t_d64": (2, 65, 130, 4, 4, 64, [64, 1], None),
+    "gqa_hkv8": (2, 352, 352, 32, 8, 128, [352, 300], None),
+    "window100": (2, 304, 304, 8, 8, 128, [304, 250], 100),
+    "window100_d64": (2, 200, 256, 4, 2, 64, [190, 77], 100),
+}
+
+
+def _bf16_case(name, device, seed):
+    b, t, s, h, hkv, d, lengths, window = BF16_FWD_CASES[name]
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((b, t, h, d), generator=g, device=device, dtype=torch.bfloat16)
+    k, v = (torch.randn((b, s, hkv, d), generator=g, device=device, dtype=torch.bfloat16) for _ in range(2))
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=device), window
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(BF16_FWD_CASES))
+def test_flash_bf16_kernel_matches_plain_at_the_edges(cuda_device, name):
+    q, k, v, lens, window = _bf16_case(name, cuda_device, seed=13)
+    before = flash_attention.launches
+    o, lse = flash_attention(q, k, v, lengths=lens, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    po, plse = flash_attention_plain(q, k, v, lengths=lens, causal=True, window=window)
+    assert torch.isfinite(o).all()
+    for i, L in enumerate(lens.tolist()):
+        rows = min(L, q.shape[1])
+        torch.testing.assert_close(o[i, :rows].float(), po[i, :rows].float(), atol=FWD_ATOL["bfloat16"], rtol=0)
+        torch.testing.assert_close(lse[i, :, :rows], plse[i, :, :rows], atol=1e-3, rtol=0)
+
+
+@pytest.mark.gpu
+def test_flash_bf16_dead_cache_slots_holding_nan_stay_out(cuda_device):
+    """Key slots at or past `lengths` hold NaN (a preallocated cache): the
+    kernel never reads them, so every output row is finite and the valid rows
+    equal the plain version on a copy with those slots zeroed."""
+    q, k, v, lens, window = _bf16_case("cache_s_gt_t", cuda_device, seed=14)
+    for i, L in enumerate(lens.tolist()):
+        k[i, L:] = float("nan")
+        v[i, L:] = float("nan")
+    o, lse = flash_attention(q, k, v, lengths=lens, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    kz, vz = torch.nan_to_num(k), torch.nan_to_num(v)
+    po, plse = flash_attention_plain(q, kz, vz, lengths=lens, causal=True, window=window)
+    for i, L in enumerate(lens.tolist()):
+        rows = min(L, q.shape[1])
+        torch.testing.assert_close(o[i, :rows].float(), po[i, :rows].float(), atol=FWD_ATOL["bfloat16"], rtol=0)
         torch.testing.assert_close(lse[i, :, :rows], plse[i, :, :rows], atol=1e-3, rtol=0)
 
 
@@ -208,6 +269,50 @@ def test_int4_kernels_match_plain(cuda_device, shape, mode, m):
     assert got.shape == want.shape == (m, n) and got.dtype == want.dtype
     assert torch.isfinite(got).all()
     assert _int4_tolerance_use(got, want, mode) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [128, 129, 5632])
+@pytest.mark.parametrize("shape", sorted(INT4_SHAPES))
+def test_int4_bf16_pipelined_kernel_matches_plain(cuda_device, shape, m):
+    """bf16 at M > 64 runs the pipelined kernel: one full 128-row tile, a
+    ragged 129th row, and the QLoRA M (16 x 352)."""
+    from bridgelang_tpu_torch.ops import int4_matmul as im
+
+    k, n, group = INT4_SHAPES[shape]
+    packed, scales = _int4_weights(k, n, group, cuda_device, seed=15)
+    x = torch.randn((m, k), generator=torch.Generator(device=cuda_device).manual_seed(16), device=cuda_device,
+                    dtype=torch.bfloat16)
+    before = im.int4_mm.launches
+    got = im.int4_mm(x, packed, scales)
+    torch.cuda.synchronize()
+    assert im.int4_mm.launches == before + 1
+    want = im.int4_matmul_plain(x, packed, scales)
+    assert got.shape == want.shape == (m, n) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got).all()
+    assert _int4_tolerance_use(got, want, "bfloat16") <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [129, 5632])
+def test_int4_bf16_pipelined_kernel_reads_blocked_gate_in_place(cuda_device, m):
+    """The 2752-wide column blocks of a 2-shard 7B w_gate pack (N/2 = 64 x 43,
+    no multiple of 128) through the pipelined kernel, one launch per block."""
+    from bridgelang_tpu_torch.ops import int4_matmul as im
+    from bridgelang_tpu_torch.ops.quant import _quantize4_2d
+
+    k, n = INT4_SHAPES_7B["w_gate"]
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    packed, scales = _quantize4_2d(torch.randn((k, n), generator=g, device=cuda_device), 128, n_shards=2)
+    x = torch.randn((m, k), generator=g, device=cuda_device, dtype=torch.bfloat16)
+    before = im.int4_mm.launches
+    got = im.matmul_int4(x, packed, scales, n_shards=2)
+    torch.cuda.synchronize()
+    assert im.int4_mm.launches == before + 2 and got.shape == (m, n)
+    w2, ns = packed.shape[1] // 2, n // 2
+    want = torch.cat([im.int4_matmul_plain(x, packed[:, d * w2:(d + 1) * w2], scales[:, d * ns:(d + 1) * ns])
+                      for d in range(2)], dim=1)
+    assert _int4_tolerance_use(got, want, "bfloat16") <= 1.0
 
 
 @pytest.mark.gpu
