@@ -37,6 +37,9 @@
 // staged as fp32), kept for the card-vs-CPU fp32 parity run, which needs
 // fp32 products: TF32 or bf16 rounding would move its token ids.
 //
+// The cp.async, ldmatrix, mma.sync and swizzle helpers are bf16_mma.cuh's,
+// shared with flash_bwd.cu.
+//
 // Bound at the main path's shapes. Train (B=16, T=S=352, H=32, D=128): q, k,
 // v and o are 4 x 16 x 352 x 4096 x 2 B = 184 MB, 55 us at 3.35 TB/s; the
 // causal products are ~16 GFLOP, 16 us at the 989 TFLOP/s bf16 peak. Serve
@@ -47,9 +50,7 @@
 // tiles are issued heaviest first instead), and at B=1 only 6 x 32 = 192
 // blocks, about 1.5 waves on 132 SMs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bf16_mma.cuh"
 
 namespace {
 
@@ -214,65 +215,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
 
 // --- bf16: tensor cores -----------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled (nothing read) unless `valid`.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// Byte offset of 16-byte chunk `c` of row `r` in a [64][D] bf16 tile.
-template <int D>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (uint32_t)(r * (D * 2) + ((c ^ (r & 7)) << 4));
-}
-
-// cp.async 64 rows of D bf16 into a swizzled tile: row r from
-// src + (row0 + r) * stride, zero-filled where row0 + r >= n_valid.
-template <int D>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* __restrict__ src, long stride, int row0,
-                                          int n_valid) {
-  constexpr int CH = D / 8;
-#pragma unroll
-  for (int j = 0; j < 64 * CH / NT; ++j) {
-    const int i = threadIdx.x + j * NT;
-    const int r = i / CH, c = i % CH;
-    const bool ok = row0 + r < n_valid;
-    cp_async16(dst + swz<D>(r, c), src + (long)(ok ? row0 + r : 0) * stride + c * 8, ok);
-  }
-}
 
 template <int D>
 constexpr size_t smem_bytes_bf16() {
@@ -308,10 +251,10 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
   int lower = 0;
   if (window > 0) lower = max(0, (q0 - window + 1) / BK);
 
-  load_tile<D>(sQ, qb, q_stride, q0, T_len);
+  load_tile<D, NT>(sQ, qb, q_stride, q0, T_len);
   if (lower < upper) {
-    load_tile<D>(sK, kb, kv_stride, lower * BK, len);
-    load_tile<D>(sV, vb, kv_stride, lower * BK, len);
+    load_tile<D, NT>(sK, kb, kv_stride, lower * BK, len);
+    load_tile<D, NT>(sV, vb, kv_stride, lower * BK, len);
   }
   cp_async_commit();
 
@@ -333,8 +276,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
         ldsm_x4(qf[ks], sQ + swz<D>(warp * 16 + (lane & 15), 2 * ks + (lane >> 4)));
     }
     if (kt + 1 < upper) {
-      load_tile<D>(sK + (buf ^ 1) * TILE, kb, kv_stride, (kt + 1) * BK, len);
-      load_tile<D>(sV + (buf ^ 1) * TILE, vb, kv_stride, (kt + 1) * BK, len);
+      load_tile<D, NT>(sK + (buf ^ 1) * TILE, kb, kv_stride, (kt + 1) * BK, len);
+      load_tile<D, NT>(sV + (buf ^ 1) * TILE, vb, kv_stride, (kt + 1) * BK, len);
     }
     cp_async_commit();
     const uint32_t kbuf = sK + buf * TILE, vbuf = sV + buf * TILE;
@@ -426,6 +369,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
     }
   }
   cp_async_wait_all();  // a block with no key tile still has its Q load in flight
+  __syncthreads();      // ... issued by every thread, into every warp's rows
 
   float inv[2];
 #pragma unroll

@@ -6,10 +6,11 @@ Each `csrc/<name>.cu` exposes a plain C interface and compiles on its own:
          -Xcompiler -fPIC -o build/torch_kernels/<name>-<hash>.so csrc/<name>.cu
 
 No PyTorch header is included, so a build takes seconds. The library name
-carries a hash of the source, so an edited kernel is rebuilt and a stale one
-is never loaded. Nothing is compiled when this module is imported: `load`
-builds on the first call, and `build_all` compiles every source at once
-(one `nvcc` per source, all started together).
+carries a hash of the source and of the shared `csrc/*.cuh` headers, so an
+edited kernel or header is rebuilt and a stale library is never loaded.
+Nothing is compiled when this module is imported: `load` builds on the first
+call, and `build_all` compiles every source at once (one `nvcc` per source,
+all started together).
 """
 
 from __future__ import annotations
@@ -42,8 +43,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """build/torch_kernels/<name>-<hash>.so; the hash covers the source, every
+    csrc/*.cuh header (a source may include any of them) and the flags."""
+    parts = [(CSRC_DIR / f"{name}.cu").read_bytes()]
+    parts += [p.name.encode() + p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"\0".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

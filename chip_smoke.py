@@ -18,11 +18,12 @@ of which fails the run:
            1, 352, 5632), group 256, fp32 activations, a shard-blocked pack
            and a ragged M (INT4_TOL). Then each kernel, its plain version, a
            PyTorch yardstick (F.scaled_dot_product_attention with the
-           equivalent boolean mask, forward or autograd backward; F.linear
-           over the int4 weight dequantized to bf16 ahead of time; the port
-           never calls either) and the bound from bytes and operations, with
-           each timed shape's share of the bound and its ratio to the
-           yardstick.
+           equivalent boolean mask, forward or autograd backward, the
+           backward pinned to the memory-efficient backend and timed as the
+           median of 5 rounds interleaved with the kernels; F.linear over
+           the int4 weight dequantized to bf16 ahead of time; the port never
+           calls either) and the bound from bytes and operations, with each
+           timed shape's share of the bound and its ratio to the yardstick.
   serve    OpenVLA-7B (prism-dinosiglip-224px+7b) at full width in bf16,
            random weights drawn on the card from a seed; the port's
            VLAServer answers POST /act: batch-1 requests, then one
@@ -90,6 +91,7 @@ LORA_RANK = 32           # scripts/finetune.py: r=32, "all-linear"
 LORA_LR = 5e-4
 TRAIN_T = TRAIN_MAX_LEN + 256  # fused length of a training example
 DOTS_STEPS = 2           # timed "dots"-remat steps after one warm step
+BWD_ROUNDS = 5           # interleaved rounds of the backward timing (median)
 
 # Attention cases that both the forward and the backward check run.
 # name: (b, t, s, h, hkv, d, lengths, window, dtype)
@@ -234,7 +236,6 @@ def check_backward_kernels():
     """dq, dk, dv from the kernels against flash_attention_bwd_plain under
     GRAD_TOL, then timings at the training shape."""
     import torch
-    import torch.nn.functional as F
 
     from bridgelang_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_plain, flash_attention_plain, flash_bwd_dkv, flash_bwd_dq)
@@ -274,23 +275,61 @@ def check_backward_kernels():
         worst["dkv"] = max(worst["dkv"], r["dk"]["err"], r["dv"]["err"])
 
         if name == "train_b16":
-            dq_ms = cuda_ms(lambda: flash_bwd_dq(q, k, v, do, lse, delta, lens, True, window), 20)
-            dkv_ms = cuda_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, lens, True, window), 20)
-            plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, lens, True, window), 5)
-            mask = valid_mask(t, s, lengths, window, device="cuda")[:, None]
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
-            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-            dot = do.transpose(1, 2)
-            library_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), 20)
-            bounds = {w: bwd_bound_ms(q, k, lens, window, w) for w in ("dq", "dkv", "both")}
-            timing = dict(shape=f"B={b} T={t} S={s} H={h} D={d} bf16 (lengths {min(lengths)}-{max(lengths)})",
-                          dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms, library_ms=library_ms, bounds=bounds)
-            log(f"timing bwd {name}: dq {dq_ms:.4f} ms (bound {bounds['dq'][0]:.4f} ms, {bounds['dq'][1]}), "
-                f"dk/dv {dkv_ms:.4f} ms (bound {bounds['dkv'][0]:.4f} ms, {bounds['dkv'][1]}), "
-                f"plain backward {plain_ms:.4f} ms, sdpa backward (yardstick) {library_ms:.4f} ms, "
-                f"whole-backward bound {bounds['both'][0]:.4f} ms ({bounds['both'][1]})")
-            del out, qt, kt, vt
+            timing = time_backward(name, q, k, v, do, o, lse, delta, lens, window)
     return timing, worst, readings
+
+
+def time_backward(name, q, k, v, do, o, lse, delta, lens, window) -> dict:
+    """The backward kernels against the yardstick at one shape: each the
+    median of BWD_ROUNDS rounds, kernels and SDPA's backward interleaved
+    (kernels, SDPA, SDPA, kernels, ...). SDPA runs pinned to the
+    memory-efficient backend (it takes the boolean mask), so the yardstick
+    is the same kernel in every run; the log names the backward it ran."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from bridgelang_tpu_torch.ops.flash_attention import flash_attention_bwd_plain, flash_bwd_dkv, flash_bwd_dq
+
+    b, t, h, d = q.shape
+    s = k.shape[1]
+    lengths = lens.tolist()
+    mask = valid_mask(t, s, lengths, window, device="cuda")[:, None]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    backend = type(out.grad_fn).__name__
+
+    def sdpa_ms():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), 20)
+
+    readings = {"dq": [], "dkv": [], "sdpa": []}
+    for r in range(BWD_ROUNDS):
+        for what in (("kernels", "sdpa") if r % 2 == 0 else ("sdpa", "kernels")):
+            if what == "sdpa":
+                readings["sdpa"].append(sdpa_ms())
+            else:
+                readings["dq"].append(cuda_ms(lambda: flash_bwd_dq(q, k, v, do, lse, delta, lens, True, window), 20))
+                readings["dkv"].append(cuda_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, lens, True, window), 20))
+    dq_ms, dkv_ms, library_ms = (statistics.median(readings[w]) for w in ("dq", "dkv", "sdpa"))
+    plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, lens, True, window), 5)
+    # For the record only: the backend SDPA picks unpinned, and its backward's time.
+    out_default = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    default_ms = cuda_ms(lambda: torch.autograd.grad(out_default, (qt, kt, vt), dot, retain_graph=True), 20)
+    default_backend = type(out_default.grad_fn).__name__
+    bounds = {w: bwd_bound_ms(q, k, lens, window, w) for w in ("dq", "dkv", "both")}
+    log(f"timing bwd {name}: median of {BWD_ROUNDS} interleaved rounds: dq {dq_ms:.4f} ms (bound "
+        f"{bounds['dq'][0]:.4f} ms, {bounds['dq'][1]}), dk/dv {dkv_ms:.4f} ms (bound {bounds['dkv'][0]:.4f} ms, "
+        f"{bounds['dkv'][1]}), pair {dq_ms + dkv_ms:.4f} ms; sdpa backward (yardstick, backend "
+        f"EFFICIENT_ATTENTION, grad_fn {backend}) {library_ms:.4f} ms (unpinned: grad_fn {default_backend}, "
+        f"{default_ms:.4f} ms); plain backward {plain_ms:.4f} ms; "
+        f"whole-backward bound {bounds['both'][0]:.4f} ms ({bounds['both'][1]}); readings "
+        + json.dumps({w: [round(x, 4) for x in xs] for w, xs in readings.items()}))
+    return dict(shape=f"B={b} T={t} S={s} H={h} D={d} bf16 (lengths {min(lengths)}-{max(lengths)})",
+                dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms, library_ms=library_ms, library_backend=backend,
+                unpinned=dict(backend=default_backend, ms=default_ms), bounds=bounds, readings=readings)
 
 
 def check_kernels(serve_t: int):
@@ -1049,10 +1088,13 @@ def report_build(logs: dict) -> None:
                 log(f"  {source}: {fn}: {line.strip()}")
     smem = ctypes.c_int
     flash = _build.load("flash_fwd").flash_fwd_smem_bytes
+    bwd = _build.load("flash_bwd").flash_bwd_smem_bytes
     int4 = _build.load("int4_matmul").int4_mm_smem_bytes
-    flash.argtypes, int4.argtypes = [smem, smem], [smem, smem]
+    flash.argtypes, bwd.argtypes, int4.argtypes = [smem, smem], [smem, smem, smem], [smem, smem]
     log("dynamic shared memory per block: flash_fwd bf16 D=128 {} B, D=64 {} B, fp32 D=128 {} B; "
-        "int4_mm bf16 M>64 {} B, M<=64 {} B".format(flash(128, 1), flash(64, 1), flash(128, 0), int4(5632, 1),
+        "flash_bwd_dq bf16 D=128 {} B, fp32 {} B; flash_bwd_dkv bf16 D=128 {} B, fp32 {} B; "
+        "int4_mm bf16 M>64 {} B, M<=64 {} B".format(flash(128, 1), flash(64, 1), flash(128, 0), bwd(0, 128, 1),
+                                                    bwd(0, 128, 0), bwd(1, 128, 1), bwd(1, 128, 0), int4(5632, 1),
                                                     int4(64, 1)))
 
 
@@ -1184,7 +1226,11 @@ def main() -> None:
                 name, "bridgelang_tpu_torch/csrc/flash_bwd.cu", line, launches(name), timing,
                 tolerance_use=max(r[w]["use"] for r in bwd_readings.values()
                                   for w in ({"dq": ("dq",), "dkv": ("dk", "dv")}[err])),
-                shape=bwd_timing["shape"], note="plain_ms and library_ms compute dq, dk and dv together"))
+                shape=bwd_timing["shape"], library_backend=bwd_timing["library_backend"],
+                library_unpinned=bwd_timing["unpinned"],
+                readings=bwd_timing["readings"][err if err == "dq" else "dkv"] + bwd_timing["readings"]["sdpa"],
+                note=f"ms and library_ms: medians of {BWD_ROUNDS} interleaved rounds (readings: the kernel's, then "
+                     "SDPA's); plain_ms and library_ms compute dq, dk and dv together"))
         # headline shapes: w_gate at decode (the most launched a8 shape) and at the QLoRA M
         for name, line, mode, m, key in (("int4_mm_a8", "bridgelang_tpu/ops/int4_matmul.py:114", "a8", 1, "a8"),
                                          ("int4_mm", "bridgelang_tpu/ops/int4_matmul.py:60", "bfloat16", 5632, "float")):

@@ -149,3 +149,55 @@ def test_kernel_gradient_rule_separates_order_from_missing_tiles(dtype, variant)
         assert max(uses) <= 1.0, uses
     else:
         assert min(uses) > 1.0, uses
+
+
+def _bwd_rounded(q, k, v, o, lse, do, lengths, rounding):
+    """flash_attention_bwd_plain's fp32 math (causal, no GQA), with P and dS
+    rounded before the dQ, dK and dV products: to bf16 once ("once"), or to a
+    bf16 pair hi + lo with hi = bf16(x) and lo = bf16(x - hi) ("hi_lo")."""
+
+    def rounded(x):
+        hi = x.to(torch.bfloat16).float()
+        return hi if rounding == "once" else hi + (x - hi).to(torch.bfloat16).float()
+
+    t, s, d = q.shape[1], k.shape[1], q.shape[3]
+    scale = d ** -0.5
+    qf, kf, dof = q.float() * scale, k.float(), do.float()
+    row, col = torch.arange(t)[:, None], torch.arange(s)[None, :]
+    mask = ((col <= row)[None] & (col[None] < lengths[:, None, None]))[:, None]
+    logits = torch.einsum("bthd,bshd->bhts", qf, kf)
+    p = torch.where(mask, torch.exp(logits - lse.float()[..., None]), torch.zeros_like(logits))
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)
+    ds = p * (torch.einsum("bthd,bshd->bhts", dof, v.float()) - delta[..., None])
+    p, ds = rounded(p), rounded(ds)
+    return ((torch.einsum("bhts,bshd->bthd", ds, kf) * scale).to(q.dtype),
+            torch.einsum("bhts,bthd->bshd", ds, qf).to(k.dtype), torch.einsum("bhts,bthd->bshd", p, dof).to(v.dtype))
+
+
+# (b, t, h, d, lengths): the gradient-rule test's shape, and the train shape's widths at B=2, H=8
+ROUNDING_SHAPES = {"t192_d64": (1, 192, 2, 64, [180]), "t352_d128": (2, 352, 8, 128, [352, 300])}
+
+
+@pytest.mark.parametrize("rounding", ["once", "hi_lo"])
+@pytest.mark.parametrize("seed", [60, 61, 62])
+@pytest.mark.parametrize("shape", sorted(ROUNDING_SHAPES))
+def test_kernel_gradient_rule_needs_p_and_ds_as_bf16_pairs(shape, seed, rounding):
+    """Why the bf16 backward kernels feed P and dS to the tensor cores as
+    pairs hi + lo, two mma per product: at bf16 inputs, one bf16 rounding of
+    P and dS before the dQ, dK and dV products (what FlashAttention-2 and
+    SDPA do) moves every gradient past chip_smoke.GRAD_TOL against the plain
+    fp32 backward (4.7-15 times the tolerance at t192_d64, 11-25 at
+    t352_d128, over these seeds), while the pair carries ~16 bits and stays
+    inside it (0.63-0.79 and 0.86-0.94). The rule is not loosened for the
+    kernel: it is what separates a backward that sums in another order from
+    one that drops a tile (the test above)."""
+    b, t, h, d, lengths = ROUNDING_SHAPES[shape]
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in _inputs(b, t, t, h, h, d, seed=seed))
+    lens = torch.tensor(lengths)
+    o, lse = flash_attention_plain(q, k, v, lengths=lens)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, lens)
+    uses = [grad_tolerance_use(g, w) for g, w in zip(_bwd_rounded(q, k, v, o, lse, do, lens, rounding), want)]
+    if rounding == "once":
+        assert min(uses) > 1.0, uses
+    else:
+        assert max(uses) <= 1.0, uses

@@ -33,7 +33,7 @@ from bridgelang_tpu_torch.ops.flash_attention import (
 )
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import FWD_ATOL, GRAD_TOL, INT4_SHAPES_7B, INT4_TOL  # noqa: E402
+from chip_smoke import FWD_ATOL, GRAD_TOL, INT4_SHAPES_7B, INT4_TOL, grad_tolerance_use  # noqa: E402
 
 # (b, t, s, h, hkv, d, lengths, window, causal)
 CASES = {
@@ -90,9 +90,23 @@ BF16_FWD_CASES = {
     "window100_d64": (2, 200, 256, 4, 2, 64, [190, 77], 100),
 }
 
+# The bf16 tensor-core backward at the same edges, and each T at the other
+# head dim. A causal query at T = 1 attends one key, so its dq and dk are
+# exactly zero and both sides hold only rounding noise; the T = 1 cases run
+# without the causal mask, over 70 keys. name: (b, t, s, h, hkv, d, lengths,
+# window, causal)
+BF16_BWD_CASES = {
+    **{name: (*case, True) for name, case in BF16_FWD_CASES.items() if name != "t1"},
+    "t1_not_causal": (2, 1, 70, 4, 4, 128, [70, 5], None, False),
+    "t1_not_causal_d64": (2, 1, 70, 4, 4, 64, [70, 5], None, False),
+    "t63": (2, 63, 63, 4, 4, 128, [63, 40], None, True),
+    "t64_d64": (2, 64, 64, 4, 4, 64, [64, 64], None, True),
+    "t65": (2, 65, 65, 4, 4, 128, [65, 1], None, True),
+}
+
 
 def _bf16_case(name, device, seed):
-    b, t, s, h, hkv, d, lengths, window = BF16_FWD_CASES[name]
+    b, t, s, h, hkv, d, lengths, window = (BF16_BWD_CASES.get(name) or BF16_FWD_CASES[name])[:8]
     g = torch.Generator(device=device).manual_seed(seed)
     q = torch.randn((b, t, h, d), generator=g, device=device, dtype=torch.bfloat16)
     k, v = (torch.randn((b, s, hkv, d), generator=g, device=device, dtype=torch.bfloat16) for _ in range(2))
@@ -164,6 +178,54 @@ def test_flash_backward_kernels_match_plain(cuda_device, name, dtype):
         torch.testing.assert_close(x.float(), y.float(), atol=atol * rms, rtol=rtol, msg=what)
     for i, L in enumerate(lengths):  # dead key slots take exactly zero gradient
         assert not got[1][i, L:].any() and not got[2][i, L:].any()
+
+
+def _check_bf16_backward(got, want, lens):
+    """dq, dk, dv against the plain backward under GRAD_TOL, finite, in bf16;
+    dead key slots take exactly zero gradient."""
+    for x, y, what in zip(got, want, ("dq", "dk", "dv")):
+        assert x.dtype == y.dtype == torch.bfloat16 and x.shape == y.shape, what
+        assert torch.isfinite(x).all(), what
+        assert grad_tolerance_use(x, y) <= 1.0, what
+    for i, L in enumerate(lens.tolist()):
+        assert not got[1][i, L:].any() and not got[2][i, L:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(BF16_BWD_CASES))
+def test_flash_bf16_backward_kernels_match_plain_at_the_edges(cuda_device, name):
+    """The tensor-core dq and dk/dv kernels: T = 1 and under, at and over the
+    64-row tile at both head dims, keys longer than queries with lengths
+    down to 1, GQA and a window."""
+    causal = BF16_BWD_CASES[name][8]
+    q, k, v, lens, window = _bf16_case(name, cuda_device, seed=21)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda_device).manual_seed(22), device=cuda_device,
+                     dtype=torch.bfloat16)
+    o, lse = flash_attention_plain(q, k, v, lengths=lens, causal=causal, window=window)
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    got = flash_attention_bwd(q, k, v, o, lse, do, lens, causal, window)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (before[0] + 1, before[1] + 1)
+    _check_bf16_backward(got, flash_attention_bwd_plain(q, k, v, o, lse, do, lens, causal, window), lens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["cache_s_gt_t", "cache_s_gt_t_d64"])
+def test_flash_bf16_backward_dead_cache_slots_holding_nan_stay_out(cuda_device, name):
+    """Key slots at or past `lengths` hold NaN: the kernels never read them,
+    so dk/dv are exactly zero there, and dq, dk and dv equal the plain
+    backward run on a copy with those slots zeroed."""
+    q, k, v, lens, window = _bf16_case(name, cuda_device, seed=24)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda_device).manual_seed(25), device=cuda_device,
+                     dtype=torch.bfloat16)
+    for i, L in enumerate(lens.tolist()):
+        k[i, L:] = float("nan")
+        v[i, L:] = float("nan")
+    o, lse = flash_attention(q, k, v, lengths=lens, causal=True, window=window)
+    got = flash_attention_bwd(q, k, v, o, lse, do, lens, True, window)
+    torch.cuda.synchronize()
+    kz, vz = torch.nan_to_num(k), torch.nan_to_num(v)
+    _check_bf16_backward(got, flash_attention_bwd_plain(q, kz, vz, o, lse, do, lens, True, window), lens)
 
 
 @pytest.mark.gpu

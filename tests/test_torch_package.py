@@ -90,6 +90,20 @@ def test_build_is_lazy_and_hashed():
         assert path.parent == ROOT / "build" / "torch_kernels" and path.name.startswith(f"{name}-")
 
 
+def test_library_names_hash_the_shared_headers(tmp_path, monkeypatch):
+    """Every source may include any csrc/*.cuh, so an edit to a header
+    renames every library and a stale build is never loaded."""
+    for src in list(_build.CSRC_DIR.glob("*.cu")) + list(_build.CSRC_DIR.glob("*.cuh")):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    before = {name: _build.library_path(name) for name in _build.sources()}
+    assert before == {name: _build.library_path(name) for name in _build.sources()}
+    header = tmp_path / "bf16_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build.library_path(name) for name in _build.sources()}
+    assert all(after[name] != before[name] for name in before)
+
+
 def test_batch_buckets():
     assert batch_buckets(1) == [1]
     assert batch_buckets(4) == [1, 2, 4]
