@@ -10,7 +10,8 @@ carries a hash of the source and of the shared `csrc/*.cuh` headers, so an
 edited kernel or header is rebuilt and a stale library is never loaded.
 Nothing is compiled when this module is imported: `load` builds on the first
 call, and `build_all` compiles every source at once (one `nvcc` per source,
-all started together).
+all started together). `function` hands out a library's C function with its
+ctypes signature set once, so a launch pays for neither again.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
@@ -33,6 +34,7 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -99,3 +101,16 @@ def load(name: str) -> ctypes.CDLL:
                 _finish(name, job)
             _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return _loaded[name]
+
+
+def function(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
+    """The C function `symbol` of csrc/<name>.cu, its `argtypes` and `restype`
+    set on the first call and the function cached: later calls are one dict
+    lookup (pointers as ctypes.c_void_p, so that ctypes does not cut them to
+    32-bit ints)."""
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes, fn.restype = list(argtypes), restype
+        _functions[(name, symbol)] = fn
+    return fn

@@ -142,6 +142,11 @@ def flash_attention_bwd_plain(
 # --- the kernels (CUDA tensors only) ---------------------------------------------
 
 
+# The flash kernels' trailing C arguments: 9 dims (b, t, s, h, hkv, d, dtype,
+# causal, window), the softmax scale and the stream.
+_DIMS_SCALE_STREAM = [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+
+
 def _check_kernel_inputs(named, d: int) -> None:
     first = named[0][1]
     if first.dtype not in _DTYPE_CODES or any(x.dtype != first.dtype for _, x in named):
@@ -165,9 +170,7 @@ def _launch(q, k, v, lengths, causal, window) -> Tuple[torch.Tensor, torch.Tenso
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if t == 0 or b == 0:
         return o, lse
-    fn = _build.load("flash_fwd").flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function("flash_fwd", "flash_fwd", [ctypes.c_void_p] * 6 + _DIMS_SCALE_STREAM)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), o.data_ptr(), lse.data_ptr(),
@@ -199,9 +202,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, lengths, causal=True, window=None) -> 
     dq = torch.empty_like(q)
     if q.numel() == 0:
         return dq
-    fn = _build.load("flash_bwd").flash_bwd_dq
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function("flash_bwd", "flash_bwd_dq", [ctypes.c_void_p] * 8 + _DIMS_SCALE_STREAM)
     err = fn(*ptrs, dq.data_ptr(), *dims, scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq launch failed with CUDA error {err}")
@@ -218,9 +219,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, lengths, causal=True, window=None) ->
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if k.numel() == 0:
         return dk, dv
-    fn = _build.load("flash_bwd").flash_bwd_dkv
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function("flash_bwd", "flash_bwd_dkv", [ctypes.c_void_p] * 9 + _DIMS_SCALE_STREAM)
     err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv launch failed with CUDA error {err}")

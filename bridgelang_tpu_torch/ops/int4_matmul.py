@@ -6,8 +6,11 @@ package's bytes (ops/quant.py): packed [K, N/2] int8 in the
 
 * `int4_mm_a8(q, packed, scales)`: int8 activations [M, K] -> f32 [M, N]
   without the per-token scale. A CUDA tensor launches `int4_mm_a8` of
-  csrc/int4_matmul.cu (the TPU `_kernel_a8`), a CPU tensor runs
-  `int4_matmul_a8_plain`.
+  csrc/int4_matmul.cu (the TPU `_kernel_a8`: a split-K streaming kernel at
+  M <= 16, `wgmma` above), a CPU tensor runs `int4_matmul_a8_plain`.
+* `quantize_a8(x)`: the w4a8 route's per-row int8 quantization. A CUDA
+  tensor launches `quantize_a8` of the same library, a CPU tensor runs
+  `quantize_activations_per_token`; the bits are the same.
 * `int4_mm(x, packed, scales)`: bf16 or fp32 activations -> x's dtype. A
   CUDA tensor launches `int4_mm` (the TPU `_kernel`), a CPU tensor runs
   `int4_matmul_plain`.
@@ -23,7 +26,10 @@ of the whole pack, unit column stride): the kernels read them in place.
 `torch.autograd.Function` with the JAX custom VJP (int4_matmul.py:703-816):
 dx = g @ dequant(W)^T through a transient dequant in g's dtype, straight
 through the activation quantization for the a8 one, and no gradient for the
-packed bytes (zeros for the scales, which are frozen everywhere). On a CPU
+packed bytes (zeros for the scales, which are frozen everywhere). On a CUDA
+tensor the a8 forward is two launches: `quantize_a8`, then `int4_mm_a8` with
+the token scale and the cast to x's dtype in its epilogue (one launch per
+block of a shard-blocked pack). On a CPU
 tensor they take the JAX package's route at each shape: the plain version
 where its kernel is eligible (`int4_kernel_eligible`), dequantize-then-matmul
 where it is not. `n_shards` > 1 declares a shard-blocked pack: each column
@@ -44,7 +50,7 @@ and `int4_tp_fallback_matmuls` wait for multi-GPU support.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -118,13 +124,50 @@ def _check_rows(name: str, t: torch.Tensor, device: torch.device, align: int) ->
                          f"got strides {t.stride()} at offset {t.data_ptr() % align}")
 
 
-def _launch(a8: bool, x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
-            out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One launch of `int4_mm_a8` (a8) or `int4_mm` on x [M, K]; writes
-    `out` (a fresh [M, N] when None, else a column slice of a wider one)."""
-    name = "int4_mm_a8" if a8 else "int4_mm"
-    if (x.dtype != torch.int8) if a8 else (x.dtype not in _DTYPE_CODES):
-        raise TypeError(f"{name} takes {'int8' if a8 else 'float32 or bfloat16'} activations, got {x.dtype}")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The C signatures of csrc/int4_matmul.cu.
+_SIGNATURES = {
+    "int4_mm_a8": [_P] * 7 + [_I] * 9 + [_P],
+    "int4_mm": [_P] * 4 + [_I] * 8 + [_P],
+    "quantize_a8": [_P, _I, _P, _P, _I, _I, _P],
+    "stream_capture_id": [_P],
+}
+_RESTYPES = {"stream_capture_id": ctypes.c_ulonglong}
+A8_DECODE_M = 16  # int4_mm_a8's split-K kernel takes M <= 16; the wgmma kernel the rest
+_tile_counters: Dict[Tuple[torch.device, int, bool], Tuple[int, torch.Tensor]] = {}
+
+
+def _fn(symbol: str):
+    from bridgelang_tpu_torch.ops import _build
+
+    return _build.function("int4_matmul", symbol, _SIGNATURES[symbol], _RESTYPES.get(symbol, ctypes.c_int))
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """int32 zeros in which the split-K kernel counts each column tile's
+    finished blocks. Two launches that may run at once must not share them.
+    Every launch leaves them zero, so one buffer serves the launches of one
+    stream outside a CUDA graph (they run in order), and one buffer, zeroed
+    inside the graph, the launches that one capture records on that stream.
+    A graph's replays then share counters with no eager launch and no other
+    graph, whatever streams they run on. The buffer of the last capture on
+    a stream stays referenced until the next capture there replaces it."""
+    capture = _fn("stream_capture_id")(stream)  # 0 outside a capture
+    key = (device, stream, capture != 0)
+    made = _tile_counters.get(key)
+    if made is None or made[0] != capture or made[1].numel() < n:
+        made = _tile_counters[key] = (capture, torch.zeros(max(n, 256), dtype=torch.int32, device=device))
+    return made[1]
+
+
+def _operands(name: str, x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+              out: Optional[torch.Tensor], out_dtype: torch.dtype) -> torch.Tensor:
+    """Check x [M, K] @ packed [K, N/2] with scales [K/group, N] against the
+    kernels' rules; returns `out`, a fresh [M, N] of `out_dtype` when None."""
     if packed.dtype != torch.int8 or scales.dtype != torch.bfloat16:
         raise TypeError(f"{name} takes int8 packed weights and bf16 scales, got {packed.dtype}, {scales.dtype}")
     m, k = x.shape
@@ -135,7 +178,6 @@ def _launch(a8: bool, x: torch.Tensor, packed: torch.Tensor, scales: torch.Tenso
     if not cuda_kernel_shape_ok(k, 2 * n2, scales.shape[0]):
         raise ValueError(f"{name}: K={k}, N={2 * n2}, {scales.shape[0]} groups is no kernel shape "
                          "(N/2 % 64 == 0 and a group that is a multiple of 128)")
-    out_dtype = torch.float32 if a8 else x.dtype
     if out is None:
         out = torch.empty((m, 2 * n2), dtype=out_dtype, device=x.device)
     elif out.shape != (m, 2 * n2) or out.dtype != out_dtype:
@@ -146,21 +188,59 @@ def _launch(a8: bool, x: torch.Tensor, packed: torch.Tensor, scales: torch.Tenso
     _check_rows("packed", packed, x.device, 16)
     _check_rows("scales", scales, x.device, 4)
     _check_rows("out", out, x.device, 2 * out.element_size())
+    return out
+
+
+def _launch_a8(q: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, out: Optional[torch.Tensor] = None,
+               xs: Optional[torch.Tensor] = None, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """One launch of `int4_mm_a8` on q [M, K]: f32 without the token scale,
+    or with `xs` (f32, one per row) acc * xs in `out_dtype` (f32 or bf16).
+    Writes `out` (a fresh [M, N] when None, else a column slice of a wider
+    one). At M <= 16 the wrapper hands the kernel its fp32 workspace."""
+    if q.dtype != torch.int8:
+        raise TypeError(f"int4_mm_a8 takes int8 activations, got {q.dtype}")
+    if out_dtype not in _DTYPE_CODES or (xs is None and out_dtype != torch.float32):
+        raise TypeError(f"int4_mm_a8 writes f32, or bf16 with the token scale; got {out_dtype}")
+    out = _operands("int4_mm_a8", q, packed, scales, out, out_dtype)
+    m, k = q.shape
+    if xs is not None and (xs.dtype != torch.float32 or xs.numel() != m or not xs.is_contiguous()
+                           or xs.device != q.device):
+        raise ValueError(f"int4_mm_a8: xs must be {m} contiguous float32 row scales on {q.device}")
     if m == 0:
         return out
-    from bridgelang_tpu_torch.ops import _build
-
-    fn = getattr(_build.load("int4_matmul"), name)
-    n_ints = 7 if a8 else 8
-    fn.argtypes, fn.restype = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints + [ctypes.c_void_p], ctypes.c_int
-    ints = [m, k, n2, k // scales.shape[0], packed.stride(0), scales.stride(0), out.stride(0)]
-    if not a8:
-        ints.append(_DTYPE_CODES[x.dtype])
-    err = fn(x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(), *ints,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    n2, n_groups = packed.shape[1], scales.shape[0]
+    stream = _stream(q)
+    ws = counters = None
+    if m <= A8_DECODE_M:
+        ws = torch.empty((n_groups, m, 2 * n2), dtype=torch.float32, device=q.device)
+        counters = _counters(q.device, stream, n2 // BLOCK_N2)
+    err = _fn("int4_mm_a8")(
+        q.data_ptr(), packed.data_ptr(), scales.data_ptr(), None if xs is None else xs.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), None if counters is None else counters.data_ptr(),
+        m, k, n2, k // n_groups, packed.stride(0), scales.stride(0), out.stride(0), _DTYPE_CODES[out_dtype],
+        0, stream)  # split_groups 0: the kernel chooses its split
     if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    (int4_mm_a8 if a8 else int4_mm).launches += 1
+        raise RuntimeError(f"int4_mm_a8 launch failed with CUDA error {err}")
+    int4_mm_a8.launches += 1
+    return out
+
+
+def _launch_float(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of `int4_mm` on x [M, K] (bf16 or fp32) -> x's dtype."""
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"int4_mm takes float32 or bfloat16 activations, got {x.dtype}")
+    out = _operands("int4_mm", x, packed, scales, out, x.dtype)
+    m, k = x.shape
+    if m == 0:
+        return out
+    n2 = packed.shape[1]
+    err = _fn("int4_mm")(x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(), m, k, n2,
+                         k // scales.shape[0], packed.stride(0), scales.stride(0), out.stride(0),
+                         _DTYPE_CODES[x.dtype], _stream(x))
+    if err != 0:
+        raise RuntimeError(f"int4_mm launch failed with CUDA error {err}")
+    int4_mm.launches += 1
     return out
 
 
@@ -175,7 +255,7 @@ def int4_mm_a8(q: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> t
     kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if _on(q, "int4_mm_a8") == "cpu":
         return int4_matmul_a8_plain(q, packed, scales)
-    return _launch(True, q, packed, scales)
+    return _launch_a8(q, packed, scales)
 
 
 def int4_mm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -183,22 +263,53 @@ def int4_mm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torc
     CUDA tensor, the plain version on a CPU tensor."""
     if _on(x, "int4_mm") == "cpu":
         return int4_matmul_plain(x, packed, scales)
-    return _launch(False, x, packed, scales)
+    return _launch_float(x, packed, scales)
+
+
+def quantize_a8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [M, K] (fp32 or bf16) -> (q int8 [M, K], scale f32 [M, 1]), the
+    bits of `quantize_activations_per_token`: its kernel on a CUDA tensor
+    (contiguous x), the plain version on a CPU tensor."""
+    if _on(x, "quantize_a8") == "cpu":
+        return quantize_activations_per_token(x)
+    if x.dtype not in _DTYPE_CODES or x.dim() != 2 or not x.is_contiguous():
+        raise TypeError(f"quantize_a8 takes a contiguous 2-D float32 or bfloat16 tensor, got {x.dtype} "
+                        f"{tuple(x.shape)} strides {x.stride()}")
+    m, k = x.shape
+    q = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    xs = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    if m == 0 or k == 0:
+        return q, xs.fill_(1.0)
+    err = _fn("quantize_a8")(x.data_ptr(), _DTYPE_CODES[x.dtype], q.data_ptr(), xs.data_ptr(), m, k, _stream(x))
+    if err != 0:
+        raise RuntimeError(f"quantize_a8 launch failed with CUDA error {err}")
+    quantize_a8.launches += 1
+    return q, xs
 
 
 int4_mm_a8.launches = 0
 int4_mm.launches = 0
+quantize_a8.launches = 0
 
 
 # --- routing -------------------------------------------------------------------
 
 
-def _int4_route(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, a8: bool) -> torch.Tensor:
+def _launch(a8: bool, x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, out=None, xs=None,
+            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    if a8:
+        return _launch_a8(x2, packed, scales, out, xs, out_dtype)
+    return _launch_float(x2, packed, scales, out)
+
+
+def _int4_route(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, a8: bool, xs=None,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """[M, K] @ packed. a8: x2 is int8 and the result f32 without the token
-    scale. A CUDA tensor launches the kernel; on a CPU tensor, shapes the
-    JAX kernel cannot take dequantize and matmul (the JAX fallback)."""
+    scale, or, on the card with `xs`, scaled and in `out_dtype`. A CUDA
+    tensor launches the kernel; on a CPU tensor, shapes the JAX kernel
+    cannot take dequantize and matmul (the JAX fallback)."""
     if _on(x2, "int4 matmul") == "cuda":
-        return _launch(a8, x2, packed, scales)
+        return _launch(a8, x2, packed, scales, xs=xs, out_dtype=out_dtype)
     if not int4_kernel_eligible(x2.shape[-1], 2 * packed.shape[-1], scales.shape[-2]):
         if a8:
             return x2.float() @ dequant_int4(packed, scales, dtype=torch.float32)
@@ -207,21 +318,22 @@ def _int4_route(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, a8
 
 
 def _int4_route_blocked(x2: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, a8: bool,
-                        n_shards: int) -> torch.Tensor:
+                        n_shards: int, xs=None, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """A shard-blocked pack on one device: each of the `n_shards` column
     blocks is a plain v2 matrix over its own output columns. On the card
     each block's launch reads its columns in place and writes its columns of
-    the one output; on the CPU the blocks' products are concatenated."""
+    the one output (`xs`, `out_dtype`: as `_int4_route`); on the CPU the
+    blocks' products are concatenated."""
     if n_shards == 1:
-        return _int4_route(x2, packed, scales, a8)
+        return _int4_route(x2, packed, scales, a8, xs, out_dtype)
     w2 = packed.shape[-1] // n_shards
     ns = scales.shape[-1] // n_shards
     blocks = [(packed[:, d * w2:(d + 1) * w2], scales[:, d * ns:(d + 1) * ns]) for d in range(n_shards)]
     if _on(x2, "int4 matmul") == "cuda":
-        out = torch.empty((x2.shape[0], scales.shape[-1]), dtype=torch.float32 if a8 else x2.dtype,
+        out = torch.empty((x2.shape[0], scales.shape[-1]), dtype=out_dtype if a8 else x2.dtype,
                           device=x2.device)
         for d, (p, s) in enumerate(blocks):
-            _launch(a8, x2, p, s, out[:, d * ns:(d + 1) * ns])
+            _launch(a8, x2, p, s, out[:, d * ns:(d + 1) * ns], xs, out_dtype)
         return out
     return torch.cat([_int4_route(x2, p, s, a8) for p, s in blocks], dim=-1)
 
@@ -252,11 +364,16 @@ class _MatmulInt4A8(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, packed, scales, n_shards):
         *lead, k = x.shape
-        q, xs = quantize_activations_per_token(x.reshape(-1, k))
-        out = _int4_route_blocked(q, packed, scales, True, n_shards)  # f32, token scale off
+        x2 = x.reshape(-1, k)
+        if _on(x2, "matmul_int4_a8") == "cuda":  # two launches: quantize; product, token scale and cast
+            q, xs = quantize_a8(x2.contiguous())
+            out = _int4_route_blocked(q, packed, scales, True, n_shards, xs, x.dtype)
+        else:
+            q, xs = quantize_activations_per_token(x2)
+            out = (_int4_route_blocked(q, packed, scales, True, n_shards) * xs).to(x.dtype)
         ctx.save_for_backward(packed, scales)
         ctx.n_shards = n_shards
-        return (out * xs).to(x.dtype).reshape(*lead, out.shape[-1])
+        return out.reshape(*lead, out.shape[-1])
 
     backward = staticmethod(_backward)
 

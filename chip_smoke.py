@@ -15,15 +15,30 @@ of which fails the run:
            with exactly zero gradient for dead key slots; the two int4
            kernels (int4_mm_a8, int4_mm) against their plain versions at
            the three 7B projection shapes (a8 at M 1, 352, 1408; bf16 at M
-           1, 352, 5632), group 256, fp32 activations, a shard-blocked pack
-           and a ragged M (INT4_TOL). Then each kernel, its plain version, a
-           PyTorch yardstick (F.scaled_dot_product_attention with the
-           equivalent boolean mask, forward or autograd backward, the
-           backward pinned to the memory-efficient backend and timed as the
-           median of 5 rounds interleaved with the kernels; F.linear over
-           the int4 weight dequantized to bf16 ahead of time; the port never
-           calls either) and the bound from bytes and operations, with each
-           timed shape's share of the bound and its ratio to the yardstick.
+           1, 352, 5632), groups 256 and 512, fp32 activations, shard-blocked
+           packs, ragged M and the a8 kernels' edges (M 4, 16, 17, 65;
+           w_down's split-K split does not divide its 86 groups), element
+           by element (INT4_TOL); the quantize_a8 kernel bit-equal to
+           quantize_activations_per_token (zero rows, rounding ties; a row
+           holding a NaN gets a NaN scale in both) and the w4a8 route (quantize_a8, then int4_mm_a8
+           with the token scale in its epilogue) bit-equal to its plain
+           composition. Then each kernel, its plain version, a PyTorch
+           yardstick (F.scaled_dot_product_attention with the equivalent
+           boolean mask, forward or autograd backward, the backward pinned to
+           the memory-efficient backend and timed as the median of 5 rounds
+           interleaved with the kernels; F.linear over the int4 weight
+           dequantized to bf16 ahead of time; the port never calls either)
+           and the bound from bytes and operations, with each timed shape's
+           share of the bound and its ratio to the yardstick. The timings
+           are CUDA events around back-to-back wrapper calls (the earlier
+           series), and for int4_mm_a8 (M=1, 352), its F.linear yardstick,
+           quantize_a8 and flash_fwd (B=1) also device-side: a captured CUDA
+           graph of launches, the int4 weights rotated over >= 100 MB of
+           copies so that every launch reads them cold, as a decode pass does.
+  cold     only those device-side timings (not in the default run); with
+           --package-root DIR they time another checkout's kernels (an
+           earlier commit unpacked with git archive), for before-and-after
+           on one card.
   serve    OpenVLA-7B (prism-dinosiglip-224px+7b) at full width in bf16,
            random weights drawn on the card from a seed; the port's
            VLAServer answers POST /act: batch-1 requests, then one
@@ -47,9 +62,10 @@ of which fails the run:
   int4     the same decoder packed to int4 by quantize_llm_int4 (group
            128; int8 embedding and head) and the bf16 layers freed; with
            LLMConfig.w8a8 on, the same serving as `serve`: every decoder pass
-           must launch int4_mm_a8 224 times (7 projections x 32 layers), 7
-           passes per predict, and each predict flash_fwd 32 times (the
-           prefill); generate timings, a profile, model and peak GB.
+           must launch int4_mm_a8 and quantize_a8 224 times each (7
+           projections x 32 layers), 7 passes per predict, and each predict
+           flash_fwd 32 times (the prefill); generate timings, a profile,
+           model and peak GB.
   qlora    r=32 fp32 adapters over that int4 base with w8a8 off, as `train`
            (batch 16, 352 tokens, full remat, one warm and 6 timed steps):
            each step launches int4_mm 448 times (forward and recompute) and
@@ -125,11 +141,14 @@ INT4_PER_PASS = 7 * N_LAYERS_7B   # int4 launches per decoder pass: 7 projection
 ACTION_DIM = 7           # decoder passes per predict: the prefill and 6 decode steps
 QLORA_STEPS = 6          # timed QLoRA steps after one warm step
 PEAK_OPS = {"a8": 1979e12, "bfloat16": 989e12, "float32": 67e12}  # int8 and bf16 tensor cores; fp32 FMAs
-KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "int4_mm_a8", "int4_mm")
-# substrings of the kernels' names in a profiler trace
+KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "int4_mm_a8", "int4_mm", "quantize_a8")
+# substrings of the kernels' names in a profiler trace ("int4_mm_a8_": the split-K and the wgmma kernel)
 PROFILE_NAMES = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq", "flash_bwd_dkv": "flash_bwd_dkv",
-                 "int4_mm_a8": "int4_mm_tc_kernel<true", "int4_mm bf16": "int4_mm_bf16_wgmma",
-                 "int4_mm bf16 M<=64": "int4_mm_tc_kernel<false", "int4_mm fp32": "int4_mm_f32"}
+                 "int4_mm_a8": "int4_mm_a8_", "quantize_a8": "quantize_a8_kernel",
+                 "int4_mm bf16": "int4_mm_bf16_wgmma", "int4_mm bf16 M<=64": "int4_mm_tc_kernel",
+                 "int4_mm fp32": "int4_mm_f32"}
+COLD_BYTES = 100e6       # weight copies rotated per timed launch: twice the 50 MB L2, so each launch reads cold
+GRAPH_LAUNCHES = 60      # launches per captured graph in the device-side timings
 
 
 def log(msg: str) -> None:
@@ -431,7 +450,10 @@ def check_int4_kernels() -> dict:
     cases += [(sh, "bfloat16", m, INT4_GROUP, 1) for sh in INT4_SHAPES_7B for m in (1, 352, 5632)]
     cases += [("w_gate", "a8", 352, 256, 1), ("w_down", "bfloat16", 352, 256, 1), ("w_gate", "float32", 352, 128, 1),
               ("wq", "float32", 37, 256, 1), ("w_down", "a8", 37, 128, 1), ("w_gate", "bfloat16", 37, 128, 1),
-              ("w_gate", "bfloat16", 37, 128, 2), ("w_gate", "a8", 352, 128, 2)]  # 5504-wide blocks
+              ("w_gate", "bfloat16", 37, 128, 2), ("w_gate", "a8", 352, 128, 2),  # 5504-wide blocks
+              ("w_gate", "a8", 4, 128, 1), ("w_down", "a8", 16, 128, 1), ("wq", "a8", 17, 128, 1),
+              ("w_gate", "a8", 65, 128, 1), ("wq", "a8", 1, 512, 1), ("w_down", "a8", 1, 256, 1),
+              ("w_gate", "a8", 1, 128, 2), ("w_gate", "a8", 4, 128, 2)]
     timed = {("wq", "a8", 1), ("w_gate", "a8", 1), ("w_down", "a8", 1), ("wq", "a8", 352), ("w_gate", "a8", 352),
              ("w_down", "a8", 352), ("wq", "bfloat16", 5632), ("w_gate", "bfloat16", 5632),
              ("w_down", "bfloat16", 5632)}
@@ -517,6 +539,203 @@ def check_int4_kernels() -> dict:
     weights.clear()
     torch.cuda.empty_cache()
     return dict(rows=rows, worst=worst, blocked=blocked)
+
+
+_WARM_STREAM = []  # one side stream for every capture's warm-up: cuBLAS keeps a workspace per stream
+
+
+def graph_ms(fns, launches: int = GRAPH_LAUNCHES, replays: int = 3) -> float:
+    """Device time per launch, the host's path through the wrappers outside
+    the window: `launches` calls cycling over `fns`, captured in one CUDA
+    graph, replayed once warm and then `replays` times between two events;
+    the median per launch."""
+    import torch
+
+    if not _WARM_STREAM:
+        _WARM_STREAM.append(torch.cuda.Stream())
+    side = _WARM_STREAM[0]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:  # builds, configures and allocates what a launch needs before the capture
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(launches):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(replays):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
+def rotated(tensors, n_bytes_each: int):
+    """The tensors and enough clones of them that one pass over all copies
+    moves COLD_BYTES: each launch of a rotation finds its weights out of L2."""
+    n = max(2, -(-int(COLD_BYTES) // max(1, n_bytes_each)))
+    return [tensors] + [tuple(t.clone() for t in tensors) for _ in range(n - 1)]
+
+
+def cold_timings(label: str) -> dict:
+    """Device-side times, cold L2 (weights rotated over COLD_BYTES of
+    copies): int4_mm_a8 at M=1 and M=352 at the three 7B shapes, F.linear
+    over the weight dequantized to bf16 (the yardstick), and flash_fwd at the
+    serving shape B=1 (its inputs warm, as the prefill writes them just
+    before); each beside its CUDA-event reading around back-to-back wrapper
+    calls, the series the earlier PRs report. Where the package has it, the
+    quantize_a8 kernel. Runs on any checkout's package (--package-root)."""
+    import torch
+    import torch.nn.functional as F
+
+    from bridgelang_tpu_torch.ops import int4_matmul as im
+    from bridgelang_tpu_torch.ops.flash_attention import flash_attention
+    from bridgelang_tpu_torch.ops.quant import _quantize4_2d, dequant_int4, quantize_activations_per_token
+
+    new = hasattr(im, "quantize_a8")
+    rows = {}
+    for shape, (k, n) in INT4_SHAPES_7B.items():
+        g = torch.Generator(device="cuda").manual_seed(700)
+        packed, scales = _quantize4_2d(torch.randn((k, n), generator=g, device="cuda").mul_(k ** -0.5), INT4_GROUP)
+        copies = rotated((packed, scales), packed.numel() + 2 * scales.numel())
+        w_bf = dequant_int4(packed, scales, torch.bfloat16).t().contiguous()
+        w_copies = rotated((w_bf,), 2 * w_bf.numel())
+        for m in (1, 352):
+            x = torch.randn((m, k), generator=g, device="cuda")
+            q, _ = quantize_activations_per_token(x)
+            x_bf = x.to(torch.bfloat16)
+            r = dict(shape=f"M={m} K={k} N={n} group={INT4_GROUP}", copies=len(copies), library_copies=len(w_copies))
+            r["device_ms"] = graph_ms([lambda p=p, s=s: im.int4_mm_a8(q, p, s) for p, s in copies])
+            r["event_ms"] = cuda_ms(lambda: im.int4_mm_a8(q, packed, scales), 50)
+            r["library_device_ms"] = graph_ms([lambda w=w: F.linear(x_bf, w) for (w,) in w_copies])
+            r["library_event_ms"] = cuda_ms(lambda: F.linear(x_bf, w_bf), 50)
+            r["bound_ms"], r["bound_by"] = int4_bound_ms(m, k, n, INT4_GROUP, "a8")
+            rows[(shape, m)] = r
+            log(f"cold int4_mm_a8 ({label}) {shape} {r['shape']}: device {r['device_ms']:.5f} ms over {len(copies)} "
+                f"rotated weight copies (event window {r['event_ms']:.4f} ms); F.linear device "
+                f"{r['library_device_ms']:.5f} ms (event {r['library_event_ms']:.4f} ms); bound {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']}), share {r['bound_ms'] / r['device_ms']:.3f}, kernel / F.linear "
+                f"{r['device_ms'] / r['library_device_ms']:.2f}")
+        del copies, w_copies, w_bf
+        torch.cuda.empty_cache()
+
+    t = 352
+    q_, k_, v_, lens = attention_case(1, t, t, 32, 32, 128, [t - 21], None, torch.bfloat16, seed=100)
+    mask = valid_mask(t, t, [t - 21], None, device="cuda")[:, None]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q_, k_, v_))
+    flash = dict(shape=f"B=1 T={t} S={t} H=32 D=128 bf16",
+                 device_ms=graph_ms([lambda: flash_attention(q_, k_, v_, lengths=lens, causal=True)]),
+                 event_ms=cuda_ms(lambda: flash_attention(q_, k_, v_, lengths=lens, causal=True), 100),
+                 library_device_ms=graph_ms([lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)]))
+    log(f"device-side flash_fwd ({label}) {flash['shape']}: {flash['device_ms']:.5f} ms (event window "
+        f"{flash['event_ms']:.4f} ms); sdpa (yardstick) device {flash['library_device_ms']:.5f} ms")
+    out = {"int4_mm_a8": rows, "flash_fwd": flash}
+    if new:
+        out["quantize_a8"] = time_quantize(label)
+    del q_, k_, v_, lens, qt, kt, vt, mask
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)  # a CUDA build's; its workspaces per stream
+    if clear is not None:  # would otherwise count in every later phase's peak memory
+        clear()
+    torch.cuda.empty_cache()
+    log(f"after the device-side timings the card holds {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    return out
+
+
+def time_quantize(label: str) -> dict:
+    """quantize_a8 at the serving shapes (bf16 x, K=4096; M=1 and 352):
+    device time (graph), event time, the plain version's, and the bound:
+    M K 2 bytes read, M K + 4 M written."""
+    import torch
+
+    from bridgelang_tpu_torch.ops.int4_matmul import quantize_a8
+    from bridgelang_tpu_torch.ops.quant import quantize_activations_per_token
+
+    rows = {}
+    for m in (1, 352):
+        k = INT4_SHAPES_7B["wq"][0]
+        x = torch.randn((m, k), generator=torch.Generator(device="cuda").manual_seed(800 + m), device="cuda",
+                        dtype=torch.bfloat16)
+        n_bytes = 2 * m * k + m * k + 4 * m
+        r = dict(shape=f"M={m} K={k} bf16", device_ms=graph_ms([lambda: quantize_a8(x)]),
+                 event_ms=cuda_ms(lambda: quantize_a8(x), 100),
+                 plain_ms=cuda_ms(lambda: quantize_activations_per_token(x), 100),
+                 plain_device_ms=graph_ms([lambda: quantize_activations_per_token(x)]),
+                 bound_ms=1e3 * n_bytes / HBM_BYTES_PER_S, bound_by="bytes")
+        rows[m] = r
+        log(f"timing quantize_a8 ({label}) {r['shape']}: device {r['device_ms']:.5f} ms (event {r['event_ms']:.4f} ms); "
+            f"plain (torch ops) device {r['plain_device_ms']:.5f} ms (event {r['plain_ms']:.4f} ms); bound "
+            f"{r['bound_ms']:.6f} ms (bytes)")
+    return rows
+
+
+def check_quantize_and_route() -> dict:
+    """The quantize_a8 kernel bit-equal to quantize_activations_per_token
+    (bf16 and fp32 rows, zero rows, rows on rounding ties; rows holding a
+    NaN get a NaN scale in both, their codes not compared), and the w4a8
+    route on the card (quantize_a8, then int4_mm_a8 with the token scale and
+    the cast in its epilogue: two launches) bit-equal to the plain
+    composition (int4_matmul_a8_plain(q) * xs).to(x's dtype). Returns the
+    largest |q - plain q|, |scale - plain scale| and route error read."""
+    import torch
+
+    from bridgelang_tpu_torch.ops import int4_matmul as im
+    from bridgelang_tpu_torch.ops.quant import _quantize4_2d, quantize_activations_per_token
+
+    g = torch.Generator(device="cuda").manual_seed(900)
+    ties = torch.tensor([127.0, 2.5, -2.5, 3.5, 0.5, -0.5, 1.5, -1.5, 126.5, -126.5, 0.0, 64.5] * 341 + [0.0] * 4,
+                        device="cuda")
+    cases = {"bf16_m352": torch.randn((352, 4096), generator=g, device="cuda").to(torch.bfloat16),
+             "fp32_m37_k11008": torch.randn((37, 11008), generator=g, device="cuda") * 3.0,
+             "zero_rows": torch.cat([torch.zeros((2, 4096), device="cuda"),
+                                     torch.randn((2, 4096), generator=g, device="cuda")]).to(torch.bfloat16),
+             "ties_bf16": torch.stack([ties, 2 * ties, -ties]).to(torch.bfloat16),
+             "ties_fp32": torch.stack([ties, 2 * ties, -ties]),
+             "nan_rows_bf16": torch.randn((6, 4096), generator=g, device="cuda").to(torch.bfloat16)}
+    cases["nan_rows_bf16"][1, 0] = cases["nan_rows_bf16"][4, 4095] = float("nan")
+    errs = {"codes": 0.0, "scales": 0.0, "route": 0.0}
+    for name, x in cases.items():
+        q, xs = im.quantize_a8(x)
+        torch.cuda.synchronize()
+        pq, pxs = quantize_activations_per_token(x)
+        rows = ~pxs[:, 0].isnan()  # a NaN row's codes are conversions of NaN: only its NaN scale is compared
+        nan_rows = int((~rows).sum())
+        code_err = float((q[rows].int() - pq[rows].int()).abs().max())
+        scale_err = float((xs[rows] - pxs[rows]).abs().max())
+        errs["codes"], errs["scales"] = max(errs["codes"], code_err), max(errs["scales"], scale_err)
+        ok = (torch.equal(q[rows], pq[rows]) and torch.equal(xs[rows], pxs[rows])
+              and torch.equal(xs.isnan(), pxs.isnan()) and nan_rows == (2 if name.startswith("nan") else 0))
+        log(f"kernel quantize_a8 {name} {tuple(x.shape)} {x.dtype}: max|codes err| {code_err:g}, max|scales err| "
+            f"{scale_err:g}, rows with a NaN scale (kernel, plain) ({int(xs.isnan().sum())}, {nan_rows}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"quantize_a8 differs from quantize_activations_per_token in case {name}")
+    k, n = INT4_SHAPES_7B["w_gate"]
+    packed, scales = _quantize4_2d(torch.randn((k, n), generator=g, device="cuda").mul_(k ** -0.5), INT4_GROUP)
+    for m, dtype in ((1, torch.bfloat16), (4, torch.bfloat16), (352, torch.bfloat16), (37, torch.float32)):
+        x = torch.randn((m, k), generator=g, device="cuda").to(dtype)
+        before = (im.quantize_a8.launches, im.int4_mm_a8.launches)
+        got = im.matmul_int4_a8(x, packed, scales)
+        torch.cuda.synchronize()
+        launched = (im.quantize_a8.launches - before[0], im.int4_mm_a8.launches - before[1])
+        pq, pxs = quantize_activations_per_token(x)
+        want = (im.int4_matmul_a8_plain(pq, packed, scales) * pxs).to(dtype)
+        ok = torch.equal(got, want) and launched == (1, 1)
+        err = float((got.float() - want.float()).abs().max())
+        errs["route"] = max(errs["route"], err)
+        log(f"w4a8 route w_gate M={m} {dtype}: launches (quantize_a8, int4_mm_a8) {launched}, max|err| "
+            f"{err:.3e} {'bit-equal ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the w4a8 route on the card differs from its plain composition at M={m} {dtype}")
+    return errs
 
 
 # --- phase 3: full-width serving --------------------------------------------------
@@ -720,9 +939,9 @@ def serve(model, params, n_single: int, per_pass: dict) -> dict:
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper, which counts its launches in `.launches`."""
     from bridgelang_tpu_torch.ops.flash_attention import flash_attention, flash_bwd_dkv, flash_bwd_dq
-    from bridgelang_tpu_torch.ops.int4_matmul import int4_mm, int4_mm_a8
+    from bridgelang_tpu_torch.ops.int4_matmul import int4_mm, int4_mm_a8, quantize_a8
 
-    return dict(zip(KERNEL_NAMES, (flash_attention, flash_bwd_dq, flash_bwd_dkv, int4_mm_a8, int4_mm)))
+    return dict(zip(KERNEL_NAMES, (flash_attention, flash_bwd_dq, flash_bwd_dkv, int4_mm_a8, int4_mm, quantize_a8)))
 
 
 def reset_launch_counts() -> None:
@@ -916,8 +1135,9 @@ def tensor_gb(tree) -> float:
 
 def serve_int4(model4, params4) -> dict:
     """w4a8 /act over the packed-int4 7B: generate timings, a profile, then
-    the server: 224 int4_mm_a8 launches per decoder pass, 7 decoder passes
-    per predict (1568), and 32 flash_fwd launches per predict (the prefill's)."""
+    the server: 224 int4_mm_a8 and 224 quantize_a8 launches per decoder pass,
+    7 decoder passes per predict (1568 each), and 32 flash_fwd launches per
+    predict (the prefill's)."""
     import torch
 
     imgs = frames(2, seed=3)
@@ -931,8 +1151,8 @@ def serve_int4(model4, params4) -> dict:
     log(f"int4 generate_greedy B=1: 1 token {t1:.2f} ms (vision + prefill + LM head), 7 tokens {t7:.2f} ms, "
         f"decode {(t7 - t1) / 6:.2f} ms/token")
     prof = profile_predict(model4, params4)
-    served = serve(model4, params4, N_SINGLE_REQUESTS,
-                   {"flash_fwd": N_LAYERS_7B, "int4_mm_a8": ACTION_DIM * INT4_PER_PASS})
+    served = serve(model4, params4, N_SINGLE_REQUESTS, {"flash_fwd": N_LAYERS_7B, "int4_mm_a8": ACTION_DIM * INT4_PER_PASS,
+                                                        "quantize_a8": ACTION_DIM * INT4_PER_PASS})
     served.update(prefill_ms=t1, decode_ms_per_token=(t7 - t1) / 6, profile=prof, model_gb=tensor_gb(params4),
                   llm_gb=tensor_gb(params4["llm"]))
     log(f"int4 serve: median batch-1 /act {served['median_ms']:.1f} ms; micro-batch of 4 {served['batch4_ms']:.1f} ms; "
@@ -996,10 +1216,10 @@ def parity_card_vs_cpu(seed: int) -> dict:
     p4_cpu = dict(p_cpu, llm=tree_map(lambda t: t.cpu(), llm4))
     n_int4 = 7 * cfg.llm.n_layers  # per model pass
     for w8a8 in (True, False):
-        kernel = "int4_mm_a8" if w8a8 else "int4_mm"
+        kernels = ("int4_mm_a8", "quantize_a8") if w8a8 else ("int4_mm",)
         results[f"int4_w8a8_{w8a8}"] = parity_pair(
             int4_model(gpu, w8a8), int4_model(cpu, w8a8), p4_gpu, p4_cpu, seed, f"int4 w8a8={w8a8}",
-            {"flash_fwd": 2, kernel: 7 * n_int4}, {kernel: 2 * n_int4}, train=not w8a8)
+            {"flash_fwd": 2, **{kernel: 7 * n_int4 for kernel in kernels}}, {kernels[0]: 2 * n_int4}, train=not w8a8)
     return results
 
 
@@ -1096,6 +1316,13 @@ def report_build(logs: dict) -> None:
         "int4_mm bf16 M>64 {} B, M<=64 {} B".format(flash(128, 1), flash(64, 1), flash(128, 0), bwd(0, 128, 1),
                                                     bwd(0, 128, 0), bwd(1, 128, 1), bwd(1, 128, 0), int4(5632, 1),
                                                     int4(64, 1)))
+    lib = _build.load("int4_matmul")
+    if hasattr(lib, "int4_mm_a8_smem_bytes"):  # absent from an earlier checkout timed with --package-root
+        a8, splits = lib.int4_mm_a8_smem_bytes, lib.int4_mm_a8_splits
+        a8.argtypes, splits.argtypes = [smem], [smem] * 4
+        log(f"int4_mm_a8: split-K kernel (M<=16) {a8(1)} B, wgmma kernel (M>16) {a8(352)} B of dynamic shared memory; "
+            "split-K blocks per column tile at M<=16: " + ", ".join(
+                f"{sh} {splits(k, n // 2, INT4_GROUP, 0)}" for sh, (k, n) in INT4_SHAPES_7B.items()))
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: dict, timing: dict, **extra) -> dict:
@@ -1109,7 +1336,11 @@ def kernel_entry(name: str, source: str, replaces: str, launches: dict, timing: 
 def main() -> None:
     ap = argparse.ArgumentParser(description="torch port smoke run on one GPU")
     ap.add_argument("--phases", default="build,kernels,serve,train,int4,qlora,parity",
-                    help="comma-separated subset, for bring-up; the full run is the default")
+                    help="comma-separated subset, for bring-up; the full run is the default; `cold` (not in "
+                         "the default) runs only the device-side cold-L2 timings of the kernels phase")
+    ap.add_argument("--package-root", default=ROOT,
+                    help="import bridgelang_tpu_torch from this checkout (e.g. an earlier commit unpacked with "
+                         "git archive) to time its kernels with --phases build,cold")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1117,7 +1348,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.package_root))
     try:
         from bridgelang_tpu_torch.ops import _build
     except ImportError as e:
@@ -1142,11 +1373,15 @@ def main() -> None:
         ids, _ = model.pad_prompt([model.prepare_prompt_ids(INSTRUCTIONS[0])])
         serve_t = ids.shape[1] + model.num_patches
         log(f"serving prefill length: {ids.shape[1]}-token prompt bucket + {model.num_patches} patches = {serve_t}")
-    timing_rows, max_err, bwd_timing, bwd_err, bwd_readings, int4_checks = [], None, None, None, None, None
+    timing_rows, max_err, bwd_timing, bwd_err, bwd_readings, int4_checks, cold = [], None, None, None, None, None, None
+    quantize_errs = None
     if "kernels" in phases:
         timing_rows, max_err = check_kernels(serve_t)
         bwd_timing, bwd_err, bwd_readings = check_backward_kernels()
         int4_checks = check_int4_kernels()
+        quantize_errs = check_quantize_and_route()
+    if phases & {"kernels", "cold"}:
+        cold = cold_timings("this checkout" if os.path.abspath(args.package_root) == ROOT else args.package_root)
 
     served = None
     if "serve" in phases:
@@ -1205,10 +1440,16 @@ def main() -> None:
         def launches(name):
             return {path: counts[name] for path, counts in by_path.items()}
 
-        row = dict(timing_rows[0], ms=timing_rows[0]["kernel_ms"], max_abs_err=max_err)  # serving shape, B=1
+        # serving shape, B=1: the device-side time (a captured graph), the event window beside it
+        row = dict(timing_rows[0], ms=cold["flash_fwd"]["device_ms"], library_ms=cold["flash_fwd"]["library_device_ms"],
+                   max_abs_err=max_err)
         entry = kernel_entry("flash_fwd", "bridgelang_tpu_torch/csrc/flash_fwd.cu",
                              "bridgelang_tpu/ops/flash_attention.py:59", launches("flash_fwd"), row,
-                             shape=row["shape"], timings=timing_rows)
+                             shape=row["shape"], event_ms=row["kernel_ms"], library_event_ms=timing_rows[0]["library_ms"],
+                             timings=timing_rows,
+                             note="ms and library_ms: device time per launch from a captured CUDA graph of "
+                                  "back-to-back launches (inputs warm in L2, as the prefill leaves them); event_ms, "
+                                  "library_event_ms and the timings: CUDA events around calls, the earlier series")
         if served:
             entry["serve"] = {k: served[k] for k in ("median_ms", "prefill_ms", "decode_ms_per_token", "batch4_ms",
                                                       "batch4_passes", "passes", "max_memory_gb", "profile")}
@@ -1232,6 +1473,7 @@ def main() -> None:
                 note=f"ms and library_ms: medians of {BWD_ROUNDS} interleaved rounds (readings: the kernel's, then "
                      "SDPA's); plain_ms and library_ms compute dq, dk and dv together"))
         # headline shapes: w_gate at decode (the most launched a8 shape) and at the QLoRA M
+        a8_cold = {f"{sh} M={m}": r for (sh, m), r in cold["int4_mm_a8"].items()}
         for name, line, mode, m, key in (("int4_mm_a8", "bridgelang_tpu/ops/int4_matmul.py:114", "a8", 1, "a8"),
                                          ("int4_mm", "bridgelang_tpu/ops/int4_matmul.py:60", "bfloat16", 5632, "float")):
             rows = [r for r in int4_checks["rows"] if r["mode"] == mode]
@@ -1239,6 +1481,14 @@ def main() -> None:
             timing = dict(head, ms=head["kernel_ms"], max_abs_err=int4_checks["worst"][key][0])
             extra = {"tolerance_use": int4_checks["worst"][key][1], "shape": head["shape"], "timings": rows,
                      "blocked": [b for b in int4_checks["blocked"] if (" a8 " in b["case"]) == (mode == "a8")]}
+            if name == "int4_mm_a8":
+                c = a8_cold[f"w_gate M={m}"]
+                timing.update(ms=c["device_ms"], library_ms=c["library_device_ms"])
+                extra.update(event_ms=head["kernel_ms"], library_event_ms=head["library_ms"], cold=a8_cold,
+                             note="ms and library_ms: device time per launch, cold L2: a captured CUDA graph of "
+                                  "launches rotating over weight copies of 100 MB or more in all (cold); event_ms, "
+                                  "library_event_ms and the timings' kernel_ms: CUDA events around back-to-back "
+                                  "wrapper calls on one weight, the earlier series")
             if name == "int4_mm_a8" and served4:
                 extra["int4_serve"] = {k: served4[k] for k in ("median_ms", "prefill_ms", "decode_ms_per_token",
                                                                 "batch4_ms", "batch4_passes", "passes", "max_memory_gb",
@@ -1247,6 +1497,21 @@ def main() -> None:
                 extra["qlora"] = qlora
             entries.append(kernel_entry(name, "bridgelang_tpu_torch/csrc/int4_matmul.cu", line, launches(name),
                                         timing, **extra))
+        qz = cold["quantize_a8"]
+        entries.append(kernel_entry(
+            "quantize_a8", "bridgelang_tpu_torch/csrc/int4_matmul.cu",
+            "bridgelang_tpu/ops/int4_matmul.py:114 (helper of int4_mm_a8, no TPU kernel of its own: XLA fuses "
+            "bridgelang_tpu/ops/quant.py quantize_activations_per_token into the jitted program)",
+            launches("quantize_a8"),
+            dict(qz[1], ms=qz[1]["device_ms"], plain_ms=qz[1]["plain_device_ms"], library_ms=None,
+                 max_abs_err=max(quantize_errs["codes"], quantize_errs["scales"])),
+            shape=qz[1]["shape"], event_ms=qz[1]["event_ms"], plain_event_ms=qz[1]["plain_ms"], timings=qz,
+            codes_max_abs_err=quantize_errs["codes"], scales_max_abs_err=quantize_errs["scales"],
+            route_max_abs_err=quantize_errs["route"],
+            note="max_abs_err: the larger of max|codes err| and max|scales err| against "
+                 "quantize_activations_per_token (random, zero, tie and NaN rows, bf16 and fp32); route_max_abs_err: "
+                 "the w4a8 route against its plain composition; ms, plain_ms: device time per launch (captured CUDA graph); bound: M K 2 bytes read, M K + 4 M "
+                 "written"))
         print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

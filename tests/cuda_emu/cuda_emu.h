@@ -1,14 +1,20 @@
-// A CPU emulation of the CUDA pieces that the port's mma.sync kernels use, so
-// that their sources compile with g++ and run on the CPU in tests: one
+// A CPU emulation of the CUDA pieces that the port's tensor-core kernels use,
+// so that their sources compile with g++ and run on the CPU in tests: one
 // std::thread per CUDA thread, blocks one after another; __syncthreads and
-// __syncwarp are std::barriers; ldmatrix, mma.sync m16n8k16 (bf16 -> fp32)
-// and __shfl_xor_sync are warp collectives that exchange operands through
-// the warp's state between two barriers; cp.async copies (or zero-fills) at
-// once. Shared memory starts as garbage, as on the card. bf16 rounds to
-// nearest even. The sums of an emulated mma run in another order than the
-// tensor cores', so results agree with the card to fp32 rounding, not bit
-// for bit. Build with -fno-strict-aliasing: the kernels read shared memory
-// through reinterpreted pointers.
+// __syncwarp are std::barriers; ldmatrix, mma.sync (m16n8k16 bf16 -> fp32,
+// m16n8k32 s8 -> s32) and __shfl_xor_sync are warp collectives, and wgmma
+// (A in registers, B through a K-major 128-byte-swizzled shared-memory
+// descriptor: the one layout the kernels build) a warpgroup collective, each
+// exchanging operands through shared state between two barriers; cp.async
+// copies (or zero-fills) at once and wgmma completes at once, so the fences,
+// commits and waits are no-ops. Static __shared__ arrays are function
+// statics: one per kernel, shared by the block's threads (blocks run one
+// after another). Dynamic shared memory starts as garbage, as on the card.
+// bf16 rounds to nearest even. The float sums of an emulated mma run in
+// another order than the tensor cores', so bf16 results agree with the card
+// to fp32 rounding, not bit for bit; the int8 ones are exact. Build with
+// -fno-strict-aliasing: the kernels read shared memory through
+// reinterpreted pointers.
 #pragma once
 
 #include <math.h>
@@ -17,6 +23,7 @@
 #include <string.h>
 
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <functional>
 #include <memory>
@@ -29,6 +36,7 @@
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __align__(n)
+#define __shared__ static
 
 struct dim3 {
   unsigned x, y, z;
@@ -37,7 +45,11 @@ struct dim3 {
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 struct uint4 { unsigned x, y, z, w; };
+struct uint2 { unsigned x, y; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline float2 make_float2(float a, float b) { return {a, b}; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 using std::max;
 using std::min;
 
@@ -48,16 +60,28 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class K>
 cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+enum cudaStreamCaptureStatus { cudaStreamCaptureStatusNone, cudaStreamCaptureStatusActive };
+inline cudaError_t cudaStreamGetCaptureInfo(cudaStream_t, cudaStreamCaptureStatus* status, unsigned long long* id) {
+  *status = cudaStreamCaptureStatusNone;  // the emulation runs no graphs
+  *id = 0;
+  return cudaSuccess;
+}
 
 struct WarpState {
   std::barrier<> bar{32};
   uint32_t u[32][6];
   float f[32];
+  int i[32];
+};
+struct WarpgroupState {
+  std::barrier<> bar{128};
+  uint32_t a[128][4];
 };
 inline thread_local dim3 threadIdx, blockIdx, gridDim;
 inline thread_local uint8_t* emu_smem;
 inline thread_local std::barrier<>* emu_block;
 inline thread_local WarpState* emu_warp;
+inline thread_local WarpgroupState* emu_wg;
 
 inline void __syncthreads() { emu_block->arrive_and_wait(); }
 inline void __syncwarp() { emu_warp->bar.arrive_and_wait(); }
@@ -73,11 +97,14 @@ inline void emu_launch(dim3 grid, int threads, size_t smem, const std::function<
         std::barrier<> block(threads);
         std::vector<std::unique_ptr<WarpState>> warps;
         for (int w = 0; w < (threads + 31) / 32; ++w) warps.emplace_back(new WarpState);
+        std::vector<std::unique_ptr<WarpgroupState>> groups;
+        for (int w = 0; w < threads / 128; ++w) groups.emplace_back(new WarpgroupState);
         std::vector<std::thread> pool;
         for (int i = 0; i < threads; ++i)
           pool.emplace_back([&, i] {
             threadIdx = dim3(i), blockIdx = dim3(x, y, z), gridDim = grid;
             emu_smem = shared.data(), emu_block = &block, emu_warp = warps[i / 32].get();
+            emu_wg = i / 128 < (int)groups.size() ? groups[i / 128].get() : nullptr;
             body();
           });
         for (auto& t : pool) t.join();
@@ -100,6 +127,24 @@ inline float emu_bf2f(uint16_t h) {
   return f;
 }
 inline __nv_bfloat16 __float2bfloat16(float f) { return {emu_f2bf(f)}; }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) { return {emu_f2bf(f)}; }
+inline __nv_bfloat162 __hsub2(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return {{emu_f2bf(emu_bf2f(a.x.x) - emu_bf2f(b.x.x))}, {emu_f2bf(emu_bf2f(a.y.x) - emu_bf2f(b.y.x))}};
+}
+
+// Integer and rounding intrinsics, memory order.
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t b = x | ((uint64_t)y << 32);
+  uint32_t r = 0;
+  for (int i = 0; i < 4; ++i) r |= (uint32_t)((b >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
+  return r;
+}
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __ldcg(const float* p) { return *p; }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline float __bfloat162float(__nv_bfloat16 h) { return emu_bf2f(h.x); }
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {{emu_f2bf(a)}, {emu_f2bf(b)}}; }
 inline float2 __bfloat1622float2(__nv_bfloat162 h) { return {emu_bf2f(h.x.x), emu_bf2f(h.y.x)}; }
@@ -113,6 +158,8 @@ inline void cp_async4(uint32_t dst, const void* src, bool valid) {
 }
 inline void cp_async_commit() {}
 inline void cp_async_wait_all() {}
+template <int N>
+inline void cp_async_wait() {}
 
 // ldmatrix .x4: lanes 8m .. 8m + 7 address the rows of matrix m; lane 4g + t
 // receives row g, columns 2t and 2t + 1 of each matrix (.trans: rows 2t and
@@ -172,4 +219,91 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
   const float out = w->f[lane ^ mask];
   w->bar.arrive_and_wait();
   return out;
+}
+
+inline int __shfl_xor_sync(unsigned, int v, int mask) {
+  WarpState* w = emu_warp;
+  const int lane = emu_lane();
+  w->i[lane] = v;
+  w->bar.arrive_and_wait();
+  const int out = w->i[lane ^ mask];
+  w->bar.arrive_and_wait();
+  return out;
+}
+
+// mma.sync.m16n8k32.row.col.s32.s8.s8.s32: c += A (16 x 32) B (32 x 8), exact.
+inline void mma_s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  WarpState* w = emu_warp;
+  const int lane = emu_lane();
+  for (int i = 0; i < 4; ++i) w->u[lane][i] = a[i];
+  w->u[lane][4] = b0, w->u[lane][5] = b1;
+  w->bar.arrive_and_wait();
+  int A[16][32], B[32][8];
+  for (int l = 0; l < 32; ++l) {
+    const int g = l >> 2, t = l & 3;
+    for (int e = 0; e < 4; ++e) {
+      auto byte = [e](uint32_t x) { return (int)(int8_t)(x >> (8 * e)); };
+      A[g][4 * t + e] = byte(w->u[l][0]), A[g + 8][4 * t + e] = byte(w->u[l][1]);
+      A[g][16 + 4 * t + e] = byte(w->u[l][2]), A[g + 8][16 + 4 * t + e] = byte(w->u[l][3]);
+      B[4 * t + e][g] = byte(w->u[l][4]), B[16 + 4 * t + e][g] = byte(w->u[l][5]);
+    }
+  }
+  w->bar.arrive_and_wait();
+  const int g = lane >> 2, t = lane & 3;
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + 8 * (e >> 1), col = 2 * t + (e & 1);
+    int s = 0;
+    for (int k = 0; k < 32; ++k) s += A[row][k] * B[k][col];
+    c[e] += s;
+  }
+}
+
+// wgmma: completes at once, so its fences, commits and waits do nothing.
+inline void fence_proxy_async() {}
+inline void wgmma_fence() {}
+inline void wgmma_commit() {}
+template <int N>
+inline void wgmma_wait() {}
+template <class T, int N>
+inline void fence_regs(T (&)[N]) {}
+
+// wgmma.mma_async m64nNkK, D (+)= A (64 x K, registers) x B (K x N, shared).
+// A: warp w of the warpgroup holds rows 16w .. 16w + 15 in the mma.sync A
+// layout of element type E (4 / sizeof(E) elements per register). B: the
+// descriptor's K-major tile, rows (the N index) of 128 bytes in 8-row groups
+// `stride` bytes apart, swizzled by address bits [4, 7) ^= [7, 10) (the
+// 128-byte swizzle of a 1024-aligned tile). D: rows 16w + g (+ 8), columns
+// 8j + 2t (+ 1) in d[4j + e], as mma.sync's C.
+template <class E, int N, int K, class Acc, class ToAcc>
+inline void emu_wgmma(Acc* d, const uint32_t a[4], uint64_t desc, int scale_d, ToAcc to_acc) {
+  WarpgroupState* wg = emu_wg;
+  const int tid = threadIdx.x % 128;
+  for (int i = 0; i < 4; ++i) wg->a[tid][i] = a[i];
+  wg->bar.arrive_and_wait();
+  constexpr int PER = 4 / sizeof(E);
+  const uint32_t start = (uint32_t)(desc & 0x3FFF) << 4, stride = (uint32_t)((desc >> 32) & 0x3FFF) << 4;
+  const int warp = tid / 32, g = (tid % 32) >> 2, t = tid & 3;
+  for (int i = 0; i < N / 2; ++i) {
+    const int j = i / 4, e = i % 4;
+    const int row = 16 * warp + g + 8 * (e >> 1), col = 8 * j + 2 * t + (e & 1);
+    Acc s = 0;
+    for (int k = 0; k < K; ++k) {
+      const int half = k / (K / 2), kk = k % (K / 2);
+      const int src = 32 * warp + 4 * ((row % 16) % 8) + kk / PER;
+      E av, bv;
+      const uint32_t reg = wg->a[src][2 * half + (row % 16) / 8];
+      memcpy(&av, reinterpret_cast<const uint8_t*>(&reg) + sizeof(E) * (kk % PER), sizeof(E));
+      const uint32_t lin = start + (col / 8) * stride + (col % 8) * 128 + k * sizeof(E);
+      memcpy(&bv, emu_smem + (lin ^ (((lin >> 7) & 7) << 4)), sizeof(E));
+      s += to_acc(av) * to_acc(bv);
+    }
+    d[i] = scale_d ? d[i] + s : s;
+  }
+  wg->bar.arrive_and_wait();
+}
+inline void wgmma_m64n128k16(float d[64], const uint32_t a[4], uint64_t desc, int scale_d) {
+  emu_wgmma<__nv_bfloat16, 128, 16, float>(d, a, desc, scale_d, [](__nv_bfloat16 v) { return emu_bf2f(v.x); });
+}
+inline void wgmma_m64n64k32_s8(int d[32], const uint32_t a[4], uint64_t desc, int scale_d) {
+  emu_wgmma<int8_t, 64, 32, int>(d, a, desc, scale_d, [](int8_t v) { return (int)v; });
 }

@@ -231,6 +231,29 @@ def test_int4_matmul_matches_jax(shape, mode, dtype):
     assert tm.int4_mm.launches == tm.int4_mm_a8.launches == 0
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", MATMUL_SHAPES)
+def test_cuda_w4a8_route_composition_matches_jax(shape, dtype):
+    """The card's w4a8 route, composed of its parts' CPU paths: quantize_a8
+    (quantize_activations_per_token), int4_mm_a8 without the token scale
+    (int4_matmul_a8_plain), then acc * xs in fp32 cast once to x's dtype, the
+    kernel epilogue's order; against the JAX matmul_int4_a8 (interpret mode)
+    under the a8 tolerances, zero rows and rounding ties included."""
+    k, n, group = shape
+    assert jm.int4_kernel_eligible(k, n, k // group)
+    jp, js, tp, ts = _weights(k, n, group, seed=k + n + 1)
+    x = np.random.default_rng(12).normal(size=(37, k)).astype(np.float32)
+    x[3] = 0.0
+    x[5, :4] = [127.0, 0.5, 1.5, -2.5]
+    xj = jnp.asarray(x, dtype=dtype)
+    xt = torch.from_numpy(_f32(xj)).to(getattr(torch, dtype))
+    q, xs = tm.quantize_a8(xt)
+    got = (tm.int4_mm_a8(q, tp, ts) * xs).to(xt.dtype)
+    assert torch.equal(got, tm.matmul_int4_a8(xt, tp, ts))
+    _assert_close(got.float().numpy(), _f32(jm.matmul_int4_a8(xj, jp, js)), *TOLS[("a8", dtype)])
+    assert tm.int4_mm_a8.launches == tm.quantize_a8.launches == 0
+
+
 def test_int4_kernels_plain_versions_agree_with_dequant_reference():
     """Each plain version against dequantize-then-matmul in float64: the a8
     one exactly (integer sums, scales applied per group in fp32: rtol 1e-6),

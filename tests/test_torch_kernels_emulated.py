@@ -1,7 +1,7 @@
-"""The port's flash-attention CUDA sources on the CPU: csrc/flash_fwd.cu and
-csrc/flash_bwd.cu compiled with g++ against tests/cuda_emu/cuda_emu.h (an
-emulation of the cp.async, ldmatrix, mma.sync and warp primitives they use)
-and held against their plain torch versions.
+"""The port's CUDA sources on the CPU: csrc/flash_fwd.cu, csrc/flash_bwd.cu
+and csrc/int4_matmul.cu compiled with g++ against tests/cuda_emu/cuda_emu.h
+(an emulation of the cp.async, ldmatrix, mma.sync, wgmma and warp
+primitives they use) and held against their plain torch versions.
 
 The kernels themselves run only on the card (tests/test_torch_kernels_gpu.py,
 chip_smoke.py). This file checks their index math, masks and tile bounds
@@ -12,7 +12,15 @@ no causal mask, and NaN in dead key slots. The emulated mma sums in another
 order than the tensor cores, so the rules are the card's: the forward's o
 within FWD_ATOL and lse within 1e-3 on valid rows; the backward per element
 under GRAD_TOL (grad_tolerance_use <= 1), dead key slots exactly zero.
-csrc/int4_matmul.cu (wgmma) is not emulated. Skips without g++.
+
+The w4a8 kernels of csrc/int4_matmul.cu (the split-K decode kernel and the
+wgmma prefill kernel) and its activation quantization sum integers, so the
+rule there is bit equality with int4_matmul_a8_plain and
+quantize_activations_per_token: M from 1 to 130, groups 128 and 256, splits
+that do not divide the group count (the C function's split_groups), a
+column block of a wider pack written into a column block of a wider output,
+the fused token scale in bf16 and f32, zero rows and rounding ties; a row
+holding a NaN gets a NaN scale, as in the plain version. Skips without g++.
 """
 
 import ctypes
@@ -22,10 +30,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from bridgelang_tpu_torch.ops.flash_attention import flash_attention_bwd_plain, flash_attention_plain
+from bridgelang_tpu_torch.ops.int4_matmul import _SIGNATURES, int4_matmul_a8_plain
+from bridgelang_tpu_torch.ops.quant import pack_int4, quantize_activations_per_token
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -48,32 +59,37 @@ CASES = {
 }
 
 
+def _without_ptx(text: str) -> str:
+    """`text` without its inline-PTX helpers (each blank-line-separated chunk
+    holding `asm volatile`): cuda_emu.h defines their emulated twins."""
+    return "\n\n".join(chunk for chunk in text.split("\n\n") if "asm volatile" not in chunk)
+
+
 def _emulated_source(name: str) -> str:
-    """csrc/<name>.cu with bf16_mma.cuh inlined, its inline-PTX helpers taken
-    from cuda_emu.h, dynamic shared memory as the block's buffer and each
-    launch run through emu_launch."""
-    helpers = (CSRC / "bf16_mma.cuh").read_text()
-    helpers = "\n\n".join(chunk for chunk in helpers.split("\n\n") if "asm volatile" not in chunk)
-    helpers = helpers.replace("#pragma once\n", "").replace(
-        "#include <cuda_bf16.h>\n#include <cuda_runtime.h>\n", '#include "cuda_emu.h"\n')
-    src = (CSRC / f"{name}.cu").read_text().replace('#include "bf16_mma.cuh"', helpers)
+    """csrc/<name>.cu with bf16_mma.cuh inlined, the inline-PTX helpers of
+    both taken from cuda_emu.h, dynamic shared memory as the block's buffer
+    and each launch run through emu_launch."""
+    helpers = _without_ptx((CSRC / "bf16_mma.cuh").read_text()).replace("#pragma once\n", "")
+    src = _without_ptx((CSRC / f"{name}.cu").read_text().replace('#include "bf16_mma.cuh"', helpers))
+    src = src.replace("#include <cuda_bf16.h>\n#include <cuda_runtime.h>\n", '#include "cuda_emu.h"\n')
     src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];",
                  r"\1* \2 = reinterpret_cast<\1*>(emu_smem);", src)
     launches = src.count("<<<")
-    src, n = re.subn(r"(\w+<[^<>]*>)<<<([^,]+), (\w+), (\w+), \w+>>>\(((?:.|\n)*?)\);\n(\s*return cudaGetLastError)",
+    src, n = re.subn(r"(\w+(?:<[^<>]*>)?)<<<([^,]+), ([\w:]+), ([\w:]+), \w+>>>\(((?:.|\n)*?)\);\n"
+                     r"(\s*return (?:\(int\))?cudaGetLastError)",
                      r"emu_launch(\2, \3, \4, [&] { \1(\5); });\n\6", src)
     assert n == launches > 0, f"{name}: rewrote {n} of {launches} launches"
     return src
 
 
 @pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
+def libraries(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the emulated kernels")
     out = tmp_path_factory.mktemp("cuda_emu")
     jobs = {}
-    for name in ("flash_fwd", "flash_bwd"):
+    for name in ("flash_fwd", "flash_bwd", "int4_matmul"):
         cpp = out / f"{name}.cpp"
         cpp.write_text(_emulated_source(name))
         cmd = [gxx, "-std=c++20", "-O2", "-fno-strict-aliasing", "-pthread", "-shared", "-fPIC", "-w",
@@ -84,7 +100,12 @@ def emulated(tmp_path_factory):
         log, _ = job.communicate()
         assert job.returncode == 0, log
         libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
-    fwd, dq, dkv = libs["flash_fwd"].flash_fwd, libs["flash_bwd"].flash_bwd_dq, libs["flash_bwd"].flash_bwd_dkv
+    return libs
+
+
+@pytest.fixture(scope="module")
+def emulated(libraries):
+    fwd, dq, dkv = libraries["flash_fwd"].flash_fwd, libraries["flash_bwd"].flash_bwd_dq, libraries["flash_bwd"].flash_bwd_dkv
     for fn, n_ptrs in ((fwd, 6), (dq, 8), (dkv, 9)):
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -138,3 +159,140 @@ def test_emulated_flash_backward_matches_plain(emulated, name, nan_in_dead_slots
         assert grad_tolerance_use(got, w) <= 1.0, what
     for i, L in enumerate(lens.tolist()):
         assert not dk[i, L:].any() and not dv[i, L:].any()
+
+
+# --- w4a8: int4_mm_a8 and quantize_a8 ------------------------------------------------
+
+@pytest.fixture(scope="module")
+def emulated_a8(libraries):
+    lib = libraries["int4_matmul"]
+    mm, qz, splits = lib.int4_mm_a8, lib.quantize_a8, lib.int4_mm_a8_splits
+    mm.argtypes, qz.argtypes = _SIGNATURES["int4_mm_a8"], _SIGNATURES["quantize_a8"]
+    splits.argtypes = [ctypes.c_int] * 4
+    for fn in (mm, qz, splits):
+        fn.restype = ctypes.c_int
+    return mm, qz, splits
+
+
+def _a8_operands(m, k, n2, group, seed, n_shards=1):
+    """int8 q [M, K] and a v2 pack of random codes in [-8, 7] with bf16
+    scales of both signs; with n_shards 2 a shard-blocked pack twice as wide."""
+    rng = np.random.default_rng(seed)
+    n = 2 * n2 * n_shards
+    q = torch.from_numpy(rng.integers(-127, 128, size=(m, k)).astype(np.int8))
+    packed = pack_int4(torch.from_numpy(rng.integers(-8, 8, size=(k, n)).astype(np.int8)), n_shards=n_shards)
+    scales = torch.from_numpy(rng.normal(size=(k // group, n)).astype(np.float32) * 0.01).to(torch.bfloat16)
+    return q, packed, scales
+
+
+def _run_a8(mm, q, packed, scales, out, xs=None, split_groups=0):
+    """One emulated int4_mm_a8 into `out` (possibly a column slice); checks
+    that the tile counters come back zero."""
+    m, k = q.shape
+    n2, n_groups = packed.shape[1], scales.shape[0]
+    ws = torch.full((n_groups, m, 2 * n2), float("nan"))
+    counters = torch.zeros(n2 // 64, dtype=torch.int32)
+    dtype = {torch.float32: 0, torch.bfloat16: 1}[out.dtype]
+    err = mm(q.data_ptr(), packed.data_ptr(), scales.data_ptr(), None if xs is None else xs.data_ptr(), out.data_ptr(),
+             ws.data_ptr(), counters.data_ptr(), m, k, n2, k // n_groups, packed.stride(0), scales.stride(0),
+             out.stride(0), dtype, split_groups, None)
+    assert err == 0
+    assert not counters.any()
+
+
+# (M, K, N/2, group, groups per split-K block (0: the kernel's choice)); M <= 16 is the split-K kernel
+A8_CASES = {
+    "decode_m1_mma_splits_2_2_1": (1, 640, 64, 128, 2),
+    "decode_m1_g256": (1, 512, 64, 256, 1),
+    "decode_m2_splits_2_2_1": (2, 640, 64, 128, 2),
+    "decode_m4_g256_auto": (4, 512, 128, 256, 0),
+    "decode_m9_auto": (9, 384, 64, 128, 0),
+    "decode_m16_splits_3_2": (16, 640, 64, 128, 3),
+    "prefill_m17": (17, 256, 64, 128, 0),
+    "prefill_m20_six_stages": (20, 768, 64, 128, 0),
+    "prefill_m37_odd_stages": (37, 640, 64, 128, 0),
+    "prefill_m64_g256": (64, 512, 64, 256, 0),
+    "prefill_m130": (130, 256, 128, 128, 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(A8_CASES))
+def test_emulated_int4_a8_equals_plain(emulated_a8, name):
+    mm, _, splits = emulated_a8
+    m, k, n2, group, split_groups = A8_CASES[name]
+    q, packed, scales = _a8_operands(m, k, n2, group, seed=m + k)
+    out = torch.full((m, 2 * n2), float("nan"))
+    _run_a8(mm, q, packed, scales, out, split_groups=split_groups)
+    assert torch.equal(out, int4_matmul_a8_plain(q, packed, scales))
+    if split_groups > 1:  # the split the case names: a last block with fewer groups
+        assert (k // group) % split_groups and splits(k, n2, group, split_groups) == -(-(k // group) // split_groups)
+
+
+@pytest.mark.parametrize("m", [1, 16, 37])
+def test_emulated_int4_a8_reads_and_writes_column_blocks_in_place(emulated_a8, m):
+    """Block 1 of a 2-shard pack (ldp, lds wider than the block) into block 1
+    of the whole output (ldo wider); the rest of the output stays untouched."""
+    mm, _, _ = emulated_a8
+    k, n2, group = 384, 64, 128
+    q, packed, scales = _a8_operands(m, k, n2, group, seed=3 * m, n_shards=2)
+    out = torch.full((m, 4 * n2), float("nan"))
+    block_p, block_s = packed[:, n2:], scales[:, 2 * n2:]
+    _run_a8(mm, q, block_p, block_s, out[:, 2 * n2:], split_groups=2)
+    assert torch.equal(out[:, 2 * n2:], int4_matmul_a8_plain(q, block_p, block_s))
+    assert out[:, :2 * n2].isnan().all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 4, 37])
+def test_emulated_int4_a8_token_scale_epilogue(emulated_a8, m, dtype):
+    """With the row scales the kernel writes (acc * xs).to(dtype), the bits
+    of the plain route, zero rows (scale 1) included."""
+    mm, _, _ = emulated_a8
+    k, n2, group = 384, 64, 128
+    rng = np.random.default_rng(m)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dtype)
+    x[m // 2] = 0
+    q, xs = quantize_activations_per_token(x)
+    _, packed, scales = _a8_operands(m, k, n2, group, seed=7 + m)
+    out = torch.full((m, 2 * n2), float("nan")).to(dtype)
+    _run_a8(mm, q, packed, scales, out, xs=xs)
+    assert torch.equal(out, (int4_matmul_a8_plain(q, packed, scales) * xs).to(dtype))
+
+
+def _tie_rows(dtype):
+    """Rows whose quotients x / scale land on halves: absmax 127 (scale 1)
+    and 254 (scale 2), so 2.5 -> 2, 3.5 -> 4, -0.5 -> -0, 5 / 2 -> 2."""
+    ties = [127.0, 2.5, -2.5, 3.5, 0.5, -0.5, 1.5, -1.5, 126.5, -126.5, 0.0, 64.5]
+    row = torch.tensor(ties * 8, dtype=torch.float32)
+    return torch.stack([row, 2 * row, -row]).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("what", ["random", "zero_rows", "ties", "wide", "nan_rows"])
+def test_emulated_quantize_a8_equals_plain(emulated_a8, what, dtype):
+    """Codes and scales bit-equal to the plain version; a row holding a NaN
+    (at its start, and past the first thread's stride) gets a NaN scale in
+    both, and the other rows their usual bits."""
+    _, qz, _ = emulated_a8
+    rng = np.random.default_rng(11)
+    if what == "ties":
+        x = _tie_rows(dtype)
+    else:
+        k = 4096 if what == "wide" else 300
+        x = torch.from_numpy((rng.normal(size=(5, k)) * rng.uniform(0.01, 100, size=(5, 1))).astype(np.float32))
+        x = x.to(dtype)
+        if what == "zero_rows":
+            x[1] = 0
+            x[3] = 0
+        if what == "nan_rows":
+            x[1, 0] = float("nan")
+            x[3, 299] = float("nan")
+    m, k = x.shape
+    q = torch.full((m, k), 99, dtype=torch.int8)
+    xs = torch.full((m,), 7.0)
+    assert qz(x.data_ptr(), {torch.float32: 0, torch.bfloat16: 1}[dtype], q.data_ptr(), xs.data_ptr(), m, k, None) == 0
+    want_q, want_s = quantize_activations_per_token(x)
+    nan_rows = want_s[:, 0].isnan()
+    assert nan_rows.sum() == (2 if what == "nan_rows" else 0)
+    assert torch.equal(xs.isnan(), nan_rows)
+    assert torch.equal(q[~nan_rows], want_q[~nan_rows]) and torch.equal(xs[~nan_rows], want_s[~nan_rows, 0])

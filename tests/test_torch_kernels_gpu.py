@@ -14,7 +14,10 @@ GRAD_TOL (bf16: one bf16 ulp, 2^-7 |want|, plus 1e-3 rms for fp32 order
 differences near zero; fp32: 1e-5 and 1e-5 rms, order differences only).
 The int4 kernels: chip_smoke.py's INT4_TOL, per element as the backward (a8:
 f32 before the token scale, order only; bf16: one bf16 ulp plus 1e-3 rms;
-fp32: order only).
+fp32: order only). The w4a8 kernels fold in the plain order, so their cases
+also ask for bit equality, as do quantize_a8 against
+quantize_activations_per_token and the w4a8 route against its plain
+composition.
 """
 
 import sys
@@ -464,3 +467,176 @@ def test_cuda_int4_output_has_grad_fn(cuda_device, a8):
     assert (im.int4_mm_a8.launches if a8 else im.int4_mm.launches) == before + 1  # the backward launches none
     want = g.float() @ dequant_int4(packed, scales, torch.float32).t()
     torch.testing.assert_close(dx.float(), want, atol=2e-2 * float(want.abs().max()), rtol=2 ** -7)
+
+
+# --- w4a8: the split-K decode kernel (M <= 16), the wgmma prefill kernel, quantize_a8 ------------
+
+A8_M = [1, 2, 4, 16, 17, 37, 64, 65, 352, 1408]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", [128, 256, 512])
+@pytest.mark.parametrize("m", A8_M)
+def test_int4_a8_kernels_equal_plain(cuda_device, m, group):
+    """int4_mm_a8 on 7B's w_gate at every M the two kernels split on:
+    integer group sums folded in the plain order, so bit-equal (INT4_TOL
+    "a8" use 0)."""
+    from bridgelang_tpu_torch.ops import int4_matmul as im
+
+    k, n = INT4_SHAPES_7B["w_gate"]
+    packed, scales = _int4_weights(k, n, group, cuda_device, seed=20 + group)
+    q = torch.randint(-127, 128, (m, k), device=cuda_device, dtype=torch.int8)
+    got = im.int4_mm_a8(q, packed, scales)
+    torch.cuda.synchronize()
+    want = im.int4_matmul_a8_plain(q, packed, scales)
+    assert _int4_tolerance_use(got, want, "a8") <= 1.0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 16])
+@pytest.mark.parametrize("shape", ["wq", "w_down"])
+def test_int4_a8_decode_splits_equal_plain(cuda_device, shape, m):
+    """The split-K kernel's own split: one that divides wq's 32 groups, and
+    one that does not divide w_down's 86 (each column tile's last block
+    holds fewer groups)."""
+    import ctypes
+
+    from bridgelang_tpu_torch.ops import _build
+    from bridgelang_tpu_torch.ops import int4_matmul as im
+
+    k, n = INT4_SHAPES_7B[shape]
+    splits = _build.function("int4_matmul", "int4_mm_a8_splits", [ctypes.c_int] * 4)(k, n // 2, 128, 0)
+    per_block = -(-(k // 128) // splits)
+    assert ((k // 128) % per_block != 0) == (shape == "w_down")
+    packed, scales = _int4_weights(k, n, 128, cuda_device, seed=30)
+    q = torch.randint(-127, 128, (m, k), device=cuda_device, dtype=torch.int8)
+    got = im.int4_mm_a8(q, packed, scales)
+    torch.cuda.synchronize()
+    assert torch.equal(got, im.int4_matmul_a8_plain(q, packed, scales))
+
+
+@pytest.mark.gpu
+def test_int4_a8_decode_on_two_streams_and_in_a_graph(cuda_device):
+    """Split-K launches that run at once keep their tile counters apart:
+    one stream's launches beside another's, and two graphs captured on one
+    stream, replayed on two side streams beside eager launches on the
+    default stream."""
+    from bridgelang_tpu_torch.ops import int4_matmul as im
+
+    k, n = INT4_SHAPES_7B["w_down"]
+    weights = [_int4_weights(k, n, 128, cuda_device, seed=34 + i) for i in range(2)]
+    qs = [torch.randint(-127, 128, (1, k), device=cuda_device, dtype=torch.int8) for _ in range(2)]
+    wants = [im.int4_matmul_a8_plain(q, p, s) for q, (p, s) in zip(qs, weights)]
+    side = torch.cuda.Stream(cuda_device)
+    main = torch.cuda.current_stream(cuda_device)
+    side.wait_stream(main)
+    eager = []
+    for _ in range(20):
+        with torch.cuda.stream(side):
+            eager.append((1, im.int4_mm_a8(qs[1], *weights[1])))
+        eager.append((0, im.int4_mm_a8(qs[0], *weights[0])))
+    main.wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(torch.equal(got, wants[i]) for i, got in eager)
+
+    graphs, captured = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()], []
+    for i, graph in enumerate(graphs):
+        with torch.cuda.graph(graph):
+            captured.append(im.int4_mm_a8(qs[i], *weights[i]))
+    replays = [torch.cuda.Stream(cuda_device) for _ in graphs]
+    outs = []
+    for _ in range(20):
+        for i, (graph, stream) in enumerate(zip(graphs, replays)):
+            stream.wait_stream(main)
+            with torch.cuda.stream(stream):
+                graph.replay()
+                outs.append((i, captured[i].clone()))
+        outs.append((0, im.int4_mm_a8(qs[0], *weights[0])))
+    for stream in replays:
+        main.wait_stream(stream)
+    torch.cuda.synchronize()
+    assert all(torch.equal(got, wants[i]) for i, got in outs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4, 352])
+def test_int4_a8_reads_blocked_gate_in_place(cuda_device, m):
+    """The 2-shard w_gate pack: each 5504-wide block read in place (ldp,
+    lds of the whole pack) and written into its columns of one output."""
+    from bridgelang_tpu_torch.ops import int4_matmul as im
+    from bridgelang_tpu_torch.ops.quant import _quantize4_2d
+
+    k, n = INT4_SHAPES_7B["w_gate"]
+    g = torch.Generator(device=cuda_device).manual_seed(31)
+    packed, scales = _quantize4_2d(torch.randn((k, n), generator=g, device=cuda_device), 128, n_shards=2)
+    q = torch.randint(-127, 128, (m, k), device=cuda_device, dtype=torch.int8)
+    before = im.int4_mm_a8.launches
+    got = im._int4_route_blocked(q, packed, scales, True, 2)
+    torch.cuda.synchronize()
+    assert im.int4_mm_a8.launches == before + 2
+    w2, ns = packed.shape[1] // 2, n // 2
+    want = torch.cat([im.int4_matmul_a8_plain(q, packed[:, d * w2:(d + 1) * w2], scales[:, d * ns:(d + 1) * ns])
+                      for d in range(2)], dim=1)
+    assert torch.equal(got, want)
+
+
+def _tie_rows(device):
+    """Rows on rounding ties: absmax 127 (scale 1) and 254 (scale 2), halves
+    elsewhere; torch.round and rint both go to the even code."""
+    row = torch.tensor([127.0, 2.5, -2.5, 3.5, 0.5, -0.5, 1.5, -1.5, 126.5, -126.5, 0.0, 64.5] * 341 + [0.0] * 4,
+                       device=device)
+    return torch.stack([row, 2 * row, -row])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("what", ["random", "zero_rows", "ties", "wide_k", "nan_rows"])
+def test_quantize_a8_kernel_equals_plain(cuda_device, what, dtype):
+    """Bit-equal codes and scales; a row holding a NaN gets a NaN scale in
+    both (its codes are conversions of NaN, not compared)."""
+    from bridgelang_tpu_torch.ops import int4_matmul as im
+    from bridgelang_tpu_torch.ops.quant import quantize_activations_per_token
+
+    g = torch.Generator(device=cuda_device).manual_seed(32)
+    if what == "ties":
+        x = _tie_rows(cuda_device)
+    else:
+        k = 11008 if what == "wide_k" else 4096
+        x = torch.randn((352, k), generator=g, device=cuda_device) * torch.rand((352, 1), generator=g,
+                                                                                device=cuda_device).mul(50)
+        if what == "zero_rows":
+            x[::3] = 0
+        if what == "nan_rows":
+            x[5, 0] = x[9, 4095] = x[11, 777] = float("nan")
+    x = x.to(dtype)
+    before = im.quantize_a8.launches
+    q, xs = im.quantize_a8(x)
+    torch.cuda.synchronize()
+    assert im.quantize_a8.launches == before + 1
+    want_q, want_xs = quantize_activations_per_token(x)
+    ok = ~want_xs[:, 0].isnan()
+    assert int((~ok).sum()) == (3 if what == "nan_rows" else 0)
+    assert torch.equal(xs.isnan(), want_xs.isnan())
+    assert torch.equal(q[ok], want_q[ok]) and torch.equal(xs[ok], want_xs[ok])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 16, 17, 352])
+def test_w4a8_route_is_two_launches_equal_to_plain(cuda_device, m, dtype):
+    """matmul_int4_a8 on the card: quantize_a8, then int4_mm_a8 with the
+    token scale and the cast in its epilogue, bit-equal to
+    (int4_matmul_a8_plain(q) * xs).to(dtype)."""
+    from bridgelang_tpu_torch.ops import int4_matmul as im
+    from bridgelang_tpu_torch.ops.quant import quantize_activations_per_token
+
+    k, n = INT4_SHAPES_7B["wq"]
+    packed, scales = _int4_weights(k, n, 128, cuda_device, seed=33)
+    x = torch.randn((m, k), device=cuda_device).to(dtype)
+    before = (im.quantize_a8.launches, im.int4_mm_a8.launches)
+    got = im.matmul_int4_a8(x, packed, scales)
+    torch.cuda.synchronize()
+    assert (im.quantize_a8.launches - before[0], im.int4_mm_a8.launches - before[1]) == (1, 1)
+    q, xs = quantize_activations_per_token(x)
+    assert got.dtype == dtype and torch.equal(got, (im.int4_matmul_a8_plain(q, packed, scales) * xs).to(dtype))
