@@ -87,26 +87,27 @@ def _packed_int4(name: str, stacked: Dict[str, np.ndarray]) -> bool:
 
 def _layer_leaf(name: str, x: np.ndarray, packed: bool) -> np.ndarray:
     """One layer's slice of a stacked leaf in the port's layout: dense linear
-    kernels and LoRA adapters are transposed ([in, out] -> [out, in]; A
+    kernels, int8 kernels with their scales and LoRA adapters are transposed
+    ([in, out] -> [out, in]; an int8 `<proj>_scale` [1, out] -> [out, 1]; A
     [in, r] -> [r, in]; B [r, out] -> [out, r]); packed int4 leaves ([in,
     out/2] int8, scales [in/group, out] bf16) and norms keep theirs."""
     if packed:
         return x
-    return x.T if name in _LLM_LINEAR or name.endswith(("_lora_a", "_lora_b")) else x
+    if name in _LLM_LINEAR or name.endswith(("_lora_a", "_lora_b", "_scale")):
+        return x.T
+    return x
 
 
 def llm_params_from_jax(tree: Dict[str, Any], device=None, dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """The JAX Llama params -> the port's {"embed", "layers": [...], ...}.
     LoRA adapters (`<proj>_lora_a` [L, in, r], `<proj>_lora_b` [L, r, out])
     come across per layer as [r, in] and [out, r]. Quantized trees
-    (ops/quant.py): packed int4 layers come across byte for byte; the int8
-    embedding keeps [V, D] and its [V, 1] scale; the int8 head [D, V] and its
-    [1, V] scale are transposed to [V, D] and [V, 1]. Quantized leaves keep
-    their dtypes whatever `dtype` is. int8 decoder layers (`<proj>_scale`)
-    are not yet ported and raise."""
-    int8_layers = [k for k in tree["layers"] if k.endswith("_scale")]
-    if int8_layers:
-        raise NotImplementedError(f"int8 decoder layers are not yet ported to torch ({int8_layers})")
+    (ops/quant.py): packed int4 layers come across byte for byte; int8 layers
+    (`<proj>` [in, out] int8 with `<proj>_scale` [1, out]) are transposed to
+    [out, in] and [out, 1], bit for bit; the int8 embedding keeps [V, D] and
+    its [V, 1] scale; the int8 head [D, V] and its [1, V] scale are transposed
+    to [V, D] and [V, 1]. Quantized leaves and their scales keep their dtypes
+    whatever `dtype` is."""
     stacked = {k: np.asarray(v) for k, v in tree["layers"].items()}
     n_layers = stacked["wq"].shape[0]
     layers = []
@@ -114,7 +115,8 @@ def llm_params_from_jax(tree: Dict[str, Any], device=None, dtype: Optional[torch
         layer = {}
         for k, v in stacked.items():
             packed = _packed_int4(k, stacked)
-            layer[k] = _t(_layer_leaf(k, v[i], packed), device, None if packed else dtype)
+            keep = packed or v.dtype == np.int8 or k.endswith("_scale")
+            layer[k] = _t(_layer_leaf(k, v[i], packed), device, None if keep else dtype)
         layers.append(layer)
     top = {"embed": np.asarray(tree["embed"]), "layers": layers, "final_norm": np.asarray(tree["final_norm"]),
            "lm_head": np.asarray(tree["lm_head"]).T}

@@ -1,13 +1,25 @@
 """REST serving entry point of the torch port.
 
     python -m bridgelang_tpu_torch.deploy --random_init_for_smoke true [--port 8000] \
-        [--max_batch 4] [--batch_window_ms 6] [--device cuda]
+        [--max_batch 4] [--batch_window_ms 6] [--device cuda] \
+        [--quantize_int8 true] [--quantize_int4 false] [--int4_group 128] [--warmup true] \
+        [--speculative_default true] [--speculative_margin 0.25] [--parallel_decode false]
 
-Mirrors scripts/deploy.py for the options the port has so far. Loading a
-checkpoint is not yet ported: serving needs `--random_init_for_smoke true`,
-which serves a tiny random-weight model (as scripts/deploy.py does). The
-device defaults to CUDA and the command fails without a card unless
-`--device cpu` is given.
+Mirrors scripts/deploy.py (`DeployConfig`) for the options the port has, with
+its defaults. Loading a checkpoint is not yet ported: serving needs
+`--random_init_for_smoke true`, which serves a tiny random-weight model (as
+scripts/deploy.py does). The quantization switches act on whatever decoder
+is served, the smoke model included (scripts/deploy.py applies them while
+loading a checkpoint): `--quantize_int8` (the default) quantizes it to int8,
+`--quantize_int4` packs it to int4 with groups of `--int4_group` input rows
+instead, and either turns on the w8a8 serving posture. `--warmup` captures
+the predict graphs of every batch bucket (and the speculative pair) before
+listening. At batch 1 the server decodes speculatively by default
+(`--speculative_default`, gated at `--speculative_margin`);
+`--parallel_decode` serves the one-forward parallel decode instead (models
+fine-tuned for it) and turns the speculative default off. The device
+defaults to CUDA and the command fails without a card unless `--device cpu`
+is given.
 """
 
 from __future__ import annotations
@@ -35,6 +47,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--max_batch", type=int, default=1)
     ap.add_argument("--batch_window_ms", type=float, default=6.0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--quantize_int8", type=_bool, default=True)
+    ap.add_argument("--quantize_int4", type=_bool, default=False, help="overrides --quantize_int8")
+    ap.add_argument("--int4_group", type=int, default=128)
+    ap.add_argument("--warmup", type=_bool, default=True)
+    ap.add_argument("--speculative_default", type=_bool, default=True)
+    ap.add_argument("--speculative_margin", type=float, default=0.25)
+    ap.add_argument("--parallel_decode", type=_bool, default=False)
     return ap.parse_args(argv)
 
 
@@ -59,17 +78,44 @@ def build_smoke_model(device: torch.device):
     return model, model.init_params(gen)
 
 
+def quantize_for_serving(model, params, quantize_int8: bool, quantize_int4: bool, int4_group: int):
+    """The decoder quantized as asked (int4 over int8), and the model with
+    w8a8 on when either is (the JAX `load_vla` serving posture). Returns
+    (model, params); the float decoder leaves go with the old params."""
+    if not (quantize_int8 or quantize_int4):
+        return model, params
+    from bridgelang_tpu_torch.models.vla import OpenVLA
+    from bridgelang_tpu_torch.ops.quant import quantize_llm_int4, quantize_llm_int8
+
+    llm = (quantize_llm_int4(params["llm"], group=int4_group) if quantize_int4
+           else quantize_llm_int8(params["llm"]))
+    cfg = dataclasses.replace(model.cfg, llm=dataclasses.replace(model.cfg.llm, w8a8=True))
+    served = OpenVLA(cfg, model.norm_stats, tokenizer=model.tokenizer, dtype=model.dtype, device=model.device)
+    served.image_transform = model.image_transform
+    return served, dict(params, llm=llm)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
     from bridgelang_tpu_torch._device import resolve_device
     from bridgelang_tpu_torch.serving.server import VLAServer
+    from bridgelang_tpu_torch.util.compile_cache import warmup_predict
 
     device = resolve_device(args.device)
     if not args.random_init_for_smoke:
         raise SystemExit("checkpoint loading is not yet ported to torch; pass --random_init_for_smoke true")
-    model, params = build_smoke_model(device)
-    VLAServer(model, params, default_unnorm_key=args.unnorm_key, max_batch=args.max_batch,
-              batch_window_ms=args.batch_window_ms, device=device).run(args.host, args.port)
+    model, params = quantize_for_serving(*build_smoke_model(device), args.quantize_int8, args.quantize_int4,
+                                         args.int4_group)
+    model.parallel_decode = args.parallel_decode
+    server = VLAServer(model, params, default_unnorm_key=args.unnorm_key, max_batch=args.max_batch,
+                       batch_window_ms=args.batch_window_ms, speculative_default=args.speculative_default,
+                       speculative_margin=args.speculative_margin, device=device)
+    if args.warmup:
+        dt = warmup_predict(model, params, max_batch=args.max_batch, unnorm_key=args.unnorm_key,
+                            speculative=server.speculative_default and args.max_batch <= 1,
+                            margin_threshold=args.speculative_margin)
+        print(f"[serve] predicts for batch buckets <= {max(args.max_batch, 1)} warmed up in {dt:.1f} s")
+    server.run(args.host, args.port)
 
 
 if __name__ == "__main__":

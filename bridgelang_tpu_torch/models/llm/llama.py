@@ -1,7 +1,7 @@
 """Llama-2 decoder in torch: plain tensor functions over a parameter dict.
 
 Counterpart of bridgelang_tpu/models/llm/llama.py for `arch="llama"` (bf16 or
-fp32 weights, GQA, bf16 KV cache). Parameters follow nn.Linear's layout:
+fp32 weights, GQA, a bf16 or fp32 KV cache). Parameters follow nn.Linear's layout:
 
     {"embed": [V, D], "final_norm": [D], "lm_head": [V, D],
      "layers": [{"wq": [H*hd, D], "wk": [Hkv*hd, D], "wv": [Hkv*hd, D],
@@ -13,8 +13,12 @@ unstacked into a list (see bridgelang_tpu_torch.convert).
 
 Attention over a chunk that starts at cache slot 0 (no cache, or the
 contiguous prefill) goes through the flash-attention kernel with per-example
-valid lengths; single-token decode and scatter-mode chunks use the masked
-`cached_attention` over the whole cache, as in the JAX package.
+valid lengths; single-token decode and scatter-mode chunks (the speculative
+verify chunk too) use the masked `cached_attention` over the whole cache, as
+in the JAX package. A chunk whose mask lies outside the kernel's causal +
+length family (the parallel decode's query rows) asks for it by name:
+`llm_forward(..., attention="masked")` runs `full_attention`, the JAX
+`attention_impl="xla"`.
 
 Cast points match the JAX order: `rms_norm` computes in fp32 and casts back;
 RoPE tables are cast to x.dtype before the rotation; `cached_attention`
@@ -30,14 +34,14 @@ Training runs `llm_forward` with `remat`: each decoder layer under
 Quantized weights (ops/quant.py): a packed-int4 projection keeps the JAX
 package's bytes, `<proj>` [in, out/2] int8 with `<proj>_scale4`
 [in/group, out] bf16, and `proj` runs it through the int4 kernels
-(ops/int4_matmul.py); the int8 embedding [V, D] and head [V, D] carry
+(ops/int4_matmul.py); an int8 projection is `<proj>` [out, in] int8 with
+`<proj>_scale` [out, 1] bf16; the int8 embedding [V, D] and head [V, D] carry
 `embed_scale` / `lm_head_scale` [V, 1]. Under the "dots" remat policy the int4
 kernel's output is recomputed in the backward: its launch is no aten `mm`,
 so `_save_dots` does not keep it.
 
-Not yet ported: int8 decoder layers (`<proj>_scale`, the w8a8 int8 branch),
-the int8 KV cache (`init_kv_cache` refuses it) and the Phi block
-(`_require_llama`); each raises NotImplementedError.
+Not yet ported: the int8 KV cache (`init_kv_cache` refuses it) and the Phi
+block (`_require_llama`); each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ from torch.utils.checkpoint import (
 
 from bridgelang_tpu_torch.ops.flash_attention import flash_attention
 from bridgelang_tpu_torch.ops.int4_matmul import matmul_int4, matmul_int4_a8
-from bridgelang_tpu_torch.ops.quant import INT4_COLUMN_PARALLEL
+from bridgelang_tpu_torch.ops.quant import INT4_COLUMN_PARALLEL, quantize_activations_per_token
 
 Params = Dict[str, Any]
 
@@ -162,9 +166,11 @@ def init_kv_cache(
     cfg: LLMConfig, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
     device: Optional[torch.device] = None,
 ) -> Params:
-    """KV cache [L, B, S, Hkv, hd] in bf16 (the int8 cache is not yet ported)."""
-    if dtype != torch.bfloat16:
-        raise NotImplementedError(f"KV cache dtype {dtype} is not yet ported; the torch cache is bf16")
+    """KV cache [L, B, S, Hkv, hd] of zeros (bf16 serves, fp32 gives the
+    exact speculative contract). The int8 cache (codes plus per-(token, head)
+    scales) is not yet ported and raises."""
+    if dtype == torch.int8:
+        raise NotImplementedError("the int8 KV cache is not yet ported to torch")
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -218,6 +224,21 @@ def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: to
     return torch.einsum("bhqs,bshd->bqhd", probs, vv)
 
 
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Attention of a chunk over itself under any bool mask [B, 1, T, S] (the
+    JAX `full_attention` with impl="xla", i.e. jax.nn.dot_product_attention):
+    scores in fp32 times 1/sqrt(hd), masked entries set to a large negative
+    number, fp32 softmax, probabilities cast back to q.dtype. Plain torch on
+    both devices; the JAX package has no kernel here either."""
+    n_rep = q.shape[2] // k.shape[2]
+    kk = _repeat_kv(k, n_rep)
+    vv = _repeat_kv(v, n_rep)
+    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), kk.float()) * (q.shape[-1] ** -0.5)
+    scores = torch.where(mask, scores, -0.7 * torch.finfo(torch.float32).max)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,bshd->bqhd", probs, vv)
+
+
 def lengths_from_mask(mask: torch.Tensor) -> torch.Tensor:
     """Valid-key counts [B] of a causal + right-padding [B, 1, T, S] mask:
     the number of keys any query row attends (the JAX kernel path's rule)."""
@@ -225,6 +246,12 @@ def lengths_from_mask(mask: torch.Tensor) -> torch.Tensor:
 
 
 # --- decoder forward ----------------------------------------------------------
+
+# Shortest chunk (tokens) that runs an int8 weight on the int8 x int8 product
+# under `cfg.w8a8` (the JAX package's gate): shorter chunks, decode and the
+# speculative verify chunk, cast the weight to the activation dtype.
+W8A8_MIN_CHUNK = 8
+ATTENTION_KINDS = ("flash", "masked")
 
 # Matmul ops whose outputs the "dots" policy keeps (JAX:
 # dots_with_no_batch_dims_saveable); everything else is recomputed.
@@ -254,19 +281,44 @@ def proj(x: torch.Tensor, lp: Params, name: str, cfg: LLMConfig) -> torch.Tensor
     kernels with no chunk-length gate: `matmul_int4_a8` when `cfg.w8a8` (the
     serving posture), else `matmul_int4` (the QLoRA forward). Column-parallel
     leaves take `cfg.int4_shards` as their pack's shard count; row-parallel
-    leaves are packed unblocked (`quantize_llm_int4`) and run as one block."""
+    leaves are packed unblocked (`quantize_llm_int4`) and run as one block.
+
+    An int8 weight (sibling `<name>_scale`) takes the JAX package's two
+    routes. With `cfg.w8a8` and a chunk of at least W8A8_MIN_CHUNK tokens
+    (x is [B, T, in]): the activations quantized per token
+    (`quantize_activations_per_token`), the exact int8 x int8 -> int32
+    product (`_int8_product`), then acc * token scale * column scale in fp32,
+    cast to x's dtype. Otherwise the weight is cast to x's dtype, multiplied,
+    and each output column scaled in x's dtype."""
     s4 = lp.get(name + "_scale4")
+    s8 = lp.get(name + "_scale")
     if s4 is not None:
         shards = cfg.int4_shards if name in INT4_COLUMN_PARALLEL else 1
         y = (matmul_int4_a8 if cfg.w8a8 else matmul_int4)(x, lp[name], s4, shards)
-    elif name + "_scale" in lp:
-        raise NotImplementedError(f"{name}: int8 decoder weights are not yet ported to torch")
+    elif s8 is not None and cfg.w8a8 and x.shape[1] >= W8A8_MIN_CHUNK:
+        q, xs = quantize_activations_per_token(x)
+        acc = _int8_product(q.reshape(-1, q.shape[-1]), lp[name]).view(*q.shape[:-1], -1)
+        y = (acc.float() * xs * s8[:, 0].float()).to(x.dtype)
+    elif s8 is not None:
+        y = F.linear(x, lp[name].to(x.dtype)) * s8[:, 0].to(x.dtype)
     else:
         y = F.linear(x, lp[name])
     a = lp.get(name + "_lora_a")
     if a is not None:
         y = y + F.linear(F.linear(x, a.to(x.dtype)), lp[name + "_lora_b"].to(x.dtype))
     return y
+
+
+def _int8_product(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int8 q [M, K] times int8 w [N, K] transposed -> the exact int32 [M, N]
+    (`torch._int_mm`: cuBLAS's int8 GEMM on the card, exact on the CPU too;
+    the JAX package runs a plain XLA dot here, no Pallas kernel). The card's
+    GEMM wants more than 16 rows, so a shorter q is padded with zero rows and
+    the padding's rows dropped."""
+    m = q.shape[0]
+    if q.is_cuda and m <= 16:
+        q = torch.cat([q, q.new_zeros((32 - m, q.shape[1]))])
+    return torch._int_mm(q.contiguous(), w.t())[:m]
 
 
 def _block(
@@ -279,11 +331,13 @@ def _block(
     kv: Optional[Tuple[torch.Tensor, torch.Tensor]],
     cache_positions: Optional[torch.Tensor],
     lengths: Optional[torch.Tensor],
+    attention: str = "flash",
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One decoder block over a T-token chunk. With `kv` (one layer's cache
     views), K/V are written IN PLACE at `cache_positions` [B, T] and attention
     runs over the whole cache under `mask`; without, attention runs over the
-    chunk itself through the flash kernel with `lengths` valid keys.
+    chunk itself: through the flash kernel with `lengths` valid keys
+    (`attention="flash"`), or under `mask` (`"masked"`, `full_attention`).
     Returns (x, the chunk's (k, v))."""
     B, T, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -295,7 +349,9 @@ def _block(
     q = apply_rope(q, cos, sin, cfg.rotary_dim)
     k = apply_rope(k, cos, sin, cfg.rotary_dim)
 
-    if kv is None:
+    if kv is None and attention == "masked":
+        attn_out = full_attention(q, k, v, mask)
+    elif kv is None:
         attn_out, _ = flash_attention(q, k, v, lengths=lengths, causal=True, window=cfg.sliding_window)
     else:
         cache_k, cache_v = kv
@@ -322,6 +378,7 @@ def llm_forward(
     lengths: Optional[torch.Tensor] = None,
     remat: bool = False,
     remat_policy: Optional[str] = None,
+    attention: str = "flash",
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Run the decoder stack over input embeddings.
 
@@ -336,7 +393,9 @@ def llm_forward(
     cache, attention also runs over the chunk through the kernel.
     Chunk attention needs `lengths` [B] (valid keys per example); when not
     given it is recovered from `mask`, which must then be causal +
-    right-padding (+ window), the family the kernel computes.
+    right-padding (+ window), the family the kernel computes. A chunk under
+    any other mask (no cache only) passes `attention="masked"`: it then runs
+    `full_attention` under `mask` and never reaches the kernel.
 
     The cache is updated IN PLACE and returned (JAX returns a new one):
     this saves a copy of the whole cache per step. Returns (hidden [B, T, D],
@@ -350,20 +409,22 @@ def llm_forward(
     _require_llama(cfg)
     if remat and cache is not None:
         raise ValueError("remat is for the training forward, which runs without a KV cache")
+    if attention not in ATTENTION_KINDS or (attention == "masked" and cache is not None):
+        raise ValueError(f"attention={attention!r}: use 'flash', or 'masked' for a chunk without a cache")
     context_fn = _remat_context(remat_policy) if remat else None
     cos, sin = rope_cos_sin(positions, cfg.rotary_dim, cfg.rope_theta)
     contiguous = cache is not None and cache_write == "contiguous"
     chunk_attention = cache is None or contiguous
-    if chunk_attention and lengths is None:
+    if chunk_attention and lengths is None and attention == "flash":
         lengths = lengths_from_mask(mask)
     x = embeds
     T = x.shape[1]
     for i, lp in enumerate(params["layers"]):
         if remat:
-            x, _ = checkpoint(_block, cfg, lp, x, cos, sin, mask, None, None, lengths, use_reentrant=False,
-                              context_fn=context_fn)
+            x, _ = checkpoint(_block, cfg, lp, x, cos, sin, mask, None, None, lengths, attention,
+                              use_reentrant=False, context_fn=context_fn)
         elif chunk_attention:
-            x, (k, v) = _block(cfg, lp, x, cos, sin, mask, None, None, lengths)
+            x, (k, v) = _block(cfg, lp, x, cos, sin, mask, None, None, lengths, attention)
             if contiguous:
                 cache["k"][i, :, :T] = k.to(cache["k"].dtype)
                 cache["v"][i, :, :T] = v.to(cache["v"].dtype)

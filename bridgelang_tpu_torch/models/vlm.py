@@ -7,12 +7,24 @@ a dict {"vision", "projector", "llm"}, as in the JAX package. The vision and
 projector modules live on the `meta` device and run through
 `torch.func.functional_call` over that dict.
 
-Generation: one prefill of the fused sequence into a preallocated bf16 KV
-cache (contiguous write, attention through the flash kernel with the true
-per-example lengths), then `max_new_tokens - 1` single-token decode steps in
-a Python loop. Unlike the JAX package, the prefill always takes the flash
-kernel: the JAX package's short-prompt switch to einsum attention
+Generation: one prefill of the fused sequence into a preallocated KV cache
+(`cache_dtype`, bf16 by default; contiguous write, attention through the
+flash kernel with the true per-example lengths), then `max_new_tokens - 1`
+single-token decode steps. Unlike the JAX package, the prefill always takes
+the flash kernel: the JAX package's short-prompt switch to einsum attention
 (`_prefill_impl`) rests on a TPU measurement and is not ported.
+
+* `generate_greedy`: argmax, or temperature sampling from an explicit
+  `torch.Generator`.
+* `generate_speculative`: the prefill, one verify chunk [token0, draft[1:]]
+  through `cached_attention` (the decode path's attention, so verify and
+  decode logits agree), a top-2 margin gate, then sequential fix-up steps
+  from the first rejected position. It is split into `speculative_verify`
+  and `speculative_step` so that a CUDA graph can hold each
+  (models/graphs.py); eagerly the fix-up runs as a host loop.
+* `generate_parallel`: one forward in which the query rows see only the
+  valid prefix, a mask outside the flash kernel's family: the decoder runs
+  it with `attention="masked"`.
 
 Training: `forward_train` / `forward_hidden` run the fused sequence through
 the decoder without a cache; attention goes through the flash kernels
@@ -24,7 +36,7 @@ the kernel's causal + length family.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch.func import functional_call
@@ -32,6 +44,7 @@ from torch.func import functional_call
 from bridgelang_tpu_torch._device import resolve_device
 from bridgelang_tpu_torch.models.llm.llama import (
     LLM_FAMILIES,
+    W8A8_MIN_CHUNK,
     LLMConfig,
     embed_tokens,
     init_kv_cache,
@@ -76,6 +89,7 @@ class PrismaticVLM:
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.cache_dtype = torch.bfloat16  # the KV cache's dtype (fp32 for the exact speculative contract)
         meta = torch.device("meta")
         vo = cfg.vision_override
         if vo is None:
@@ -228,6 +242,49 @@ class PrismaticVLM:
 
     # --- generation ---------------------------------------------------------
 
+
+    def _prefill(self, params: Params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                 pixel_values: torch.Tensor, n_new: int, cache_dtype: Optional[torch.dtype]):
+        """Vision, fuse-after-BOS and the prefill into a fresh KV cache of
+        fused length + `n_new` slots -> (the last REAL row's hidden state
+        [B, 1, D], the cache, true lengths [B] int64)."""
+        b = input_ids.shape[0]
+        dev = input_ids.device
+        patch_embeds = self.encode_vision(params, pixel_values)
+        token_embeds = embed_tokens(params["llm"], input_ids, dtype=self.dtype)
+        fused, fused_mask, _ = self.fuse_after_bos(token_embeds, patch_embeds, attention_mask)
+        f_len = fused.shape[1]
+        true_len = fused_mask.sum(dim=1).long()  # exact under right padding
+        cache = init_kv_cache(self.cfg.llm, b, f_len + n_new, dtype=cache_dtype or self.cache_dtype, device=dev)
+        positions = torch.arange(f_len, device=dev).expand(b, f_len)
+        mask = self._causal_mask(fused_mask)  # chunk extent: the fresh cache holds nothing else
+        hidden, cache = llm_forward(
+            params["llm"], self.cfg.llm, fused, positions, mask,
+            cache=cache, cache_positions=positions, cache_write="contiguous", lengths=true_len.to(torch.int32),
+        )
+        last_idx = torch.clamp(true_len - 1, 0, f_len - 1)
+        return hidden[torch.arange(b, device=dev), last_idx][:, None], cache, true_len
+
+    def _chunk_mask(self, pos: torch.Tensor, s_len: int) -> torch.Tensor:
+        """[B, 1, T, S] mask of query rows at cache positions `pos` [B, T]:
+        causal over the cache (+ the window)."""
+        k_idx = torch.arange(s_len, device=pos.device)[None, None, None, :]
+        p = pos[:, None, :, None]
+        mask = k_idx <= p
+        if self.cfg.llm.sliding_window is not None:
+            mask = mask & (k_idx > p - self.cfg.llm.sliding_window)
+        return mask
+
+    def _decode_logits(self, params: Params, cfg: LLMConfig, tokens: torch.Tensor, pos: torch.Tensor,
+                       cache: Params) -> torch.Tensor:
+        """Tokens [B, T] at positions `pos` [B, T] (also their cache slots)
+        through the cached decoder -> logits [B, T, V]."""
+        hidden, _ = llm_forward(
+            params["llm"], cfg, embed_tokens(params["llm"], tokens, dtype=self.dtype), pos,
+            self._chunk_mask(pos, cache["k"].shape[2]), cache=cache, cache_positions=pos,
+        )
+        return lm_logits(params["llm"], hidden, cfg)
+
     @torch.inference_mode()
     def generate_greedy(
         self,
@@ -236,43 +293,173 @@ class PrismaticVLM:
         attention_mask: torch.Tensor,
         pixel_values: torch.Tensor,
         max_new_tokens: int,
+        cache_dtype: Optional[torch.dtype] = None,
+        temperature: float = 0.0,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """input_ids / attention_mask [B, T] right-padded prompts (BOS first)
-        -> greedy token ids [B, max_new_tokens] (argmax over the padded vocab)."""
+        -> token ids [B, max_new_tokens]: the argmax over the padded vocab,
+        or, with `temperature` > 0 and a `generator` (on the model's device),
+        samples from softmax(logits / temperature)."""
+        cfg = self.cfg.llm
+        sample = temperature > 0.0 and generator is not None
+
+        def select(logits: torch.Tensor) -> torch.Tensor:  # [B, 1, V] -> [B, 1]
+            if sample:
+                return torch.multinomial(torch.softmax(logits[:, 0].float() / temperature, dim=-1), 1,
+                                         generator=generator)
+            return logits.argmax(dim=-1)
+
+        last_hidden, cache, true_len = self._prefill(params, input_ids, attention_mask, pixel_values,
+                                                     max_new_tokens, cache_dtype)
+        token = select(lm_logits(params["llm"], last_hidden, cfg))  # token 0, from the last real row
+        tokens = [token]
+        # Prefill produced token 0, so only max_new_tokens - 1 decode passes run.
+        # Step i writes its K/V at slot true_len + i (over the prefill's pad rows).
+        for i in range(max_new_tokens - 1):
+            token = select(self._decode_logits(params, cfg, token, (true_len + i)[:, None], cache))
+            tokens.append(token)
+        return torch.cat(tokens, dim=1)
+
+    def speculative_verify(
+        self,
+        params: Params,
+        input_ids: torch.Tensor,
+        attention_mask: torch.Tensor,
+        pixel_values: torch.Tensor,
+        draft_tokens: torch.Tensor,
+        cache_dtype: Optional[torch.dtype] = None,
+        margin_threshold: Union[float, torch.Tensor] = 0.25,
+    ) -> "SpeculativeState":
+        """The first part of `generate_speculative`, free of host reads: the
+        prefill gives token 0; one verify chunk [token0, draft[1:]] at
+        positions true_len + i runs through the cached decoder (the decode
+        path's `cached_attention`); position i is accepted while every
+        earlier verify input matched its argmax and its top-1 margin exceeds
+        `margin_threshold` (a float or a float32 tensor on the device).
+        Returns the state whose `out` holds the accepted prefix, `accepts`
+        min(k, n) per example and `j0` = min(min k, n)."""
+        b, n = draft_tokens.shape
+        cfg = self.cfg.llm
+        dev = input_ids.device
+        last_hidden, cache, true_len = self._prefill(params, input_ids, attention_mask, pixel_values, n, cache_dtype)
+        token0 = lm_logits(params["llm"], last_hidden, cfg).argmax(dim=-1)  # [B, 1]
+        if n == 1:
+            return SpeculativeState(token0, torch.ones(b, dtype=torch.long, device=dev),
+                                    torch.ones((), dtype=torch.long, device=dev), cache, true_len, cfg)
+        # An int8 decoder's w8a8 product starts at W8A8_MIN_CHUNK tokens; decode
+        # (T=1) casts the weight. A verify chunk that long must cast too, or its
+        # logits carry activation-quantization noise decode never sees. int4
+        # weights quantize activations at every chunk length and keep w8a8.
+        has_int4 = any(k.endswith("_scale4") for k in params["llm"]["layers"][0])
+        if cfg.w8a8 and n >= W8A8_MIN_CHUNK and not has_int4:
+            cfg = dataclasses.replace(cfg, w8a8=False)
+        ver_in = torch.cat([token0, draft_tokens[:, 1:].long()], dim=1)  # [B, n]
+        pos = true_len[:, None] + torch.arange(n, device=dev)[None, :]  # token i sits at true_len + i
+        ver_logits = self._decode_logits(params, cfg, ver_in, pos, cache).float()  # [B, n, V]
+        g = ver_logits.argmax(dim=-1)
+        top2 = torch.topk(ver_logits, 2, dim=-1).values
+        margin = torch.as_tensor(margin_threshold, dtype=torch.float32, device=dev)
+        margin_ok = (top2[..., 0] - top2[..., 1]) > margin
+        # out[0] = token0; out[i] = g[i-1], accepted while every verify input
+        # matched and every accepted position cleared the margin.
+        out = torch.cat([token0, g[:, :-1]], dim=1)
+        input_ok = ver_in[:, 1:] == g[:, :-1]  # draft[i] == out[i]
+        step_ok = margin_ok[:, : n - 1] & torch.cat(
+            [torch.ones((b, 1), dtype=torch.bool, device=dev), input_ok[:, : n - 2]], dim=1)
+        k = 1 + torch.cumprod(step_ok.long(), dim=1).sum(dim=1)  # [B] accepted count
+        return SpeculativeState(out, torch.clamp(k, max=n), torch.clamp(k.min(), max=n), cache, true_len, cfg)
+
+    def speculative_step(self, params: Params, state: "SpeculativeState", step: torch.Tensor) -> None:
+        """One sequential fix-up step of `generate_speculative`: `step` is a
+        one-element int64 tensor j (1 <= j < n) on the device; the token
+        out[j-1] decodes at position true_len + j - 1, its argmax is written
+        to out[j] and `step` incremented, all on the device (a CUDA graph
+        replays this as is)."""
+        b = state.out.shape[0]
+        j = step.reshape(1, 1).expand(b, 1)
+        tok = state.out.gather(1, j - 1)
+        pos = state.true_len[:, None] + (j - 1)
+        nxt = self._decode_logits(params, state.cfg, tok, pos, state.cache).argmax(dim=-1)
+        state.out.scatter_(1, j, nxt)
+        step.add_(1)
+
+    @torch.inference_mode()
+    def generate_speculative(
+        self,
+        params: Params,
+        input_ids: torch.Tensor,
+        attention_mask: torch.Tensor,
+        pixel_values: torch.Tensor,
+        draft_tokens: torch.Tensor,
+        cache_dtype: Optional[torch.dtype] = None,
+        margin_threshold: Union[float, torch.Tensor] = 0.25,
+        return_accept_count: bool = False,
+    ):
+        """Speculative greedy decode against an external draft [B, n]:
+        equal to `generate_greedy(max_new_tokens=n)` whatever the draft, where
+        the verify-vs-decode numeric difference stays below the margin gate
+        (exactly so with an fp32 model and cache). Returns [B, n] ids, and
+        with `return_accept_count` also the accepted count per example ([B],
+        in [1, n]; token 0 is always canonical). The fix-up loop from the
+        first rejection reads `j0` on the host once."""
+        state = self.speculative_verify(params, input_ids, attention_mask, pixel_values, draft_tokens,
+                                        cache_dtype=cache_dtype, margin_threshold=margin_threshold)
+        step = state.j0.reshape(1).clone()
+        for _ in range(draft_tokens.shape[1] - int(state.j0)):
+            self.speculative_step(params, state, step)
+        return (state.out, state.accepts) if return_accept_count else state.out
+
+    @torch.inference_mode()
+    def generate_parallel(
+        self,
+        params: Params,
+        input_ids: torch.Tensor,
+        attention_mask: torch.Tensor,
+        pixel_values: torch.Tensor,
+        max_new_tokens: int,
+        query_token_id: int = LLAMA_EMPTY_TOKEN,
+    ) -> torch.Tensor:
+        """One-forward parallel decode (for models fine-tuned with the
+        parallel objective): token 0 from the last real prompt row, token i
+        >= 1 from a query row at position true_len + i - 1 that attends the
+        valid prefix only. The mask is outside the flash kernel's family, so
+        the forward runs `attention="masked"`. Returns [B, max_new_tokens]."""
         b = input_ids.shape[0]
         cfg = self.cfg.llm
         dev = input_ids.device
+        n_q = max_new_tokens - 1
         patch_embeds = self.encode_vision(params, pixel_values)
         token_embeds = embed_tokens(params["llm"], input_ids, dtype=self.dtype)
         fused, fused_mask, _ = self.fuse_after_bos(token_embeds, patch_embeds, attention_mask)
         f_len = fused.shape[1]
-        s_len = f_len + max_new_tokens
-        true_len = fused_mask.sum(dim=1).to(torch.int32)  # [B]; exact under right padding
+        true_len = fused_mask.sum(dim=1).long()
+        q_ids = torch.full((b, max(n_q, 1)), query_token_id, dtype=torch.long, device=dev)
+        seq = torch.cat([fused, embed_tokens(params["llm"], q_ids, dtype=self.dtype)[:, :n_q]], dim=1)
+        t = f_len + n_q
+        positions = torch.cat([torch.arange(f_len, device=dev).expand(b, f_len),
+                               true_len[:, None] + torch.arange(n_q, device=dev)[None, :]], dim=1)
+        # Prefix rows: causal over the valid prefix. Query rows: the valid prefix only.
+        key_valid = torch.cat([fused_mask.bool(), torch.zeros((b, n_q), dtype=torch.bool, device=dev)], dim=1)
+        rows = torch.arange(t, device=dev)
+        row_mask = (rows[None, :] <= rows[:, None]) | (rows >= f_len)[:, None]
+        mask = (row_mask[None] & key_valid[:, None, :])[:, None]
+        hidden, _ = llm_forward(params["llm"], cfg, seq, positions, mask, attention="masked")
+        last_idx = torch.clamp(true_len - 1, 0, f_len - 1)
+        head_in = torch.cat([hidden[torch.arange(b, device=dev), last_idx][:, None], hidden[:, f_len:]], dim=1)
+        return lm_logits(params["llm"], head_in, cfg).argmax(dim=-1)
 
-        cache = init_kv_cache(cfg, b, s_len, device=dev)
-        positions = torch.arange(f_len, device=dev).expand(b, f_len)
-        mask = self._causal_mask(fused_mask)  # chunk extent: the fresh cache holds nothing else
-        hidden, cache = llm_forward(
-            params["llm"], cfg, fused, positions, mask,
-            cache=cache, cache_positions=positions, cache_write="contiguous", lengths=true_len,
-        )
-        # The last REAL token's hidden state gives token 0.
-        last_idx = torch.clamp(true_len.long() - 1, 0, f_len - 1)
-        last_hidden = hidden[torch.arange(b, device=dev), last_idx][:, None]  # [B, 1, D]
-        token = lm_logits(params["llm"], last_hidden, cfg).argmax(dim=-1)  # [B, 1]
-        tokens = [token]
-        k_idx = torch.arange(s_len, device=dev)[None, None, None, :]
-        # Prefill produced token 0, so only max_new_tokens - 1 decode passes run.
-        # Step i writes its K/V at slot true_len + i (over the prefill's pad rows).
-        for i in range(max_new_tokens - 1):
-            pos = (true_len.long() + i)[:, None]  # [B, 1] position and cache slot
-            step_mask = k_idx <= pos[:, :, None, None]
-            if cfg.sliding_window is not None:
-                step_mask = step_mask & (k_idx > pos[:, :, None, None] - cfg.sliding_window)
-            tok_embed = embed_tokens(params["llm"], token, dtype=self.dtype)
-            hidden, cache = llm_forward(
-                params["llm"], cfg, tok_embed, pos, step_mask, cache=cache, cache_positions=pos,
-            )
-            token = lm_logits(params["llm"], hidden, cfg).argmax(dim=-1)
-            tokens.append(token)
-        return torch.cat(tokens, dim=1)
+
+@dataclasses.dataclass
+class SpeculativeState:
+    """What the verify pass hands the fix-up steps: the ids so far `out`
+    [B, n], the accepted counts `accepts` [B], `j0` (a 0-d tensor: the first
+    position re-decoded), the KV cache, the true lengths [B] and the decoder
+    config the verify chunk ran with."""
+
+    out: torch.Tensor
+    accepts: torch.Tensor
+    j0: torch.Tensor
+    cache: Params
+    true_len: torch.Tensor
+    cfg: LLMConfig

@@ -93,6 +93,12 @@ def center_crop(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     return img[..., top : top + th, left : left + tw]
 
 
+def _per_channel(values: Sequence[float], like: torch.Tensor) -> torch.Tensor:
+    """[C, 1, 1] constants in like's dtype on like's device, written by fill
+    kernels: no host-to-device copy, which a CUDA graph capture forbids."""
+    return torch.cat([torch.full((1,), float(v), dtype=like.dtype, device=like.device) for v in values])[:, None, None]
+
+
 def letterbox_pad(img: torch.Tensor, fill: Sequence[float]) -> torch.Tensor:
     """Pad to square with a per-channel constant fill: int((max - d) / 2) per
     side, under-padding by one pixel on odd deltas like TVF.pad."""
@@ -101,16 +107,14 @@ def letterbox_pad(img: torch.Tensor, fill: Sequence[float]) -> torch.Tensor:
     ph, pw = int((max_wh - h) / 2), int((max_wh - w) / 2)
     if ph == 0 and pw == 0:
         return img
-    fill_t = torch.as_tensor(fill, dtype=img.dtype, device=img.device)[:, None, None]
+    fill_t = _per_channel(fill, img)
     out = fill_t.expand(img.shape[0], img.shape[1], h + 2 * ph, w + 2 * pw).clone()
     out[..., ph : ph + h, pw : pw + w] = img
     return out
 
 
 def normalize(img: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
-    mean_t = torch.as_tensor(mean, dtype=img.dtype, device=img.device)[:, None, None]
-    std_t = torch.as_tensor(std, dtype=img.dtype, device=img.device)[:, None, None]
-    return (img - mean_t) / std_t
+    return (img - _per_channel(mean, img)) / _per_channel(std, img)
 
 
 def _transform_one_tower(img01: torch.Tensor, spec: ImageTowerSpec, strategy: str) -> torch.Tensor:

@@ -1,8 +1,13 @@
-"""Weight quantization: packed int4 decoder layers, int8 embedding and head.
+"""Weight quantization: int8 and packed-int4 decoder layers, int8 embedding and head.
 
-Counterpart of bridgelang_tpu/ops/quant.py for what the packed-int4 path
-needs. The bytes at the public functions are the JAX package's:
+Counterpart of bridgelang_tpu/ops/quant.py. The bytes at the public
+functions are the JAX package's; the leaves that change orientation are
+transposed, nothing else:
 
+* an int8 decoder leaf `<proj>` takes the port's [out, in] orientation,
+  with `<proj>_scale` [out, 1] bf16 (per output column): the JAX [in, out]
+  leaf and its [1, out] scale, transposed, like every dense weight of the
+  port;
 * a packed int4 leaf `<proj>` is [K, N/2] int8 in the `out-paired-lobias/v2`
   layout (byte [r, c] holds code[r, c] + 8 in the low nibble and
   code[r, N/2 + c], signed, in the high nibble), and its `<proj>_scale4` is
@@ -10,22 +15,27 @@ needs. The bytes at the public functions are the JAX package's:
   JAX-packed tensor and the port's are the same bytes, and
   `INT4_PACK_LAYOUT` keeps meaning what it says;
 * the int8 `embed` is [V, D] with `embed_scale` [V, 1] (per token row), as in
-  the JAX package;
+  the JAX package (not transposed);
 * the int8 `lm_head` takes the port's [V, D] orientation, with
   `lm_head_scale` [V, 1] (per vocabulary entry): the JAX [D, V] leaf and its
   [1, V] scale, transposed.
 
-Dense layers stay in the port's [out, in] layout; `quantize_llm_int4` reads
-them one layer at a time and `dequantize_llm_int4` returns them so.
+Dense layers stay in the port's [out, in] layout; `quantize_llm_int8` and
+`quantize_llm_int4` read them one layer at a time and `dequantize_llm_int8`
+returns them so.
 
-Not yet ported: int8 decoder layers (`quantize_llm_int8`, the `<proj>_scale`
-leaves and `init_llm_params_int8`). `quantize_llm_int4` raises on an int8
-source and `dequantize_llm_int4` on int8 layer leaves.
+Weight scales follow the JAX package's arithmetic. Where it quantizes under
+`jax.jit` (the decoder layers, int8 and int4, and the random inits), XLA
+turns `absmax / 127` (or `/ 7`) into a multiplication by the fp32
+reciprocal, and so does the port on either device (`by_reciprocal`); an
+int4 pack from an int8 source hits exact rounding ties, where the two
+differ. Where it runs op by op (the embedding and the head of a float tree)
+the port divides by the Python number, a true division on the CPU (CUDA
+torch multiplies by the reciprocal there).
 
-`pack_layout_tag` and `init_llm_params_int4` have no caller in the port yet:
-the tag is what a torch-format training checkpoint will record (the JAX
-trainer's `int4_pack_layout`), and the random int4 decoder is what the port's
-7B-int4 benchmark cell will serve (as the JAX `bench.py` 7b4 section does).
+`pack_layout_tag` has no caller in the port yet: the tag is what a
+torch-format training checkpoint will record (the JAX trainer's
+`int4_pack_layout`).
 """
 
 from __future__ import annotations
@@ -58,16 +68,114 @@ def quantize_activations_per_token(x: torch.Tensor) -> Tuple[torch.Tensor, torch
     return torch.round(xf / scale).to(torch.int8), scale
 
 
-def _quantize_2d(w32: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _absmax_scale(absmax: torch.Tensor, top: float, by_reciprocal: bool) -> torch.Tensor:
+    """absmax / top, 1 where absmax is 0. `by_reciprocal`: absmax times
+    fp32(1 / top), as XLA compiles the division under jit, on either device."""
+    scaled = absmax * torch.full_like(absmax, 1.0 / top) if by_reciprocal else absmax / top
+    return torch.where(absmax == 0, torch.ones_like(absmax), scaled)
+
+
+def _quantize_2d(w32: torch.Tensor, dim: int, by_reciprocal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 over `dim`-reduced absmax -> (codes int8, scale bf16)."""
     absmax = w32.abs().amax(dim=dim, keepdim=True)
-    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
+    scale = _absmax_scale(absmax, 127.0, by_reciprocal)
     q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
     return q, scale.to(torch.bfloat16)
 
 
-def _quantize_tensor(w: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    return _quantize_2d(w.float(), dim)
+def _quantize_tensor(w: torch.Tensor, dim: int, by_reciprocal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _quantize_2d(w.float(), dim, by_reciprocal)
+
+
+def quantize_llm_int8(
+    llm_params: Params,
+    targets: Sequence[str] = QUANT_TARGETS,
+    quantize_embed: bool = True,
+    quantize_head: bool = True,
+) -> Params:
+    """Quantize the decoder's projections to int8 per output column (one
+    matrix of one layer at a time: each [out, in] weight becomes int8 codes
+    [out, in] and a bf16 `<name>_scale` [out, 1]), and optionally the
+    embedding (per token row) and the LM head (per vocabulary entry). The
+    returned dict shares every other tensor with `llm_params`."""
+    layers = []
+    for lp in llm_params["layers"]:
+        lp = dict(lp)
+        for name in targets:
+            if name in lp and lp[name].dtype != torch.int8:
+                lp[name], lp[name + "_scale"] = _quantize_tensor(lp[name].detach(), dim=1, by_reciprocal=True)
+        layers.append(lp)
+    out = dict(llm_params, layers=layers)
+    if quantize_embed and out["embed"].dtype != torch.int8:
+        out["embed"], out["embed_scale"] = _quantize_tensor(out["embed"].detach(), dim=1)  # [V, D], [V, 1]
+    if quantize_head and out["lm_head"].dtype != torch.int8:
+        out["lm_head"], out["lm_head_scale"] = _quantize_tensor(out["lm_head"].detach(), dim=1)  # [V, D], [V, 1]
+    return out
+
+
+def init_llm_params_int8(generator: torch.Generator, cfg, device: Optional[torch.device] = None) -> Params:
+    """Random int8 decoder drawn one matrix of one layer at a time on
+    `device` from `generator` (bf16 normal * fan_in^-0.5, then quantized), so
+    no float copy of the model exists; embedding normal * 0.02, head normal *
+    D^-0.5, norms one. The JAX package's scales; not its numbers (another
+    generator)."""
+    D, I, V = cfg.dim, cfg.intermediate_size, cfg.padded_vocab_size
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cfg.arch != "llama":
+        raise NotImplementedError("int8 init targets the Llama family")
+    shapes = {"wq": (H * hd, D), "wk": (Hkv * hd, D), "wv": (Hkv * hd, D), "wo": (D, H * hd),
+              "w_gate": (I, D), "w_up": (I, D), "w_down": (D, I)}
+
+    def normal(shape, std: float) -> torch.Tensor:
+        w = torch.randn(shape, generator=generator, device=device, dtype=torch.bfloat16)
+        return w * torch.tensor(std, dtype=torch.bfloat16, device=device)
+
+    layers = []
+    for _ in range(cfg.n_layers):
+        lp: Params = {"attn_norm": torch.ones(D, dtype=torch.bfloat16, device=device),
+                      "mlp_norm": torch.ones(D, dtype=torch.bfloat16, device=device)}
+        for name, (n, k) in shapes.items():
+            lp[name], lp[name + "_scale"] = _quantize_tensor(normal((n, k), k ** -0.5), dim=1, by_reciprocal=True)
+        layers.append(lp)
+    embed_q, embed_s = _quantize_tensor(normal((V, D), 0.02), dim=1, by_reciprocal=True)
+    head_q, head_s = _quantize_tensor(normal((V, D), D ** -0.5), dim=1, by_reciprocal=True)
+    return {"embed": embed_q, "embed_scale": embed_s, "layers": layers,
+            "final_norm": torch.ones(D, dtype=torch.bfloat16, device=device),
+            "lm_head": head_q, "lm_head_scale": head_s}
+
+
+def dequantize_llm_int8(llm_params: Params, dtype: torch.dtype = torch.bfloat16, int4_shards: int = 1) -> Params:
+    """Float weights back from a quantized decoder, dropping the scale
+    leaves: int8 layers (codes * scale in fp32, then `dtype`) and packed int4
+    layers come back in the port's [out, in] layout, the int8 embedding and
+    head as [V, D]. `int4_shards` must equal the pack-time n_shards."""
+    layers = []
+    for lp in llm_params["layers"]:
+        lp = dict(lp)
+        for name in [k for k in lp if k + "_scale4" in lp]:
+            shards = int4_shards if name in INT4_COLUMN_PARALLEL else 1
+            lp[name] = dequant_int4(lp[name], lp.pop(name + "_scale4"), dtype, n_shards=shards).t().contiguous()
+        for name in [k for k in lp if k + "_scale" in lp]:
+            lp[name] = (lp[name].float() * lp.pop(name + "_scale").float()).to(dtype)
+        layers.append(lp)
+    out = dict(llm_params, layers=layers)
+    for name in ("embed", "lm_head"):
+        if out[name].dtype == torch.int8:
+            scale = out.pop(name + "_scale")
+            out[name] = (out[name].float() * scale.float()).to(dtype)
+    return out
+
+
+dequantize_llm_int4 = dequantize_llm_int8  # the JAX package's alias: one function dequantizes both
+
+
+def quantized_bytes(params) -> int:
+    """Bytes of every tensor in a (nested dict / list) parameter tree."""
+    if isinstance(params, dict):
+        return sum(quantized_bytes(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(quantized_bytes(v) for v in params)
+    return params.numel() * params.element_size()
 
 
 def pack_layout_tag(n_shards: int = 1) -> str:
@@ -119,7 +227,7 @@ def _quantize4_2d(w32: torch.Tensor, group: int, n_shards: int = 1) -> Tuple[tor
         raise ValueError(f"cannot pack [{n_in}, {out}] with group {group} and {n_shards} shard(s)")
     grouped = w32.reshape(n_in // group, group, out)
     absmax = grouped.abs().amax(dim=1, keepdim=True)
-    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 7.0)
+    scale = _absmax_scale(absmax, 7.0, by_reciprocal=True)  # as the card computed `/ 7.0` already
     codes = torch.clamp(torch.round(grouped / scale), -7, 7).to(torch.int8).reshape(n_in, out)
     # contiguous whatever the source's strides (a transposed [out, in] weight): the kernels read rows
     return pack_int4(codes, n_shards=n_shards).contiguous(), scale[:, 0, :].to(torch.bfloat16).contiguous()
@@ -139,19 +247,24 @@ def quantize_llm_int4(
     the returned layer, so the transient is one fp32 matrix. The returned
     dict shares every other tensor with `llm_params`; drop `llm_params` to
     free the float weights. Column-parallel leaves get shard-blocked pairing
-    when `n_shards` > 1. An int8 source (the JAX int8-source branch,
-    quant.py:340-344) waits for int8 weights and raises."""
+    when `n_shards` > 1. An int8 leaf (with `<name>_scale`) is packed from
+    codes * scale in fp32, and its scale leaf dropped (the JAX int8-source
+    branch); a leaf that is already packed raises."""
     layers = []
     for lp in llm_params["layers"]:
         lp = dict(lp)
         for name in targets:
             if name not in lp:
                 continue
-            w = lp[name]
+            w = lp[name].detach()
             if w.dtype == torch.int8:
-                raise NotImplementedError(f"{name}: quantizing int8 (or already packed) weights to int4 is not yet ported")
+                if name + "_scale" not in lp:
+                    raise ValueError(f"{name} is int8 without `{name}_scale`: already packed to int4")
+                w32 = w.float() * lp.pop(name + "_scale").float()
+            else:
+                w32 = w.float()
             shards = n_shards if name in INT4_COLUMN_PARALLEL else 1
-            lp[name], lp[name + "_scale4"] = _quantize4_2d(w.detach().float().t(), group, n_shards=shards)
+            lp[name], lp[name + "_scale4"] = _quantize4_2d(w32.t(), group, n_shards=shards)
         layers.append(lp)
     out = dict(llm_params, layers=layers)
     if out["embed"].dtype != torch.int8:
@@ -184,31 +297,8 @@ def init_llm_params_int4(generator: torch.Generator, cfg, group: int = INT4_GROU
         layers.append(lp)
     embed = torch.randn((V, D), generator=generator, device=device, dtype=torch.bfloat16) * 0.02
     head = torch.randn((V, D), generator=generator, device=device, dtype=torch.bfloat16) * D ** -0.5
-    embed_q, embed_s = _quantize_tensor(embed, dim=1)
-    head_q, head_s = _quantize_tensor(head, dim=1)
+    embed_q, embed_s = _quantize_tensor(embed, dim=1, by_reciprocal=True)
+    head_q, head_s = _quantize_tensor(head, dim=1, by_reciprocal=True)
     return {"embed": embed_q, "embed_scale": embed_s, "layers": layers,
             "final_norm": torch.ones(D, dtype=torch.bfloat16, device=device),
             "lm_head": head_q, "lm_head_scale": head_s}
-
-
-def dequantize_llm_int4(llm_params: Params, dtype: torch.dtype = torch.bfloat16, int4_shards: int = 1) -> Params:
-    """Float weights back from a quantized decoder, dropping the scale leaves
-    (the JAX `dequantize_llm_int8`, which also covers int4): packed int4
-    layers come back in the port's [out, in] layout, the int8 embedding and
-    head as [V, D]. `int4_shards` must equal the pack-time n_shards. int8
-    decoder layers are not yet ported and raise."""
-    layers = []
-    for lp in llm_params["layers"]:
-        if any(k.endswith("_scale") for k in lp):
-            raise NotImplementedError("int8 decoder layers are not yet ported to torch")
-        lp = dict(lp)
-        for name in [k for k in lp if k + "_scale4" in lp]:
-            shards = int4_shards if name in INT4_COLUMN_PARALLEL else 1
-            lp[name] = dequant_int4(lp[name], lp.pop(name + "_scale4"), dtype, n_shards=shards).t().contiguous()
-        layers.append(lp)
-    out = dict(llm_params, layers=layers)
-    for name in ("embed", "lm_head"):
-        if out[name].dtype == torch.int8:
-            scale = out.pop(name + "_scale")
-            out[name] = (out[name].float() * scale.float()).to(dtype)
-    return out

@@ -1,13 +1,15 @@
 """REST action server: POST /act {image, instruction, unnorm_key?} -> {action}.
 
-Counterpart of bridgelang_tpu/serving/server.py (greedy path): stdlib
-`http.server` with a small numpy-JSON codec, GET /healthz and /stats, and
-micro-batching of concurrent requests (`max_batch > 1`). The image is
-nested-list JSON or {"__b64__", "shape", "dtype"} raw bytes.
-
-Not yet ported: speculative decoding (`draft_tokens`, and the JAX server's
-speculative batch-1 default) and chunked parallel decoding (`horizon`). A
-request that asks for either gets a 500 that says so.
+Counterpart of bridgelang_tpu/serving/server.py: stdlib `http.server` with
+a small numpy-JSON codec, GET /healthz and /stats, and micro-batching of
+concurrent requests (`max_batch > 1`). The image is nested-list JSON or
+{"__b64__", "shape", "dtype"} raw bytes. A request may carry
+`draft_tokens` (speculative decoding against the client's draft; the
+response adds "tokens") or `horizon` (a chunk of actions from one parallel
+forward, for parallel-objective models). At batch 1 the server decodes
+speculatively by default, drafting from its own history of the same
+(instruction, unnorm_key). Every model pass holds one lock: a CUDA model's
+graphs run one predict at a time.
 """
 
 from __future__ import annotations
@@ -18,15 +20,19 @@ import queue
 import threading
 import time
 import traceback
+from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from bridgelang_tpu_torch._device import resolve_device
 
-
-REQUEST_TIMEOUT_S = 600.0  # a queued request gives up after this long
+# Each horizon is its own graph shape (7 x H decode positions); requests past
+# any sane control-chunk length are refused rather than captured.
+MAX_HORIZON = 32
+DRAFT_CACHE_SIZE = 64  # (instruction, unnorm_key) histories the speculative default keeps
 
 
 def decode_image(payload: Any) -> np.ndarray:
@@ -44,6 +50,21 @@ def decode_image(payload: Any) -> np.ndarray:
 
 def encode_array(arr: np.ndarray) -> Any:
     return np.asarray(arr).tolist()
+
+
+def draft_from_history(prev2: Optional[np.ndarray], prev1: np.ndarray, vocab_size: int,
+                       step_thresh: int = 2, clamp: int = 8, n_bins: int = 256) -> np.ndarray:
+    """A token-space draft from the last two ticks' action ids: per dim, the
+    last step extrapolated (clamped to +-`clamp` bins) where it was at least
+    `step_thresh` bins, else prev1 verbatim. Action ids are affine in the bin
+    index (vocab_size - bin), so bin arithmetic is exact in id space; only
+    extrapolated dims are clipped to the action range."""
+    if prev2 is None:
+        return prev1
+    step = np.clip(prev1.astype(np.int64) - prev2, -clamp, clamp)
+    step = np.where(np.abs(step) >= step_thresh, step, 0)
+    ex = np.clip(prev1 + step, vocab_size - n_bins, vocab_size - 1)
+    return np.where(step != 0, ex, prev1).astype(np.int32)
 
 
 def batch_buckets(max_batch: int) -> List[int]:
@@ -77,12 +98,20 @@ class VLAServer:
     With `max_batch > 1`, a worker thread drains the queue for up to
     `batch_window_ms` after the first request, groups compatible requests
     (same unnorm_key and image shape), pads each group to the next bucket
-    and runs ONE batched predict_action pass. `device` defaults to CUDA
-    (raising without a card) and must be the model's device.
+    and runs ONE batched predict_action pass; a queued request gives up after
+    `request_timeout_s`. Requests with `draft_tokens` or `horizon` bypass the
+    queue. At batch 1 with `speculative_default`, a request without a draft
+    decodes speculatively against `draft_from_history` of the ids this server
+    returned for the same (instruction, unnorm_key) (zeros on the first
+    tick), gated at `speculative_margin`; greedy-equivalent, and the response
+    carries "tokens". The default is off for a parallel-decode model and for
+    an int8 KV cache. `device` defaults to CUDA (raising without a card) and
+    must be the model's device.
     """
 
     def __init__(self, model, params, default_unnorm_key: Optional[str] = None,
-                 max_batch: int = 1, batch_window_ms: float = 6.0, device=None):
+                 max_batch: int = 1, batch_window_ms: float = 6.0, request_timeout_s: float = 600.0,
+                 speculative_default: bool = True, speculative_margin: float = 0.25, device=None):
         self.device = resolve_device(device)
         if self.device.type != model.device.type:
             raise ValueError(f"server device {self.device} differs from the model's {model.device}")
@@ -91,6 +120,17 @@ class VLAServer:
         self.default_unnorm_key = default_unnorm_key
         self.max_batch = int(max_batch)
         self.batch_window_s = batch_window_ms / 1e3
+        self.request_timeout_s = float(request_timeout_s)
+        self.speculative_margin = float(speculative_margin)
+        # A parallel-objective model decodes through generate_parallel: the
+        # sequential speculative path would emit ids its fine-tune never
+        # trained. An int8 KV cache could quantize the verify chunk apart from
+        # decode beyond what the margin gate covers.
+        self.speculative_default = (bool(speculative_default)
+                                    and getattr(model, "cache_dtype", None) != torch.int8
+                                    and not getattr(model, "parallel_decode", False))
+        self._draft_cache: "OrderedDict[Any, tuple]" = OrderedDict()  # (prev2, prev1) ids per key, LRU
+        self._draft_lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self._n_requests = 0
         self._n_errors = 0
@@ -130,26 +170,61 @@ class VLAServer:
             }
         return payload
 
-    def _predict_batch(self, images, instructions, unnorm_key) -> np.ndarray:
+    def _model_pass(self, fn, *args, **kwargs):
+        """One model pass under the lock, counted in /stats."""
         with self._model_lock:
-            actions = self.model.predict_action_batch(self.params, images, instructions, unnorm_key=unnorm_key)
+            out = fn(self.params, *args, **kwargs)
         with self._stats_lock:
             self._n_batches += 1
-        return actions
+        return out
+
+    def _speculative(self, image, instruction, unnorm_key, draft) -> Dict[str, Any]:
+        action, tokens = self._model_pass(self.model.predict_action_speculative, image, instruction,
+                                          draft_tokens=draft, unnorm_key=unnorm_key,
+                                          margin_threshold=self.speculative_margin)
+        return {"action": encode_array(action), "tokens": encode_array(tokens)}
 
     def predict(self, request: Dict[str, Any]) -> Dict[str, Any]:
-        if request.get("horizon") is not None:
-            raise NotImplementedError("chunked parallel decoding (`horizon`) is not yet ported to the torch server")
-        if request.get("draft_tokens") is not None:
-            raise NotImplementedError("speculative decoding (`draft_tokens`) is not yet ported to the torch server")
         image = decode_image(request["image"])
         instruction = request["instruction"]
+        # Clients may send an explicit null: `or` resolves it to the server key.
         unnorm_key = request.get("unnorm_key") or self.default_unnorm_key
+        if request.get("horizon") is not None:  # horizon=0 must reach the range check
+            horizon = int(request["horizon"])
+            if not getattr(self.model, "parallel_decode", False):
+                raise ValueError("horizon requires a parallel-objective model (deploy --parallel_decode true)")
+            if not 1 <= horizon <= MAX_HORIZON:
+                raise ValueError(f"horizon must be in [1, {MAX_HORIZON}], got {horizon}")
+            chunk = self._model_pass(self.model.predict_action_chunk, image, instruction, horizon=horizon,
+                                     unnorm_key=unnorm_key)
+            return {"action": encode_array(chunk)}
+        if request.get("draft_tokens") is not None and not getattr(self.model, "parallel_decode", False):
+            # The client's draft (its previous response's tokens); a
+            # parallel-decode model ignores it and decodes in parallel below.
+            return self._speculative(image, instruction, unnorm_key, np.asarray(request["draft_tokens"], np.int32))
         if self.max_batch <= 1:
-            return {"action": encode_array(self._predict_batch([image], [instruction], unnorm_key)[0])}
+            if self.speculative_default:
+                key = (instruction, unnorm_key)
+                with self._draft_lock:
+                    prev2, prev1 = self._draft_cache.get(key, (None, None))
+                if prev1 is None:
+                    draft = np.zeros(self.model.get_action_dim(unnorm_key), np.int32)
+                else:
+                    draft = draft_from_history(prev2, prev1, self.model.cfg.llm.vocab_size,
+                                               n_bins=getattr(self.model, "n_action_bins", 256))
+                out = self._speculative(image, instruction, unnorm_key, draft)
+                with self._draft_lock:
+                    self._draft_cache[key] = (prev1, np.asarray(out["tokens"], np.int32))
+                    self._draft_cache.move_to_end(key)
+                    while len(self._draft_cache) > DRAFT_CACHE_SIZE:
+                        self._draft_cache.popitem(last=False)
+                return out
+            action = self._model_pass(self.model.predict_action_batch, [image], [instruction],
+                                      unnorm_key=unnorm_key)[0]
+            return {"action": encode_array(action)}
         pending = _Pending(image, instruction, unnorm_key)
         self._queue.put(pending)
-        if not pending.event.wait(timeout=REQUEST_TIMEOUT_S):
+        if not pending.event.wait(timeout=self.request_timeout_s):
             pending.abandoned = True
             raise TimeoutError("batched predict timed out")
         if pending.error is not None:
@@ -203,7 +278,8 @@ class VLAServer:
             bucket = next(b for b in batch_buckets(self.max_batch) if b >= n)
             images = [p.image for p in group] + [group[0].image] * (bucket - n)
             instructions = [p.instruction for p in group] + [group[0].instruction] * (bucket - n)
-            actions = self._predict_batch(images, instructions, group[0].unnorm_key)
+            actions = self._model_pass(self.model.predict_action_batch, images, instructions,
+                                       unnorm_key=group[0].unnorm_key)
             for p, action in zip(group, actions[:n]):
                 p.result = np.asarray(action)
         except Exception as e:  # noqa: BLE001 — delivered to each request of the group
@@ -275,19 +351,28 @@ class VLAServer:
 
 
 def client_act(host: str, port: int, image: np.ndarray, instruction: str, unnorm_key: Optional[str] = None,
-               timeout: float = 120.0) -> np.ndarray:
-    """Minimal client: POST /act with a base64 frame; returns the action."""
+               use_b64: bool = True, draft_tokens: Optional[np.ndarray] = None, return_tokens: bool = False,
+               horizon: Optional[int] = None, timeout: float = 120.0):
+    """Minimal client: POST /act with the frame as base64 bytes (or nested
+    lists); returns the action. Speculative control loops pass the previous
+    response's `tokens` as `draft_tokens` and set `return_tokens` to get
+    (action, tokens) (tokens None when the server sent none); `horizon=H`
+    asks a parallel-decode server for an [H, action_dim] chunk."""
     import http.client
 
-    payload = {
-        "image": {
+    if use_b64:
+        img_payload: Any = {
             "__b64__": base64.b64encode(np.ascontiguousarray(image).tobytes()).decode("ascii"),
             "shape": list(image.shape),
             "dtype": str(image.dtype),
-        },
-        "instruction": instruction,
-        "unnorm_key": unnorm_key,
-    }
+        }
+    else:
+        img_payload = np.asarray(image).tolist()
+    payload: Dict[str, Any] = {"image": img_payload, "instruction": instruction, "unnorm_key": unnorm_key}
+    if draft_tokens is not None:
+        payload["draft_tokens"] = np.asarray(draft_tokens).tolist()
+    if horizon is not None:
+        payload["horizon"] = int(horizon)
     conn = http.client.HTTPConnection(host, port, timeout=timeout)
     try:
         conn.request("POST", "/act", body=json.dumps(payload), headers={"Content-Type": "application/json"})
@@ -297,4 +382,7 @@ def client_act(host: str, port: int, image: np.ndarray, instruction: str, unnorm
         conn.close()
     if resp.status != 200:
         raise RuntimeError(f"server error {resp.status}: {data}")
-    return np.asarray(data["action"])
+    action = np.asarray(data["action"])
+    if return_tokens:
+        return action, (np.asarray(data["tokens"]) if "tokens" in data else None)
+    return action

@@ -40,14 +40,34 @@ of which fails the run:
            earlier commit unpacked with git archive), for before-and-after
            on one card.
   serve    OpenVLA-7B (prism-dinosiglip-224px+7b) at full width in bf16,
-           random weights drawn on the card from a seed; the port's
-           VLAServer answers POST /act: batch-1 requests, then one
-           micro-batch of 4 concurrent requests. Kernel launch counts are
-           zeroed before and read after: each model pass must launch the
-           flash kernel once per decoder layer (32). Prefill and decode
-           times come from generate_greedy with 1 and 7 new tokens; a
-           torch.profiler pass over batch-1 predicts gives device time,
-           idle share and the top kernels.
+           random weights drawn on the card from a seed, served through
+           replayed CUDA graphs (models/graphs.py) and, for comparison,
+           eagerly. The prefill argmax must differ between two frames; the
+           graphs of the batch buckets 1, 2 and 4 are captured first (peak
+           GB after each); replayed ids must equal eager generate_greedy ids
+           at B=1 and B=4. Prefill and decode times, graph and eager; a CUDA
+           event reading of one replay; a torch.profiler pass over batch-1
+           predicts of each (device time, idle share, launches, top kernels).
+           The port's VLAServer (greedy) answers POST /act: batch-1
+           requests, then one micro-batch of 4 concurrent requests, through
+           the graphs and then eagerly. Kernel launch counts are zeroed
+           before and read after: each model pass must launch the flash
+           kernel once per decoder layer (32), replays counting what their
+           capture recorded.
+  spec     batch-1 speculative decoding through the graph pair (verify,
+           then fix-up steps) on the bf16, the int8 and the int4 7B:
+           garbage, perfect and partial drafts give greedy's ids at the
+           0.25 margin (accept counts printed); calibrate_speculative_margin
+           on 4 frames; the server's default mode (drafts from its own
+           history) over 8 ticks of slowly drifting frames, against a greedy
+           server on the same ticks: /act medians, accept counts, ids equal
+           on every tick, 32 flash_fwd per predict (and for int4 whole
+           decoder passes of 224 int4_mm_a8 and quantize_a8). In the parity
+           phase: the depth-cut fp32 model with an fp32 KV cache gives
+           greedy's ids exactly for four draft kinds.
+  parallel parallel_decode on the bf16 7B: POST /act with horizon=8 answers
+           an [8, 7] chunk of finite floats from one masked forward that
+           launches no flash_fwd; its /act beside greedy's.
   train    LoRA fine-tuning of the same bf16 7B weights: r=32 fp32
            adapters on all seven projections, adapter-only AdamW (lr 5e-4,
            constant), batch 16 from DummyDataset through RLDSBatchTransform
@@ -59,13 +79,18 @@ of which fails the run:
            steps under "dots" remat (scripts/finetune.py's default), with
            the same launch counts; then merge the adapters and predict one
            action through the merged weights.
+  int8     the same decoder quantized by quantize_llm_int8 (int8 embedding
+           and head), LLMConfig.w8a8 on, served as `serve`: model and peak
+           GB; every projection of the prefill (T=352) must take the int8 x
+           int8 product (torch._int_mm) and every decode projection the
+           weight cast; the device time of one decode step's casts and their
+           share of a predict's device time.
   int4     the same decoder packed to int4 by quantize_llm_int4 (group
            128; int8 embedding and head) and the bf16 layers freed; with
-           LLMConfig.w8a8 on, the same serving as `serve`: every decoder pass
-           must launch int4_mm_a8 and quantize_a8 224 times each (7
-           projections x 32 layers), 7 passes per predict, and each predict
-           flash_fwd 32 times (the prefill); generate timings, a profile,
-           model and peak GB.
+           LLMConfig.w8a8 on, served as `serve`: every decoder pass must
+           launch int4_mm_a8 and quantize_a8 224 times each (7 projections
+           x 32 layers), 7 passes per predict, and each predict flash_fwd 32
+           times (the prefill); model and peak GB.
   qlora    r=32 fp32 adapters over that int4 base with w8a8 off, as `train`
            (batch 16, 352 tokens, full remat, one warm and 6 timed steps):
            each step launches int4_mm 448 times (forward and recompute) and
@@ -77,7 +102,10 @@ of which fails the run:
            action token ids must be equal, and one LoRA train step must
            give the same loss (1e-5 relative) and adapter gradients
            (1e-4 of max |g|); then the same cut packed to int4: equal ids
-           with w8a8 on and off, and one QLoRA step under the same rule.
+           with w8a8 on and off, and one QLoRA step under the same rule; the
+           cut quantized to int8: equal ids with w8a8 off, and with it on
+           teacher-forced logits within 0.05 max|logit| (argmax equal where
+           the CPU's top-2 margin clears twice that).
 Then one line {"kernels": [...]}, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout,
 it exits non-zero and prints no result.
@@ -149,6 +177,8 @@ PROFILE_NAMES = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq", "flas
                  "int4_mm fp32": "int4_mm_f32"}
 COLD_BYTES = 100e6       # weight copies rotated per timed launch: twice the 50 MB L2, so each launch reads cold
 GRAPH_LAUNCHES = 60      # launches per captured graph in the device-side timings
+SPEC_TICKS = 8           # server ticks of one instruction in the spec phase
+HORIZON = 8              # the parallel phase's chunk length
 
 
 def log(msg: str) -> None:
@@ -836,8 +866,10 @@ def profile_device(label: str, fn, reps: int) -> dict:
         + ", ".join(f"{k} {v:.3f} ms ({100 * v / busy_ms:.1f}%)" for k, v in flash.items() if v))
     for name, ms in top:
         log(f"  {ms:8.3f} ms  {100 * ms / busy_ms:5.1f}%  {name[:110]}")
+    # dtype conversions (an int8 weight cast to bf16 among them) run ATen's direct_copy kernel
+    copy_ms = sum(v for n, v in by_name.items() if "direct_copy_kernel" in n)
     return {"wall_ms": wall_ms, "device_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-            "launches_per_call": len(kernels) / reps, "flash_ms": flash,
+            "launches_per_call": len(kernels) / reps, "flash_ms": flash, "direct_copy_ms": copy_ms,
             "top": [(name[:80], ms) for name, ms in top[:6]]}
 
 
@@ -857,11 +889,13 @@ def check_action(action, what: str) -> None:
 
 
 def serve(model, params, n_single: int, per_pass: dict) -> dict:
-    """VLAServer /act: `n_single` batch-1 requests, then a micro-batch of 4
-    concurrent ones. Launch counts are zeroed before each and read after;
+    """VLAServer /act with greedy decoding (the speculative default off; the
+    spec phase serves it): `n_single` batch-1 requests, then a micro-batch of
+    4 concurrent ones. Launch counts are zeroed before each and read after;
     each of the server's model passes (one predict: the prefill and the
     decode steps) must launch each kernel `per_pass[name]` times (the others
-    never)."""
+    never). A CUDA model with `use_graphs` answers through replayed graphs,
+    whose replays add the launches their capture recorded."""
     import torch
 
     from bridgelang_tpu_torch.serving.server import VLAServer, client_act
@@ -870,7 +904,7 @@ def serve(model, params, n_single: int, per_pass: dict) -> dict:
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
 
-    single = VLAServer(model, params, max_batch=1, device=model.device)
+    single = VLAServer(model, params, max_batch=1, speculative_default=False, device=model.device)
     httpd = single.serve_background(port=0)
     lat = []
     try:
@@ -893,7 +927,8 @@ def serve(model, params, n_single: int, per_pass: dict) -> dict:
     expect_counts(counts_single, {k: v * passes_single for k, v in per_pass.items()}, "batch-1 serving")
 
     reset_launch_counts()
-    batched = VLAServer(model, params, max_batch=4, batch_window_ms=2000.0, device=model.device)
+    batched = VLAServer(model, params, max_batch=4, batch_window_ms=2000.0, speculative_default=False,
+                        device=model.device)
     httpd = batched.serve_background(port=0)
     results, errors = [None] * 4, []
     try:
@@ -938,10 +973,9 @@ def serve(model, params, n_single: int, per_pass: dict) -> dict:
 
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper, which counts its launches in `.launches`."""
-    from bridgelang_tpu_torch.ops.flash_attention import flash_attention, flash_bwd_dkv, flash_bwd_dq
-    from bridgelang_tpu_torch.ops.int4_matmul import int4_mm, int4_mm_a8, quantize_a8
+    from bridgelang_tpu_torch.models.graphs import counted_wrappers
 
-    return dict(zip(KERNEL_NAMES, (flash_attention, flash_bwd_dq, flash_bwd_dkv, int4_mm_a8, int4_mm, quantize_a8)))
+    return dict(zip(KERNEL_NAMES, counted_wrappers()))
 
 
 def reset_launch_counts() -> None:
@@ -1112,10 +1146,10 @@ def train_adapters(model, params, seed: int, label: str, steps: int, per_step: d
                 losses=losses, profile=prof, launches=totals, steps=1 + steps, dots=dots)
 
 
-# --- phase int4: w4a8 serving over the packed-int4 decoder ---------------------------
+# --- serving through graphs: bf16, int8 (w8a8) and int4 (w4a8) -------------------------
 
 
-def int4_model(model, w8a8: bool):
+def w8a8_model(model, w8a8: bool):
     """The same OpenVLA with `LLMConfig.w8a8` set (the weights travel apart)."""
     import dataclasses
 
@@ -1133,33 +1167,310 @@ def tensor_gb(tree) -> float:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree)) / 1e9
 
 
-def serve_int4(model4, params4) -> dict:
-    """w4a8 /act over the packed-int4 7B: generate timings, a profile, then
-    the server: 224 int4_mm_a8 and 224 quantize_a8 launches per decoder pass,
-    7 decoder passes per predict (1568 each), and 32 flash_fwd launches per
-    predict (the prefill's)."""
+def graph_inputs(model, imgs, instructions, n: int) -> dict:
+    """A greedy predict's inputs for `model.graphs.run` decoding `n` tokens
+    (the stats cut or tiled to n dims)."""
+    import numpy as np
+
+    stats = model.get_action_stats()
+    reps = -(-n // len(stats["q01"]))
+    ids, mask = model.pad_prompt([model.prepare_prompt_ids(t) for t in instructions])
+    return {"ids": ids, "mask": mask, "frames": np.ascontiguousarray(np.stack(imgs)),
+            "q01": np.tile(np.asarray(stats["q01"], np.float32), reps)[:n],
+            "q99": np.tile(np.asarray(stats["q99"], np.float32), reps)[:n],
+            "stat_mask": np.tile(np.asarray(stats["mask"], bool), reps)[:n]}
+
+
+def time_graph_generate(model, params, frame, instruction, n: int, reps: int = 5) -> float:
+    """Host-clock ms of a replayed batch-1 greedy predict of `n` tokens:
+    input copies, the replay and the one device-to-host copy (captured on
+    the first call, outside the timing)."""
     import torch
 
-    imgs = frames(2, seed=3)
-    tok_a = first_token(model4, params4, imgs[0], INSTRUCTIONS[0])
-    tok_b = first_token(model4, params4, imgs[1], INSTRUCTIONS[0])
-    log(f"int4: prefill argmax: frame A -> {tok_a}, frame B -> {tok_b}")
+    inputs = graph_inputs(model, [frame], [instruction], n)
+    model.graphs.run("greedy", params, dict(inputs), n).cpu()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.graphs.run("greedy", params, dict(inputs), n).cpu()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def replay_event_ms(model, params, frame, instruction, reps: int = 5) -> float:
+    """Device-side ms of one replayed batch-1 predict: CUDA events around
+    the replay of its captured graph."""
+    import torch
+
+    inputs = graph_inputs(model, [frame], [instruction], ACTION_DIM)
+    model.graphs.run("greedy", params, dict(inputs), ACTION_DIM)
+    entry = model.graphs.entries[model.graphs.key("greedy", inputs, ACTION_DIM)]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        start.record()
+        entry.graphs[0].graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def serve_kind(model, params, label: str, per_pass: dict) -> dict:
+    """One weight kind served through replayed graphs and eagerly: the inputs
+    flow (the prefill argmax differs between two frames); the graphs of the
+    batch buckets 1, 2 and 4 captured before any request, with the peak
+    memory after each; replayed ids equal to eager ids at B=1 and B=4;
+    prefill and decode ms (graph and eager); a profile of each; the server's
+    batch-1 requests and micro-batch of 4, graph then eager, under the
+    per-pass launch counts."""
+    import numpy as np
+    import torch
+
+    imgs = frames(4, seed=3)
+    tok_a = first_token(model, params, imgs[0], INSTRUCTIONS[0])
+    tok_b = first_token(model, params, imgs[1], INSTRUCTIONS[0])
+    log(f"{label}: prefill argmax: frame A -> {tok_a}, frame B -> {tok_b}")
     if tok_a == tok_b:
-        fail("int4: prefill argmax is the same for two different frames: inputs do not flow")
-    t1 = time_generate(model4, params4, imgs[0], INSTRUCTIONS[0], 1)
-    t7 = time_generate(model4, params4, imgs[0], INSTRUCTIONS[0], 7)
-    log(f"int4 generate_greedy B=1: 1 token {t1:.2f} ms (vision + prefill + LM head), 7 tokens {t7:.2f} ms, "
-        f"decode {(t7 - t1) / 6:.2f} ms/token")
-    prof = profile_predict(model4, params4)
-    served = serve(model4, params4, N_SINGLE_REQUESTS, {"flash_fwd": N_LAYERS_7B, "int4_mm_a8": ACTION_DIM * INT4_PER_PASS,
-                                                        "quantize_a8": ACTION_DIM * INT4_PER_PASS})
-    served.update(prefill_ms=t1, decode_ms_per_token=(t7 - t1) / 6, profile=prof, model_gb=tensor_gb(params4),
-                  llm_gb=tensor_gb(params4["llm"]))
-    log(f"int4 serve: median batch-1 /act {served['median_ms']:.1f} ms; micro-batch of 4 {served['batch4_ms']:.1f} ms; "
-        f"model {served['model_gb']:.2f} GB (decoder + embedding + head {served['llm_gb']:.2f} GB); "
-        f"peak memory {served['max_memory_gb']:.2f} GB")
+        fail(f"{label}: prefill argmax is the same for two different frames: inputs do not flow")
+    model.use_graphs = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    peaks = {}
+    t0 = time.perf_counter()
+    for b in (1, 2, 4):
+        model.predict_action_batch(params, imgs[:b], INSTRUCTIONS[:b])
+        torch.cuda.synchronize()
+        peaks[b] = torch.cuda.max_memory_allocated() / 1e9
+    capture_s = time.perf_counter() - t0
+    log(f"{label}: graphs of batch buckets 1, 2, 4 captured in {capture_s:.1f} s; peak GB after each "
+        f"{ {b: round(g, 3) for b, g in peaks.items()} }; {len(model.graphs.entries)} graph keys")
+    ids = {}
+    for use_graphs in (False, True):
+        model.use_graphs = use_graphs
+        for b in (1, 4):
+            ids[(use_graphs, b)] = model.predict_action_batch(params, imgs[:b], INSTRUCTIONS[:b], return_tokens=True)[1]
+    for b in (1, 4):
+        same = np.array_equal(ids[(True, b)], ids[(False, b)])
+        log(f"{label}: B={b} token ids, graph {ids[(True, b)].tolist()} eager {ids[(False, b)].tolist()} "
+            f"{'equal' if same else 'DIFFER'}")
+        if not same:
+            fail(f"{label}: replayed graph ids differ from eager generate ids at B={b}")
+    model.use_graphs = False
+    e1 = time_generate(model, params, imgs[0], INSTRUCTIONS[0], 1)
+    e7 = time_generate(model, params, imgs[0], INSTRUCTIONS[0], 7)
+    prof_eager = profile_predict(model, params)
+    model.use_graphs = True
+    g1 = time_graph_generate(model, params, imgs[0], INSTRUCTIONS[0], 1)
+    g7 = time_graph_generate(model, params, imgs[0], INSTRUCTIONS[0], 7)
+    replay_ms = replay_event_ms(model, params, imgs[0], INSTRUCTIONS[0])
+    prof_graph = profile_predict(model, params)
+    log(f"{label}: B=1 1 token / 7 tokens / decode per token, eager generate_greedy {e1:.2f} / {e7:.2f} / "
+        f"{(e7 - e1) / 6:.2f} ms; replayed graph {g1:.2f} / {g7:.2f} / {(g7 - g1) / 6:.2f} ms; one replay of the "
+        f"7-token predict between CUDA events {replay_ms:.2f} ms")
+    graph = serve(model, params, N_SINGLE_REQUESTS, per_pass)
+    model.use_graphs = False
+    eager = serve(model, params, N_SINGLE_REQUESTS, per_pass)
+    model.use_graphs = True
+    log(f"{label} serve: median batch-1 /act graph {graph['median_ms']:.1f} ms, eager {eager['median_ms']:.1f} ms; "
+        f"micro-batch of 4 graph {graph['batch4_ms']:.1f} ms, eager {eager['batch4_ms']:.1f} ms; peak memory "
+        f"{max(peaks.values()):.2f} GB after the warm-up")
     torch.cuda.empty_cache()
-    return served
+    return dict(graph, eager=dict(eager, prefill_ms=e1, decode_ms_per_token=(e7 - e1) / 6, profile=prof_eager),
+                prefill_ms=g1, decode_ms_per_token=(g7 - g1) / 6, profile=prof_graph, replay_event_ms=replay_ms,
+                warmup_peak_gb=peaks, capture_s=capture_s, model_gb=tensor_gb(params), llm_gb=tensor_gb(params["llm"]))
+
+
+def int8_routes(model8, params8) -> dict:
+    """Which route each int8 projection of one eager 7-token predict takes:
+    the w8a8 int8 x int8 product (torch._int_mm) must run the prefill's 224
+    projections (T = 352 >= W8A8_MIN_CHUNK) and nothing else; the decode's
+    6 x 224 cast the weight. Then the device time of what one decode step
+    casts (224 weights and the head), from a captured graph of the casts."""
+    import torch
+
+    from bridgelang_tpu_torch.models.llm import llama
+    from bridgelang_tpu_torch.ops.image_ops import frames_to_tensor, preprocess_batch
+
+    counts = {"proj": 0, "int8_product": 0}
+    real_proj, real_product = llama.proj, llama._int8_product
+
+    def proj(*a, **k):
+        counts["proj"] += 1
+        return real_proj(*a, **k)
+
+    def product(*a, **k):
+        counts["int8_product"] += 1
+        return real_product(*a, **k)
+
+    ids, mask = model8.pad_prompt([model8.prepare_prompt_ids(INSTRUCTIONS[0])])
+    pix = preprocess_batch(frames_to_tensor(frames(1, seed=3)[0][None], model8.device), model8.image_transform,
+                           dtype=model8.dtype)
+    llama.proj, llama._int8_product = proj, product
+    try:
+        model8.generate_greedy(params8, torch.as_tensor(ids, device="cuda"), torch.as_tensor(mask, device="cuda"),
+                               pix, max_new_tokens=ACTION_DIM)
+        torch.cuda.synchronize()
+    finally:
+        llama.proj, llama._int8_product = real_proj, real_product
+    want = {"proj": ACTION_DIM * 7 * N_LAYERS_7B, "int8_product": 7 * N_LAYERS_7B}
+    log(f"int8 routes over one 7-token predict: {counts} (want {want}: the prefill's projections on torch._int_mm, "
+        f"the {ACTION_DIM - 1} decode steps' {(ACTION_DIM - 1) * 7 * N_LAYERS_7B} on the weight cast)")
+    if counts != want:
+        fail(f"int8: projection routes {counts}, expected {want}")
+    weights = [lp[k] for lp in params8["llm"]["layers"] for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")]
+    weights.append(params8["llm"]["lm_head"])
+    cast_ms = graph_ms([lambda w=w: w.to(torch.bfloat16) for w in weights], launches=len(weights), replays=3) * len(weights)
+    log(f"int8: casting one decode step's weights to bf16 ({len(weights)} tensors, "
+        f"{sum(w.numel() for w in weights) / 1e9:.3f} G codes) takes {cast_ms:.3f} ms on the device")
+    return dict(counts, decode_cast_ms_per_step=cast_ms)
+
+
+def spec_phase(model, params, label: str, int4: bool) -> dict:
+    """Batch-1 speculative serving through the graph pair: garbage, perfect
+    and partial drafts equal greedy ids at margin 0.25 (accept counts
+    printed); calibrate_speculative_margin on 4 frames; the server's default
+    mode over SPEC_TICKS ticks of one instruction on slowly perturbed frames
+    against a greedy server on the same ticks (median /act, mean accept
+    count, launch counts: the prefill's 32 flash_fwd per predict; for int4,
+    224 int4_mm_a8 and quantize_a8 per decoder pass, 2 to 8 passes)."""
+    import numpy as np
+    import torch
+
+    from bridgelang_tpu_torch.serving.server import VLAServer, client_act, draft_from_history
+    from bridgelang_tpu_torch.util.compile_cache import warmup_predict
+
+    model.use_graphs = True
+    warm_s = warmup_predict(model, params, speculative=True, instruction=INSTRUCTIONS[0])
+    img = frames(1, seed=21)[0]
+    instr = INSTRUCTIONS[0]
+    greedy = model.predict_action_batch(params, [img], [instr], return_tokens=True)[1][0]
+    drafts = {"garbage": np.full(ACTION_DIM, 3, np.int32), "perfect": greedy.astype(np.int32),
+              "partial": np.concatenate([greedy[:4], [3] * (ACTION_DIM - 4)]).astype(np.int32)}
+    accepts = {}
+    for kind, draft in drafts.items():
+        _, tokens, acc = model._host_predict("speculative", params, [img], [instr], None, draft_tokens=draft)
+        accepts[kind] = int(acc[0])
+        log(f"spec ({label}) {kind} draft at margin 0.25: ids {tokens[0].tolist()}, greedy {greedy.tolist()}, "
+            f"accepted {accepts[kind]} of {ACTION_DIM}")
+        if not np.array_equal(tokens[0], greedy):
+            fail(f"spec ({label}): the {kind} draft's ids differ from greedy at margin 0.25")
+    calib = model.calibrate_speculative_margin(params, frames(4, seed=22), instr)
+    log(f"spec ({label}): calibrate_speculative_margin over 4 frames -> {calib}")
+    # Random weights leave near-tie logits that the 0.25 gate rejects. At margin 0
+    # every exact argmax match is accepted: what a fully accepted draft costs.
+    # A measurement, not the contract (bf16 verify-vs-decode noise may flip a tie).
+    full = {}
+    for kind, draft, margin in (("greedy", None, None), ("perfect, margin 0", drafts["perfect"], 0.0)):
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if draft is None:
+                _, tokens, acc = model._host_predict("greedy", params, [img], [instr], None)
+            else:
+                _, tokens, acc = model._host_predict("speculative", params, [img], [instr], None, draft_tokens=draft,
+                                                     margin_threshold=margin)
+            times.append(1e3 * (time.perf_counter() - t0))
+        full[kind] = dict(ms=statistics.median(times[1:]), accepted=int(acc[0]),
+                          ids_equal=bool(np.array_equal(tokens[0], greedy)))
+    log(f"spec ({label}): batch-1 predict, greedy {full['greedy']['ms']:.2f} ms; perfect draft at margin 0 "
+        f"{full['perfect, margin 0']['ms']:.2f} ms, accepted {full['perfect, margin 0']['accepted']} of {ACTION_DIM}, "
+        f"ids {'equal to' if full['perfect, margin 0']['ids_equal'] else 'DIFFERENT from'} greedy (host clock, "
+        f"median of 5)")
+
+    rng = np.random.default_rng(23)
+    ticks, cur = [], img.astype(np.int16)
+    for _ in range(SPEC_TICKS):  # a slow drift: +-2 levels per pixel per tick
+        cur = np.clip(cur + rng.integers(-2, 3, size=cur.shape), 0, 255)
+        ticks.append(cur.astype(np.uint8))
+    out = {}
+    for mode in ("speculative", "greedy"):
+        server = VLAServer(model, params, speculative_default=mode == "speculative", device=model.device)
+        httpd = server.serve_background(port=0)
+        reset_launch_counts()
+        lat, toks = [], []
+        try:
+            for frame in ticks:
+                t0 = time.perf_counter()
+                action, tokens = client_act("127.0.0.1", httpd.server_address[1], frame, instr, return_tokens=True,
+                                            timeout=300)
+                lat.append(1e3 * (time.perf_counter() - t0))
+                check_action(action, f"spec ({label}) {mode} tick")
+                toks.append(tokens)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        out[mode] = dict(latencies_ms=lat, median_ms=statistics.median(lat[1:]), launches=launch_counts(), tokens=toks)
+    counts = out["speculative"]["launches"]
+    # the ticks' drafts, as the server made them, for their accept counts
+    tick_accepts, prev2, prev1 = [], None, None
+    greedy_ticks = [model.predict_action_batch(params, [f], [instr], return_tokens=True)[1][0] for f in ticks]
+    for frame, tokens in zip(ticks, out["speculative"]["tokens"]):
+        draft = np.zeros(ACTION_DIM, np.int32) if prev1 is None else draft_from_history(
+            prev2, prev1, model.cfg.llm.vocab_size)
+        _, again, acc = model._host_predict("speculative", params, [frame], [instr], None, draft_tokens=draft)
+        tick_accepts.append(int(acc[0]))
+        if not np.array_equal(again[0], tokens):
+            fail(f"spec ({label}): a tick's ids differ between the server and the same draft's predict")
+        prev2, prev1 = prev1, np.asarray(tokens, np.int32)
+    same = all(np.array_equal(t, g) for t, g in zip(out["speculative"]["tokens"], greedy_ticks))
+    log(f"spec ({label}) server default over {SPEC_TICKS} ticks: /act ms {[round(x, 1) for x in out['speculative']['latencies_ms']]} "
+        f"(median of ticks 2+ {out['speculative']['median_ms']:.1f}); greedy server on the same ticks "
+        f"{[round(x, 1) for x in out['greedy']['latencies_ms']]} (median {out['greedy']['median_ms']:.1f}); accept counts "
+        f"{tick_accepts} (mean {np.mean(tick_accepts):.2f}); ids {'equal' if same else 'DIFFER'} to greedy on every tick; "
+        f"launches {counts}")
+    if not same:
+        fail(f"spec ({label}): the speculative default's ids differ from greedy on some tick")
+    if counts["flash_fwd"] != N_LAYERS_7B * SPEC_TICKS:
+        fail(f"spec ({label}): expected {N_LAYERS_7B * SPEC_TICKS} flash_fwd launches (the prefills), got {counts}")
+    passes = counts["int4_mm_a8"] / INT4_PER_PASS
+    if int4 and (counts["quantize_a8"] != counts["int4_mm_a8"] or passes != int(passes)
+                 or not 2 * SPEC_TICKS <= passes <= (ACTION_DIM + 1) * SPEC_TICKS):
+        fail(f"spec ({label}): int4 launches {counts} are no whole number of decoder passes per tick")
+    if not int4 and (counts["int4_mm_a8"] or counts["quantize_a8"] or counts["int4_mm"]):
+        fail(f"spec ({label}): unexpected int4 launches {counts}")
+    return dict(accepts=accepts, calibrated_margin=calib, warmup_s=warm_s, tick_accepts=tick_accepts, margin0=full,
+                median_ms=out["speculative"]["median_ms"], latencies_ms=out["speculative"]["latencies_ms"],
+                greedy_median_ms=out["greedy"]["median_ms"], greedy_latencies_ms=out["greedy"]["latencies_ms"],
+                launches=counts, decoder_passes=passes if int4 else None)
+
+
+def parallel_phase(model, params, greedy_median_ms: float) -> dict:
+    """parallel_decode on: POST /act with horizon=HORIZON answers an
+    [HORIZON, 7] chunk of finite floats from one masked forward that
+    launches no flash_fwd; its /act median beside greedy's."""
+    import numpy as np
+
+    from bridgelang_tpu_torch.serving.server import VLAServer, client_act
+
+    model.parallel_decode = True
+    server = VLAServer(model, params, device=model.device)
+    httpd = server.serve_background(port=0)
+    img = frames(1, seed=31)[0]
+    try:
+        port = httpd.server_address[1]
+        client_act("127.0.0.1", port, img, INSTRUCTIONS[0], horizon=HORIZON, timeout=300)  # captures its graph
+        reset_launch_counts()
+        lat = []
+        for i in range(N_SINGLE_REQUESTS):
+            t0 = time.perf_counter()
+            chunk = client_act("127.0.0.1", port, frames(1, seed=32 + i)[0], INSTRUCTIONS[0], horizon=HORIZON,
+                               timeout=300)
+            lat.append(1e3 * (time.perf_counter() - t0))
+            if chunk.shape != (HORIZON, ACTION_DIM) or not np.isfinite(chunk).all():
+                fail(f"parallel: horizon={HORIZON} answered {chunk.shape}, finite {np.isfinite(chunk).all()}")
+        counts = launch_counts()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        model.parallel_decode = False
+    log(f"parallel: horizon={HORIZON}: {N_SINGLE_REQUESTS} x [{HORIZON}, {ACTION_DIM}] finite chunks; /act ms "
+        f"{[round(x, 1) for x in lat]} (median {statistics.median(lat):.1f}; greedy batch-1 {greedy_median_ms:.1f}); "
+        f"launches {counts}; speculative default {server.speculative_default}")
+    expect_counts(counts, {}, "parallel decode (general mask: no flash_fwd)")
+    return dict(latencies_ms=lat, median_ms=statistics.median(lat), launches=counts, chunk_shape=[HORIZON, ACTION_DIM])
 
 
 # --- phase 5: card vs CPU ----------------------------------------------------------
@@ -1176,9 +1487,11 @@ class GradRecorder:
         self.optimizer.update(grads, state, params)
 
 
-def parity_card_vs_cpu(seed: int) -> dict:
+def parity_card_vs_cpu(seed: int, spec: bool) -> dict:
     """Card against CPU on a full-width, depth-cut fp32 model: float weights,
-    then the same decoder packed to int4 (w8a8 on and off)."""
+    then the same decoder packed to int4 (w8a8 on and off) and quantized to
+    int8 (w8a8 off: ids; on: teacher-forced logits); with `spec`, the
+    speculative graphs' exactness on the card in fp32."""
     import dataclasses
 
     import torch
@@ -1218,9 +1531,99 @@ def parity_card_vs_cpu(seed: int) -> dict:
     for w8a8 in (True, False):
         kernels = ("int4_mm_a8", "quantize_a8") if w8a8 else ("int4_mm",)
         results[f"int4_w8a8_{w8a8}"] = parity_pair(
-            int4_model(gpu, w8a8), int4_model(cpu, w8a8), p4_gpu, p4_cpu, seed, f"int4 w8a8={w8a8}",
+            w8a8_model(gpu, w8a8), w8a8_model(cpu, w8a8), p4_gpu, p4_cpu, seed, f"int4 w8a8={w8a8}",
             {"flash_fwd": 2, **{kernel: 7 * n_int4 for kernel in kernels}}, {kernels[0]: 2 * n_int4}, train=not w8a8)
+    results["int4_w8a8_True"].update(parity_logits(w8a8_model(gpu, True), w8a8_model(cpu, True), p4_gpu, p4_cpu,
+                                                   "int4 w8a8=True"))
+    del llm4, p4_gpu, p4_cpu
+
+    # The same cut quantized to int8 on the card (one quantization, copied to
+    # the CPU): equal ids with w8a8 off; with it on, the w4a8 rule on the
+    # teacher-forced logits (activation codes on a rounding tie may differ).
+    from bridgelang_tpu_torch.ops.quant import quantize_llm_int8
+
+    llm8 = quantize_llm_int8(p_gpu["llm"])
+    p8_gpu, p8_cpu = dict(p_gpu, llm=llm8), dict(p_cpu, llm=tree_map(lambda t: t.cpu(), llm8))
+    results["int8_w8a8_False"] = parity_pair(w8a8_model(gpu, False), w8a8_model(cpu, False), p8_gpu, p8_cpu, seed,
+                                             "int8 w8a8=False", {"flash_fwd": 2}, {}, train=False)
+    results["int8_w8a8_True"] = parity_logits(w8a8_model(gpu, True), w8a8_model(cpu, True), p8_gpu, p8_cpu,
+                                              "int8 w8a8=True")
+    del llm8, p8_gpu, p8_cpu
+    if spec:
+        results["spec_fp32"] = spec_exact_fp32(gpu, p_gpu)
     return results
+
+
+def parity_logits(gpu, cpu, p_gpu, p_cpu, label: str) -> dict:
+    """The card's greedy ids teacher-forced through both sides (the prefill,
+    then the 6 ids as one cached chunk): logits within 0.05 max|logit| of
+    the CPU's, and equal argmax wherever the CPU's top-2 margin clears twice
+    that (the w4a8 token-id rule of tests/test_torch_int4.py)."""
+    import numpy as np
+    import torch
+
+    from bridgelang_tpu_torch.models.llm.llama import lm_logits
+    from bridgelang_tpu_torch.ops.image_ops import frames_to_tensor, preprocess_batch
+
+    imgs = frames(2, seed=11)
+    ids, mask = gpu.pad_prompt([gpu.prepare_prompt_ids(t) for t in INSTRUCTIONS[:2]])
+    tokens = None
+    logits = {}
+    with torch.inference_mode():
+        for name, model, params in (("cuda", gpu, p_gpu), ("cpu", cpu, p_cpu)):
+            dev = model.device
+            pix = preprocess_batch(frames_to_tensor(np.stack(imgs), dev), model.image_transform)
+            args = (torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev), pix)
+            if tokens is None:
+                tokens = model.generate_greedy(params, *args, max_new_tokens=ACTION_DIM)
+            toks = tokens.to(dev)
+            last_hidden, cache, true_len = model._prefill(params, *args, ACTION_DIM, torch.float32)
+            pos = true_len[:, None] + torch.arange(ACTION_DIM - 1, device=dev)[None, :]
+            rest = model._decode_logits(params, model.cfg.llm, toks[:, :-1], pos, cache)
+            logits[name] = torch.cat([lm_logits(params["llm"], last_hidden, model.cfg.llm), rest], dim=1).float().cpu()
+    g, c = logits["cuda"], logits["cpu"]
+    tol = 0.05 * float(c.abs().max())
+    err = float((g - c).abs().max())
+    top2 = c.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * tol
+    agree = (g.argmax(-1) == c.argmax(-1)) | ~clear
+    log(f"parity ({label}): teacher-forced logits max|cuda-cpu| {err:.4g} (tol {tol:.4g} = 0.05 max|logit|); argmax "
+        f"equal at all {int(clear.sum())} of {clear.numel()} positions whose CPU margin clears {2 * tol:.4g}; "
+        f"card ids {tokens.cpu().tolist()}")
+    if err > tol or not bool(agree.all()):
+        fail(f"parity ({label}): the teacher-forced logits break the w4a8 rule between the card and the CPU")
+    return dict(logit_err=err, tol=tol, positions_checked=int(clear.sum()), tokens=tokens.cpu().tolist())
+
+
+def spec_exact_fp32(gpu, p_gpu) -> dict:
+    """The depth-cut fp32 model with an fp32 KV cache on the card, through
+    the speculative graphs: ids exactly greedy's for the perfect, garbage,
+    partial and mid-mismatch drafts (the exact contract of the JAX
+    tests/test_vlm.py:249)."""
+    import numpy as np
+    import torch
+
+    gpu.cache_dtype = torch.float32
+    img = frames(1, seed=41)[0]
+    greedy = gpu.predict_action_batch(p_gpu, [img], [INSTRUCTIONS[0]], return_tokens=True)[1][0].astype(np.int32)
+    mid = greedy.copy()
+    mid[2] = (mid[2] + 1) % 500
+    drafts = {"perfect": greedy, "garbage": np.full(ACTION_DIM, 3, np.int32),
+              "partial": np.concatenate([greedy[:4], [7] * (ACTION_DIM - 4)]).astype(np.int32), "mid_mismatch": mid}
+    accepts, margin0 = {}, {}
+    for kind, draft in drafts.items():
+        _, tokens, acc = gpu._host_predict("speculative", p_gpu, [img], [INSTRUCTIONS[0]], None, draft_tokens=draft)
+        accepts[kind] = int(acc[0])
+        if not np.array_equal(tokens[0], greedy):
+            fail(f"spec fp32: the {kind} draft's ids {tokens[0].tolist()} differ from greedy {greedy.tolist()}")
+        # margin 0 accepts every exact argmax match (a measurement: cuBLAS may tile the verify chunk apart from decode)
+        _, tokens0, acc0 = gpu._host_predict("speculative", p_gpu, [img], [INSTRUCTIONS[0]], None, draft_tokens=draft,
+                                             margin_threshold=0.0)
+        margin0[kind] = dict(accepted=int(acc0[0]), ids_equal=bool(np.array_equal(tokens0[0], greedy)))
+    log(f"spec fp32 (depth-cut model, fp32 cache, graphs): ids equal to greedy {greedy.tolist()} for every draft at "
+        f"margin 0.25, accepted {accepts}; at margin 0: {margin0}")
+    gpu.graphs.clear()
+    return dict(accepts=accepts, tokens=greedy.tolist(), margin0=margin0)
 
 
 def parity_pair(gpu, cpu, p_gpu, p_cpu, seed: int, label: str, gen_counts: dict, train_counts: dict,
@@ -1333,9 +1736,21 @@ def kernel_entry(name: str, source: str, replaces: str, launches: dict, timing: 
             "launches": sum(launches.values()), "launches_by_path": launches, **{k: timing[k] for k in keys}, **extra}
 
 
+def release_memory() -> None:
+    """Free what a finished phase dropped: a served model's weights stay
+    referenced from its HTTP handler class, a reference cycle that only the
+    cyclic garbage collector breaks, until then counting in later peaks."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="torch port smoke run on one GPU")
-    ap.add_argument("--phases", default="build,kernels,serve,train,int4,qlora,parity",
+    ap.add_argument("--phases", default="build,kernels,serve,spec,parallel,train,int8,int4,qlora,parity",
                     help="comma-separated subset, for bring-up; the full run is the default; `cold` (not in "
                          "the default) runs only the device-side cold-L2 timings of the kernels phase")
     ap.add_argument("--package-root", default=ROOT,
@@ -1368,7 +1783,7 @@ def main() -> None:
 
     model = params = None
     serve_t = 352
-    if phases & {"serve", "train", "int4", "qlora"}:
+    if phases & {"serve", "spec", "parallel", "train", "int8", "int4", "qlora"}:
         model, params = build_7b(SEED)
         ids, _ = model.pad_prompt([model.prepare_prompt_ids(INSTRUCTIONS[0])])
         serve_t = ids.shape[1] + model.num_patches
@@ -1383,29 +1798,60 @@ def main() -> None:
     if phases & {"kernels", "cold"}:
         cold = cold_timings("this checkout" if os.path.abspath(args.package_root) == ROOT else args.package_root)
 
-    served = None
+    served = parallel = None
+    spec = {}
     if "serve" in phases:
-        imgs = frames(2, seed=3)
-        tok_a = first_token(model, params, imgs[0], INSTRUCTIONS[0])
-        tok_b = first_token(model, params, imgs[1], INSTRUCTIONS[0])
-        log(f"prefill argmax: frame A -> {tok_a}, frame B -> {tok_b}")
-        if tok_a == tok_b:
-            fail("prefill argmax is the same for two different frames: inputs do not flow")
-        t1 = time_generate(model, params, imgs[0], INSTRUCTIONS[0], 1)
-        t7 = time_generate(model, params, imgs[0], INSTRUCTIONS[0], 7)
-        log(f"generate_greedy B=1: 1 token {t1:.2f} ms (vision + prefill + LM head), 7 tokens {t7:.2f} ms, "
-            f"decode {(t7 - t1) / 6:.2f} ms/token")
-        prof = profile_predict(model, params)
-        served = serve(model, params, N_SINGLE_REQUESTS, {"flash_fwd": N_LAYERS_7B})
-        served.update(prefill_ms=t1, decode_ms_per_token=(t7 - t1) / 6, profile=prof)
-        log(f"serve: median batch-1 /act {served['median_ms']:.1f} ms; micro-batch of 4 {served['batch4_ms']:.1f} ms; "
-            f"peak memory {served['max_memory_gb']:.2f} GB")
+        served = serve_kind(model, params, "bf16", {"flash_fwd": N_LAYERS_7B})
+    if "spec" in phases:
+        spec["bf16"] = spec_phase(model, params, "bf16", int4=False)
+    if "parallel" in phases:
+        parallel = parallel_phase(model, params, (served or {}).get("median_ms", float("nan")))
+    if model is not None:
+        model.graphs.clear()
+        release_memory()
 
     trained = None
     if "train" in phases:
         trained = train_adapters(model, params, SEED, "train", TRAIN_STEPS,
                                  {"flash_fwd": 2 * N_LAYERS_7B, "flash_bwd_dq": N_LAYERS_7B,
                                   "flash_bwd_dkv": N_LAYERS_7B}, dots_steps=DOTS_STEPS)
+        model.graphs.clear()  # the merged weights' predict captured its own
+        release_memory()
+
+    served8 = None
+    if "int8" in phases:
+        from bridgelang_tpu_torch.ops.quant import quantize_llm_int8
+
+        from bridgelang_tpu_torch.training.trainer import tree_map
+
+        # The bf16 decoder quantized one matrix at a time, then parked in host
+        # memory for this phase, so that the card holds what int8 serving holds.
+        t0 = time.perf_counter()
+        params8 = dict(params, llm=quantize_llm_int8(params["llm"]))
+        torch.cuda.synchronize()
+        log(f"int8: decoder quantized in {time.perf_counter() - t0:.1f} s; decoder + embedding + head "
+            f"{tensor_gb(params8['llm']):.2f} GB (bf16: {tensor_gb(params['llm']):.2f} GB)")
+        params = dict(params, llm=tree_map(lambda t: t.cpu(), params["llm"]))
+        release_memory()
+        model8 = w8a8_model(model, w8a8=True)
+        served8 = serve_kind(model8, params8, "int8", {"flash_fwd": N_LAYERS_7B})
+        served8.update(int8_routes(model8, params8))
+        prof = served8["profile"]
+        share = (ACTION_DIM - 1) * served8["decode_cast_ms_per_step"] / prof["device_ms"]
+        served8["decode_cast_share"] = share
+        served8["direct_copy_share"] = prof["direct_copy_ms"] / prof["device_ms"]
+        log(f"int8 serve: model {served8['model_gb']:.2f} GB (decoder + embedding + head {served8['llm_gb']:.2f} GB), "
+            f"peak {max(served8['warmup_peak_gb'].values()):.2f} GB after the warm-up; the decode's weight casts, "
+            f"timed alone, {(ACTION_DIM - 1) * served8['decode_cast_ms_per_step']:.2f} ms of a predict's "
+            f"{prof['device_ms']:.2f} ms of device time ({100 * share:.1f}%); in the profile ATen's direct_copy "
+            f"kernels take {prof['direct_copy_ms']:.2f} ms ({100 * served8['direct_copy_share']:.1f}%; bf16: "
+            f"{(served or {}).get('profile', {}).get('direct_copy_ms', float('nan')):.2f} ms)")
+        if "spec" in phases:
+            spec["int8"] = spec_phase(model8, params8, "int8", int4=False)
+        model8.graphs.clear()
+        del model8, params8
+        release_memory()
+        params = dict(params, llm=tree_map(lambda t: t.to("cuda"), params["llm"]))
 
     served4 = qlora = None
     if phases & {"int4", "qlora"}:
@@ -1415,27 +1861,37 @@ def main() -> None:
         t0 = time.perf_counter()
         params = dict(params, llm=quantize_llm_int4(params["llm"], group=INT4_GROUP))
         torch.cuda.synchronize()
-        torch.cuda.empty_cache()
+        release_memory()
         log(f"int4: decoder packed (group {INT4_GROUP}) in {time.perf_counter() - t0:.1f} s; decoder + int8 "
             f"embedding and head {tensor_gb(params['llm']):.2f} GB, card holds {torch.cuda.memory_allocated() / 1e9:.2f} GB")
-        model4 = int4_model(model, w8a8=True)
+        model4 = w8a8_model(model, w8a8=True)
         if "int4" in phases:
-            served4 = serve_int4(model4, params)
+            served4 = serve_kind(model4, params, "int4", {"flash_fwd": N_LAYERS_7B,
+                                                         "int4_mm_a8": ACTION_DIM * INT4_PER_PASS,
+                                                         "quantize_a8": ACTION_DIM * INT4_PER_PASS})
+            if "spec" in phases:
+                spec["int4"] = spec_phase(model4, params, "int4", int4=True)
+            model4.graphs.clear()
+            release_memory()
         if "qlora" in phases:
-            qlora = train_adapters(int4_model(model, w8a8=False), params, SEED, "qlora", QLORA_STEPS,
+            qlora = train_adapters(w8a8_model(model, w8a8=False), params, SEED, "qlora", QLORA_STEPS,
                                    {"flash_fwd": 2 * N_LAYERS_7B, "flash_bwd_dq": N_LAYERS_7B,
                                     "flash_bwd_dkv": N_LAYERS_7B, "int4_mm": 2 * INT4_PER_PASS},
                                    serve_model=model4)
+        model4.graphs.clear()
         del model4
     del model, params
-    torch.cuda.empty_cache()
+    release_memory()
 
-    parity = parity_card_vs_cpu(SEED) if "parity" in phases else None
+    parity = parity_card_vs_cpu(SEED, spec="spec" in phases) if "parity" in phases else None
 
     if timing_rows:
         zero = dict.fromkeys(KERNEL_NAMES, 0)
         by_path = {"serve": (served or {}).get("launches", zero), "train": (trained or {}).get("launches", zero),
-                   "int4_serve": (served4 or {}).get("launches", zero), "qlora": (qlora or {}).get("launches", zero)}
+                   "int8_serve": (served8 or {}).get("launches", zero),
+                   "int4_serve": (served4 or {}).get("launches", zero), "qlora": (qlora or {}).get("launches", zero),
+                   "parallel": (parallel or {}).get("launches", zero),
+                   **{f"spec_{kind}": result["launches"] for kind, result in spec.items()}}
 
         def launches(name):
             return {path: counts[name] for path, counts in by_path.items()}
@@ -1450,9 +1906,17 @@ def main() -> None:
                              note="ms and library_ms: device time per launch from a captured CUDA graph of "
                                   "back-to-back launches (inputs warm in L2, as the prefill leaves them); event_ms, "
                                   "library_event_ms and the timings: CUDA events around calls, the earlier series")
+        serve_keys = ("median_ms", "prefill_ms", "decode_ms_per_token", "batch4_ms", "batch4_passes", "passes",
+                      "max_memory_gb", "profile", "eager", "replay_event_ms", "warmup_peak_gb", "capture_s")
         if served:
-            entry["serve"] = {k: served[k] for k in ("median_ms", "prefill_ms", "decode_ms_per_token", "batch4_ms",
-                                                      "batch4_passes", "passes", "max_memory_gb", "profile")}
+            entry["serve"] = {k: served[k] for k in serve_keys}
+        if served8:
+            entry["int8_serve"] = {k: served8[k] for k in serve_keys + (
+                "model_gb", "llm_gb", "proj", "int8_product", "decode_cast_ms_per_step", "decode_cast_share")}
+        if spec:
+            entry["spec"] = spec
+        if parallel:
+            entry["parallel"] = parallel
         if trained:
             entry["train"] = trained
         if parity:
@@ -1490,9 +1954,7 @@ def main() -> None:
                                   "library_event_ms and the timings' kernel_ms: CUDA events around back-to-back "
                                   "wrapper calls on one weight, the earlier series")
             if name == "int4_mm_a8" and served4:
-                extra["int4_serve"] = {k: served4[k] for k in ("median_ms", "prefill_ms", "decode_ms_per_token",
-                                                                "batch4_ms", "batch4_passes", "passes", "max_memory_gb",
-                                                                "model_gb", "llm_gb", "profile")}
+                extra["int4_serve"] = {k: served4[k] for k in serve_keys + ("model_gb", "llm_gb")}
             if name == "int4_mm" and qlora:
                 extra["qlora"] = qlora
             entries.append(kernel_entry(name, "bridgelang_tpu_torch/csrc/int4_matmul.cu", line, launches(name),

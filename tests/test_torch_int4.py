@@ -190,8 +190,14 @@ def test_convert_carries_a_jax_int4_tree_byte_for_byte():
     np.testing.assert_array_equal(t["embed"].numpy(), jnp4["embed"])
     np.testing.assert_array_equal(t["lm_head"].numpy(), jnp4["lm_head"].T)
     assert t["lm_head_scale"].shape == (SMALL_VOCAB["padded_vocab_size"], 1)
-    with pytest.raises(NotImplementedError):  # int8 decoder layers are not yet ported
-        llm_params_from_jax(_np(jq.quantize_llm_int8(jllama.init_llm_params(jax.random.key(5), jcfg))))
+    # an int8 tree converts bit for bit: [in, out] -> [out, in], scales [1, out] -> [out, 1]
+    j8 = _np(jq.quantize_llm_int8(jllama.init_llm_params(jax.random.key(5), jcfg)))
+    t8 = llm_params_from_jax(j8, dtype=torch.float32)
+    for i, lp in enumerate(t8["layers"]):
+        for name in tq.QUANT_TARGETS:
+            assert lp[name].dtype == torch.int8 and lp[name + "_scale"].dtype == torch.bfloat16
+            np.testing.assert_array_equal(lp[name].numpy(), j8["layers"][name][i].T)
+            np.testing.assert_array_equal(lp[name + "_scale"].float().numpy(), _f32(j8["layers"][name + "_scale"][i]).T)
 
 
 # --- the matmuls ------------------------------------------------------------------------

@@ -640,3 +640,152 @@ def test_w4a8_route_is_two_launches_equal_to_plain(cuda_device, m, dtype):
     assert (im.quantize_a8.launches - before[0], im.int4_mm_a8.launches - before[1]) == (1, 1)
     q, xs = quantize_activations_per_token(x)
     assert got.dtype == dtype and torch.equal(got, (im.int4_matmul_a8_plain(q, packed, scales) * xs).to(dtype))
+
+
+# --- predicts replayed as CUDA graphs (models/graphs.py) -----------------------------
+# A depth-cut OpenVLA at a small width (2 decoder layers of 512, one 32 px tower)
+# on the card: replayed graphs must give the eager path's ids exactly (the same
+# kernels on the same inputs), and add to the launch counts what eager launches.
+
+WEIGHT_KINDS = ("bf16", "int8", "int4")
+SMALL_STATS = {"bridge_orig": {"action": {"q01": [-0.1] * 7, "q99": [0.1] * 7, "mask": [True] * 6 + [False]}}}
+GRAPH_INSTRUCTIONS = ["pick up the red block", "open the drawer", "put the spoon on the towel", "move the cup"]
+
+
+def _small_vla(kind):
+    import dataclasses
+
+    from bridgelang_tpu_torch.models.llm.llama import LLMConfig
+    from bridgelang_tpu_torch.models.llm.tokenizer import ByteFallbackTokenizer
+    from bridgelang_tpu_torch.models.vision.vit import ViTConfig
+    from bridgelang_tpu_torch.models.vla import OpenVLA
+    from bridgelang_tpu_torch.models.vlm import VLMConfig
+    from bridgelang_tpu_torch.ops.image_ops import ImageTowerSpec, ImageTransformConfig
+    from bridgelang_tpu_torch.ops.quant import quantize_llm_int4, quantize_llm_int8
+
+    llm = LLMConfig(dim=512, n_layers=2, n_heads=4, n_kv_heads=4, intermediate_size=1024, w8a8=kind != "bf16")
+    vit = ViTConfig(image_size=32, patch_size=8, width=64, depth=2, num_heads=4, mlp_dim=128)
+    cfg = dataclasses.replace(VLMConfig(), llm=llm, vision_override=vit)
+    model = OpenVLA(cfg, SMALL_STATS, tokenizer=ByteFallbackTokenizer(), dtype=torch.bfloat16, device="cuda")
+    model.image_transform = ImageTransformConfig("resize-naive", (ImageTowerSpec(size=32),))
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    if kind == "int8":
+        params = dict(params, llm=quantize_llm_int8(params["llm"]))
+    elif kind == "int4":
+        params = dict(params, llm=quantize_llm_int4(params["llm"], group=128))
+    return model, params
+
+
+def _small_frames(n, seed):
+    import numpy as np
+
+    return list(np.random.default_rng(seed).integers(0, 256, size=(n, 32, 32, 3), dtype=np.uint8))
+
+
+def _counts():
+    from bridgelang_tpu_torch.models.graphs import counted_wrappers
+
+    return [fn.launches for fn in counted_wrappers()]
+
+
+def _run(model, use_graphs, fn):
+    """fn() with graphs on or off -> (its result, the launches it added)."""
+    model.use_graphs = use_graphs
+    before = _counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [a - b for a, b in zip(_counts(), before)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("kind", WEIGHT_KINDS)
+def test_graph_predict_ids_and_launches_equal_eager(cuda_device, kind, batch):
+    import numpy as np
+
+    model, params = _small_vla(kind)
+    imgs, instr = _small_frames(batch, seed=1), GRAPH_INSTRUCTIONS[:batch]
+    call = lambda: model.predict_action_batch(params, imgs, instr, return_tokens=True)  # noqa: E731
+    (e_act, e_tok), e_launch = _run(model, False, call)
+    _run(model, True, call)  # warm-up and capture
+    (g_act, g_tok), g_launch = _run(model, True, call)
+    np.testing.assert_array_equal(g_tok, e_tok)
+    np.testing.assert_array_equal(g_act, e_act)
+    assert g_launch == e_launch and g_launch[0] == 2  # flash_fwd: the prefill of each of 2 layers
+    if kind == "int4":
+        assert g_launch[3] == g_launch[5] == 7 * 2 * 7  # int4_mm_a8, quantize_a8: 7 x 2 layers x 7 passes
+    assert len(model.graphs.entries) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("draft_kind", ["perfect", "garbage", "partial", "mid_mismatch"])
+@pytest.mark.parametrize("kind", WEIGHT_KINDS)
+def test_graph_speculative_equals_eager(cuda_device, kind, draft_kind):
+    import numpy as np
+
+    model, params = _small_vla(kind)
+    img = _small_frames(1, seed=2)[0]
+    greedy = model.predict_action_batch(params, [img], [GRAPH_INSTRUCTIONS[0]], return_tokens=True)[1][0]
+    draft = {"perfect": greedy.copy(), "garbage": np.full(7, 3, np.int32),
+             "partial": np.concatenate([greedy[:4], [7, 7, 7]]).astype(np.int32),
+             "mid_mismatch": np.where(np.arange(7) == 2, greedy + 1, greedy).astype(np.int32)}[draft_kind]
+    call = lambda: model._host_predict("speculative", params, [img], [GRAPH_INSTRUCTIONS[0]], None,  # noqa: E731
+                                       draft_tokens=draft, margin_threshold=0.0)
+    eager, e_launch = _run(model, False, call)
+    _run(model, True, call)
+    graph, g_launch = _run(model, True, call)
+    for g, e in zip(graph, eager):  # actions, ids, accepted counts
+        np.testing.assert_array_equal(g, e)
+    # flash_fwd runs the prefill only: the verify chunk and the fix-up steps attend through the cache. How
+    # many drafted tokens a perfect draft keeps at margin 0 depends on bf16 ties between the T=7 chunk and
+    # decode; graph and eager agree on it above.
+    assert g_launch == e_launch and g_launch[0] == 2
+    # at margin 0.25 the graph's ids stay the graph's greedy ids
+    tokens = model.predict_action_speculative(params, img, GRAPH_INSTRUCTIONS[0], draft)[1]
+    np.testing.assert_array_equal(tokens, greedy)
+
+
+@pytest.mark.gpu
+def test_graph_replays_read_the_new_inputs(cuda_device):
+    """Two replays of one graph with different frames and instructions give
+    each input's eager answer: the static buffers are rewritten."""
+    import numpy as np
+
+    model, params = _small_vla("bf16")
+    a, b = _small_frames(2, seed=3)
+    answers = {}
+    for use_graphs in (False, True, True):
+        model.use_graphs = use_graphs
+        for name, img, instr in (("a", a, GRAPH_INSTRUCTIONS[0]), ("b", b, GRAPH_INSTRUCTIONS[2])):
+            got = model.predict_action_batch(params, [img], [instr], return_tokens=True)[1]
+            answers.setdefault(name, got)
+            np.testing.assert_array_equal(got, answers[name])
+    assert len(model.graphs.entries) == 1  # both prompts pad to one bucket: one graph
+    assert not np.array_equal(answers["a"], answers["b"])
+
+
+@pytest.mark.gpu
+def test_graph_parallel_decode_equals_eager_without_flash(cuda_device):
+    import numpy as np
+
+    model, params = _small_vla("bf16")
+    model.parallel_decode = True
+    img = _small_frames(1, seed=4)[0]
+    call = lambda: model.predict_action_chunk(params, img, GRAPH_INSTRUCTIONS[1], horizon=3)  # noqa: E731
+    eager, e_launch = _run(model, False, call)
+    _run(model, True, call)
+    graph, g_launch = _run(model, True, call)
+    assert graph.shape == (3, 7) and np.isfinite(graph).all()
+    np.testing.assert_array_equal(graph, eager)
+    assert g_launch == e_launch and g_launch[0] == 0  # the general mask never reaches flash_fwd
+
+
+@pytest.mark.gpu
+def test_new_params_drop_the_graphs(cuda_device):
+    model, params = _small_vla("bf16")
+    img = _small_frames(1, seed=5)[0]
+    model.predict_action(params, img, "x")
+    assert len(model.graphs.entries) == 1 and model.graphs.params is params
+    other = dict(params)
+    model.predict_action(other, img, "x")
+    assert len(model.graphs.entries) == 1 and model.graphs.params is other

@@ -40,6 +40,7 @@ from bridgelang_tpu.models.vision.vit import ViTConfig as JViTConfig
 from bridgelang_tpu.models.vla import OpenVLA as JOpenVLA
 from bridgelang_tpu.models.vlm import VLMConfig as JVLMConfig
 from bridgelang_tpu.ops import image_ops as jimg
+from bridgelang_tpu.ops import quant as jq
 from bridgelang_tpu.training import lora as jlora
 from bridgelang_tpu.training import metrics as jmetrics
 from bridgelang_tpu.training import trainer as jtrainer
@@ -187,8 +188,13 @@ def test_lora_forward_merge_and_mask_match_jax():
     for i, lp in enumerate(t_mask["layers"]):
         assert lp == {k: bool(np.asarray(j_mask["layers"][k]).all()) for k in lp}
     assert t_mask["embed"] is False and t_mask["lm_head"] is False and t_mask["layers"][0]["wq_lora_b"] is True
-    with pytest.raises(NotImplementedError):  # int8 / int4 trees are not yet ported
-        llm_params_from_jax(_np(dict(jl, layers=dict(jl["layers"], wq_scale=jl["layers"]["wq"][:, :1]))))
+    # an int8 base with adapters converts bit for bit, the adapters as before
+    j8 = _np(jq.quantize_llm_int8(jl))
+    t8 = llm_params_from_jax(j8)
+    for i, lp in enumerate(t8["layers"]):
+        np.testing.assert_array_equal(lp["wq"].numpy(), j8["layers"]["wq"][i].T)
+        np.testing.assert_array_equal(lp["wq_scale"].float().numpy(), j8["layers"]["wq_scale"][i].astype(np.float32).T)
+        np.testing.assert_array_equal(lp["wq_lora_a"].numpy(), j8["layers"]["wq_lora_a"][i].T)
     t_base, t_adapters = tlora.split_lora(tl)
     j_base, j_adapters = jlora.split_lora(jl)
     assert set(t_adapters["layers"][0]) == set(j_adapters["layers"]) and set(t_base["layers"][0]) == set(j_base["layers"])

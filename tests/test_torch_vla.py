@@ -129,30 +129,128 @@ def test_server_act_matches_jax_predict_action(pair, max_batch):
         server.close()
 
 
-def test_server_refuses_unported_modes(pair):
-    import base64
+def _post(port, body):
     import http.client
     import json
 
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", "/act", json.dumps(body), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _body(img, instruction, **extra):
+    import base64
+
+    return {"image": {"__b64__": base64.b64encode(img.tobytes()).decode(), "shape": list(img.shape),
+                      "dtype": "uint8"}, "instruction": instruction, **extra}
+
+
+@pytest.fixture
+def fp32_cache(pair):
+    """The exact speculative contract: both packages on an fp32 KV cache."""
+    jmodel, _, tmodel, _ = pair
+    jmodel.cache_dtype, tmodel.cache_dtype = jnp.float32, torch.float32
+    yield
+    jmodel.cache_dtype, tmodel.cache_dtype = jnp.bfloat16, torch.bfloat16
+
+
+def test_server_speculative_default_over_rest(pair, fp32_cache):
+    """Batch 1 decodes speculatively by default, drafting from the server's
+    own history: the cold and the warm tick equal greedy (the JAX
+    predict_action), the response carries "tokens"; a server with the
+    default off keeps the plain greedy wire shape."""
+    jmodel, jparams, tmodel, tparams = pair
+    img = _frames(1, seed=5)[0]
+    want = np.asarray(jmodel.predict_action(jparams, img, INSTRUCTIONS[0]))
+    greedy_srv = VLAServer(tmodel, tparams, speculative_default=False, device="cpu")
+    spec_srv = VLAServer(tmodel, tparams, device="cpu")
+    assert spec_srv.speculative_default and spec_srv.speculative_margin == 0.25
+    h0, h1 = greedy_srv.serve_background(port=0), spec_srv.serve_background(port=0)
+    try:
+        g_action, g_tokens = client_act("127.0.0.1", h0.server_address[1], img, INSTRUCTIONS[0], return_tokens=True)
+        assert g_tokens is None
+        np.testing.assert_allclose(g_action, want, atol=1e-6, rtol=0)
+        a1, t1 = client_act("127.0.0.1", h1.server_address[1], img, INSTRUCTIONS[0], return_tokens=True)
+        a2, t2 = client_act("127.0.0.1", h1.server_address[1], img, INSTRUCTIONS[0], return_tokens=True,
+                            use_b64=False)
+        np.testing.assert_allclose(a1, want, atol=1e-6, rtol=0)  # cold: a zero draft
+        np.testing.assert_allclose(a2, want, atol=1e-6, rtol=0)  # warm: the history's draft
+        np.testing.assert_array_equal(t1, t2)
+        assert t1.shape == (7,) and (INSTRUCTIONS[0], None) in spec_srv._draft_cache
+        # a client-held draft takes the speculative path on either server
+        a3, t3 = client_act("127.0.0.1", h0.server_address[1], img, INSTRUCTIONS[0], draft_tokens=t2,
+                            return_tokens=True)
+        np.testing.assert_allclose(a3, want, atol=1e-6, rtol=0)
+        np.testing.assert_array_equal(t3, t1)
+        assert greedy_srv.stats()["model_passes"] == 2 and spec_srv.stats()["model_passes"] == 2
+    finally:
+        for h in (h0, h1):
+            h.shutdown()
+            h.server_close()
+
+
+def test_draft_from_history_equals_jax():
+    from bridgelang_tpu.serving.server import draft_from_history as j_draft
+    from bridgelang_tpu_torch.serving.server import draft_from_history
+
+    V = 32000
+    prev1 = np.array([V - 100, V - 50, V - 10, V - 200, V - 2, V - 256, V - 30], np.int32)
+    raw_step = np.array([0, 1, -3, 20, 0, -1, 5], np.int64)
+    prev2 = (prev1 - raw_step).astype(np.int32)
+    np.testing.assert_array_equal(draft_from_history(None, prev1, V), prev1)  # cold tick
+    out = draft_from_history(prev2, prev1, V)
+    np.testing.assert_array_equal(out, j_draft(prev2, prev1, V))
+    applied = np.array([0, 0, -3, 8, 0, 0, 5])  # clamp +-8, then zero sub-2-bin steps
+    np.testing.assert_array_equal(out, np.clip(prev1 + applied, V - 256, V - 1))
+    assert out.dtype == np.int32
+    junk = np.array([5, 31999, 40000, 7, 31744, 12, 0], np.int32)  # outside the action range: kept verbatim
+    for p2 in (junk - 3, junk + 9, junk):
+        np.testing.assert_array_equal(draft_from_history(p2, junk, V), j_draft(p2, junk, V))
+
+
+def test_server_horizon_on_a_parallel_model(pair):
+    jmodel, jparams, tmodel, tparams = pair
+    img = _frames(1, seed=6)[0]
+    want = np.asarray(jmodel.predict_action_chunk(jparams, img, INSTRUCTIONS[0], horizon=3))
+    tmodel.parallel_decode = True
+    try:
+        server = VLAServer(tmodel, tparams, device="cpu")
+        assert not server.speculative_default  # a parallel model decodes in one forward
+        httpd = server.serve_background(port=0)
+        try:
+            port = httpd.server_address[1]
+            chunk = client_act("127.0.0.1", port, img, INSTRUCTIONS[0], horizon=3)
+            assert chunk.shape == (3, 7) and np.isfinite(chunk).all()
+            np.testing.assert_allclose(chunk, want, atol=1e-6, rtol=0)
+            # a draft is ignored by a parallel model: the one-forward decode answers
+            action, tokens = client_act("127.0.0.1", port, img, INSTRUCTIONS[0], draft_tokens=np.zeros(7),
+                                        return_tokens=True)
+            assert tokens is None
+            np.testing.assert_allclose(action, want[0], atol=1e-6, rtol=0)
+            for bad in (0, 33):
+                status, payload = _post(port, _body(img, INSTRUCTIONS[0], horizon=bad))
+                assert status == 500 and "horizon must be in [1, 32]" in payload["detail"]
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+    finally:
+        tmodel.parallel_decode = False
+
+
+def test_server_refuses_horizon_on_a_sequential_model(pair):
     _, _, tmodel, tparams = pair
-    server = VLAServer(tmodel, tparams, device="cpu")
+    server = VLAServer(tmodel, tparams, device="cpu", request_timeout_s=30.0)
+    assert server.request_timeout_s == 30.0
     httpd = server.serve_background(port=0)
     try:
         port = httpd.server_address[1]
-        img = _frames(1, seed=4)[0]
-        body = {"image": {"__b64__": base64.b64encode(img.tobytes()).decode(), "shape": list(img.shape),
-                          "dtype": "uint8"}, "instruction": "x"}
-        for extra in ({"draft_tokens": [0] * 7}, {"horizon": 4}):
-            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-            conn.request("POST", "/act", json.dumps({**body, **extra}), {"Content-Type": "application/json"})
-            resp = conn.getresponse()
-            detail = json.loads(resp.read())["detail"]
-            conn.close()
-            assert resp.status == 500 and "not yet ported" in detail
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
-        conn.request("GET", "/healthz")
-        assert json.loads(conn.getresponse().read()) == {"status": "ok"}
-        conn.close()
+        status, payload = _post(port, _body(_frames(1, seed=4)[0], "x", horizon=4))
+        assert status == 500 and "parallel-objective model" in payload["detail"]
+        assert server.stats()["errors"] == 1 and server.stats()["model_passes"] == 0
     finally:
         httpd.shutdown()
         httpd.server_close()
