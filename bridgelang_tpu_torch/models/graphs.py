@@ -223,7 +223,16 @@ class PredictGraphs:
 
     def _capture_one(self, body: Callable[[], None]) -> CapturedGraph:
         """Warm `body` up on the capture stream (builds, loads and allocates
-        what its launches need), then capture it into the shared pool."""
+        what its launches need), then capture it into the shared pool.
+
+        cuBLAS keeps one workspace per (handle, stream) outside any pool; a
+        capture that finds one (the warm-up leaves it) records its address,
+        so the graph leans on memory it does not own. A graph captured on a
+        server thread, replayed after other captures and cache releases, hit
+        an illegal address; with the workspaces dropped before the capture
+        (which then allocates the graph's own in the pool the graph keeps)
+        and after it (so that no later call shares it), as PyTorch's own
+        cudagraph trees do, it does not."""
         side = self._stream
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -233,8 +242,10 @@ class PredictGraphs:
         wrappers = counted_wrappers()
         before = [fn.launches for fn in wrappers]
         graph = torch.cuda.CUDAGraph()
+        torch._C._cuda_clearCublasWorkspaces()
         with torch.cuda.graph(graph, pool=self._pool, stream=side, capture_error_mode="thread_local"):
             body()
+        torch._C._cuda_clearCublasWorkspaces()
         launches = {fn: fn.launches - n for fn, n in zip(wrappers, before) if fn.launches != n}
         for fn, n in zip(wrappers, before):
             fn.launches = n  # a capture launches nothing

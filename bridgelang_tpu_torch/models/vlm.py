@@ -43,6 +43,7 @@ from torch.func import functional_call
 
 from bridgelang_tpu_torch._device import resolve_device
 from bridgelang_tpu_torch.models.llm.llama import (
+    LLM_CONFIGS,
     LLM_FAMILIES,
     W8A8_MIN_CHUNK,
     LLMConfig,
@@ -75,6 +76,27 @@ class VLMConfig:
     # Explicit vision config(s) overriding the registry: a ViTConfig, or a
     # (ViTConfig, ViTConfig) pair for fused towers (tiny test models).
     vision_override: Optional[Any] = None
+
+    @classmethod
+    def from_ids(
+        cls,
+        model_id: str,
+        vision_backbone_id: str,
+        llm_backbone_id: str,
+        arch_specifier: str,
+        image_resize_strategy: str = "resize-naive",
+        llm_max_length: int = 2048,
+        llm_overrides: Optional[Dict[str, Any]] = None,
+    ) -> "VLMConfig":
+        """A config from registered ids (`LLM_CONFIGS`, read at call time,
+        so a test may patch an entry), with `llm_overrides` replacing fields
+        of the LLM config."""
+        llm = LLM_CONFIGS[llm_backbone_id]
+        if llm_overrides:
+            llm = dataclasses.replace(llm, **llm_overrides)
+        return cls(model_id=model_id, vision_backbone_id=vision_backbone_id, llm_backbone_id=llm_backbone_id,
+                   arch_specifier=arch_specifier, image_resize_strategy=image_resize_strategy,
+                   llm_max_length=llm_max_length, llm=llm)
 
     @property
     def llm_family(self) -> str:

@@ -87,6 +87,23 @@ def _quantize_tensor(w: torch.Tensor, dim: int, by_reciprocal: bool = False) -> 
     return _quantize_2d(w.float(), dim, by_reciprocal)
 
 
+def quantize_layer_int8(lp: Params, targets: Sequence[str] = QUANT_TARGETS) -> Params:
+    """One decoder layer (or any part of one) with its float projections in
+    `targets` quantized to int8 per output column: each [out, in] weight
+    becomes int8 codes [out, in] and a bf16 `<name>_scale` [out, 1]."""
+    lp = dict(lp)
+    for name in targets:
+        if name in lp and lp[name].dtype != torch.int8:
+            lp[name], lp[name + "_scale"] = _quantize_tensor(lp[name].detach(), dim=1, by_reciprocal=True)
+    return lp
+
+
+def quantize_rows_int8(table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The embedding [V, D] or LM head [V, D] to int8 per row -> (codes,
+    bf16 scale [V, 1])."""
+    return _quantize_tensor(table.detach(), dim=1)
+
+
 def quantize_llm_int8(
     llm_params: Params,
     targets: Sequence[str] = QUANT_TARGETS,
@@ -94,22 +111,14 @@ def quantize_llm_int8(
     quantize_head: bool = True,
 ) -> Params:
     """Quantize the decoder's projections to int8 per output column (one
-    matrix of one layer at a time: each [out, in] weight becomes int8 codes
-    [out, in] and a bf16 `<name>_scale` [out, 1]), and optionally the
+    matrix of one layer at a time, `quantize_layer_int8`), and optionally the
     embedding (per token row) and the LM head (per vocabulary entry). The
     returned dict shares every other tensor with `llm_params`."""
-    layers = []
-    for lp in llm_params["layers"]:
-        lp = dict(lp)
-        for name in targets:
-            if name in lp and lp[name].dtype != torch.int8:
-                lp[name], lp[name + "_scale"] = _quantize_tensor(lp[name].detach(), dim=1, by_reciprocal=True)
-        layers.append(lp)
-    out = dict(llm_params, layers=layers)
+    out = dict(llm_params, layers=[quantize_layer_int8(lp, targets) for lp in llm_params["layers"]])
     if quantize_embed and out["embed"].dtype != torch.int8:
-        out["embed"], out["embed_scale"] = _quantize_tensor(out["embed"].detach(), dim=1)  # [V, D], [V, 1]
+        out["embed"], out["embed_scale"] = quantize_rows_int8(out["embed"])  # [V, D], [V, 1]
     if quantize_head and out["lm_head"].dtype != torch.int8:
-        out["lm_head"], out["lm_head_scale"] = _quantize_tensor(out["lm_head"].detach(), dim=1)  # [V, D], [V, 1]
+        out["lm_head"], out["lm_head_scale"] = quantize_rows_int8(out["lm_head"])  # [V, D], [V, 1]
     return out
 
 
@@ -144,25 +153,32 @@ def init_llm_params_int8(generator: torch.Generator, cfg, device: Optional[torch
             "lm_head": head_q, "lm_head_scale": head_s}
 
 
+def dequantize_layer(lp: Params, dtype: torch.dtype = torch.bfloat16, int4_shards: int = 1) -> Params:
+    """One decoder layer (or any part of one) with float weights back from
+    its quantized projections, the scale leaves dropped: int8 (codes * scale
+    in fp32, then `dtype`) and packed int4, in the port's [out, in] layout.
+    `int4_shards` must equal the pack-time n_shards."""
+    lp = dict(lp)
+    for name in [k for k in lp if k + "_scale4" in lp]:
+        shards = int4_shards if name in INT4_COLUMN_PARALLEL else 1
+        lp[name] = dequant_int4(lp[name], lp.pop(name + "_scale4"), dtype, n_shards=shards).t().contiguous()
+    for name in [k for k in lp if k + "_scale" in lp]:
+        lp[name] = (lp[name].float() * lp.pop(name + "_scale").float()).to(dtype)
+    return lp
+
+
+def dequantize_rows(codes: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """An int8 embedding or head [V, D] with its [V, 1] scale -> `dtype`."""
+    return (codes.float() * scale.float()).to(dtype)
+
+
 def dequantize_llm_int8(llm_params: Params, dtype: torch.dtype = torch.bfloat16, int4_shards: int = 1) -> Params:
-    """Float weights back from a quantized decoder, dropping the scale
-    leaves: int8 layers (codes * scale in fp32, then `dtype`) and packed int4
-    layers come back in the port's [out, in] layout, the int8 embedding and
-    head as [V, D]. `int4_shards` must equal the pack-time n_shards."""
-    layers = []
-    for lp in llm_params["layers"]:
-        lp = dict(lp)
-        for name in [k for k in lp if k + "_scale4" in lp]:
-            shards = int4_shards if name in INT4_COLUMN_PARALLEL else 1
-            lp[name] = dequant_int4(lp[name], lp.pop(name + "_scale4"), dtype, n_shards=shards).t().contiguous()
-        for name in [k for k in lp if k + "_scale" in lp]:
-            lp[name] = (lp[name].float() * lp.pop(name + "_scale").float()).to(dtype)
-        layers.append(lp)
-    out = dict(llm_params, layers=layers)
+    """Float weights back from a quantized decoder (`dequantize_layer` on
+    every layer), the int8 embedding and head as [V, D]."""
+    out = dict(llm_params, layers=[dequantize_layer(lp, dtype, int4_shards) for lp in llm_params["layers"]])
     for name in ("embed", "lm_head"):
         if out[name].dtype == torch.int8:
-            scale = out.pop(name + "_scale")
-            out[name] = (out[name].float() * scale.float()).to(dtype)
+            out[name] = dequantize_rows(out[name], out.pop(name + "_scale"), dtype)
     return out
 
 
@@ -233,6 +249,32 @@ def _quantize4_2d(w32: torch.Tensor, group: int, n_shards: int = 1) -> Tuple[tor
     return pack_int4(codes, n_shards=n_shards).contiguous(), scale[:, 0, :].to(torch.bfloat16).contiguous()
 
 
+def quantize_layer_int4(lp: Params, targets: Sequence[str] = QUANT_TARGETS, group: int = INT4_GROUP,
+                        n_shards: int = 1) -> Params:
+    """One decoder layer (or any part of one) with its projections in
+    `targets` packed to int4: each float [out, in] weight is read, transposed
+    to [in, out] in fp32, packed, and the float leaf dropped from the
+    returned dict, so the transient is one fp32 matrix. Column-parallel
+    leaves get shard-blocked pairing when `n_shards` > 1. An int8 leaf (with
+    `<name>_scale`) is packed from codes * scale in fp32, and its scale leaf
+    dropped (the JAX int8-source branch); a leaf that is already packed
+    raises."""
+    lp = dict(lp)
+    for name in targets:
+        if name not in lp:
+            continue
+        w = lp[name].detach()
+        if w.dtype == torch.int8:
+            if name + "_scale" not in lp:
+                raise ValueError(f"{name} is int8 without `{name}_scale`: already packed to int4")
+            w32 = w.float() * lp.pop(name + "_scale").float()
+        else:
+            w32 = w.float()
+        shards = n_shards if name in INT4_COLUMN_PARALLEL else 1
+        lp[name], lp[name + "_scale4"] = _quantize4_2d(w32.t(), group, n_shards=shards)
+    return lp
+
+
 def quantize_llm_int4(
     llm_params: Params,
     targets: Sequence[str] = QUANT_TARGETS,
@@ -240,37 +282,15 @@ def quantize_llm_int4(
     n_shards: int = 1,
 ) -> Params:
     """Quantize the decoder's projections to packed int4 with per-(input
-    group, output column) scales; the embedding and the LM head become int8.
-
-    One matrix of one layer at a time: each float [out, in] weight is read,
-    transposed to [in, out] in fp32, packed, and the float leaf dropped from
-    the returned layer, so the transient is one fp32 matrix. The returned
-    dict shares every other tensor with `llm_params`; drop `llm_params` to
-    free the float weights. Column-parallel leaves get shard-blocked pairing
-    when `n_shards` > 1. An int8 leaf (with `<name>_scale`) is packed from
-    codes * scale in fp32, and its scale leaf dropped (the JAX int8-source
-    branch); a leaf that is already packed raises."""
-    layers = []
-    for lp in llm_params["layers"]:
-        lp = dict(lp)
-        for name in targets:
-            if name not in lp:
-                continue
-            w = lp[name].detach()
-            if w.dtype == torch.int8:
-                if name + "_scale" not in lp:
-                    raise ValueError(f"{name} is int8 without `{name}_scale`: already packed to int4")
-                w32 = w.float() * lp.pop(name + "_scale").float()
-            else:
-                w32 = w.float()
-            shards = n_shards if name in INT4_COLUMN_PARALLEL else 1
-            lp[name], lp[name + "_scale4"] = _quantize4_2d(w32.t(), group, n_shards=shards)
-        layers.append(lp)
-    out = dict(llm_params, layers=layers)
+    group, output column) scales, one matrix of one layer at a time
+    (`quantize_layer_int4`); the embedding and the LM head become int8. The
+    returned dict shares every other tensor with `llm_params`; drop
+    `llm_params` to free the float weights."""
+    out = dict(llm_params, layers=[quantize_layer_int4(lp, targets, group, n_shards) for lp in llm_params["layers"]])
     if out["embed"].dtype != torch.int8:
-        out["embed"], out["embed_scale"] = _quantize_tensor(out["embed"].detach(), dim=1)  # [V, D], [V, 1]
+        out["embed"], out["embed_scale"] = quantize_rows_int8(out["embed"])  # [V, D], [V, 1]
     if out["lm_head"].dtype != torch.int8:
-        out["lm_head"], out["lm_head_scale"] = _quantize_tensor(out["lm_head"].detach(), dim=1)  # [V, D], [V, 1]
+        out["lm_head"], out["lm_head_scale"] = quantize_rows_int8(out["lm_head"])  # [V, D], [V, 1]
     return out
 
 

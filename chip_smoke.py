@@ -35,6 +35,22 @@ of which fails the run:
            quantize_a8 and flash_fwd (B=1) also device-side: a captured CUDA
            graph of launches, the int4 weights rotated over >= 100 MB of
            copies so that every launch reads them cold, as a decode pass does.
+  load     right after the 7B's random weights are drawn: write them in the
+           published HF layout (bf16, three shards with an index,
+           config.json, dataset_statistics.json; plus the source-only tensors
+           a published file carries: each tower's final norm and SigLIP's
+           attention-pooling head) through the port's safetensors writer, the
+           core keys and shapes equal to tests/golden/hf_export_manifest_
+           openvla7b.json; then load_vla onto the card, cold (the files'
+           pages dropped first) and page-cache warm: bf16 leaves bit-equal to
+           the in-memory params; quantize_int8 and quantize_int4 on load
+           bit-equal to quantize_llm_int8 / quantize_llm_int4 of them, with
+           equal batch-1 ids. Seconds, GB/s, host peak RSS and device peak of
+           each load; the first /act of the loaded model. Then a subprocess
+           `python -m bridgelang_tpu_torch.deploy --checkpoint <dir>
+           --quantize_int4 true` answers 3 /act equal to the in-process int4
+           predict_action (time to listen, /act median). Every later phase
+           serves and trains the bf16 weights this phase loaded.
   cold     only those device-side timings (not in the default run); with
            --package-root DIR they time another checkout's kernels (an
            earlier commit unpacked with git archive), for before-and-after
@@ -77,8 +93,11 @@ of which fails the run:
            and recompute) and each backward kernel 32 times; losses finite
            and falling. One profiled step; then one warm and 2 timed
            steps under "dots" remat (scripts/finetune.py's default), with
-           the same launch counts; then merge the adapters and predict one
-           action through the merged weights.
+           the same launch counts; then CheckpointManager.save of the LoRA
+           state (frozen base dropped), restore into a fresh state, and one
+           step from each of the restored and the uninterrupted state (bit-
+           equal, else 1e-6 relative); then merge the adapters and predict
+           one action through the merged weights.
   int8     the same decoder quantized by quantize_llm_int8 (int8 embedding
            and head), LLMConfig.w8a8 on, served as `serve`: model and peak
            GB; every projection of the prefill (T=352) must take the int8 x
@@ -105,7 +124,9 @@ of which fails the run:
            with w8a8 on and off, and one QLoRA step under the same rule; the
            cut quantized to int8: equal ids with w8a8 off, and with it on
            teacher-forced logits within 0.05 max|logit| (argmax equal where
-           the CPU's top-2 margin clears twice that).
+           the CPU's top-2 margin clears twice that). The fp32 cut is also
+           exported (export_checkpoint) and loaded back with load_vla on the
+           card: leaves bit-equal, batch-2 ids equal.
 Then one line {"kernels": [...]}, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout,
 it exits non-zero and prints no result.
@@ -968,6 +989,353 @@ def serve(model, params, n_single: int, per_pass: dict) -> dict:
                 passes=passes_single + passes_batched, max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
+# --- phase 3b: the published checkpoint layout, written and loaded ---------------------
+
+CKPT_SHARDS = 3           # the published openvla-7b's model-0000{1,2,3}-of-00003.safetensors
+CKPT_FREE_BYTES = 17e9    # the bf16 7B checkpoint (15.05 GB) and its headroom
+GOLDEN_MANIFEST = os.path.join(ROOT, "tests", "golden", "hf_export_manifest_openvla7b.json")
+N_DEPLOY_REQUESTS = 3     # /act requests to the deploy --checkpoint subprocess
+DEPLOY_LISTEN_S = 600     # its load, graph warm-up and listen must fit in this
+
+
+def source_only_tensors(params) -> dict:
+    """The tensors a published OpenVLA checkpoint carries that the port never
+    runs, so the loader must skip them: each tower's final `norm` and
+    SigLIP's attention-pooling head (bridgelang_tpu/extern/timm_shim.py:155-181
+    shapes), random bf16 drawn on the card when written."""
+    import torch
+
+    from bridgelang_tpu_torch.util.safetensors_io import Lazy
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    shapes = {}
+    for tower in ("featurizer", "fused_featurizer"):
+        w = params["vision"][f"{tower}.patch_embed.weight"].shape[0]
+        shapes[f"vision_backbone.{tower}.norm.weight"] = (w,)
+        shapes[f"vision_backbone.{tower}.norm.bias"] = (w,)
+    w, hidden = params["vision"]["fused_featurizer.patch_embed.weight"].shape[0], \
+        params["vision"]["fused_featurizer.blocks.0.mlp_fc1.weight"].shape[0]
+    pool = {"latent": (1, 1, w), "q.weight": (w, w), "q.bias": (w,), "kv.weight": (2 * w, w), "kv.bias": (2 * w,),
+            "proj.weight": (w, w), "proj.bias": (w,), "norm.weight": (w,), "norm.bias": (w,),
+            "mlp.fc1.weight": (hidden, w), "mlp.fc1.bias": (hidden,), "mlp.fc2.weight": (w, hidden),
+            "mlp.fc2.bias": (w,)}
+    shapes.update({f"vision_backbone.fused_featurizer.attn_pool.{k}": v for k, v in pool.items()})
+    return {k: Lazy(torch.bfloat16, v, lambda v=v: torch.randn(v, generator=g, device="cuda", dtype=torch.bfloat16)
+                    .mul_(0.02)) for k, v in shapes.items()}
+
+
+def write_published_checkpoint(model, params, out_dir) -> dict:
+    """The 7B in the published layout: bf16, three shards with an index,
+    config.json and dataset_statistics.json, through the port's writer and
+    the exporter's key mapping; the core keys and shapes held to the golden
+    manifest. Timed to the end of an fsync of every file."""
+    import math
+
+    import torch
+
+    from bridgelang_tpu_torch.extern.hf_export import export_state_dict, write_sidecars
+    from bridgelang_tpu_torch.util.safetensors_io import save_sharded, tensor_nbytes
+
+    core = export_state_dict(params, dtype=torch.bfloat16)
+    with open(GOLDEN_MANIFEST) as f:
+        golden = json.load(f)
+    got = {k: list(v.shape) for k, v in core.items()}
+    if got != golden:
+        fail(f"load: the written core keys differ from the golden manifest: "
+             f"{sorted(set(got) ^ set(golden))[:6] or [k for k in got if got[k] != golden.get(k)][:6]}")
+    extra = source_only_tensors(params)
+    tensors = {**core, **extra}
+    n_core = sum(math.prod(v.shape) for v in core.values())
+    n_bytes = sum(tensor_nbytes(v) for v in tensors.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    files = save_sharded(tensors, out_dir, CKPT_SHARDS, metadata={"format": "pt"})
+    write_sidecars(model, out_dir)
+    for f in files:
+        fd = os.open(f, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+    dt = time.perf_counter() - t0
+    log(f"load: wrote {len(tensors)} tensors ({len(core)} core = the golden manifest, {n_core / 1e9:.3f} B params; "
+        f"{len(extra)} source-only), {n_bytes / 1e9:.2f} GB bf16 in {CKPT_SHARDS} shards in {dt:.1f} s "
+        f"({n_bytes / 1e9 / dt:.2f} GB/s, fsync included)")
+    return dict(tensors=len(tensors), core_tensors=len(core), core_params=n_core, bytes=n_bytes, seconds=dt,
+                gb_per_s=n_bytes / 1e9 / dt, files=[os.path.basename(f) for f in files])
+
+
+def drop_page_cache(ckpt_dir) -> bool:
+    """Ask the kernel to drop the checkpoint's clean pages (fadvise
+    DONTNEED), so the next read comes from the disk."""
+    for name in sorted(os.listdir(ckpt_dir)):
+        fd = os.open(os.path.join(ckpt_dir, name), os.O_RDONLY)
+        try:
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+    return True
+
+
+def host_memory_kb() -> dict:
+    with open("/proc/self/status") as f:
+        return {k: int(v.split()[0]) for k, v in (line.split(":", 1) for line in f) if k in ("VmRSS", "VmHWM")}
+
+
+class HostPeak:
+    """The process's peak RSS over a block, above its RSS at the start:
+    VmHWM after resetting it through /proc/self/clear_refs where the kernel
+    allows that, else the largest VmRSS read every 2 ms by a thread (`how`
+    says which)."""
+
+    def __enter__(self):
+        self.rss0 = host_memory_kb()["VmRSS"]
+        try:
+            with open("/proc/self/clear_refs", "w") as f:
+                f.write("5")
+            self.how, self.thread = "VmHWM after clear_refs", None
+        except OSError as e:
+            self.how = f"VmRSS sampled every 2 ms (clear_refs: {e.strerror})"
+            self.peak, self.stop = self.rss0, threading.Event()
+            self.thread = threading.Thread(target=self._sample, daemon=True)
+            self.thread.start()
+        return self
+
+    def _sample(self):
+        while not self.stop.is_set():
+            self.peak = max(self.peak, host_memory_kb()["VmRSS"])
+            self.stop.wait(0.002)
+
+    def __exit__(self, *exc):
+        if self.thread is None:
+            self.peak = host_memory_kb()["VmHWM"]
+        else:
+            self.stop.set()
+            self.thread.join()
+            self.peak = max(self.peak, host_memory_kb()["VmRSS"])
+        self.gb = (self.peak - self.rss0) * 1024 / 1e9
+        return False
+
+
+def timed_load(path: str, label: str, n_bytes: int, cold: bool, **kw):
+    """load_vla onto the card, timed, with the host's peak RSS above its RSS
+    before (HostPeak) and the device peak above what the card held before."""
+    import torch
+
+    from bridgelang_tpu_torch.models.load import load_vla
+
+    if cold:
+        drop_page_cache(path)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with HostPeak() as host:
+        t0 = time.perf_counter()
+        model, params = load_vla(path, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    r = dict(seconds=dt, gb_per_s=n_bytes / 1e9 / dt, cold=cold, host_peak_gb=host.gb, host_peak_how=host.how,
+             device_peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+             model_gb=(torch.cuda.memory_allocated() - base) / 1e9)
+    log(f"load ({label}, {'cold' if cold else 'page-cache warm'}): {dt:.2f} s, {r['gb_per_s']:.2f} GB/s of file; "
+        f"host peak RSS +{host.gb:.3f} GB over the load ({host.how}); device peak +{r['device_peak_gb']:.2f} GB, "
+        f"holds +{r['model_gb']:.2f} GB after")
+    return model, params, r
+
+
+def bits(t):
+    import torch
+
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32}[t.element_size()]) if t.is_floating_point() else t
+
+
+def assert_params_bit_equal(got, want, what: str) -> int:
+    """Every leaf of two port params trees equal in dtype, shape and bits."""
+    import torch
+
+    def named(p):
+        out = {f"vision.{k}": v for k, v in p["vision"].items()}
+        out.update({f"projector.{k}": v for k, v in p["projector"].items()})
+        out.update({f"llm.{k}": v for k, v in p["llm"].items() if k != "layers"})
+        out.update({f"llm.{i}.{k}": v for i, lp in enumerate(p["llm"]["layers"]) for k, v in lp.items()})
+        return out
+
+    g, w = named(got), named(want)
+    if set(g) != set(w):
+        fail(f"{what}: leaves differ: {sorted(set(g) ^ set(w))[:6]}")
+    bad = [k for k in w if g[k].dtype != w[k].dtype or g[k].shape != w[k].shape or not torch.equal(bits(g[k]), bits(w[k]))]
+    if bad:
+        fail(f"{what}: {len(bad)} of {len(w)} leaves not bit-equal, e.g. {bad[:4]}")
+    return len(w)
+
+
+def counted_ids(model, params, img, instruction, per_pass: dict, what: str):
+    """One batch-1 predict's ids through the graphs (captured by a first
+    predict), its launches counted: `per_pass` times each kernel."""
+    model.predict_action_batch(params, [img], [instruction], return_tokens=True)
+    reset_launch_counts()
+    _, ids = model.predict_action_batch(params, [img], [instruction], return_tokens=True)
+    counts = launch_counts()
+    expect_counts(counts, per_pass, what)
+    return ids[0].tolist(), counts
+
+
+def deploy_subprocess(ckpt_dir: str, model4, params4) -> dict:
+    """`python -m bridgelang_tpu_torch.deploy --checkpoint <dir> --quantize_int4
+    true` in its own process: time to listen (the load and graph warm-up
+    included), then N_DEPLOY_REQUESTS /act, each equal to the in-process
+    greedy predict_action of the int4-loaded model; the process is stopped."""
+    import http.client
+    import socket
+
+    import numpy as np
+
+    from bridgelang_tpu_torch.serving.server import client_act
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    log_path = os.path.join(os.path.dirname(ckpt_dir), "deploy_subprocess.log")
+    cmd = [sys.executable, "-m", "bridgelang_tpu_torch.deploy", "--checkpoint", ckpt_dir, "--quantize_int4", "true",
+           "--speculative_default", "false", "--host", "127.0.0.1", "--port", str(port)]
+    imgs = frames(N_DEPLOY_REQUESTS, seed=13)
+    with open(log_path, "w") as out:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            listen_s = None
+            while time.perf_counter() - t0 < DEPLOY_LISTEN_S and proc.poll() is None:
+                try:
+                    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=5)
+                    conn.request("GET", "/healthz")
+                    if conn.getresponse().status == 200:
+                        listen_s = time.perf_counter() - t0
+                        break
+                except OSError:
+                    time.sleep(0.5)
+                finally:
+                    conn.close()
+            if listen_s is None:
+                raise RuntimeError(f"deploy did not listen within {DEPLOY_LISTEN_S} s (exit code {proc.poll()})")
+            lat, equal = [], []
+            for i, img in enumerate(imgs):
+                t1 = time.perf_counter()
+                got = np.asarray(client_act("127.0.0.1", port, img, INSTRUCTIONS[i], timeout=300), np.float32)
+                lat.append(1e3 * (time.perf_counter() - t1))
+                want = model4.predict_action(params4, img, INSTRUCTIONS[i])
+                equal.append(bool(np.array_equal(got, want)))
+                if not equal[-1]:
+                    raise RuntimeError(f"/act {i} from deploy {got.tolist()} != in-process predict {want.tolist()}")
+        except (RuntimeError, OSError, ValueError) as e:
+            with open(log_path) as f:
+                tail = f.read()[-3000:]
+            fail(f"deploy --checkpoint subprocess: {e}\n{tail}")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    log(f"load: deploy --checkpoint --quantize_int4 true subprocess listened after {listen_s:.1f} s (its load and "
+        f"graph warm-up included); {N_DEPLOY_REQUESTS} x /act equal to the in-process int4 predict_action, latency "
+        f"ms {[round(x, 1) for x in lat]} (median {statistics.median(lat):.1f}); stopped")
+    return dict(listen_s=listen_s, act_ms=lat, act_median_ms=statistics.median(lat))
+
+
+def load_phase(model, params):
+    """The 7B written in the published layout and loaded back through
+    load_vla (bf16, then quantized on load to int8 and int4), each held to
+    its in-memory twin bit for bit with equal batch-1 ids; the first /act of
+    the loaded bf16 model; a deploy --checkpoint subprocess. Returns the
+    loaded bf16 (model, params), which the later phases serve and train, and
+    the phase's numbers."""
+    import shutil
+    import tempfile
+
+    from bridgelang_tpu_torch.models.llm.tokenizer import ByteFallbackTokenizer
+    from bridgelang_tpu_torch.ops.quant import quantize_llm_int4, quantize_llm_int8
+    from bridgelang_tpu_torch.serving.server import VLAServer, client_act
+
+    t_phase = time.perf_counter()
+    parent = os.path.join(ROOT, "build")
+    os.makedirs(parent, exist_ok=True)
+    free = shutil.disk_usage(parent).free
+    log(f"load: {free / 1e9:.1f} GB free under {parent}")
+    if free < CKPT_FREE_BYTES:
+        fail(f"load: {free / 1e9:.1f} GB free on the checkout's disk; the bf16 7B checkpoint needs "
+             f"{CKPT_FREE_BYTES / 1e9:.0f} GB")
+    ckpt = tempfile.mkdtemp(prefix="smoke_ckpt_", dir=parent)
+    result = {"launches": dict.fromkeys(KERNEL_NAMES, 0)}
+    try:
+        result["write"] = write_published_checkpoint(model, params, ckpt)
+        n_bytes = result["write"]["bytes"]
+        img = frames(1, seed=17)[0]
+
+        loaded, lparams, result["bf16"] = timed_load(ckpt, "bf16", n_bytes, cold=True)
+        n = assert_params_bit_equal(lparams, params, "load bf16")
+        if loaded.norm_stats != STATS:
+            fail(f"load: norm_stats {loaded.norm_stats} != {STATS}")
+        loaded.tokenizer = ByteFallbackTokenizer()
+        _, _, result["bf16_warm"] = timed_load(ckpt, "bf16", n_bytes, cold=False)
+        release_memory()
+        server = VLAServer(loaded, lparams, max_batch=1, speculative_default=False, device=loaded.device)
+        httpd = server.serve_background(port=0)
+        try:
+            t0 = time.perf_counter()
+            check_action(client_act("127.0.0.1", httpd.server_address[1], img, INSTRUCTIONS[0], timeout=300),
+                         "load: the first /act of the loaded model")
+            result["first_act_ms"] = 1e3 * (time.perf_counter() - t0)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.close()
+        ids_mem, _ = counted_ids(model, params, img, INSTRUCTIONS[0], {"flash_fwd": N_LAYERS_7B}, "load: in-memory bf16")
+        ids_bf16, counts = counted_ids(loaded, lparams, img, INSTRUCTIONS[0], {"flash_fwd": N_LAYERS_7B},
+                                       "load: loaded bf16")
+        result["launches"] = {k: result["launches"][k] + counts[k] for k in KERNEL_NAMES}
+        if ids_bf16 != ids_mem:
+            fail(f"load: loaded bf16 ids {ids_bf16} != in-memory {ids_mem}")
+        log(f"load: bf16 leaves bit-equal ({n} tensors), norm_stats equal, batch-1 ids {ids_bf16} equal; the first "
+            f"/act after the load {result['first_act_ms']:.1f} ms (its graph capture included)")
+        model.graphs.clear()
+        del model, params
+        release_memory()
+
+        for kind, quantize, per_pass in (
+                ("int8", lambda llm: quantize_llm_int8(llm), {"flash_fwd": N_LAYERS_7B}),
+                ("int4", lambda llm: quantize_llm_int4(llm, group=INT4_GROUP),
+                 {"flash_fwd": N_LAYERS_7B, "int4_mm_a8": ACTION_DIM * INT4_PER_PASS,
+                  "quantize_a8": ACTION_DIM * INT4_PER_PASS})):
+            qmodel, qparams, result[kind] = timed_load(ckpt, kind, n_bytes, cold=True, **{f"quantize_{kind}": True})
+            mem = dict(lparams, llm=quantize(lparams["llm"]))
+            n = assert_params_bit_equal(qparams, mem, f"load {kind}")
+            qmodel.tokenizer = loaded.tokenizer
+            twin = w8a8_model(loaded, w8a8=True)
+            ids_mem, _ = counted_ids(twin, mem, img, INSTRUCTIONS[0], per_pass, f"load: in-memory {kind}")
+            ids_q, counts = counted_ids(qmodel, qparams, img, INSTRUCTIONS[0], per_pass, f"load: loaded {kind}")
+            result["launches"] = {k: result["launches"][k] + counts[k] for k in KERNEL_NAMES}
+            if ids_q != ids_mem:
+                fail(f"load: {kind}-loaded ids {ids_q} != quantized in memory {ids_mem}")
+            log(f"load: {kind} leaves bit-equal to quantize_llm_{kind} of the bf16 params ({n} tensors), batch-1 "
+                f"ids {ids_q} equal")
+            twin.graphs.clear()
+            del twin, mem
+            release_memory()
+            _, _, result[f"{kind}_warm"] = timed_load(ckpt, kind, n_bytes, cold=False, **{f"quantize_{kind}": True})
+            release_memory()
+            if kind == "int4":
+                result["deploy"] = deploy_subprocess(ckpt, qmodel, qparams)
+            qmodel.graphs.clear()
+            del qmodel, qparams
+            release_memory()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"load phase: {result['phase_s']:.1f} s")
+    return loaded, lparams, result
+
+
 # --- phase 4: LoRA fine-tuning ------------------------------------------------------
 
 
@@ -1037,13 +1405,14 @@ def base_param_count(llm: dict) -> int:
 
 
 def train_adapters(model, params, seed: int, label: str, steps: int, per_step: dict,
-                   serve_model=None, dots_steps: int = 0) -> dict:
+                   serve_model=None, dots_steps: int = 0, resume_check: bool = False) -> dict:
     """Full-depth fine-tuning of r=32 adapters over `params` on the card
     (`label`: "train" for the bf16 base, "qlora" for the int4 one): one warm
     step and `steps` timed ones, each launching each kernel `per_step[name]`
     times; a profiled step; `dots_steps` more under "dots" remat; then the
     adapters merged into the base and one action predicted through it with
-    `serve_model`."""
+    `serve_model`. With `resume_check`, the adapters are checkpointed and
+    resumed (checkpoint_resume) before the merge."""
     import numpy as np
     import torch
 
@@ -1132,6 +1501,8 @@ def train_adapters(model, params, seed: int, label: str, steps: int, per_step: d
             f"peak memory {dots['peak_memory_gb']:.2f} GB")
         del dots_step
 
+    resume = checkpoint_resume(model, params, state, mask, batch, seed, losses[-1]) if resume_check else None
+
     trained = state.params
     del state, optimizer, step
     merged = dict(params, llm=merge_lora(trained["llm"]))
@@ -1143,7 +1514,69 @@ def train_adapters(model, params, seed: int, label: str, steps: int, per_step: d
     torch.cuda.empty_cache()
     return dict(step_ms=step_ms, step_times_ms=times[1:], warm_ms=times[0], tokens_per_step=tokens,
                 tokens_per_s=tokens / (step_ms / 1e3), useful_flops=flops, flop_share=share, peak_memory_gb=peak_gb,
-                losses=losses, profile=prof, launches=totals, steps=1 + steps, dots=dots)
+                losses=losses, profile=prof, launches=totals, steps=1 + steps, dots=dots, resume=resume)
+
+
+def checkpoint_resume(model, params, state, mask, batch, seed: int, loss: float) -> dict:
+    """CheckpointManager.save of the LoRA state with the frozen base dropped
+    (`only_trainable_mask`), restored into a fresh init_train_state (other
+    adapters, zero moments); then one step from the restored state and one
+    from the uninterrupted one on the same batch. Losses and adapters must be
+    bit-equal, or else within 1e-6 relative; the rule that held is reported."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bridgelang_tpu_torch.training.checkpointing import STATE_FILE, CheckpointManager
+    from bridgelang_tpu_torch.training.lora import lora_trainable_mask
+    from bridgelang_tpu_torch.training.trainer import (
+        OptimConfig, init_train_state, make_optimizer, make_vla_train_step, trainable_tensors)
+
+    def stepper(p, m):
+        opt = make_optimizer(OptimConfig(learning_rate=LORA_LR, lr_scheduler_type="constant"), p, trainable_mask=m)
+        return opt, make_vla_train_step(model, opt, trainable_mask=m, compute_dtype=torch.bfloat16,
+                                        image_transform=model.image_transform, remat=True, remat_policy="full")
+
+    run = tempfile.mkdtemp(prefix="smoke_run_", dir=os.path.join(ROOT, "build"))
+    try:
+        mgr = CheckpointManager(run, keep=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = mgr.save(state, step=state.step, epoch=0, loss=loss, only_trainable_mask=mask)
+        save_s = time.perf_counter() - t0
+        n_bytes = os.path.getsize(os.path.join(path, STATE_FILE))
+        fresh_params = with_lora(params, model.device, seed + 3)
+        fresh_mask = lora_trainable_mask(fresh_params)
+        opt_b, step_b = stepper(fresh_params, fresh_mask)
+        fresh = init_train_state(fresh_params, opt_b, trainable_mask=fresh_mask)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = mgr.restore(path, fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(run, ignore_errors=True)
+    _, step_a = stepper(state.params, mask)
+    state, m_a = step_a(state, batch)
+    restored, m_b = step_b(restored, batch)
+    loss_a, loss_b = float(m_a["loss"]), float(m_b["loss"])
+    ta, tb = trainable_tensors(state.params, mask), trainable_tensors(restored.params, fresh_mask)
+    if loss_a == loss_b and all(torch.equal(x, y) for x, y in zip(ta, tb)):
+        rule, loss_rel, w_rel = "bit-equal", 0.0, 0.0
+    else:
+        rule = "within 1e-6 relative"
+        loss_rel = abs(loss_a - loss_b) / abs(loss_a)
+        w_rel = max(float((x - y).abs().max()) / max(float(x.abs().max()), 1e-30) for x, y in zip(ta, tb))
+        if loss_rel > 1e-6 or w_rel > 1e-6:
+            fail(f"train resume: one step from the restored state differs from the uninterrupted one: loss "
+                 f"{loss_b} vs {loss_a} (rel {loss_rel:.2e}), adapters rel {w_rel:.2e}")
+    log(f"train resume: checkpoint of the adapters and AdamW moments {n_bytes / 1e6:.1f} MB (the frozen base "
+        f"dropped), save {save_s:.2f} s, restore {restore_s:.2f} s; one step from the restored state and from the "
+        f"uninterrupted one: loss {loss_b:.6f} vs {loss_a:.6f}, adapters {rule}")
+    del restored
+    return dict(bytes=n_bytes, save_s=save_s, restore_s=restore_s, rule=rule, loss=[loss_a, loss_b],
+                loss_rel_err=loss_rel, adapter_rel_err=w_rel)
 
 
 # --- serving through graphs: bf16, int8 (w8a8) and int4 (w4a8) -------------------------
@@ -1518,6 +1951,7 @@ def parity_card_vs_cpu(seed: int, spec: bool) -> dict:
                 for k, v in p_gpu["llm"].items()},
     }
     results = {"float": parity_pair(gpu, cpu, p_gpu, p_cpu, seed, "fp32", {"flash_fwd": 2}, {})}
+    results["export"] = export_round_trip(gpu, p_gpu)
 
     # The same cut with its decoder packed to int4 on the card (one pack,
     # copied to the CPU): w4a8 and bf16-path tokens, and a QLoRA step.
@@ -1552,6 +1986,55 @@ def parity_card_vs_cpu(seed: int, spec: bool) -> dict:
     if spec:
         results["spec_fp32"] = spec_exact_fp32(gpu, p_gpu)
     return results
+
+
+def export_round_trip(gpu, p_gpu) -> dict:
+    """export_checkpoint of the depth-cut fp32 model (the JAX exporter's
+    contract: fp32 model.safetensors, config.json, dataset_statistics.json),
+    then load_vla(..., dtype=torch.float32) onto the card: leaves bit-equal
+    and batch-2 action ids equal to the in-memory cut's. The cut's configs
+    stand in the registries under the real ids meanwhile, as the tests
+    patch them."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from bridgelang_tpu_torch.extern.hf_export import export_checkpoint
+    from bridgelang_tpu_torch.models.llm import llama
+    from bridgelang_tpu_torch.models.load import load_vla
+    from bridgelang_tpu_torch.models.vision import vit
+
+    cut_a, cut_b = gpu.cfg.vision_override
+    patches = [(llama.LLM_CONFIGS, "llama2-7b-pure", gpu.cfg.llm), (vit.VIT_CONFIGS, "dinov2-vit-l", cut_a),
+               (vit.VIT_CONFIGS, "siglip-vit-so400m", cut_b)]
+    saved = [(reg, key, reg[key]) for reg, key, _ in patches]
+    out = tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(ROOT, "build"))
+    try:
+        for reg, key, value in patches:
+            reg[key] = value
+        t0 = time.perf_counter()
+        export_checkpoint(gpu, p_gpu, out)
+        export_s = time.perf_counter() - t0
+        n_bytes = os.path.getsize(os.path.join(out, "model.safetensors"))
+        model, params = load_vla(out, dtype=torch.float32)
+        model.tokenizer = gpu.tokenizer
+        n = assert_params_bit_equal(params, p_gpu, "parity export round trip")
+        imgs = frames(2, seed=19)
+        _, want = gpu.predict_action_batch(p_gpu, imgs, INSTRUCTIONS[:2], return_tokens=True)
+        _, got = model.predict_action_batch(params, imgs, INSTRUCTIONS[:2], return_tokens=True)
+        if not np.array_equal(got, want):
+            fail(f"parity export round trip: loaded ids {got.tolist()} != in-memory {want.tolist()}")
+        model.graphs.clear()
+        gpu.graphs.clear()
+    finally:
+        for reg, key, value in saved:
+            reg[key] = value
+        shutil.rmtree(out, ignore_errors=True)
+    log(f"parity: export_checkpoint of the fp32 depth-cut model ({n_bytes / 1e9:.2f} GB fp32, {export_s:.1f} s), "
+        f"load_vla on the card: {n} leaves bit-equal, batch-2 ids {got.tolist()} equal")
+    return dict(bytes=n_bytes, export_s=export_s, leaves=n, tokens=got.tolist())
 
 
 def parity_logits(gpu, cpu, p_gpu, p_cpu, label: str) -> dict:
@@ -1750,7 +2233,7 @@ def release_memory() -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description="torch port smoke run on one GPU")
-    ap.add_argument("--phases", default="build,kernels,serve,spec,parallel,train,int8,int4,qlora,parity",
+    ap.add_argument("--phases", default="build,load,kernels,serve,spec,parallel,train,int8,int4,qlora,parity",
                     help="comma-separated subset, for bring-up; the full run is the default; `cold` (not in "
                          "the default) runs only the device-side cold-L2 timings of the kernels phase")
     ap.add_argument("--package-root", default=ROOT,
@@ -1783,8 +2266,11 @@ def main() -> None:
 
     model = params = None
     serve_t = 352
-    if phases & {"serve", "spec", "parallel", "train", "int8", "int4", "qlora"}:
+    loaded = None
+    if phases & {"load", "serve", "spec", "parallel", "train", "int8", "int4", "qlora"}:
         model, params = build_7b(SEED)
+        if "load" in phases:  # every later phase serves and trains the weights loaded through load_vla
+            model, params, loaded = load_phase(model, params)
         ids, _ = model.pad_prompt([model.prepare_prompt_ids(INSTRUCTIONS[0])])
         serve_t = ids.shape[1] + model.num_patches
         log(f"serving prefill length: {ids.shape[1]}-token prompt bucket + {model.num_patches} patches = {serve_t}")
@@ -1814,7 +2300,7 @@ def main() -> None:
     if "train" in phases:
         trained = train_adapters(model, params, SEED, "train", TRAIN_STEPS,
                                  {"flash_fwd": 2 * N_LAYERS_7B, "flash_bwd_dq": N_LAYERS_7B,
-                                  "flash_bwd_dkv": N_LAYERS_7B}, dots_steps=DOTS_STEPS)
+                                  "flash_bwd_dkv": N_LAYERS_7B}, dots_steps=DOTS_STEPS, resume_check=True)
         model.graphs.clear()  # the merged weights' predict captured its own
         release_memory()
 
@@ -1890,7 +2376,7 @@ def main() -> None:
         by_path = {"serve": (served or {}).get("launches", zero), "train": (trained or {}).get("launches", zero),
                    "int8_serve": (served8 or {}).get("launches", zero),
                    "int4_serve": (served4 or {}).get("launches", zero), "qlora": (qlora or {}).get("launches", zero),
-                   "parallel": (parallel or {}).get("launches", zero),
+                   "parallel": (parallel or {}).get("launches", zero), "load": (loaded or {}).get("launches", zero),
                    **{f"spec_{kind}": result["launches"] for kind, result in spec.items()}}
 
         def launches(name):
@@ -1921,6 +2407,8 @@ def main() -> None:
             entry["train"] = trained
         if parity:
             entry["parity"] = parity
+        if loaded:
+            entry["load"] = {k: v for k, v in loaded.items() if k != "launches"}
         entries = [entry]
         for name, line, ms_key, err in (("flash_bwd_dq", "bridgelang_tpu/ops/flash_attention.py:116", "dq_ms", "dq"),
                                         ("flash_bwd_dkv", "bridgelang_tpu/ops/flash_attention.py:156", "dkv_ms", "dkv")):

@@ -781,6 +781,38 @@ def test_graph_parallel_decode_equals_eager_without_flash(cuda_device):
 
 
 @pytest.mark.gpu
+def test_graph_captured_by_an_ended_thread_stays_valid(cuda_device):
+    """A server thread captures a key's graph on its first request and then
+    ends; after another model's capture and a release of the allocator's
+    cached memory, a replay from this thread still gives the eager ids. (The
+    fault this guards against, a graph leaning on a cuBLAS workspace outside
+    its pool, showed in the smoke's load-then-serve sequence at the 7B; this
+    small model has not reproduced it.)"""
+    import threading
+
+    import numpy as np
+
+    model, params = _small_vla("bf16")
+    img = _small_frames(1, seed=6)[0]
+    model.use_graphs = False
+    eager = model.predict_action_batch(params, [img], [GRAPH_INSTRUCTIONS[0]], return_tokens=True)[1]
+    model.use_graphs = True
+    worker = threading.Thread(target=model.predict_action_batch, args=(params, [img], [GRAPH_INSTRUCTIONS[0]]))
+    worker.start()
+    worker.join(timeout=600)
+    assert not worker.is_alive() and len(model.graphs.entries) == 1
+    other, other_params = _small_vla("bf16")  # another model's capture in between
+    other.predict_action(other_params, img, GRAPH_INSTRUCTIONS[1])
+    other.graphs.clear()
+    del other, other_params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    got = model.predict_action_batch(params, [img], [GRAPH_INSTRUCTIONS[0]], return_tokens=True)[1]
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, eager)
+
+
+@pytest.mark.gpu
 def test_new_params_drop_the_graphs(cuda_device):
     model, params = _small_vla("bf16")
     img = _small_frames(1, seed=5)[0]
