@@ -150,8 +150,21 @@ def write_sidecars(model, out_dir: Union[Path, str]) -> None:
             json.dump(model.norm_stats, f, indent=2, default=float)
 
 
-def export_checkpoint(model, params: Dict[str, Any], out_dir, source_hf: Union[Path, str, None] = None) -> Path:
-    """Write config.json + model.safetensors (fp32) + dataset_statistics.json.
+def source_dtype(source_hf: Union[Path, str]) -> torch.dtype:
+    """The dtype a checkpoint stores its float tensors in (the first one's)."""
+    for f in checkpoint_files(source_hf):
+        sf = SafetensorsFile(f)
+        for key in sf.keys():
+            dtype, _ = sf.dtype_shape(key)
+            if dtype.is_floating_point:
+                return dtype
+    return torch.float32
+
+
+def export_checkpoint(model, params: Dict[str, Any], out_dir, source_hf: Union[Path, str, None] = None,
+                      dtype: torch.dtype = torch.float32) -> Path:
+    """Write config.json + model.safetensors (fp32, the JAX exporter's
+    contract, unless `dtype` says otherwise) + dataset_statistics.json.
 
     `source_hf`: the HF checkpoint directory this model was loaded from.
     Its tensors that the port never materializes (the final ViT blocks, the
@@ -160,7 +173,7 @@ def export_checkpoint(model, params: Dict[str, Any], out_dir, source_hf: Union[P
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     dead_keys: Set[str] = set()
-    tensors: Dict[str, Lazy] = export_state_dict(params, dead_keys)
+    tensors: Dict[str, Lazy] = export_state_dict(params, dead_keys, dtype=dtype)
     if source_hf is not None:
         for f in checkpoint_files(source_hf):
             sf = SafetensorsFile(f)

@@ -29,8 +29,9 @@ the flash kernel: the JAX package's short-prompt switch to einsum attention
 Training: `forward_train` / `forward_hidden` run the fused sequence through
 the decoder without a cache; attention goes through the flash kernels
 (forward and backward) with the true per-example lengths. The
-`parallel_actions` objective is not yet ported: its general mask lies outside
-the kernel's causal + length family.
+`parallel_actions` objective's mask lies outside the kernel's causal +
+length family, so that forward runs `attention="masked"` with plain autograd
+for its backward, as the JAX package runs it on XLA.
 """
 
 from __future__ import annotations
@@ -129,11 +130,12 @@ class PrismaticVLM:
 
     # --- params ---------------------------------------------------------
 
-    def init_params(self, generator: torch.Generator) -> Params:
-        """Random parameters in the model dtype, drawn on the model's device
-        from `generator` (a generator on that device, e.g.
-        torch.Generator(device="cuda"))."""
-        dtype = self.dtype
+    def init_params(self, generator: torch.Generator, param_dtype: Optional[torch.dtype] = None) -> Params:
+        """Random parameters in `param_dtype` (the model dtype by default;
+        fp32 master weights for full training, which the train step casts to
+        its compute dtype), drawn on the model's device from `generator` (a
+        generator on that device, e.g. torch.Generator(device="cuda"))."""
+        dtype = param_dtype or self.dtype
         return {
             "vision": init_vision_params(self.vision_module, generator, dtype, self.device),
             "projector": init_projector_params(self.projector, generator, dtype, self.device),
@@ -194,16 +196,36 @@ class PrismaticVLM:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Multimodal forward -> (final hidden states [B, F, D], fused labels
         [B, F]); the caller computes the loss with a chunked LM head
-        (training.trainer.chunked_ce_and_metrics)."""
-        if parallel_actions:
-            raise NotImplementedError(
-                "the parallel_actions objective is not yet ported: it needs generate_parallel and a general "
-                "attention mask outside the flash kernel's causal + length family")
+        (training.trainer.chunked_ce_and_metrics).
+
+        `parallel_actions=True` trains the parallel-decode objective that
+        `generate_parallel` serves (JAX vlm.py:253-281): every supervised
+        position's embedding becomes the query token's, keys from the first
+        supervised position on are cut (serve-time keys are the prompt
+        prefix), supervised rows attend only that valid prefix and the other
+        rows stay causal. The [B, 1, F, F] mask runs through the masked
+        attention, not the flash kernel."""
         patch_embeds = self.encode_vision(params, pixel_values)
         token_embeds = embed_tokens(params["llm"], input_ids, dtype=self.dtype)
         fused, fused_mask, fused_labels = self.fuse_after_bos(token_embeds, patch_embeds, attention_mask, labels)
         b, t = fused.shape[:2]
         positions = torch.arange(t, device=fused.device).expand(b, t)
+        if parallel_actions:
+            act = fused_labels != IGNORE_INDEX  # [B, F] supervised targets
+            query = torch.full((1, 1), LLAMA_EMPTY_TOKEN, dtype=torch.long, device=fused.device)
+            q_embed = embed_tokens(params["llm"], query, dtype=self.dtype)[0, 0]
+            fused = torch.where(act[..., None], q_embed.to(fused.dtype), fused)
+            idx = torch.arange(t, device=fused.device)
+            has_act = act.any(dim=1)
+            first_act = act.int().argmax(dim=1)  # first supervised position
+            tail = idx[None, :] >= first_act[:, None]
+            key_ok = fused_mask.bool() & ~(tail & has_act[:, None])
+            causal = idx[None, :] <= idx[:, None]
+            row_mask = torch.where(act[:, :, None], True, causal[None])
+            mask = (row_mask & key_ok[:, None, :])[:, None]  # [B, 1, F, F]
+            hidden, _ = llm_forward(params["llm"], self.cfg.llm, fused, positions, mask, remat=remat,
+                                    remat_policy=remat_policy, attention="masked")
+            return hidden, fused_labels
         lengths = fused_mask.sum(dim=1).to(torch.int32)  # exact under right padding
         hidden, _ = llm_forward(
             params["llm"], self.cfg.llm, fused, positions, self._causal_mask(fused_mask),

@@ -4,7 +4,9 @@ Counterpart of bridgelang_tpu/training/checkpointing.py. The JAX package
 writes Orbax checkpoints; the port writes one `state.pt` per checkpoint
 directory: `torch.save` of {"step", "params", "opt_state"} in plain
 containers (dicts, lists, tensors, numbers, None: no pickled class of the
-port), read back with `weights_only=True`. A run dir of one package is not
+port), read back with `weights_only=True`, and beside it, for a run that
+reads a data stream, `data_state.pt` (the stream's state, so that a resumed
+run reads on where the checkpoint stopped). A run dir of one package is not
 read by the other. Shared with the JAX package: the naming contract
 `step-XXXXXX-epoch-XX-loss=Y.YYYY` under `<run_dir>/checkpoints/`, the
 `latest-checkpoint.txt` marker, retention, the config.json /
@@ -32,6 +34,7 @@ from bridgelang_tpu_torch.training.trainer import TrainState
 
 CKPT_DIR_RE = re.compile(r"step-(\d+)-epoch-(\d+)-loss=([0-9.]+)")
 STATE_FILE = "state.pt"
+DATA_STATE_FILE = "data_state.pt"
 
 
 def checkpoint_name(step: int, epoch: int, loss: float) -> str:
@@ -105,18 +108,22 @@ class CheckpointManager:
             shutil.rmtree(old, ignore_errors=True)
 
     def save(self, state: TrainState, step: int, epoch: int, loss: float,
-             only_trainable_mask: Optional[Any] = None) -> Path:
+             only_trainable_mask: Optional[Any] = None, data_state: Optional[Dict[str, Any]] = None) -> Path:
         """Save params, optimizer state and step (the frozen params dropped
-        when `only_trainable_mask` is given). The file is written under a
-        temporary name and renamed, so a checkpoint is whole or absent."""
+        when `only_trainable_mask` is given), and with `data_state` the data
+        stream's state (`data_state.pt`, read by `load_data_state`). Each
+        file is written under a temporary name and renamed, the state last,
+        so a checkpoint is whole or absent."""
         params = state.params if only_trainable_mask is None else _drop_frozen(state.params, only_trainable_mask)
         payload = {"step": int(state.step), "params": params, "opt_state": state.opt_state}
         path = self.ckpt_root / checkpoint_name(step, epoch, loss)
         if _rank() == 0:
             path.mkdir(parents=True, exist_ok=True)
-            tmp = path / (STATE_FILE + ".tmp")
-            torch.save(payload, tmp)
-            os.replace(tmp, path / STATE_FILE)
+            files = ([(DATA_STATE_FILE, data_state)] if data_state is not None else []) + [(STATE_FILE, payload)]
+            for name, obj in files:
+                tmp = path / (name + ".tmp")
+                torch.save(obj, tmp)
+                os.replace(tmp, path / name)
             (self.run_dir / "latest-checkpoint.txt").write_text(path.name)
             self._enforce_retention()
         return path
@@ -130,6 +137,13 @@ class CheckpointManager:
         target_state.opt_state = _copy_into(target_state.opt_state, saved["opt_state"], "opt_state")
         target_state.step = int(saved["step"])
         return target_state
+
+    @staticmethod
+    def load_data_state(path) -> Optional[Dict[str, Any]]:
+        """The data stream's state saved with the checkpoint at `path`, or
+        None if it holds none."""
+        file = Path(path) / DATA_STATE_FILE
+        return torch.load(file, map_location="cpu", weights_only=True) if file.exists() else None
 
     def latest(self) -> Optional[Path]:
         marker = self.run_dir / "latest-checkpoint.txt"

@@ -16,7 +16,7 @@ from typing import Any, Dict, Sequence, Tuple
 
 import torch
 
-from bridgelang_tpu_torch.ops.quant import INT4_COLUMN_PARALLEL, _quantize4_2d, dequant_int4
+from bridgelang_tpu_torch.ops.quant import INT4_COLUMN_PARALLEL, _quantize4_2d, _quantize_tensor, dequant_int4
 
 Params = Dict[str, Any]
 
@@ -58,14 +58,16 @@ def merge_lora(llm_params: Params, int4_shards: int = 1) -> Params:
     W + B A in fp32, cast back to W's dtype. Packed int4 bases (a QLoRA
     run): per layer, dequantize to fp32 [in, out], add (B A)^T, and
     requantize with the group read off the scales' shape (JAX lora.py:86-93).
-    `int4_shards` must equal the base's pack-time n_shards. int8 bases are
-    not yet ported and raise."""
+    int8 bases (a QLoRA run with 8 bits): dequantize with the sibling
+    `<name>_scale` [out, 1], add B A, and requantize per output column
+    (JAX lora.py:94-97, there over [in, out]); the scale divides by 127 as a
+    multiplication by its fp32 reciprocal, as XLA compiles the JAX merge's
+    `lax.map`, so the codes equal the JAX package's. `int4_shards` must
+    equal the base's pack-time n_shards."""
     layers = []
     for lp in llm_params["layers"]:
-        if any(k.endswith("_scale") for k in lp):
-            raise NotImplementedError("merging into int8 base weights is not yet ported to torch")
         merged = {k: v for k, v in lp.items() if "_lora_" not in k}
-        for name in [k for k in merged if not k.endswith("_scale4")]:
+        for name in [k for k in merged if not k.endswith(("_scale", "_scale4"))]:
             a, b = lp.get(name + "_lora_a"), lp.get(name + "_lora_b")
             if a is None or b is None:
                 continue
@@ -78,7 +80,8 @@ def merge_lora(llm_params: Params, int4_shards: int = 1) -> Params:
                 group = w32.shape[0] // s4.shape[0]
                 merged[name], merged[name + "_scale4"] = _quantize4_2d(w32 + delta.t(), group, n_shards=shards)
             elif w.dtype == torch.int8:
-                raise NotImplementedError("merging into int8 base weights is not yet ported to torch")
+                w32 = w.float() * merged[name + "_scale"].float()
+                merged[name], merged[name + "_scale"] = _quantize_tensor(w32 + delta, dim=1, by_reciprocal=True)
             else:
                 merged[name] = (w.detach().float() + delta).to(w.dtype)
         layers.append(merged)

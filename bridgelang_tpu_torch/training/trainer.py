@@ -303,6 +303,7 @@ def make_vla_train_step(
     image_transform=None,
     remat: bool = True,
     remat_policy: Optional[str] = None,
+    parallel_decode_objective: bool = False,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """The VLA train step. Batch keys (tensors on the model's device):
     input_ids, attention_mask, labels, and either normalized `pixel_values`
@@ -310,6 +311,10 @@ def make_vla_train_step(
     pixels on the device inside the step. fp32 tensors run cast to
     `compute_dtype`; gradients come back in the trainable tensors' dtype
     (fp32 adapters give fp32 gradients) for clip + update.
+
+    `parallel_decode_objective` trains the parallel action objective
+    (`PrismaticVLM.forward_hidden(parallel_actions=True)`): the fine-tuned
+    model serves with `generate_parallel`. Loss and metrics are unchanged.
 
     The step updates `state` IN PLACE and returns it with the metrics:
     loss, grad_norm (before clipping), action_accuracy, l1_loss,
@@ -332,7 +337,7 @@ def make_vla_train_step(
             pixel_values = preprocess_batch(batch["frames"], image_transform, dtype=compute_dtype)
         hidden, fused_labels = model.forward_hidden(
             compute_params, batch["input_ids"], batch["attention_mask"], pixel_values, batch["labels"],
-            remat=remat, remat_policy=remat_policy,
+            remat=remat, remat_policy=remat_policy, parallel_actions=parallel_decode_objective,
         )
         loss, metrics = chunked_ce_and_metrics(compute_params["llm"], model.cfg.llm, hidden, fused_labels,
                                                action_begin, bin_centers)

@@ -68,6 +68,28 @@ def unnormalize_actions(
     return torch.where(mask, unnormed, normalized)
 
 
+def normalize_actions_q99(
+    actions: torch.Tensor,
+    q01: torch.Tensor,
+    q99: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    degenerate_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Raw -> [-1, 1], the inverse of `unnormalize_actions`, with the data
+    pipeline's arithmetic (BOUNDS_Q99): 2 (a - q01) / (q99 - q01 + 1e-8) - 1,
+    clipped; dims outside `mask` pass through, dims in `degenerate_mask`
+    (the dataset's min == max) become 0."""
+    q01 = torch.as_tensor(q01, dtype=actions.dtype, device=actions.device)
+    q99 = torch.as_tensor(q99, dtype=actions.dtype, device=actions.device)
+    clipped = torch.clamp(2.0 * (actions - q01) / (q99 - q01 + 1e-8) - 1.0, -1.0, 1.0)
+    if mask is not None:
+        clipped = torch.where(torch.as_tensor(mask, device=actions.device), clipped, actions)
+    if degenerate_mask is not None:
+        clipped = torch.where(torch.as_tensor(degenerate_mask, device=actions.device),
+                              torch.zeros_like(clipped), clipped)
+    return clipped
+
+
 class ActionTokenizer:
     """Host-side action tokenizer with the reference's interface. `tokenizer`
     is any object with `.vocab_size`, `.decode` and `.batch_decode`; only

@@ -116,6 +116,21 @@ of which fails the run:
            the flash kernels 64/32/32; losses finite and falling; merge into
            the int4 base (dequantize, add, requantize) and predict one
            action through the merged int4 weights.
+  finetune the port's entry points over a native episode store that the
+           phase writes (LIBERO's layout: 24 episodes x 50 steps, 256x256
+           frames from two cameras, 7-D actions, 8-D states), read through
+           the TF-free pipeline by the dataset's worker processes:
+           finetune.main on the load phase's published-layout 7B (bf16 LoRA
+           r=32, batch 16, image_aug, 8 steps, the bf16 HF export loaded
+           back and serving one action under the store's statistics), int8
+           QLoRA (4 steps, no int8 code moves, the merge against the plain
+           formula), the parallel objective (--action_chunk 8, full remat: no
+           flash launch, peak under the train phase's dots peak; an [8, 7]
+           chunk from the trained weights), and train.main at full width with
+           2 decoder layers (5 steps; resumed from the step-4 checkpoint, the
+           5th step bit-equal). The entry points run unchanged; the phase
+           times their steps, batches, saves and exports from outside, and
+           profiles steps 3-8.
   parity   a depth-cut fp32 model with the same weights on the card
            (through the kernels) and on the CPU (plain versions): the
            action token ids must be equal, and one LoRA train step must
@@ -136,6 +151,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1243,13 +1259,14 @@ def deploy_subprocess(ckpt_dir: str, model4, params4) -> dict:
     return dict(listen_s=listen_s, act_ms=lat, act_median_ms=statistics.median(lat))
 
 
-def load_phase(model, params):
+def load_phase(model, params, keep_ckpt: bool = False):
     """The 7B written in the published layout and loaded back through
     load_vla (bf16, then quantized on load to int8 and int4), each held to
     its in-memory twin bit for bit with equal batch-1 ids; the first /act of
     the loaded bf16 model; a deploy --checkpoint subprocess. Returns the
     loaded bf16 (model, params), which the later phases serve and train, and
-    the phase's numbers."""
+    the phase's numbers. With `keep_ckpt` the written checkpoint stays (its
+    path in the numbers, "ckpt_dir") for the finetune phase."""
     import shutil
     import tempfile
 
@@ -1330,7 +1347,10 @@ def load_phase(model, params):
             del qmodel, qparams
             release_memory()
     finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+        if not keep_ckpt:
+            shutil.rmtree(ckpt, ignore_errors=True)
+    if keep_ckpt:
+        result["ckpt_dir"] = ckpt
     result["phase_s"] = time.perf_counter() - t_phase
     log(f"load phase: {result['phase_s']:.1f} s")
     return loaded, lparams, result
@@ -2175,6 +2195,497 @@ def parity_pair(gpu, cpu, p_gpu, p_cpu, seed: int, label: str, gen_counts: dict,
     return dict(result, loss_rel_err=abs(l_gpu - l_cpu) / abs(l_cpu), grad_err=g_err, grad_max=g_max)
 
 
+# --- phase: fine-tuning through the port's entry points ------------------------------
+
+FT_DATASET = "libero_spatial_no_noops"
+FT_EPISODES = 24         # the native store: LIBERO's layout, 256x256 frames, 7-D actions, 8-D states
+FT_EPISODE_STEPS = 50
+FT_FRAME = 256
+FT_SHARDS = 4            # store files, written in parallel
+FT_STEPS = 8             # finetune.main's bf16 LoRA run
+FT_SHORT_STEPS = 4       # the int8-QLoRA and parallel-objective runs
+FT_TIMED = (2, 8)        # steps 3-8: the median step, the data wait and the profiled idle share
+FT_SHUFFLE = 1000        # shuffle-buffer frames: the finetune default of 100_000 holds 19.7 GB of 256x256 frames
+                         # in the one reader process, and filling it would read this 1200-frame store 83 times
+FT_CHUNK = 8             # --action_chunk of the parallel-objective run
+FT_CUT_LAYERS = 2        # train.main: full width, the decoder cut to 2 layers
+FT_TRAIN_STEPS = 5       # train.main steps of the uninterrupted run (saved at step 4, resumed for step 5)
+TRAIN_DOTS_PEAK_GB = 49.44  # the train phase's "dots" peak on an H100 (PERF.md), when that phase does not run
+
+
+def write_native_store(root: str) -> dict:
+    """FT_EPISODES episodes of FT_EPISODE_STEPS steps in LIBERO's native layout
+    under <root>/FT_DATASET, written with the port's writer, FT_SHARDS files
+    in parallel. Frames are gradients that drift over the episode plus
+    integer noise; actions a smooth random walk in [-1, 1] with the gripper
+    at +-1; states 8-D. Returns the raw actions and the bytes and seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from bridgelang_tpu_torch import native
+    from bridgelang_tpu_torch.vla.datasets.native_loader import write_episode
+
+    out = os.path.join(root, FT_DATASET)
+    os.makedirs(out)
+    t, hw = FT_EPISODE_STEPS, FT_FRAME
+    yy, xx = np.mgrid[0:hw, 0:hw].astype(np.float32)
+
+    def episode(ep: int) -> dict:
+        rng = np.random.default_rng(1000 + ep)
+        phase = rng.uniform(0, 6, 3).astype(np.float32)
+        base = np.stack([128 + 80 * np.sin(xx / (23 + 5 * c) + phase[c]) * np.cos(yy / (31 + 3 * c)) for c in range(3)],
+                        -1)
+        drift = np.arange(t, dtype=np.float32)[:, None, None, None]
+        noise = rng.integers(-3, 4, (t, hw, hw, 3), dtype=np.int16)
+        images = np.clip(base[None] + drift + noise, 0, 255).astype(np.uint8)
+        wrist = np.clip(255 - base[None] + drift + noise, 0, 255).astype(np.uint8)
+        move = np.clip(np.cumsum(rng.normal(0, 0.1, (t, 6)), axis=0), -1, 1)
+        grip = np.where(np.sin(np.arange(t) / 7.0 + ep) > 0, 1.0, -1.0)[:, None]
+        return dict(images=images, wrist_images=wrist, actions=np.concatenate([move, grip], 1).astype(np.float32),
+                    states=rng.normal(size=(t, 8)).astype(np.float32), language=INSTRUCTIONS[ep % len(INSTRUCTIONS)])
+
+    def shard(i: int) -> list:
+        acts = []
+        with native.TFRecordWriter(os.path.join(out, f"episodes-{i:05d}.tfrecord")) as w:
+            for ep in range(i, FT_EPISODES, FT_SHARDS):
+                e = episode(ep)
+                write_episode(w, **e)
+                acts.append((ep, e["actions"]))
+        return acts
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(FT_SHARDS) as pool:
+        acts = [a for part in pool.map(shard, range(FT_SHARDS)) for a in part]
+    dt = time.perf_counter() - t0
+    n_bytes = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
+    raw = FT_EPISODES * t * 2 * hw * hw * 3
+    log(f"finetune: native store {FT_EPISODES} episodes x {t} steps ({FT_EPISODES * t} frames, 2 cameras "
+        f"{hw}x{hw}), {n_bytes / 1e6:.1f} MB in {FT_SHARDS} files ({raw / 1e6:.0f} MB of raw frames) written in "
+        f"{dt:.1f} s")
+    return dict(bytes=n_bytes, raw_frame_bytes=raw, seconds=dt,
+                actions=np.concatenate([a for _, a in sorted(acts, key=lambda x: x[0])]))
+
+
+class EntryPointProbe:
+    """Watches an entry point run without changing it: while installed, the
+    trainer's `make_vla_train_step` hands out a wrapped step (per step: wall
+    ms to the end of the device's work, the host's wait for the batch,
+    launches, loss; torch.profiler with CUDA activity only over steps
+    `profile` = [a, b) (None: none); it keeps the model, optimizer, mask, last state and
+    batch), the dataset's batches are timed as they come, and checkpoint
+    saves and HF exports are timed. `per_step`: the launches every step must
+    make (else the run fails)."""
+
+    def __init__(self, label: str, per_step: dict, profile=FT_TIMED, on_first_step=None):
+        self.label, self.per_step, self.profile, self.on_first_step = label, per_step, profile, on_first_step
+        self.steps, self.waits, self.saves, self.exports = [], [], [], []
+        self.model = self.optimizer = self.mask = self.state = self.batch = self.dataset = None
+        self.profile_result, self.step_peak_gb, self.reader_rss_gb = None, 0.0, None
+        self._patches = []
+
+    def _patch(self, obj, name, value):
+        self._patches.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    def __enter__(self):
+        import torch
+
+        from bridgelang_tpu_torch.extern import hf_export
+        from bridgelang_tpu_torch.training import checkpointing, trainer
+        from bridgelang_tpu_torch.vla import materialize
+
+        probe = self
+        make_step, get_dataset = trainer.make_vla_train_step, materialize.get_vla_dataset_and_collator
+        save, export = checkpointing.CheckpointManager.save, hf_export.export_checkpoint
+
+        class TimedBatches:
+            def __init__(self, it):
+                self.it = it
+
+            def __getattr__(self, name):
+                return getattr(self.it, name)
+
+            def __iter__(self):
+                return self
+
+            def __next__(self):
+                t0 = time.perf_counter()
+                batch = next(self.it)
+                probe.waits.append(1e3 * (time.perf_counter() - t0))
+                if len(probe.waits) == 1 and self.it._procs:  # the reader (its shuffle buffer full), a worker
+                    probe.reader_rss_gb = [vm_rss_gb(p.pid) for p in self.it._procs[:2]]
+                return batch
+
+        class TimedDataset:
+            def __init__(self, ds):
+                self.ds = ds
+
+            def __getattr__(self, name):
+                return getattr(self.ds, name)
+
+            def __iter__(self):
+                return TimedBatches(iter(self.ds))
+
+            def batches(self, state=None):
+                return TimedBatches(self.ds.batches(state))
+
+        def get_dataset_timed(*a, **k):
+            ds, tok, coll = get_dataset(*a, **k)
+            probe.dataset = ds
+            return TimedDataset(ds), tok, coll
+
+        def make_step_probed(model, optimizer, *a, **k):
+            step = make_step(model, optimizer, *a, **k)
+            probe.model, probe.optimizer, probe.mask = model, optimizer, k.get("trainable_mask")
+
+            def run(state, batch):
+                i = len(probe.steps)
+                if i == 0:
+                    if probe.on_first_step is not None:
+                        probe.on_first_step(state)
+                    torch.cuda.reset_peak_memory_stats()
+                prof = None
+                if probe.profile and i == probe.profile[0]:
+                    from torch.profiler import ProfilerActivity, profile
+
+                    probe._prof = prof = profile(activities=[ProfilerActivity.CUDA])
+                    prof.__enter__()
+                    probe._prof_t0 = time.perf_counter()
+                torch.cuda.synchronize()
+                before = launch_counts()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                loss = float(m["loss"])
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                counts = {k2: v - before[k2] for k2, v in launch_counts().items()}
+                probe.steps.append(dict(ms=ms, loss=loss, launches=counts))
+                probe.step_peak_gb = max(probe.step_peak_gb, torch.cuda.max_memory_allocated() / 1e9)
+                if probe.profile and i == probe.profile[1] - 1 and getattr(probe, "_prof", None) is not None:
+                    probe._finish_profile()
+                if not math.isfinite(loss):
+                    fail(f"{probe.label} step {i + 1}: non-finite loss {loss}")
+                expect_counts(counts, probe.per_step, f"{probe.label} step {i + 1}")
+                probe.state, probe.batch = state, batch
+                return state, m
+
+            return run
+
+        def save_timed(mgr, state, step, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = save(mgr, state, step, *a, **k)
+            file = os.path.join(path, "state.pt")
+            probe.saves.append(dict(step=step, seconds=time.perf_counter() - t0, bytes=os.path.getsize(file),
+                                    path=str(path)))
+            return path
+
+        def export_timed(model, params, out_dir, *a, **k):
+            t0 = time.perf_counter()
+            out = export(model, params, out_dir, *a, **k)
+            n = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
+            probe.exports.append(dict(seconds=time.perf_counter() - t0, bytes=n, path=str(out)))
+            return out
+
+        self._patch(trainer, "make_vla_train_step", make_step_probed)
+        self._patch(materialize, "get_vla_dataset_and_collator", get_dataset_timed)
+        self._patch(checkpointing.CheckpointManager, "save", save_timed)
+        self._patch(hf_export, "export_checkpoint", export_timed)
+        self._t0 = time.perf_counter()
+        return self
+
+    def _finish_profile(self):
+        from torch.autograd import DeviceType
+
+        wall_ms = 1e3 * (time.perf_counter() - self._prof_t0)
+        self._prof.__exit__(None, None, None)
+        kernels = [e for e in self._prof.events() if e.device_type == DeviceType.CUDA]
+        n = self.profile[1] - self.profile[0]
+        busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        self.profile_result = (dict(steps=n, wall_ms=wall_ms, device_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+                                    launches_per_step=len(kernels) / n) if kernels else None)
+        self._prof = None
+
+    def __exit__(self, *exc):
+        self.wall_s = time.perf_counter() - self._t0
+        for obj, name, value in reversed(self._patches):
+            setattr(obj, name, value)
+        self._patches.clear()
+        if getattr(self, "_prof", None) is not None:
+            self._prof.__exit__(None, None, None)
+            self._prof = None
+
+    def summary(self) -> dict:
+        a, b = self.profile or (min(1, len(self.steps) - 1), len(self.steps))
+        timed = self.steps[a:b]
+        waits = self.waits[:len(self.steps)]  # the loop takes one batch more before it stops
+        r = dict(wall_s=self.wall_s, steps=len(self.steps), losses=[s["loss"] for s in self.steps],
+                 step_ms=[s["ms"] for s in self.steps], data_wait_ms=waits,
+                 median_step_ms=statistics.median(s["ms"] for s in timed) if timed else None,
+                 median_data_wait_ms=statistics.median(waits[a:b]) if waits[a:b] else None,
+                 step_peak_gb=self.step_peak_gb, reader_rss_gb=self.reader_rss_gb, profile=self.profile_result,
+                 saves=self.saves, exports=self.exports,
+                 launches={k: sum(s["launches"][k] for s in self.steps) for k in KERNEL_NAMES})
+        idle = (self.profile_result or {}).get("idle_share")
+        log(f"{self.label}: {self.wall_s:.1f} s in the entry point, {len(self.steps)} steps, losses {[round(x, 4) for x in r['losses']]}; step ms "
+            f"{[round(x, 1) for x in r['step_ms']]} (median of steps {a + 1}-{b}: "
+            f"{r['median_step_ms'] if r['median_step_ms'] is None else round(r['median_step_ms'], 1)}); host wait "
+            f"for each batch ms {[round(x, 1) for x in waits]}; device idle over steps {a + 1}-{b}: "
+            f"{'not measured' if idle is None else f'{100 * idle:.1f}%'}; peak {self.step_peak_gb:.2f} GB; resident "
+            f"memory at the first batch (the frame reader, a batch worker): "
+            f"{[x if x is None else round(x, 3) for x in self.reader_rss_gb or []] or 'not measured'} GB; "
+            f"saves "
+            f"{[(s['step'], round(s['seconds'], 2), round(s['bytes'] / 1e9, 2)) for s in self.saves]} (step, s, GB); "
+            f"exports {[(round(e['seconds'], 2), round(e['bytes'] / 1e9, 2)) for e in self.exports]} (s, GB)")
+        return r
+
+
+def vm_rss_gb(pid: int):
+    """A process's resident memory (VmRSS), or None if it has gone."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            return next(int(line.split()[1]) * 1024 / 1e9 for line in f if line.startswith("VmRSS:"))
+    except (OSError, StopIteration):
+        return None
+
+
+def disk_free_gb(path: str) -> float:
+    import shutil
+
+    return shutil.disk_usage(path).free / 1e9
+
+
+def plain_int8_merge(codes, scale, a, b):
+    """The int8 merge written out: dequantize, add B A, requantize per output
+    column with the scale absmax x fp32(1/127)."""
+    import torch
+
+    w32 = codes.float() * scale.float() + b.float() @ a.float()
+    absmax = w32.abs().amax(dim=1, keepdim=True)
+    new_scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax * torch.full_like(absmax, 1.0 / 127.0))
+    return torch.clamp(torch.round(w32 / new_scale), -127, 127).to(torch.int8), new_scale.to(torch.bfloat16)
+
+
+def finetune_phase(ckpt_dir: str, dots_peak_gb: float) -> dict:
+    """The port's `finetune` and `train` entry points on the card, fed by the
+    port's TF-free pipeline from a native store (write_native_store):
+    1. finetune.main, bf16 LoRA r=32 on the published-layout 7B of `ckpt_dir`
+       (batch 16, image_aug, FT_STEPS steps, the save of the trainable state
+       and the bf16 HF export of the merged model); the export loaded with
+       load_vla predicts one action under the store's statistics, inside its
+       [q01, q99];
+    2. int8 QLoRA (4 steps): no int8 code moves, and merge_lora of one
+       layer's trained adapters into the int8 base equals plain_int8_merge;
+    3. the parallel objective (--action_chunk 8, "full" remat, 4 steps): no
+       flash launch, peak under the train phase's "dots" peak; one more
+       step under "dots" for its peak; an [8, 7] chunk from the trained
+       weights through generate_parallel;
+    4. train.main at full width with the decoder cut to FT_CUT_LAYERS layers:
+       FT_TRAIN_STEPS steps saved at step 4, then resumed from that
+       checkpoint for one step, bit-equal to the uninterrupted run.
+    Each run's directory goes once its checks pass, so that the phase's disk
+    footprint peaks at the source checkpoint plus one export (~31 GB)."""
+    import dataclasses
+    import glob
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from bridgelang_tpu_torch import finetune, train
+    from bridgelang_tpu_torch.conf import parse_cli
+    from bridgelang_tpu_torch.models.llm import llama
+    from bridgelang_tpu_torch.models.llm.tokenizer import ByteFallbackTokenizer
+    from bridgelang_tpu_torch.models.load import load_vla
+    from bridgelang_tpu_torch.training.lora import merge_lora
+    from bridgelang_tpu_torch.training.trainer import tree_leaves
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="smoke_ft_", dir=os.path.join(ROOT, "build"))
+    result = {"disk_free_gb_before": disk_free_gb(work)}
+    log(f"finetune: {result['disk_free_gb_before']:.1f} GB free under {work}")
+    reset_launch_counts()
+    try:
+        data = os.path.join(work, "data")
+        store = write_native_store(data)
+        result["store"] = {k: v for k, v in store.items() if k != "actions"}
+        runs = os.path.join(work, "runs")
+        common = ["--vla_path", ckpt_dir, "--data_root_dir", data, "--dataset_name", FT_DATASET, "--run_root_dir", runs,
+                  "--batch_size", str(TRAIN_BATCH), "--shuffle_buffer_size", str(FT_SHUFFLE), "--save_steps", "1000",
+                  "--lora_rank", str(LORA_RANK)]
+        lora_step = {"flash_fwd": 2 * N_LAYERS_7B, "flash_bwd_dq": N_LAYERS_7B, "flash_bwd_dkv": N_LAYERS_7B}
+
+        # 1. bf16 LoRA, saved merged and exported
+        with EntryPointProbe("finetune bf16 LoRA", lora_step) as probe:
+            run = finetune.main(parse_cli(finetune.FinetuneConfig, common + [
+                "--max_steps", str(FT_STEPS), "--image_aug", "true", "--export_hf", "true"]))
+        lora = probe.summary()
+        stats = json.loads((run / "dataset_statistics.json").read_text())
+        if stats != finetune.jsonable(probe.dataset.dataset_statistics):
+            fail("finetune: the run's dataset_statistics.json differs from the pipeline's statistics")
+        acts = store["actions"].copy()
+        acts[:, -1] = 1.0 - np.clip(acts[:, -1], 0, 1)  # the libero standardization's gripper
+        q = stats[FT_DATASET]["action"]
+        for key, quantile in (("q01", 0.01), ("q99", 0.99)):
+            want = np.quantile(acts, quantile, axis=0)
+            if not np.allclose(q[key], want, rtol=1e-6, atol=1e-7):
+                fail(f"finetune: statistics {key} {q[key]} != numpy's over the written actions {want.tolist()}")
+        del probe
+        release_memory()
+        export = run / "hf_export"
+        t0 = time.perf_counter()
+        served, sparams = load_vla(str(export))
+        load_s = time.perf_counter() - t0
+        served.tokenizer = ByteFallbackTokenizer()
+        action = served.predict_action(sparams, frames(1, seed=41)[0], INSTRUCTIONS[0], unnorm_key=FT_DATASET)
+        check_action(action, "finetune: predict_action of the loaded export")
+        # unnormalized dims lie in [q01, q99]; the gripper (mask off) keeps its bin value in [-1, 1]
+        lo = np.where(q["mask"], q["q01"], -1.0)
+        hi = np.where(q["mask"], q["q99"], 1.0)
+        if not ((action >= lo - 1e-6) & (action <= hi + 1e-6)).all():
+            fail(f"finetune: action {action.tolist()} outside [{lo.tolist()}, {hi.tolist()}] (q01/q99 where the "
+                 "statistics' mask is on, [-1, 1] where off)")
+        log(f"finetune: the export loads in {load_s:.1f} s and predicts {np.round(action, 4).tolist()} under "
+            f"unnorm_key={FT_DATASET} (inside [q01, q99], the gripper in [-1, 1]); statistics equal the pipeline's "
+            "and numpy's quantiles")
+        served.graphs.clear()
+        del served, sparams
+        release_memory()
+        lora.update(export_load_s=load_s, action=action.tolist())
+        result["lora"] = lora
+        shutil.rmtree(run)
+        result["disk_free_gb_after_lora"] = disk_free_gb(work)
+
+        # 2. int8 QLoRA: frozen codes, and the merge against the plain formula
+        snap = {}
+
+        def snapshot(state):
+            for i, lp in enumerate(state.params["llm"]["layers"]):
+                for k, t in lp.items():
+                    if t.dtype == torch.int8:
+                        snap[(i, k)] = t.detach().cpu()
+
+        with EntryPointProbe("finetune int8 QLoRA", lora_step, profile=(1, FT_SHORT_STEPS),
+                             on_first_step=snapshot) as probe:
+            run = finetune.main(parse_cli(finetune.FinetuneConfig, common + [
+                "--max_steps", str(FT_SHORT_STEPS), "--use_quantization", "true", "--quantization_bits", "8",
+                "--export_hf", "false"]))
+        q8 = probe.summary()
+        layers = probe.state.params["llm"]["layers"]
+        moved = [key for key, t in snap.items() if not torch.equal(t, layers[key[0]][key[1]].cpu())]
+        if not snap or moved:
+            fail(f"finetune int8: {len(moved)} of {len(snap)} int8 code tensors changed during training: {moved[:4]}")
+        li = N_LAYERS_7B // 2
+        lp = layers[li]
+        merged = merge_lora({"layers": [lp]})["layers"][0]
+        want_q, want_s = plain_int8_merge(lp["w_up"], lp["w_up_scale"], lp["w_up_lora_a"].detach(),
+                                          lp["w_up_lora_b"].detach())
+        if not (torch.equal(merged["w_up"], want_q) and torch.equal(merged["w_up_scale"], want_s)):
+            fail(f"finetune int8: layer {li} w_up merged codes differ from dequantize + B A + requantize in "
+                 f"{int((merged['w_up'] != want_q).sum())} places")
+        n_moved = int((merged["w_up"] != lp["w_up"]).sum())
+        log(f"finetune int8: {len(snap)} int8 code tensors unchanged over {q8['steps']} steps; merge_lora of layer "
+            f"{li}'s trained adapters into its int8 w_up ({tuple(merged['w_up'].shape)} codes, {n_moved} moved) "
+            "equals dequantize + B A + requantize")
+        del merged, lp, layers, probe, snap
+        release_memory()
+        result["int8_qlora"] = q8
+        shutil.rmtree(run)
+
+        # 3. the parallel objective: masked attention, no flash launch
+        with EntryPointProbe("finetune parallel objective", {}, profile=(1, FT_SHORT_STEPS)) as probe:
+            run = finetune.main(parse_cli(finetune.FinetuneConfig, common + [
+                "--max_steps", str(FT_SHORT_STEPS), "--parallel_decode", "true", "--action_chunk", str(FT_CHUNK),
+                "--remat_policy", "full", "--export_hf", "false"]))
+        par = probe.summary()
+        if par["step_peak_gb"] >= dots_peak_gb:
+            fail(f"finetune parallel: peak {par['step_peak_gb']:.2f} GB under full remat, not under the train "
+                 f"phase's dots peak {dots_peak_gb:.2f} GB")
+        from bridgelang_tpu_torch.training.trainer import make_vla_train_step
+
+        dots = make_vla_train_step(probe.model, probe.optimizer, trainable_mask=probe.mask,
+                                   image_transform=probe.model.image_transform, remat_policy="dots",
+                                   parallel_decode_objective=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = dots(probe.state, probe.batch)
+        float(m["loss"])
+        dots_ms = [1e3 * (time.perf_counter() - t0)]
+        par["dots"] = dict(step_ms=dots_ms, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        model = probe.model
+        model.tokenizer = ByteFallbackTokenizer()
+        mparams = dict(state.params, llm=merge_lora(state.params["llm"]))
+        chunk = model.predict_action_chunk(mparams, frames(1, seed=43)[0], INSTRUCTIONS[0], horizon=FT_CHUNK,
+                                           unnorm_key=FT_DATASET)
+        if chunk.shape != (FT_CHUNK, ACTION_DIM) or not np.isfinite(chunk).all():
+            fail(f"finetune parallel: generate_parallel gave {chunk.shape}, finite {np.isfinite(chunk).all()}")
+        log(f"finetune parallel: peak {par['step_peak_gb']:.2f} GB under full remat (train phase's dots "
+            f"{dots_peak_gb:.2f} GB); under dots {par['dots']['peak_gb']:.2f} GB, steps "
+            f"{[round(x, 1) for x in dots_ms]} ms; generate_parallel on the trained weights: a "
+            f"[{FT_CHUNK}, {ACTION_DIM}] chunk of finite actions")
+        model.graphs.clear()
+        del model, mparams, state, dots, probe
+        release_memory()
+        result["parallel"] = par
+        shutil.rmtree(run)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)  # the published 7B: train.main draws its own weights
+
+        # 4. train.main, depth cut, saved, resumed for one step
+        full_llm = llama.LLM_CONFIGS["llama2-7b-pure"]
+        llama.LLM_CONFIGS["llama2-7b-pure"] = dataclasses.replace(full_llm, n_layers=FT_CUT_LAYERS)
+        try:
+            targs = ["--vla.type", "prism-dinosiglip-224px+mx-bridge", "--vla.data_mix", FT_DATASET,
+                     "--vla.global_batch_size", str(TRAIN_BATCH), "--vla.per_device_batch_size", str(TRAIN_BATCH),
+                     "--vla.expected_device_count", "1", "--vla.shuffle_buffer_size", str(FT_SHUFFLE),
+                     "--vla.freeze_vision_backbone", "true", "--vla.save_interval", str(FT_TRAIN_STEPS - 1),
+                     "--max_steps_override", str(FT_TRAIN_STEPS), "--data_root_dir", data, "--run_root_dir", runs]
+            cut_step = {"flash_fwd": 2 * FT_CUT_LAYERS, "flash_bwd_dq": FT_CUT_LAYERS, "flash_bwd_dkv": FT_CUT_LAYERS}
+            # profiled: steps 2-4, before the save that follows step 4
+            with EntryPointProbe("train (2 layers)", cut_step, profile=(1, FT_TRAIN_STEPS - 1)) as probe_a:
+                state_a = train.main(parse_cli(train.TrainConfig, targs + ["--run_id", "a"]))
+            tr = probe_a.summary()
+            ckpt4 = glob.glob(os.path.join(runs, "a", "checkpoints", f"step-{FT_TRAIN_STEPS - 1:06d}-*"))
+            ckpt5 = glob.glob(os.path.join(runs, "a", "checkpoints", f"step-{FT_TRAIN_STEPS:06d}-*"))
+            if len(ckpt4) != 1 or len(ckpt5) != 1:
+                fail(f"train: expected one step-{FT_TRAIN_STEPS - 1} and one step-{FT_TRAIN_STEPS} checkpoint, "
+                     f"found {ckpt4}, {ckpt5}")
+            shutil.rmtree(ckpt5[0])  # the run's state stays in memory; the disk holds one save less
+            with EntryPointProbe("train resumed", cut_step, profile=None) as probe_b:
+                state_b = train.main(parse_cli(train.TrainConfig, targs + [
+                    "--run_id", "b", "--pretrained_checkpoint", ckpt4[0], "--resume_step", str(FT_TRAIN_STEPS - 1)]))
+            res = probe_b.summary()
+        finally:
+            llama.LLM_CONFIGS["llama2-7b-pure"] = full_llm
+        la, lb = tr["losses"][-1], res["losses"][0]
+        leaves_equal = all(torch.equal(x, y) for x, y in zip(tree_leaves(state_a.params), tree_leaves(state_b.params)))
+        moments_equal = all(not isinstance(x, torch.Tensor) or torch.equal(x, y)
+                            for x, y in zip(tree_leaves(state_a.opt_state), tree_leaves(state_b.opt_state)))
+        n_params = sum(t.numel() for t in tree_leaves(state_a.params))
+        if la != lb or not leaves_equal or not moments_equal or state_a.step != state_b.step:
+            fail(f"train resume: step {FT_TRAIN_STEPS} from the checkpoint differs from the uninterrupted one: loss "
+                 f"{lb} vs {la}, parameters equal {leaves_equal}, moments equal {moments_equal}")
+        log(f"train: OpenVLA at full width, {FT_CUT_LAYERS} decoder layers ({n_params / 1e9:.3f} B fp32 params, vision "
+            f"frozen), {FT_TRAIN_STEPS} steps, saved at step {FT_TRAIN_STEPS - 1}; resumed from that checkpoint, "
+            f"step {FT_TRAIN_STEPS}: loss {lb!r} == {la!r}, parameters and moments bit-equal")
+        tr.update(resume=dict(loss=[la, lb], bit_equal=True, saves=res["saves"], step_ms=res["step_ms"]),
+                  params=n_params)
+        result["train"] = tr
+        del state_a, state_b, probe_a, probe_b
+        release_memory()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    result["launches"] = launch_counts()
+    result["disk_free_gb_after"] = disk_free_gb(os.path.join(ROOT, "build"))
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"finetune phase: {result['phase_s']:.1f} s; launches {result['launches']}; disk free "
+        f"{result['disk_free_gb_before']:.1f} GB before, {result['disk_free_gb_after']:.1f} GB after")
+    return result
+
+
 def report_build(logs: dict) -> None:
     """Each kernel's ptxas report (registers, spills, static shared memory)
     and the dynamic shared memory its launcher asks for."""
@@ -2233,7 +2744,8 @@ def release_memory() -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description="torch port smoke run on one GPU")
-    ap.add_argument("--phases", default="build,load,kernels,serve,spec,parallel,train,int8,int4,qlora,parity",
+    ap.add_argument("--phases",
+                    default="build,load,kernels,serve,spec,parallel,train,int8,int4,qlora,finetune,parity",
                     help="comma-separated subset, for bring-up; the full run is the default; `cold` (not in "
                          "the default) runs only the device-side cold-L2 timings of the kernels phase")
     ap.add_argument("--package-root", default=ROOT,
@@ -2267,10 +2779,17 @@ def main() -> None:
     model = params = None
     serve_t = 352
     loaded = None
-    if phases & {"load", "serve", "spec", "parallel", "train", "int8", "int4", "qlora"}:
+    ft_ckpt = None
+    if phases & {"load", "serve", "spec", "parallel", "train", "int8", "int4", "qlora", "finetune"}:
         model, params = build_7b(SEED)
         if "load" in phases:  # every later phase serves and trains the weights loaded through load_vla
-            model, params, loaded = load_phase(model, params)
+            model, params, loaded = load_phase(model, params, keep_ckpt="finetune" in phases)
+            ft_ckpt = loaded.pop("ckpt_dir", None)
+        elif "finetune" in phases:
+            import tempfile
+
+            ft_ckpt = tempfile.mkdtemp(prefix="smoke_ckpt_", dir=os.path.join(ROOT, "build"))
+            write_published_checkpoint(model, params, ft_ckpt)
         ids, _ = model.pad_prompt([model.prepare_prompt_ids(INSTRUCTIONS[0])])
         serve_t = ids.shape[1] + model.num_patches
         log(f"serving prefill length: {ids.shape[1]}-token prompt bucket + {model.num_patches} patches = {serve_t}")
@@ -2369,6 +2888,10 @@ def main() -> None:
     del model, params
     release_memory()
 
+    tuned = None
+    if "finetune" in phases:
+        tuned = finetune_phase(ft_ckpt, (trained or {}).get("dots", {}).get("peak_memory_gb", TRAIN_DOTS_PEAK_GB))
+
     parity = parity_card_vs_cpu(SEED, spec="spec" in phases) if "parity" in phases else None
 
     if timing_rows:
@@ -2377,6 +2900,7 @@ def main() -> None:
                    "int8_serve": (served8 or {}).get("launches", zero),
                    "int4_serve": (served4 or {}).get("launches", zero), "qlora": (qlora or {}).get("launches", zero),
                    "parallel": (parallel or {}).get("launches", zero), "load": (loaded or {}).get("launches", zero),
+                   "finetune": (tuned or {}).get("launches", zero),
                    **{f"spec_{kind}": result["launches"] for kind, result in spec.items()}}
 
         def launches(name):
@@ -2409,6 +2933,8 @@ def main() -> None:
             entry["parity"] = parity
         if loaded:
             entry["load"] = {k: v for k, v in loaded.items() if k != "launches"}
+        if tuned:
+            entry["finetune"] = {k: v for k, v in tuned.items() if k != "launches"}
         entries = [entry]
         for name, line, ms_key, err in (("flash_bwd_dq", "bridgelang_tpu/ops/flash_attention.py:116", "dq_ms", "dq"),
                                         ("flash_bwd_dkv", "bridgelang_tpu/ops/flash_attention.py:156", "dkv_ms", "dkv")):

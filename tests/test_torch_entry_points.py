@@ -13,8 +13,9 @@
 * `--tokenizer_path`: the port's tokenizer.json reader gives the `tokenizers`
   library's ids and text on a Llama-style tokenizer (SentencePiece BPE, byte
   fallback; normalizer and Metaspace variants) built here.
-* No module of the port imports safetensors, transformers or
-  huggingface_hub (an AST scan, as tests/test_torch_package.py scans for jax).
+* No module of the port imports safetensors, transformers,
+  huggingface_hub, tensorflow, tensorflow_datasets, dlimp, PIL or JAX (an
+  AST scan, as tests/test_torch_package.py scans for jax).
 """
 
 import dataclasses
@@ -134,9 +135,16 @@ def test_convert_to_hf_of_a_lora_run_reads_in_jax(ckpts, registries, tmp_path):
 
 
 def test_port_imports_no_checkpoint_libraries():
+    """Nor TensorFlow, TFDS, dlimp, PIL or JAX: the card has none of them, and
+    the data pipeline and the finetune / train entry points must run there."""
     pkg = Path(bridgelang_tpu_torch.__file__).resolve().parent
     files = sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    banned = {"safetensors", "transformers", "huggingface_hub"}
+    for new in ("finetune.py", "train.py", "native/__init__.py", "vla/materialize.py", "vla/datasets/native_loader.py",
+                "vla/datasets/rlds/dataset.py", "vla/datasets/rlds/obs_transforms.py",
+                "vla/datasets/rlds/oxe/transforms.py", "vla/datasets/rlds/utils/data_utils.py"):
+        assert pkg / new in files, new
+    banned = {"safetensors", "transformers", "huggingface_hub", "tensorflow", "tensorflow_datasets", "dlimp", "PIL",
+              "jax", "jaxlib", "bridgelang_tpu"}
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & banned) for f in files}
     assert not {f: m for f, m in bad.items() if m}
 

@@ -163,8 +163,20 @@ def test_merge_lora_over_int4_matches_jax(pair):
     assert not torch.equal(before["layers"][0]["wq"], t_merged["layers"][0]["wq"])
     deq = tq.dequantize_llm_int4(t_merged, torch.float32)
     assert deq["layers"][0]["wq"].shape == (LLM["dim"], LLM["dim"])
-    with pytest.raises(NotImplementedError):  # int8 bases are not yet ported
-        tlora.merge_lora(dict(t_merged, layers=[dict(l, wq_scale=l["wq_scale4"]) for l in t_merged["layers"]]))
+    # an int8 base of the same decoder merges as the JAX package merges it
+    j8 = jq.quantize_llm_int8(jq.dequantize_llm_int4(jparams["llm"], jnp.float32))
+    rng = np.random.default_rng(4)
+    adapters = {}
+    for name in tlora.ALL_LINEAR:
+        n_layers, d_in, d_out = np.asarray(j8["layers"][name]).shape
+        adapters[name + "_lora_a"] = (rng.normal(size=(n_layers, d_in, RANK)) * RANK ** -0.5).astype(np.float32)
+        adapters[name + "_lora_b"] = (rng.normal(size=(n_layers, RANK, d_out)) * 0.05).astype(np.float32)
+    j8 = _with_adapters(j8, adapters)
+    t8 = tlora.merge_lora(llm_params_from_jax(_np(j8)))
+    for tlp, jlp in zip(t8["layers"], llm_params_from_jax(_np(jlora.merge_lora(j8)))["layers"]):
+        for name in tlora.ALL_LINEAR:
+            np.testing.assert_array_equal(tlp[name].numpy(), jlp[name].numpy(), err_msg=name)
+            assert torch.equal(tlp[name + "_scale"], jlp[name + "_scale"])
 
 
 @pytest.mark.parametrize("policy", ["full", "dots"])

@@ -212,8 +212,14 @@ def test_add_lora_params_starts_at_the_base_model():
     jl = jllama.init_llm_params(jax.random.key(5), TINY_LLM)
     j_logits, t_logits = _llm_logits_pair(jl, lp, seed=8)
     np.testing.assert_allclose(t_logits, j_logits, atol=1e-4, rtol=1e-4)
-    with pytest.raises(NotImplementedError):
-        tlora.merge_lora(dict(lp, layers=[dict(l, wq_scale=l["wq"]) for l in lp["layers"]]))
+    # an int8 base (QLoRA with 8 bits) merges as the JAX package merges it: dequantize, add B A, requantize
+    j8 = _with_adapters(jq.quantize_llm_int8(jl), _numpy_adapters(jl, 8, seed=9, b_std=0.05))
+    t_merged = tlora.merge_lora(llm_params_from_jax(_np(j8)))
+    j_merged = llm_params_from_jax(_np(jlora.merge_lora(j8)))
+    for tlp, jlp in zip(t_merged["layers"], j_merged["layers"]):
+        assert set(tlp) == set(jlp) and tlp["wq"].dtype == torch.int8
+        for k in tlp:
+            assert torch.equal(tlp[k], jlp[k]), k
 
 
 # --- optimizer, loss -------------------------------------------------------------------
@@ -438,12 +444,3 @@ def test_remat_policies_give_equal_grads(policy):
         np.testing.assert_allclose(b_.numpy(), a.numpy(), atol=1e-6, rtol=1e-6)
     with pytest.raises(ValueError):
         tllama.llm_forward(llm_params_from_jax(_np(jp)), tcfg, emb, pos, mask, remat=True, remat_policy="bogus")
-
-
-def test_parallel_actions_objective_is_not_ported(pair):
-    _, jparams, tmodel = pair
-    tp = params_from_jax(_np(jparams))
-    _, tb = _batches(1, seed=0)
-    with pytest.raises(NotImplementedError):
-        tmodel.forward_hidden(tp, torch.from_numpy(tb["input_ids"]), torch.from_numpy(tb["attention_mask"]),
-                              torch.zeros((1, 6, 32, 32)), torch.from_numpy(tb["labels"]), parallel_actions=True)
