@@ -107,7 +107,9 @@ def llm_params_from_jax(tree: Dict[str, Any], device=None, dtype: Optional[torch
     [out, in] and [out, 1], bit for bit; the int8 embedding keeps [V, D] and
     its [V, 1] scale; the int8 head [D, V] and its [1, V] scale are transposed
     to [V, D] and [V, 1]. Quantized leaves and their scales keep their dtypes
-    whatever `dtype` is."""
+    whatever `dtype` is. A Phi tree's biases and norm biases (`bq`, `bk`,
+    `bv`, `bo`, `b_up`, `b_down`, `attn_norm_bias`; `final_norm_bias`,
+    `lm_head_bias`) keep their shapes and stay float in every tree."""
     stacked = {k: np.asarray(v) for k, v in tree["layers"].items()}
     n_layers = stacked["wq"].shape[0]
     layers = []
@@ -124,6 +126,9 @@ def llm_params_from_jax(tree: Dict[str, Any], device=None, dtype: Optional[torch
         top["embed_scale"] = np.asarray(tree["embed_scale"])
     if "lm_head_scale" in tree:
         top["lm_head_scale"] = np.asarray(tree["lm_head_scale"]).T
+    for name in ("final_norm_bias", "lm_head_bias"):  # Phi
+        if name in tree:
+            top[name] = np.asarray(tree[name])
     return {k: v if k == "layers" else _t(v, device, None if v.dtype == np.int8 or k.endswith("_scale") else dtype)
             for k, v in top.items()}
 

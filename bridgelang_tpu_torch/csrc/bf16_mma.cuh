@@ -1,7 +1,8 @@
 // bf16 tensor-core building blocks for Hopper (sm_90a), shared by
 // flash_fwd.cu and flash_bwd.cu: cp.async copies that zero-fill what they do
 // not read, ldmatrix operand loads, mma.sync m16n8k16 (bf16 in, fp32 sums),
-// and the 16-byte-chunk swizzle of a [64][D] bf16 tile in shared memory.
+// and the 16-byte-chunk swizzle of a [64][D] bf16 tile in shared memory
+// (D = 64, 80 or 128).
 // ops/_build.py hashes every csrc/*.cuh into each library's name, so an
 // edit here rebuilds both kernels.
 //
@@ -62,10 +63,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
-// Byte offset of 16-byte chunk `c` of row `r` in a [64][D] bf16 tile.
+// Byte offset of 16-byte chunk `c` of row `r` in a [64][D] bf16 tile. Each
+// whole group of 8 chunks XORs the chunk index with r % 8, so the 8 rows an
+// ldmatrix phase reads at one chunk land on 8 different bank groups. At
+// D = 80 a row holds 10 chunks: XOR with r % 8 would send chunks 8-9 to
+// 8-15, past the row, so those two XOR with bit 2 of r instead (rows 0-3
+// keep them, rows 4-7 swap them), which the 160-byte row stride spreads over
+// the 8 bank groups as well. D = 64 and 128 keep the plain XOR.
 template <int D>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (uint32_t)(r * (D * 2) + ((c ^ (r & 7)) << 4));
+  constexpr int CH = D / 8;  // 16-byte chunks per row
+  static_assert(CH % 8 == 0 || CH % 8 == 2, "swz: a row's chunk count must be 8k or 8k + 2");
+  if constexpr (CH % 8 == 0) {
+    return (uint32_t)(r * (D * 2) + ((c ^ (r & 7)) << 4));
+  } else {
+    const int cs = c < (CH & ~7) ? c ^ (r & 7) : c ^ ((r >> 2) & 1);
+    return (uint32_t)(r * (D * 2) + (cs << 4));
+  }
 }
 
 // cp.async 64 rows of D bf16 into a swizzled tile, by a block of NT threads:

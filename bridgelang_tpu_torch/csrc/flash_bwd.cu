@@ -793,43 +793,51 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                             const void* delta, const void* lengths, void* dq, int B, int T_len, int S, int H,
                             int Hkv, int D, int dtype, int causal, int window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch_dq_f32<64>(q, k, v, dout, lse, delta, lengths, dq, B, T_len, S, H, Hkv, causal, window, scale, st);
-  if (dtype == 0 && D == 128)
-    return launch_dq_f32<128>(q, k, v, dout, lse, delta, lengths, dq, B, T_len, S, H, Hkv, causal, window, scale, st);
-  if (dtype == 1 && D == 64)
-    return launch_dq_bf16<64>(q, k, v, dout, lse, delta, lengths, dq, B, T_len, S, H, Hkv, causal, window, scale, st);
-  if (dtype == 1 && D == 128)
-    return launch_dq_bf16<128>(q, k, v, dout, lse, delta, lengths, dq, B, T_len, S, H, Hkv, causal, window, scale, st);
-  return (int)cudaErrorInvalidValue;
+#define DQ_ARGS q, k, v, dout, lse, delta, lengths, dq, B, T_len, S, H, Hkv, causal, window, scale, st
+  switch (dtype * 1000 + D) {
+    case 64: return launch_dq_f32<64>(DQ_ARGS);
+    case 80: return launch_dq_f32<80>(DQ_ARGS);
+    case 128: return launch_dq_f32<128>(DQ_ARGS);
+    case 1064: return launch_dq_bf16<64>(DQ_ARGS);
+    case 1080: return launch_dq_bf16<80>(DQ_ARGS);
+    case 1128: return launch_dq_bf16<128>(DQ_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DQ_ARGS
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                              const void* delta, const void* lengths, void* dk, void* dv, int B, int T_len, int S,
                              int H, int Hkv, int D, int dtype, int causal, int window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch_dkv_f32<64>(q, k, v, dout, lse, delta, lengths, dk, dv, B, T_len, S, H, Hkv, causal, window, scale,
-                              st);
-  if (dtype == 0 && D == 128)
-    return launch_dkv_f32<128>(q, k, v, dout, lse, delta, lengths, dk, dv, B, T_len, S, H, Hkv, causal, window, scale,
-                               st);
-  if (dtype == 1 && D == 64)
-    return launch_dkv_bf16<64>(q, k, v, dout, lse, delta, lengths, dk, dv, B, T_len, S, H, Hkv, causal, window, scale,
-                               st);
-  if (dtype == 1 && D == 128)
-    return launch_dkv_bf16<128>(q, k, v, dout, lse, delta, lengths, dk, dv, B, T_len, S, H, Hkv, causal, window,
-                                scale, st);
-  return (int)cudaErrorInvalidValue;
+#define DKV_ARGS q, k, v, dout, lse, delta, lengths, dk, dv, B, T_len, S, H, Hkv, causal, window, scale, st
+  switch (dtype * 1000 + D) {
+    case 64: return launch_dkv_f32<64>(DKV_ARGS);
+    case 80: return launch_dkv_f32<80>(DKV_ARGS);
+    case 128: return launch_dkv_f32<128>(DKV_ARGS);
+    case 1064: return launch_dkv_bf16<64>(DKV_ARGS);
+    case 1080: return launch_dkv_bf16<80>(DKV_ARGS);
+    case 1128: return launch_dkv_bf16<128>(DKV_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DKV_ARGS
 }
 
 // Dynamic shared memory of one block (bytes), for the build report: which 0 = dq, 1 = dk/dv.
 extern "C" int flash_bwd_smem_bytes(int which, int D, int dtype) {
-  if (D != 64 && D != 128) return -1;
-  if (dtype == 1) {
-    if (which == 0) return (int)(D == 64 ? dq_bf16_smem_bytes<64>() : dq_bf16_smem_bytes<128>());
-    return (int)(D == 64 ? dkv_bf16_smem_bytes<64>() : dkv_bf16_smem_bytes<128>());
+  switch (which * 10000 + dtype * 1000 + D) {
+    case 64: return (int)dq_smem_bytes<64>();
+    case 80: return (int)dq_smem_bytes<80>();
+    case 128: return (int)dq_smem_bytes<128>();
+    case 1064: return (int)dq_bf16_smem_bytes<64>();
+    case 1080: return (int)dq_bf16_smem_bytes<80>();
+    case 1128: return (int)dq_bf16_smem_bytes<128>();
+    case 10064: return (int)dkv_smem_bytes<64>();
+    case 10080: return (int)dkv_smem_bytes<80>();
+    case 10128: return (int)dkv_smem_bytes<128>();
+    case 11064: return (int)dkv_bf16_smem_bytes<64>();
+    case 11080: return (int)dkv_bf16_smem_bytes<80>();
+    case 11128: return (int)dkv_bf16_smem_bytes<128>();
+    default: return -1;
   }
-  if (which == 0) return (int)(D == 64 ? dq_smem_bytes<64>() : dq_smem_bytes<128>());
-  return (int)(D == 64 ? dkv_smem_bytes<64>() : dkv_smem_bytes<128>());
 }

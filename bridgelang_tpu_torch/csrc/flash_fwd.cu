@@ -457,10 +457,14 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
     return launch_f32<64>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
+  if (dtype == 0 && D == 80)
+    return launch_f32<80>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
   if (dtype == 0 && D == 128)
     return launch_f32<128>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
   if (dtype == 1 && D == 64)
     return launch_bf16<64>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
+  if (dtype == 1 && D == 80)
+    return launch_bf16<80>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
   if (dtype == 1 && D == 128)
     return launch_bf16<128>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
@@ -468,7 +472,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
 
 // Dynamic shared memory of one block (bytes), for the build report.
 extern "C" int flash_fwd_smem_bytes(int D, int dtype) {
-  if (D != 64 && D != 128) return -1;
-  if (dtype == 1) return (int)(D == 64 ? smem_bytes_bf16<64>() : smem_bytes_bf16<128>());
-  return (int)(D == 64 ? smem_bytes_f32<64>() : smem_bytes_f32<128>());
+  switch (D) {
+    case 64: return (int)(dtype == 1 ? smem_bytes_bf16<64>() : smem_bytes_f32<64>());
+    case 80: return (int)(dtype == 1 ? smem_bytes_bf16<80>() : smem_bytes_f32<80>());
+    case 128: return (int)(dtype == 1 ? smem_bytes_bf16<128>() : smem_bytes_f32<128>());
+    default: return -1;
+  }
 }

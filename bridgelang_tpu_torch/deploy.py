@@ -3,7 +3,8 @@
     python -m bridgelang_tpu_torch.deploy --checkpoint /ckpts/openvla-7b [--port 8000] \
         [--tokenizer_path DIR] [--quantize_int8 true] [--quantize_int4 false] [--int4_group 128] \
         [--max_batch 4] [--batch_window_ms 6] [--device cuda] [--warmup true] \
-        [--speculative_default true] [--speculative_margin 0.25] [--parallel_decode false]
+        [--speculative_default true] [--speculative_margin 0.25] [--parallel_decode false] \
+        [--kv_cache_int8 false]
     python -m bridgelang_tpu_torch.deploy --random_init_for_smoke true
 
 Mirrors scripts/deploy.py (`DeployConfig`): every field is accepted under
@@ -20,12 +21,13 @@ speculative pair) before listening. At batch 1 the server decodes
 speculatively by default (`--speculative_default`, gated at
 `--speculative_margin`); `--parallel_decode` serves the one-forward parallel
 decode instead (models fine-tuned for it) and turns the speculative default
-off. The device defaults to CUDA and the command fails without a card
-unless `--device cpu` (or `--force_cpu true`) is given.
+off. `--kv_cache_int8 true` decodes over the int8 KV cache (half the bytes
+of the bf16 cache) and turns the speculative default off too. The device
+defaults to CUDA and the command fails without a card unless `--device cpu`
+(or `--force_cpu true`) is given.
 
-Not yet ported, and refused when set: `--mesh_spec` (multi-GPU serving),
-`--int4_shards` other than 1 (its shard-blocked packing serves a mesh) and
-`--kv_cache_int8`.
+Not yet ported, and refused when set: `--mesh_spec` (multi-GPU serving) and
+`--int4_shards` other than 1 (its shard-blocked packing serves a mesh).
 """
 
 from __future__ import annotations
@@ -62,7 +64,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--int4_shards", type=int, default=1, help="1 only (multi-GPU serving is not yet ported)")
     ap.add_argument("--mesh_spec", default="", help="not yet ported: must stay empty")
     ap.add_argument("--allow_int4_tp_fallback", type=_bool, default=False, help="acts only with a mesh")
-    ap.add_argument("--kv_cache_int8", type=_bool, default=False, help="not yet ported: must stay false")
+    ap.add_argument("--kv_cache_int8", type=_bool, default=False,
+                    help="decode over the int8 KV cache (turns the speculative default off)")
     ap.add_argument("--warmup", type=_bool, default=True)
     ap.add_argument("--speculative_default", type=_bool, default=True)
     ap.add_argument("--speculative_margin", type=float, default=0.25)
@@ -112,10 +115,9 @@ def load_for_serving(args: argparse.Namespace, device: torch.device):
     """(model, params) as the arguments ask: the smoke model, or the
     checkpoint loaded through `load_vla` (quantized while it loads) with the
     tokenizer of `--tokenizer_path`."""
-    for flag, unported in (("--mesh_spec", bool(args.mesh_spec)), ("--kv_cache_int8", args.kv_cache_int8),
-                           ("--int4_shards", args.int4_shards != 1)):
+    for flag, unported in (("--mesh_spec", bool(args.mesh_spec)), ("--int4_shards", args.int4_shards != 1)):
         if unported:
-            raise ValueError(f"{flag} is not yet ported to torch (multi-GPU serving, the int8 KV cache)")
+            raise ValueError(f"{flag} is not yet ported to torch (multi-GPU serving)")
     if args.random_init_for_smoke:
         return quantize_for_serving(*build_smoke_model(device), args.quantize_int8, args.quantize_int4,
                                     args.int4_group)
@@ -140,6 +142,8 @@ def build_server(args: argparse.Namespace):
     device = resolve_device("cpu" if args.force_cpu else args.device)
     model, params = load_for_serving(args, device)
     model.parallel_decode = args.parallel_decode
+    if args.kv_cache_int8:
+        model.cache_dtype = torch.int8  # the server then turns its speculative default off
     server = VLAServer(model, params, default_unnorm_key=args.unnorm_key, max_batch=args.max_batch,
                        batch_window_ms=args.batch_window_ms, speculative_default=args.speculative_default,
                        speculative_margin=args.speculative_margin, device=device)

@@ -19,7 +19,8 @@ one `torch.cuda.CUDAGraph` per key and replays it:
 * Memory: every graph of a model allocates from one pool
   (`torch.cuda.graph_pool_handle()`). A graph's KV cache is allocated inside
   its capture, so the cache of a key lives in that pool and is zeroed by each
-  replay, as `init_kv_cache` zeroes it eagerly. The graphs may share freed
+  replay, as `init_kv_cache` zeroes it eagerly (the int8 cache's four leaves,
+  codes and scales, as the float caches' two). The graphs may share freed
   intermediates because one predict runs at a time (the server's model
   lock), and every buffer that outlives a replay is held by the entry.
 * Greedy and parallel: one replay per predict.

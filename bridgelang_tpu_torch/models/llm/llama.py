@@ -1,7 +1,13 @@
-"""Llama-2 decoder in torch: plain tensor functions over a parameter dict.
+"""Decoder-only LLM backbones (Llama-2, Mistral, Phi-2) in torch: plain
+tensor functions over a parameter dict.
 
-Counterpart of bridgelang_tpu/models/llm/llama.py for `arch="llama"` (bf16 or
-fp32 weights, GQA, a bf16 or fp32 KV cache). Parameters follow nn.Linear's layout:
+Counterpart of bridgelang_tpu/models/llm/llama.py: the Llama block
+(RMSNorm, SwiGLU; GQA and Mistral's sliding window) and the Phi block
+(`arch="phi"`: one LayerNorm with bias, biased projections, partial rotary
+embedding over `rotary_dim` of each head, the parallel residual
+x + attn(ln x) + mlp(ln x) with a tanh-GELU MLP, a final LayerNorm and an LM
+head bias); bf16 or fp32 weights; a bf16, fp32 or int8 KV cache.
+Parameters follow nn.Linear's layout:
 
     {"embed": [V, D], "final_norm": [D], "lm_head": [V, D],
      "layers": [{"wq": [H*hd, D], "wk": [Hkv*hd, D], "wv": [Hkv*hd, D],
@@ -9,7 +15,18 @@ fp32 weights, GQA, a bf16 or fp32 KV cache). Parameters follow nn.Linear's layou
                  "w_up": [I, D], "w_down": [D, I], "mlp_norm": [D]}, ...]}
 
 i.e. each JAX [in, out] kernel transposed, and the scan-stacked layer axis
-unstacked into a list (see bridgelang_tpu_torch.convert).
+unstacked into a list (see bridgelang_tpu_torch.convert). A Phi layer has no
+`w_gate` and `mlp_norm`; it adds `attn_norm_bias` [D], `bq`/`bk`/`bv`
+[H*hd or Hkv*hd], `bo` [D], `b_up` [I] and `b_down` [D], and the top level
+adds `final_norm_bias` [D] and `lm_head_bias` [V].
+
+The int8 KV cache (`init_kv_cache(dtype=torch.int8)`) holds int8 codes
+`k`/`v` [L, B, S, Hkv, hd] and bf16 scales `k_scale`/`v_scale`
+[L, B, S, Hkv]: symmetric absmax over each (token, head) row, as the JAX
+package. Decode and the speculative verify chunk quantize their new K/V,
+scatter codes and scales, and attend over the dequantized cache; the
+contiguous prefill attends over its own unquantized K/V and only writes the
+cache quantized, as the JAX package does.
 
 Attention over a chunk that starts at cache slot 0 (no cache, or the
 contiguous prefill) goes through the flash-attention kernel with per-example
@@ -39,9 +56,6 @@ package's bytes, `<proj>` [in, out/2] int8 with `<proj>_scale4`
 `embed_scale` / `lm_head_scale` [V, 1]. Under the "dots" remat policy the int4
 kernel's output is recomputed in the backward: its launch is no aten `mm`,
 so `_save_dots` does not keep it.
-
-Not yet ported: the int8 KV cache (`init_kv_cache` refuses it) and the Phi
-block (`_require_llama`); each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -82,7 +96,7 @@ class LLMConfig:
     pad_token_id: int = 32000
     bos_token_id: int = 1
     eos_token_id: int = 2
-    arch: str = "llama"               # "llama" (RMSNorm+SwiGLU) | "phi" (not yet ported)
+    arch: str = "llama"               # "llama" (RMSNorm+SwiGLU) | "phi" (LN + parallel GELU block)
     rotary_pct: float = 1.0
     use_bias: bool = False
     sliding_window: Optional[int] = None
@@ -125,11 +139,6 @@ LLM_FAMILIES: Dict[str, str] = {
 }
 
 
-def _require_llama(cfg: LLMConfig) -> None:
-    if cfg.arch != "llama" or cfg.use_bias or cfg.rotary_pct != 1.0:
-        raise NotImplementedError(f"arch={cfg.arch!r} (Phi block) is not yet ported to torch")
-
-
 # --- init ---------------------------------------------------------------------
 
 
@@ -138,11 +147,15 @@ def init_llm_params(
     device: Optional[torch.device] = None,
 ) -> Params:
     """Random init with the JAX package's scales (normal * fan_in^-0.5,
-    embed normal * 0.02, norms one), drawn on `device` in `dtype` from
-    `generator` (which must live on that device)."""
-    _require_llama(cfg)
+    embed normal * 0.02, norms one, biases zero) and leaves, drawn on
+    `device` in `dtype` from `generator` (which must live on that device).
+    Each layer draws its projections in the JAX order (wq, wk, wv, wo, then
+    w_gate, w_up, w_down; a Phi layer has no w_gate). The numbers are not the
+    JAX package's (another generator): the tests hand both packages the
+    same numpy arrays through `convert`."""
     D, I, V = cfg.dim, cfg.intermediate_size, cfg.padded_vocab_size
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    phi = cfg.arch == "phi"
 
     def dense(out_f: int, in_f: int) -> torch.Tensor:
         w = torch.randn((out_f, in_f), generator=generator, device=device, dtype=dtype)
@@ -151,15 +164,24 @@ def init_llm_params(
     def ones(n: int) -> torch.Tensor:
         return torch.ones(n, device=device, dtype=dtype)
 
+    def zeros(n: int) -> torch.Tensor:
+        return torch.zeros(n, device=device, dtype=dtype)
+
     layers: List[Params] = []
     for _ in range(cfg.n_layers):
-        layers.append({
-            "wq": dense(H * hd, D), "wk": dense(Hkv * hd, D), "wv": dense(Hkv * hd, D),
-            "wo": dense(D, H * hd), "attn_norm": ones(D),
-            "w_gate": dense(I, D), "w_up": dense(I, D), "w_down": dense(D, I), "mlp_norm": ones(D),
-        })
+        lp = {"wq": dense(H * hd, D), "wk": dense(Hkv * hd, D), "wv": dense(Hkv * hd, D),
+              "wo": dense(D, H * hd), "attn_norm": ones(D)}
+        if phi:  # parallel block: one LayerNorm (with bias), biased projections
+            lp.update(w_up=dense(I, D), w_down=dense(D, I), attn_norm_bias=zeros(D), bq=zeros(H * hd),
+                      bk=zeros(Hkv * hd), bv=zeros(Hkv * hd), bo=zeros(D), b_up=zeros(I), b_down=zeros(D))
+        else:
+            lp.update(w_gate=dense(I, D), w_up=dense(I, D), w_down=dense(D, I), mlp_norm=ones(D))
+        layers.append(lp)
     embed = torch.randn((V, D), generator=generator, device=device, dtype=dtype).mul_(0.02)
-    return {"embed": embed, "layers": layers, "final_norm": ones(D), "lm_head": dense(V, D)}
+    params = {"embed": embed, "layers": layers, "final_norm": ones(D), "lm_head": dense(V, D)}
+    if phi:
+        params.update(final_norm_bias=zeros(D), lm_head_bias=zeros(V))
+    return params
 
 
 def init_kv_cache(
@@ -167,12 +189,33 @@ def init_kv_cache(
     device: Optional[torch.device] = None,
 ) -> Params:
     """KV cache [L, B, S, Hkv, hd] of zeros (bf16 serves, fp32 gives the
-    exact speculative contract). The int8 cache (codes plus per-(token, head)
-    scales) is not yet ported and raises."""
-    if dtype == torch.int8:
-        raise NotImplementedError("the int8 KV cache is not yet ported to torch")
+    exact speculative contract). dtype=torch.int8 stores codes plus bf16
+    per-(token, head) scales `k_scale`/`v_scale` [L, B, S, Hkv]: half the
+    bytes of the bf16 cache."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device)
+        cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device)
+    return cache
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., hd] -> (int8 codes [..., hd], bf16 scale [...]): symmetric
+    absmax over hd, the JAX `_quantize_kv`. The scale is absmax times fp32
+    1/127 (XLA compiles the JAX division by 127 so inside the jitted decoder,
+    and a tensor factor keeps CUDA torch from its own scalar rewrite); the
+    codes divide by that fp32 scale and round half to even, clipped at
+    +-127; only the stored scale is rounded to bf16."""
+    x32 = x.float()
+    absmax = x32.abs().amax(dim=-1)
+    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax * torch.full_like(absmax, 1.0 / 127.0))
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return q.to(dtype) * scale[..., None].to(dtype)
 
 
 # --- building blocks ----------------------------------------------------------
@@ -182,6 +225,15 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.float()
     normed = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
     return (normed * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm in fp32 (mean, biased variance), cast back to x's dtype."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
 
 
 def rope_cos_sin(positions: torch.Tensor, rotary_dim: int, theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -328,39 +380,62 @@ def _block(
     cos: torch.Tensor,
     sin: torch.Tensor,
     mask: torch.Tensor,
-    kv: Optional[Tuple[torch.Tensor, torch.Tensor]],
+    kv: Optional[Tuple[torch.Tensor, ...]],
     cache_positions: Optional[torch.Tensor],
     lengths: Optional[torch.Tensor],
     attention: str = "flash",
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One decoder block over a T-token chunk. With `kv` (one layer's cache
-    views), K/V are written IN PLACE at `cache_positions` [B, T] and attention
-    runs over the whole cache under `mask`; without, attention runs over the
-    chunk itself: through the flash kernel with `lengths` valid keys
-    (`attention="flash"`), or under `mask` (`"masked"`, `full_attention`).
-    Returns (x, the chunk's (k, v))."""
+    views: (k, v), or (k, v, k_scale, v_scale) for the int8 cache), K/V are
+    written IN PLACE at `cache_positions` [B, T] (int8: quantized) and
+    attention runs over the whole (dequantized) cache under `mask`; without,
+    attention runs over the chunk itself: through the flash kernel with
+    `lengths` valid keys (`attention="flash"`), or under `mask` ("masked",
+    `full_attention`). Returns (x, the chunk's unquantized (k, v))."""
     B, T, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    phi = cfg.arch == "phi"
 
-    h_in = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = proj(h_in, lp, "wq", cfg).view(B, T, H, hd)
-    k = proj(h_in, lp, "wk", cfg).view(B, T, Hkv, hd)
-    v = proj(h_in, lp, "wv", cfg).view(B, T, Hkv, hd)
-    q = apply_rope(q, cos, sin, cfg.rotary_dim)
-    k = apply_rope(k, cos, sin, cfg.rotary_dim)
+    if phi:
+        h_in = layer_norm(x, lp["attn_norm"], lp["attn_norm_bias"], cfg.norm_eps)
+    else:
+        h_in = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q, k, v = (proj(h_in, lp, name, cfg) for name in ("wq", "wk", "wv"))
+    if cfg.use_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = apply_rope(q.view(B, T, H, hd), cos, sin, cfg.rotary_dim)
+    k = apply_rope(k.view(B, T, Hkv, hd), cos, sin, cfg.rotary_dim)
+    v = v.view(B, T, Hkv, hd)
 
     if kv is None and attention == "masked":
         attn_out = full_attention(q, k, v, mask)
     elif kv is None:
         attn_out, _ = flash_attention(q, k, v, lengths=lengths, causal=True, window=cfg.sliding_window)
     else:
-        cache_k, cache_v = kv
         rows = torch.arange(B, device=x.device)[:, None]
-        cache_k[rows, cache_positions] = k.to(cache_k.dtype)
-        cache_v[rows, cache_positions] = v.to(cache_v.dtype)
-        attn_out = cached_attention(q, cache_k.to(q.dtype), cache_v.to(q.dtype), mask)
+        if len(kv) == 4:  # int8 cache: codes and per-(token, head) scales
+            cache_k, cache_v, k_scale, v_scale = kv
+            for codes, scales, new in ((cache_k, k_scale, k), (cache_v, v_scale, v)):
+                qn, sn = _quantize_kv(new)
+                codes[rows, cache_positions] = qn
+                scales[rows, cache_positions] = sn
+            attn_k = _dequantize_kv(cache_k, k_scale, q.dtype)
+            attn_v = _dequantize_kv(cache_v, v_scale, q.dtype)
+        else:
+            cache_k, cache_v = kv
+            cache_k[rows, cache_positions] = k.to(cache_k.dtype)
+            cache_v[rows, cache_positions] = v.to(cache_v.dtype)
+            attn_k, attn_v = cache_k.to(q.dtype), cache_v.to(q.dtype)
+        attn_out = cached_attention(q, attn_k, attn_v, mask)
 
-    x = x + proj(attn_out.reshape(B, T, H * hd), lp, "wo", cfg)
+    attn_out = proj(attn_out.reshape(B, T, H * hd), lp, "wo", cfg)
+    if cfg.use_bias:
+        attn_out = attn_out + lp["bo"]
+    if phi:  # the parallel residual: x + attn(ln x) + mlp(ln x)
+        up = F.gelu(proj(h_in, lp, "w_up", cfg) + lp["b_up"], approximate="tanh")
+        mlp_out = proj(up, lp, "w_down", cfg) + lp["b_down"]
+        return x + attn_out + mlp_out, (k, v)
+    x = x + attn_out
     h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     mlp_out = proj(F.silu(proj(h2, lp, "w_gate", cfg)) * proj(h2, lp, "w_up", cfg), lp, "w_down", cfg)
     return x + mlp_out, (k, v)
@@ -390,7 +465,9 @@ def llm_forward(
     whole cache under `mask` (decode steps). "contiguous" is the prefill: the
     chunk occupies slots 0..T-1 of every example, K/V are copied there, and
     attention runs over the chunk itself through the flash kernel. Without a
-    cache, attention also runs over the chunk through the kernel.
+    cache, attention also runs over the chunk through the kernel. An int8
+    cache (with `k_scale`) is written quantized in both modes; scatter mode
+    attends over its dequantized codes, the prefill over its own K/V.
     Chunk attention needs `lengths` [B] (valid keys per example); when not
     given it is recovered from `mask`, which must then be causal +
     right-padding (+ window), the family the kernel computes. A chunk under
@@ -406,7 +483,6 @@ def llm_forward(
     `_remat_context`. The backward then runs each layer's forward again, so
     the flash forward launches twice per layer per training step.
     """
-    _require_llama(cfg)
     if remat and cache is not None:
         raise ValueError("remat is for the training forward, which runs without a KV cache")
     if attention not in ATTENTION_KINDS or (attention == "masked" and cache is not None):
@@ -419,17 +495,25 @@ def llm_forward(
         lengths = lengths_from_mask(mask)
     x = embeds
     T = x.shape[1]
+    cache_keys = ("k", "v", "k_scale", "v_scale") if cache is not None and "k_scale" in cache else ("k", "v")
     for i, lp in enumerate(params["layers"]):
         if remat:
             x, _ = checkpoint(_block, cfg, lp, x, cos, sin, mask, None, None, lengths, attention,
                               use_reentrant=False, context_fn=context_fn)
         elif chunk_attention:
             x, (k, v) = _block(cfg, lp, x, cos, sin, mask, None, None, lengths, attention)
-            if contiguous:
+            if contiguous and len(cache_keys) == 4:  # attention ran over the unquantized chunk
+                for name, new in (("k", k), ("v", v)):
+                    codes, scales = _quantize_kv(new)
+                    cache[name][i, :, :T] = codes
+                    cache[name + "_scale"][i, :, :T] = scales
+            elif contiguous:
                 cache["k"][i, :, :T] = k.to(cache["k"].dtype)
                 cache["v"][i, :, :T] = v.to(cache["v"].dtype)
         else:
-            x, _ = _block(cfg, lp, x, cos, sin, mask, (cache["k"][i], cache["v"][i]), cache_positions, None)
+            x, _ = _block(cfg, lp, x, cos, sin, mask, tuple(cache[key][i] for key in cache_keys), cache_positions, None)
+    if cfg.arch == "phi":
+        return layer_norm(x, params["final_norm"], params["final_norm_bias"], cfg.norm_eps), cache
     return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
 
 
@@ -449,9 +533,13 @@ def embed_tokens(params: Params, input_ids: torch.Tensor, dtype: Optional[torch.
 def lm_logits(params: Params, hidden: torch.Tensor, cfg: LLMConfig) -> torch.Tensor:
     """Logits over the PADDED vocabulary (argmax runs over all of it). An
     int8 head ([V, D] with `lm_head_scale` [V, 1]) runs in the hidden dtype
-    and scales each vocabulary column after the product, as the JAX package."""
-    _require_llama(cfg)
+    and scales each vocabulary column after the product, as the JAX package;
+    a Phi head adds `lm_head_bias` after both."""
     head = params["lm_head"]
     if head.dtype == torch.int8:
-        return F.linear(hidden, head.to(hidden.dtype)) * params["lm_head_scale"].to(hidden.dtype)[:, 0]
-    return F.linear(hidden, head)
+        logits = F.linear(hidden, head.to(hidden.dtype)) * params["lm_head_scale"].to(hidden.dtype)[:, 0]
+    else:
+        logits = F.linear(hidden, head)
+    if cfg.arch == "phi":
+        logits = logits + params["lm_head_bias"]
+    return logits

@@ -8,9 +8,9 @@ projector modules live on the `meta` device and run through
 `torch.func.functional_call` over that dict.
 
 Generation: one prefill of the fused sequence into a preallocated KV cache
-(`cache_dtype`, bf16 by default; contiguous write, attention through the
-flash kernel with the true per-example lengths), then `max_new_tokens - 1`
-single-token decode steps. Unlike the JAX package, the prefill always takes
+(`cache_dtype`: bf16 by default, fp32, or int8 codes with per-(token, head)
+scales; contiguous write, attention through the flash kernel with the true
+per-example lengths), then `max_new_tokens - 1` single-token decode steps. Unlike the JAX package, the prefill always takes
 the flash kernel: the JAX package's short-prompt switch to einsum attention
 (`_prefill_impl`) rests on a TPU measurement and is not ported.
 
@@ -112,7 +112,7 @@ class PrismaticVLM:
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
-        self.cache_dtype = torch.bfloat16  # the KV cache's dtype (fp32 for the exact speculative contract)
+        self.cache_dtype = torch.bfloat16  # the KV cache's dtype (fp32: the exact speculative contract; int8)
         meta = torch.device("meta")
         vo = cfg.vision_override
         if vo is None:
@@ -446,7 +446,15 @@ class PrismaticVLM:
         (exactly so with an fp32 model and cache). Returns [B, n] ids, and
         with `return_accept_count` also the accepted count per example ([B],
         in [1, n]; token 0 is always canonical). The fix-up loop from the
-        first rejection reads `j0` on the host once."""
+        first rejection reads `j0` on the host once.
+
+        CAVEAT with an int8 KV cache (`cache_dtype=torch.int8`): a K/V
+        element near an int8 rounding boundary can quantize differently in
+        the verify chunk than sequential decode would, shifting later logits
+        by up to a full quantization step, beyond what the margin gate
+        guards. Keep the bf16 cache (the default) where strict
+        greedy-equivalence matters; the server turns its speculative default
+        off under an int8 cache."""
         state = self.speculative_verify(params, input_ids, attention_mask, pixel_values, draft_tokens,
                                         cache_dtype=cache_dtype, margin_threshold=margin_threshold)
         step = state.j0.reshape(1).clone()

@@ -32,7 +32,7 @@ import torch
 
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 80, 128)  # Llama and Mistral 128, Phi-2 80
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:

@@ -113,7 +113,9 @@ def quantize_llm_int8(
     """Quantize the decoder's projections to int8 per output column (one
     matrix of one layer at a time, `quantize_layer_int8`), and optionally the
     embedding (per token row) and the LM head (per vocabulary entry). The
-    returned dict shares every other tensor with `llm_params`."""
+    returned dict shares every other tensor with `llm_params`: a target the
+    tree lacks is skipped (a Phi layer has no `w_gate`) and biases stay
+    float, as in the JAX package."""
     out = dict(llm_params, layers=[quantize_layer_int8(lp, targets) for lp in llm_params["layers"]])
     if quantize_embed and out["embed"].dtype != torch.int8:
         out["embed"], out["embed_scale"] = quantize_rows_int8(out["embed"])  # [V, D], [V, 1]

@@ -33,7 +33,9 @@ def add_lora_params(
 ) -> Params:
     """A copy of `llm_params` (sharing the base tensors) with adapters added
     to each layer: A ~ N(0, 1/r) * alpha/r drawn from `generator` on its
-    device, B = 0, so the model starts unchanged."""
+    device, B = 0, so the model starts unchanged. A target the layer lacks
+    is skipped (a Phi layer has no `w_gate`), as in the JAX package; the
+    merge leaves biases and norms as they are."""
     device = generator.device
     scale = alpha / rank
     layers = []

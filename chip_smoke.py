@@ -7,15 +7,17 @@ of which fails the run:
            all sources in parallel; print the build seconds, the ptxas
            register report, and the card's name and power limit.
   kernels  the flash-attention forward kernel against its plain torch
-           version at the serving path's shapes (bf16, H=32, D=128, ragged
-           lengths, B in {1, 4}) and at GQA, S > T, window and fp32 cases;
+           version at the serving path's shapes (bf16, H=32, D=128 and
+           Phi-2's D=80, ragged lengths, B in {1, 4}) and at GQA, S > T,
+           window and fp32 cases (D=80 too);
            the two backward kernels (dQ, dK/dV) against the plain backward
            at the training shape (B=16, T=S=352, bf16, ragged lengths) and
            at the same four other cases, element by element (GRAD_TOL),
            with exactly zero gradient for dead key slots; the two int4
            kernels (int4_mm_a8, int4_mm) against their plain versions at
            the three 7B projection shapes (a8 at M 1, 352, 1408; bf16 at M
-           1, 352, 5632), groups 256 and 512, fp32 activations, shard-blocked
+           1, 352, 5632) and Phi-2's three (a8 at M 1, 4, 352, 1408: K 2560
+           in 20 groups, 10240 in 80), groups 256 and 512, fp32 activations, shard-blocked
            packs, ragged M and the a8 kernels' edges (M 4, 16, 17, 65;
            w_down's split-K split does not divide its 86 groups), element
            by element (INT4_TOL); the quantize_a8 kernel bit-equal to
@@ -31,8 +33,9 @@ of which fails the run:
            and the bound from bytes and operations, with each timed shape's
            share of the bound and its ratio to the yardstick. The timings
            are CUDA events around back-to-back wrapper calls (the earlier
-           series), and for int4_mm_a8 (M=1, 352), its F.linear yardstick,
-           quantize_a8 and flash_fwd (B=1) also device-side: a captured CUDA
+           series), and for int4_mm_a8 (M=1, 352, the 7B's and Phi-2's
+           shapes), its F.linear yardstick, quantize_a8 and flash_fwd (B=1,
+           D=128 and 80) also device-side: a captured CUDA
            graph of launches, the int4 weights rotated over >= 100 MB of
            copies so that every launch reads them cold, as a decode pass does.
   load     right after the 7B's random weights are drawn: write them in the
@@ -116,6 +119,20 @@ of which fails the run:
            the flash kernels 64/32/32; losses finite and falling; merge into
            the int4 base (dequantize, add, requantize) and predict one
            action through the merged int4 weights.
+  variants the decoder variants, random bf16 weights from the seed: the int8
+           KV cache on the bf16 7B (before int4 packs it); Phi-2
+           (prism-phi-dinosiglip+3b, 32 layers, head dim 80) served through
+           graphs (ids equal to eager at B=1 and B=4, 32 flash_fwd per
+           predict) and VLAServer, the int8 KV cache on it, 3 LoRA steps
+           (B=16, 112 + 256 tokens, full remat: 64/32/32 flash launches per
+           step, losses finite), then packed to int4 and served w4a8 (192
+           int4_mm_a8 and quantize_a8 per decoder pass); Mistral
+           (prism-mistral-dinosiglip+7b) cut to 8 of its 32 layers (ids equal
+           to eager, 8 flash_fwd per predict). The int8 cache: ids of graphs
+           equal to eager, teacher-forced logits within 0.05 max|logit| of
+           the bf16 cache's (the argmax equal where the margin clears twice
+           that), the server's speculative default off, cache GB at B=4 and
+           decode ms per token at B=1 and B=4 for both dtypes.
   finetune the port's entry points over a native episode store that the
            phase writes (LIBERO's layout: 24 episodes x 50 steps, 256x256
            frames from two cameras, 7-D actions, 8-D states), read through
@@ -139,9 +156,13 @@ of which fails the run:
            with w8a8 on and off, and one QLoRA step under the same rule; the
            cut quantized to int8: equal ids with w8a8 off, and with it on
            teacher-forced logits within 0.05 max|logit| (argmax equal where
-           the CPU's top-2 margin clears twice that). The fp32 cut is also
-           exported (export_checkpoint) and loaded back with load_vla on the
-           card: leaves bit-equal, batch-2 ids equal.
+           the CPU's top-2 margin clears twice that); greedy over the int8 KV
+           cache: equal ids. The fp32 cut is also exported
+           (export_checkpoint) and loaded back with load_vla on the card:
+           leaves bit-equal, batch-2 ids equal. Then a 2-layer fp32 Phi-2 cut
+           (the kernels at head dim 80, biases drawn): equal ids and one LoRA
+           step under the same rule; a 2-layer fp32 Mistral cut with its
+           window at 64, below the 352-token prefill: equal ids.
 Then one line {"kernels": [...]}, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout,
 it exits non-zero and prints no result.
@@ -171,6 +192,8 @@ TRAIN_STEPS = 6          # timed steps after one warm step
 LORA_RANK = 32           # scripts/finetune.py: r=32, "all-linear"
 LORA_LR = 5e-4
 TRAIN_T = TRAIN_MAX_LEN + 256  # fused length of a training example
+PHI_TRAIN_MAX_LEN = 112  # the phi prompt format ("<|endoftext|>Input: ...\nOutput: ") is 100 byte-tokens
+PHI_TRAIN_T = PHI_TRAIN_MAX_LEN + 256
 DOTS_STEPS = 2           # timed "dots"-remat steps after one warm step
 BWD_ROUNDS = 5           # interleaved rounds of the backward timing (median)
 
@@ -183,7 +206,15 @@ ATTENTION_CASES = {
     "keys_longer": (2, 304, 311, 32, 32, 128, [304, 250], None, "bfloat16"),
     "window100": (2, 304, 304, 32, 32, 128, [304, 280], 100, "bfloat16"),
     "fp32_d64": (2, 200, 200, 8, 8, 64, [200, 150], None, "float32"),
+    # Phi-2's head dim 80 (2560 / 32): the LoRA step's shape, GQA and fp32 (the parity cut)
+    "phi_train_b16": (16, PHI_TRAIN_T, PHI_TRAIN_T, 32, 32, 80, [PHI_TRAIN_T - (37 * i) % 90 for i in range(16)],
+                      None, "bfloat16"),
+    "phi_gqa_hkv8": (2, TRAIN_T, TRAIN_T, 32, 8, 80, [TRAIN_T, 301], None, "bfloat16"),
+    "phi_fp32_d80": (2, TRAIN_T, TRAIN_T, 32, 32, 80, [TRAIN_T, 290], None, "float32"),
+    # Mistral's GQA with a window below the sequence: the parity cut's fp32 shape
+    "mistral_window64_fp32": (2, TRAIN_T, TRAIN_T, 32, 8, 128, [TRAIN_T, 300], 64, "float32"),
 }
+BWD_TIMED = ("train_b16", "phi_train_b16")  # the LoRA steps' shapes (7B D=128, Phi-2 D=80)
 # Forward o, absolute: kernel and plain both accumulate in fp32 and round once
 # (half a bf16 ulp is <= 0.008 for |o| < 4), so bf16 allows one ulp apart.
 FWD_ATOL = {"bfloat16": 2e-2, "float32": 1e-4}
@@ -202,6 +233,9 @@ GRAD_TOL = {"bfloat16": (2.0 ** -7, 1e-3), "float32": (1e-5, 1e-5)}
 INT4_TOL = {"a8": (1e-5, 1e-6), "bfloat16": (2.0 ** -7, 1e-3), "float32": (1e-5, 1e-5)}
 INT4_GROUP = 128         # quantize_llm_int4's default group, the serving pack
 INT4_SHAPES_7B = {"wq": (4096, 4096), "w_gate": (4096, 11008), "w_down": (11008, 4096)}  # (K, N) per projection
+# Phi-2's projections: K 2560 (20 groups of 128) or 10240 (80 groups)
+INT4_SHAPES_PHI = {"phi wq": (2560, 2560), "phi w_up": (2560, 10240), "phi w_down": (10240, 2560)}
+INT4_SHAPES = {**INT4_SHAPES_7B, **INT4_SHAPES_PHI}
 INT4_PER_PASS = 7 * N_LAYERS_7B   # int4 launches per decoder pass: 7 projections x 32 layers
 ACTION_DIM = 7           # decoder passes per predict: the prefill and 6 decode steps
 QLORA_STEPS = 6          # timed QLoRA steps after one warm step
@@ -320,14 +354,14 @@ def grad_tolerance_use(got, want) -> float:
 
 def check_backward_kernels():
     """dq, dk, dv from the kernels against flash_attention_bwd_plain under
-    GRAD_TOL, then timings at the training shape."""
+    GRAD_TOL, then timings at the training shapes (BWD_TIMED)."""
     import torch
 
     from bridgelang_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_plain, flash_attention_plain, flash_bwd_dkv, flash_bwd_dq)
 
     worst = {"dq": 0.0, "dkv": 0.0}
-    readings, timing = {}, None
+    readings, timing = {}, {}
     for i, (name, (b, t, s, h, hkv, d, lengths, window, dtype_name)) in enumerate(ATTENTION_CASES.items()):
         dtype = getattr(torch, dtype_name)
         q, k, v, lens = attention_case(b, t, s, h, hkv, d, lengths, window, dtype, seed=200 + i)
@@ -360,8 +394,8 @@ def check_backward_kernels():
         worst["dq"] = max(worst["dq"], r["dq"]["err"])
         worst["dkv"] = max(worst["dkv"], r["dk"]["err"], r["dv"]["err"])
 
-        if name == "train_b16":
-            timing = time_backward(name, q, k, v, do, o, lse, delta, lens, window)
+        if name in BWD_TIMED:
+            timing[name] = time_backward(name, q, k, v, do, o, lse, delta, lens, window)
     return timing, worst, readings
 
 
@@ -413,7 +447,7 @@ def time_backward(name, q, k, v, do, o, lse, delta, lens, window) -> dict:
         f"{default_ms:.4f} ms); plain backward {plain_ms:.4f} ms; "
         f"whole-backward bound {bounds['both'][0]:.4f} ms ({bounds['both'][1]}); readings "
         + json.dumps({w: [round(x, 4) for x in xs] for w, xs in readings.items()}))
-    return dict(shape=f"B={b} T={t} S={s} H={h} D={d} bf16 (lengths {min(lengths)}-{max(lengths)})",
+    return dict(shape=f"B={b} T={t} S={s} H={h} D={d} bf16 (lengths {min(lengths)}-{max(lengths)})", d=d,
                 dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms, library_ms=library_ms, library_backend=backend,
                 unpinned=dict(backend=default_backend, ms=default_ms), bounds=bounds, readings=readings)
 
@@ -431,8 +465,11 @@ def check_kernels(serve_t: int):
         "serve_b4": (4, T, T, 32, 32, 128, [T - 21, T - 9, T - 40, T - 77], None, "bfloat16"),
         "t304_b1": (1, 304, 304, 32, 32, 128, [290], None, "bfloat16"),
         "t304_b4": (4, 304, 304, 32, 32, 128, [304, 290, 271, 256], None, "bfloat16"),
+        "phi_serve_b1": (1, T, T, 32, 32, 80, [T - 21], None, "bfloat16"),
+        "phi_serve_b4": (4, T, T, 32, 32, 80, [T - 21, T - 9, T - 40, T - 77], None, "bfloat16"),
         **ATTENTION_CASES,
     }
+    timed = ("serve_b1", "serve_b4", "t304_b1", "train_b16", "phi_serve_b1", "phi_serve_b4", "phi_train_b16")
     # lse is fp32 in both: only the summation order differs (atol 1e-3).
     rows, worst = [], {}
     for i, (name, (b, t, s, h, hkv, d, lengths, window, dtype_name)) in enumerate(cases.items()):
@@ -455,14 +492,14 @@ def check_kernels(serve_t: int):
             fail(f"flash kernel disagrees with its plain version in case {name}")
         worst[name] = err_o
 
-        if name in ("serve_b1", "serve_b4", "t304_b1", "train_b16"):
+        if name in timed:
             kernel_ms = cuda_ms(lambda: flash_attention(q, k, v, lengths=lens, causal=True, window=window), 100)
             plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, lengths=lens, causal=True, window=window), 20)
             mask = valid_mask(t, s, lengths, window, device="cuda")[:, None]
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 100)
             b_ms, b_by = bound_ms(q, k, v, lens, window)
-            rows.append(dict(case=name, shape=f"B={b} T={t} S={s} H={h} D={d} bf16", kernel_ms=kernel_ms,
+            rows.append(dict(case=name, shape=f"B={b} T={t} S={s} H={h} D={d} bf16", d=d, kernel_ms=kernel_ms,
                              plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
                              bound_share=b_ms / kernel_ms, vs_library=kernel_ms / library_ms, max_abs_err=err_o))
             log(f"timing {name}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -500,7 +537,7 @@ def check_int4_kernels() -> dict:
     def packed_weights(shape, group, n_shards=1):
         key = (shape, group, n_shards)
         if key not in weights:
-            k, n = INT4_SHAPES_7B[shape]
+            k, n = INT4_SHAPES[shape]
             g = torch.Generator(device="cuda").manual_seed(400 + len(weights))
             w = torch.randn((k, n), generator=g, device="cuda").mul_(k ** -0.5)
             weights[key] = _quantize4_2d(w, group, n_shards=n_shards)
@@ -521,13 +558,15 @@ def check_int4_kernels() -> dict:
               ("w_gate", "a8", 4, 128, 1), ("w_down", "a8", 16, 128, 1), ("wq", "a8", 17, 128, 1),
               ("w_gate", "a8", 65, 128, 1), ("wq", "a8", 1, 512, 1), ("w_down", "a8", 1, 256, 1),
               ("w_gate", "a8", 1, 128, 2), ("w_gate", "a8", 4, 128, 2)]
+    cases += [(sh, "a8", m, INT4_GROUP, 1) for sh in INT4_SHAPES_PHI for m in (1, 4, 352, 1408)]
     timed = {("wq", "a8", 1), ("w_gate", "a8", 1), ("w_down", "a8", 1), ("wq", "a8", 352), ("w_gate", "a8", 352),
              ("w_down", "a8", 352), ("wq", "bfloat16", 5632), ("w_gate", "bfloat16", 5632),
              ("w_down", "bfloat16", 5632)}
+    timed |= {(sh, "a8", m) for sh in INT4_SHAPES_PHI for m in (1, 352)}
     worst = {"a8": (0.0, 0.0), "float": (0.0, 0.0)}
     rows, blocked = [], []
     for i, (shape, mode, m, group, n_shards) in enumerate(cases):
-        k, n = INT4_SHAPES_7B[shape]
+        k, n = INT4_SHAPES[shape]
         packed, scales = packed_weights(shape, group, n_shards)
         g = torch.Generator(device="cuda").manual_seed(500 + i)
         x = torch.randn((m, k), generator=g, device="cuda")
@@ -655,10 +694,10 @@ def rotated(tensors, n_bytes_each: int):
 
 def cold_timings(label: str) -> dict:
     """Device-side times, cold L2 (weights rotated over COLD_BYTES of
-    copies): int4_mm_a8 at M=1 and M=352 at the three 7B shapes, F.linear
-    over the weight dequantized to bf16 (the yardstick), and flash_fwd at the
-    serving shape B=1 (its inputs warm, as the prefill writes them just
-    before); each beside its CUDA-event reading around back-to-back wrapper
+    copies): int4_mm_a8 at M=1 and M=352 at the three 7B and the three
+    Phi-2 shapes, F.linear over the weight dequantized to bf16 (the
+    yardstick), and flash_fwd at the serving shape B=1 at head dims 128 and
+    80 (its inputs warm, as the prefill writes them just before); each beside its CUDA-event reading around back-to-back wrapper
     calls, the series the earlier PRs report. Where the package has it, the
     quantize_a8 kernel. Runs on any checkout's package (--package-root)."""
     import torch
@@ -670,7 +709,7 @@ def cold_timings(label: str) -> dict:
 
     new = hasattr(im, "quantize_a8")
     rows = {}
-    for shape, (k, n) in INT4_SHAPES_7B.items():
+    for shape, (k, n) in INT4_SHAPES.items():
         g = torch.Generator(device="cuda").manual_seed(700)
         packed, scales = _quantize4_2d(torch.randn((k, n), generator=g, device="cuda").mul_(k ** -0.5), INT4_GROUP)
         copies = rotated((packed, scales), packed.numel() + 2 * scales.numel())
@@ -696,19 +735,27 @@ def cold_timings(label: str) -> dict:
         torch.cuda.empty_cache()
 
     t = 352
-    q_, k_, v_, lens = attention_case(1, t, t, 32, 32, 128, [t - 21], None, torch.bfloat16, seed=100)
-    mask = valid_mask(t, t, [t - 21], None, device="cuda")[:, None]
-    qt, kt, vt = (x.transpose(1, 2) for x in (q_, k_, v_))
-    flash = dict(shape=f"B=1 T={t} S={t} H=32 D=128 bf16",
-                 device_ms=graph_ms([lambda: flash_attention(q_, k_, v_, lengths=lens, causal=True)]),
-                 event_ms=cuda_ms(lambda: flash_attention(q_, k_, v_, lengths=lens, causal=True), 100),
-                 library_device_ms=graph_ms([lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)]))
-    log(f"device-side flash_fwd ({label}) {flash['shape']}: {flash['device_ms']:.5f} ms (event window "
-        f"{flash['event_ms']:.4f} ms); sdpa (yardstick) device {flash['library_device_ms']:.5f} ms")
-    out = {"int4_mm_a8": rows, "flash_fwd": flash}
+    out = {"int4_mm_a8": rows}
+    from bridgelang_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS
+
+    for key, d in (("flash_fwd", 128), ("flash_fwd_d80", 80)):  # the 7B's and Phi-2's head dims
+        if d not in KERNEL_HEAD_DIMS:  # an earlier checkout (--package-root) without D = 80
+            continue
+        q_, k_, v_, lens = attention_case(1, t, t, 32, 32, d, [t - 21], None, torch.bfloat16, seed=100)
+        mask = valid_mask(t, t, [t - 21], None, device="cuda")[:, None]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q_, k_, v_))
+        out[key] = flash = dict(
+            shape=f"B=1 T={t} S={t} H=32 D={d} bf16",
+            device_ms=graph_ms([lambda: flash_attention(q_, k_, v_, lengths=lens, causal=True)]),
+            event_ms=cuda_ms(lambda: flash_attention(q_, k_, v_, lengths=lens, causal=True), 100),
+            library_device_ms=graph_ms([lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)]),
+            bound_ms=bound_ms(q_, k_, v_, lens, None)[0])
+        log(f"device-side flash_fwd ({label}) {flash['shape']}: {flash['device_ms']:.5f} ms (event window "
+            f"{flash['event_ms']:.4f} ms); sdpa (yardstick) device {flash['library_device_ms']:.5f} ms; bound "
+            f"{flash['bound_ms']:.5f} ms (bytes)")
+        del q_, k_, v_, lens, qt, kt, vt, mask
     if new:
         out["quantize_a8"] = time_quantize(label)
-    del q_, k_, v_, lens, qt, kt, vt, mask
     clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)  # a CUDA build's; its workspaces per stream
     if clear is not None:  # would otherwise count in every later phase's peak memory
         clear()
@@ -860,16 +907,20 @@ def time_generate(model, params, frame, instruction, max_new_tokens: int, reps: 
     return statistics.median(times)
 
 
-def first_token(model, params, frame, instruction) -> int:
+def prefill_logits(model, params, frame, instruction):
+    """The logits [V] (fp32) that choose a batch-1 predict's first token:
+    the prefill's last real row through the LM head."""
     import torch
 
+    from bridgelang_tpu_torch.models.llm.llama import lm_logits
     from bridgelang_tpu_torch.ops.image_ops import frames_to_tensor, preprocess_batch
 
     ids, mask = model.pad_prompt([model.prepare_prompt_ids(instruction)])
     pix = preprocess_batch(frames_to_tensor(frame[None], model.device), model.image_transform, dtype=model.dtype)
-    tok = model.generate_greedy(params, torch.as_tensor(ids, device="cuda"), torch.as_tensor(mask, device="cuda"),
-                                pix, max_new_tokens=1)
-    return int(tok[0, 0])
+    with torch.inference_mode():
+        last, _, _ = model._prefill(params, torch.as_tensor(ids, device=model.device),
+                                    torch.as_tensor(mask, device=model.device), pix, 1, None)
+        return lm_logits(params["llm"], last, model.cfg.llm)[0, 0].float()
 
 
 def profile_device(label: str, fn, reps: int) -> dict:
@@ -1392,14 +1443,16 @@ def lora_batch(model, batch_size: int, seed: int) -> dict:
 
     tok = model.tokenizer
     transform = RLDSBatchTransform(ActionTokenizer(tok), tok, llm_family=model.cfg.llm_family)
-    collate = PaddedCollatorForActionPrediction(max_length=TRAIN_MAX_LEN, pad_token_id=model.cfg.llm.pad_token_id)
+    max_len = PHI_TRAIN_MAX_LEN if model.cfg.llm_family == "phi" else TRAIN_MAX_LEN
+    collate = PaddedCollatorForActionPrediction(max_length=max_len, pad_token_id=model.cfg.llm.pad_token_id)
     batch = collate(list(DummyDataset(transform, n=batch_size, seed=seed)))
     return {k: torch.as_tensor(v, device=model.device) for k, v in batch.items() if k != "dataset_names"}
 
 
 def with_lora(params: dict, device, seed: int, b_std: float = 0.0) -> dict:
-    """`params` with r=32 fp32 adapters on all seven projections (shared base
-    tensors). B is zero, as in training, unless `b_std` draws it too."""
+    """`params` with r=32 fp32 adapters on every projection the decoder has
+    (seven for Llama and Mistral, six for Phi-2; shared base tensors). B is
+    zero, as in training, unless `b_std` draws it too."""
     import torch
 
     from bridgelang_tpu_torch.training.lora import add_lora_params
@@ -1416,7 +1469,7 @@ def with_lora(params: dict, device, seed: int, b_std: float = 0.0) -> dict:
 def base_param_count(llm: dict) -> int:
     """Decoder parameters without adapters, a packed int4 byte counting as
     its two weights."""
-    n = sum(llm[k].numel() for k in ("embed", "final_norm", "lm_head"))
+    n = sum(t.numel() for k, t in llm.items() if k != "layers" and not k.endswith("_scale"))
     for lp in llm["layers"]:
         for k, t in lp.items():
             if "_lora_" not in k and not k.endswith("_scale4"):
@@ -1425,14 +1478,16 @@ def base_param_count(llm: dict) -> int:
 
 
 def train_adapters(model, params, seed: int, label: str, steps: int, per_step: dict,
-                   serve_model=None, dots_steps: int = 0, resume_check: bool = False) -> dict:
+                   serve_model=None, dots_steps: int = 0, resume_check: bool = False,
+                   require_fall: bool = True) -> dict:
     """Full-depth fine-tuning of r=32 adapters over `params` on the card
-    (`label`: "train" for the bf16 base, "qlora" for the int4 one): one warm
-    step and `steps` timed ones, each launching each kernel `per_step[name]`
-    times; a profiled step; `dots_steps` more under "dots" remat; then the
-    adapters merged into the base and one action predicted through it with
-    `serve_model`. With `resume_check`, the adapters are checkpointed and
-    resumed (checkpoint_resume) before the merge."""
+    (`label`: "train" for the bf16 base, "qlora" for the int4 one,
+    "phi_lora" for Phi-2's): one warm step and `steps` timed ones, each
+    launching each kernel `per_step[name]` times, losses finite and (with
+    `require_fall`) falling; a profiled step; `dots_steps` more under "dots"
+    remat; then the adapters merged into the base and one action predicted
+    through it with `serve_model`. With `resume_check`, the adapters are
+    checkpointed and resumed (checkpoint_resume) before the merge."""
     import numpy as np
     import torch
 
@@ -1456,7 +1511,7 @@ def train_adapters(model, params, seed: int, label: str, steps: int, per_step: d
     vis_tokens = b * (model.num_patches + 5)  # bench.py's count: DINOv2's 256 patches + class + 4 registers
     flops = 4.0 * n_base * tokens + 6.0 * n_lora * tokens + 2.0 * n_vis * vis_tokens
     base_kind = "packed-int4 (group 128)" if label == "qlora" else "bf16"
-    log(f"{label}: OpenVLA-7B {base_kind} base ({n_base / 1e9:.3f} B LLM params) + r={LORA_RANK} fp32 adapters "
+    log(f"{label}: {model.cfg.model_id} {base_kind} base ({n_base / 1e9:.3f} B LLM params) + r={LORA_RANK} fp32 adapters "
         f"({n_lora / 1e6:.1f} M params), batch {b} x {f} fused tokens, full remat, AdamW lr {LORA_LR}; "
         f"useful FLOPs per step {flops:.4g}")
 
@@ -1480,7 +1535,7 @@ def train_adapters(model, params, seed: int, label: str, steps: int, per_step: d
         if not np.isfinite(loss):
             fail(f"{label} step {i}: non-finite loss {loss}")
         expect_counts(counts, per_step, f"{label} step {i}")
-    if float(np.mean(losses[-3:])) >= losses[0]:
+    if require_fall and float(np.mean(losses[-3:])) >= losses[0]:
         fail(f"{label}: the mean of the last 3 losses does not fall below the first on a fixed batch: {losses}")
     step_ms = statistics.median(times[1:])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1634,13 +1689,13 @@ def graph_inputs(model, imgs, instructions, n: int) -> dict:
             "stat_mask": np.tile(np.asarray(stats["mask"], bool), reps)[:n]}
 
 
-def time_graph_generate(model, params, frame, instruction, n: int, reps: int = 5) -> float:
-    """Host-clock ms of a replayed batch-1 greedy predict of `n` tokens:
-    input copies, the replay and the one device-to-host copy (captured on
-    the first call, outside the timing)."""
+def time_graph_generate(model, params, imgs, instructions, n: int, reps: int = 5) -> float:
+    """Host-clock ms of a replayed greedy predict of `n` tokens for the
+    batch of `imgs`: input copies, the replay and the one device-to-host
+    copy (captured on the first call, outside the timing)."""
     import torch
 
-    inputs = graph_inputs(model, [frame], [instruction], n)
+    inputs = graph_inputs(model, imgs, instructions, n)
     model.graphs.run("greedy", params, dict(inputs), n).cpu()
     times = []
     for _ in range(reps):
@@ -1670,6 +1725,49 @@ def replay_event_ms(model, params, frame, instruction, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def graphs_equal_eager(model, params, label: str, imgs, buckets=(1, 2, 4)):
+    """The inputs flow (the prefill logits move by over a tenth of their max
+    between two frames); the graphs of the batch `buckets` captured, with the peak memory after each;
+    replayed ids equal to eager ids at B=1 and B=4. -> (peaks, capture s)."""
+    import numpy as np
+    import torch
+
+    la = prefill_logits(model, params, imgs[0], INSTRUCTIONS[0])
+    lb = prefill_logits(model, params, imgs[1], INSTRUCTIONS[0])
+    moved, top = float((la - lb).abs().max()), float(la.abs().max())
+    log(f"{label}: prefill logits of frame A and frame B: argmax {int(la.argmax())} and {int(lb.argmax())}, "
+        f"max|A - B| {moved:.4g} against max|logit| {top:.4g}")
+    # Random weights may keep one argmax for two frames (full-depth Phi-2 does), so the rule is on the logits:
+    # they must move by a tenth of their largest value (they move by 0.26-0.47 of it on the card).
+    if not moved > 0.1 * top:
+        fail(f"{label}: the prefill logits hardly move between two different frames: inputs do not flow")
+    model.use_graphs = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    peaks = {}
+    t0 = time.perf_counter()
+    for b in buckets:
+        model.predict_action_batch(params, imgs[:b], INSTRUCTIONS[:b])
+        torch.cuda.synchronize()
+        peaks[b] = torch.cuda.max_memory_allocated() / 1e9
+    capture_s = time.perf_counter() - t0
+    log(f"{label}: graphs of batch buckets {', '.join(map(str, buckets))} captured in {capture_s:.1f} s; peak GB "
+        f"after each { {b: round(g, 3) for b, g in peaks.items()} }; {len(model.graphs.entries)} graph keys")
+    ids = {}
+    for use_graphs in (False, True):
+        model.use_graphs = use_graphs
+        for b in (1, 4):
+            ids[(use_graphs, b)] = model.predict_action_batch(params, imgs[:b], INSTRUCTIONS[:b], return_tokens=True)[1]
+    model.use_graphs = True
+    for b in (1, 4):
+        same = np.array_equal(ids[(True, b)], ids[(False, b)])
+        log(f"{label}: B={b} token ids, graph {ids[(True, b)].tolist()} eager {ids[(False, b)].tolist()} "
+            f"{'equal' if same else 'DIFFER'}")
+        if not same:
+            fail(f"{label}: replayed graph ids differ from eager generate ids at B={b}")
+    return peaks, capture_s
+
+
 def serve_kind(model, params, label: str, per_pass: dict) -> dict:
     """One weight kind served through replayed graphs and eagerly: the inputs
     flow (the prefill argmax differs between two frames); the graphs of the
@@ -1682,41 +1780,14 @@ def serve_kind(model, params, label: str, per_pass: dict) -> dict:
     import torch
 
     imgs = frames(4, seed=3)
-    tok_a = first_token(model, params, imgs[0], INSTRUCTIONS[0])
-    tok_b = first_token(model, params, imgs[1], INSTRUCTIONS[0])
-    log(f"{label}: prefill argmax: frame A -> {tok_a}, frame B -> {tok_b}")
-    if tok_a == tok_b:
-        fail(f"{label}: prefill argmax is the same for two different frames: inputs do not flow")
-    model.use_graphs = True
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    peaks = {}
-    t0 = time.perf_counter()
-    for b in (1, 2, 4):
-        model.predict_action_batch(params, imgs[:b], INSTRUCTIONS[:b])
-        torch.cuda.synchronize()
-        peaks[b] = torch.cuda.max_memory_allocated() / 1e9
-    capture_s = time.perf_counter() - t0
-    log(f"{label}: graphs of batch buckets 1, 2, 4 captured in {capture_s:.1f} s; peak GB after each "
-        f"{ {b: round(g, 3) for b, g in peaks.items()} }; {len(model.graphs.entries)} graph keys")
-    ids = {}
-    for use_graphs in (False, True):
-        model.use_graphs = use_graphs
-        for b in (1, 4):
-            ids[(use_graphs, b)] = model.predict_action_batch(params, imgs[:b], INSTRUCTIONS[:b], return_tokens=True)[1]
-    for b in (1, 4):
-        same = np.array_equal(ids[(True, b)], ids[(False, b)])
-        log(f"{label}: B={b} token ids, graph {ids[(True, b)].tolist()} eager {ids[(False, b)].tolist()} "
-            f"{'equal' if same else 'DIFFER'}")
-        if not same:
-            fail(f"{label}: replayed graph ids differ from eager generate ids at B={b}")
+    peaks, capture_s = graphs_equal_eager(model, params, label, imgs)
     model.use_graphs = False
     e1 = time_generate(model, params, imgs[0], INSTRUCTIONS[0], 1)
     e7 = time_generate(model, params, imgs[0], INSTRUCTIONS[0], 7)
     prof_eager = profile_predict(model, params)
     model.use_graphs = True
-    g1 = time_graph_generate(model, params, imgs[0], INSTRUCTIONS[0], 1)
-    g7 = time_graph_generate(model, params, imgs[0], INSTRUCTIONS[0], 7)
+    g1 = time_graph_generate(model, params, imgs[:1], INSTRUCTIONS[:1], 1)
+    g7 = time_graph_generate(model, params, imgs[:1], INSTRUCTIONS[:1], 7)
     replay_ms = replay_event_ms(model, params, imgs[0], INSTRUCTIONS[0])
     prof_graph = profile_predict(model, params)
     log(f"{label}: B=1 1 token / 7 tokens / decode per token, eager generate_greedy {e1:.2f} / {e7:.2f} / "
@@ -1943,33 +2014,14 @@ class GradRecorder:
 def parity_card_vs_cpu(seed: int, spec: bool) -> dict:
     """Card against CPU on a full-width, depth-cut fp32 model: float weights,
     then the same decoder packed to int4 (w8a8 on and off) and quantized to
-    int8 (w8a8 off: ids; on: teacher-forced logits); with `spec`, the
-    speculative graphs' exactness on the card in fp32."""
-    import dataclasses
-
+    int8 (w8a8 off: ids; on: teacher-forced logits), and greedy over the int8
+    KV cache; with `spec`, the speculative graphs' exactness on the card in
+    fp32. Then a Phi-2 cut (ids and a LoRA step) and a Mistral cut with its
+    window at 64 (ids)."""
     import torch
 
-    from bridgelang_tpu_torch.models.llm.tokenizer import ByteFallbackTokenizer
-    from bridgelang_tpu_torch.models.vision.vit import VIT_CONFIGS
-    from bridgelang_tpu_torch.models.vla import OpenVLA
-    from bridgelang_tpu_torch.models.vlm import VLMConfig
-
-    base = VLMConfig()
     # Full widths, depth cut: 2 decoder layers, 3-block towers (tap after block 1).
-    cfg = dataclasses.replace(
-        base, llm=dataclasses.replace(base.llm, n_layers=2),
-        vision_override=(dataclasses.replace(VIT_CONFIGS["dinov2-vit-l"], depth=3),
-                         dataclasses.replace(VIT_CONFIGS["siglip-vit-so400m"], depth=3)),
-    )
-    gpu = OpenVLA(cfg, STATS, tokenizer=ByteFallbackTokenizer(), dtype=torch.float32, device="cuda")
-    cpu = OpenVLA(cfg, STATS, tokenizer=ByteFallbackTokenizer(), dtype=torch.float32, device="cpu")
-    p_gpu = gpu.init_params(torch.Generator(device="cuda").manual_seed(seed))
-    p_cpu = {
-        "vision": {k: v.cpu() for k, v in p_gpu["vision"].items()},
-        "projector": {k: v.cpu() for k, v in p_gpu["projector"].items()},
-        "llm": {k: ([{n: t.cpu() for n, t in lp.items()} for lp in v] if k == "layers" else v.cpu())
-                for k, v in p_gpu["llm"].items()},
-    }
+    gpu, cpu, p_gpu, p_cpu = parity_cut(LLAMA_IDS, seed)
     results = {"float": parity_pair(gpu, cpu, p_gpu, p_cpu, seed, "fp32", {"flash_fwd": 2}, {})}
     results["export"] = export_round_trip(gpu, p_gpu)
 
@@ -1981,7 +2033,7 @@ def parity_card_vs_cpu(seed: int, spec: bool) -> dict:
     llm4 = quantize_llm_int4(p_gpu["llm"], group=INT4_GROUP)
     p4_gpu = dict(p_gpu, llm=llm4)
     p4_cpu = dict(p_cpu, llm=tree_map(lambda t: t.cpu(), llm4))
-    n_int4 = 7 * cfg.llm.n_layers  # per model pass
+    n_int4 = 7 * gpu.cfg.llm.n_layers  # per model pass
     for w8a8 in (True, False):
         kernels = ("int4_mm_a8", "quantize_a8") if w8a8 else ("int4_mm",)
         results[f"int4_w8a8_{w8a8}"] = parity_pair(
@@ -2003,9 +2055,59 @@ def parity_card_vs_cpu(seed: int, spec: bool) -> dict:
     results["int8_w8a8_True"] = parity_logits(w8a8_model(gpu, True), w8a8_model(cpu, True), p8_gpu, p8_cpu,
                                               "int8 w8a8=True")
     del llm8, p8_gpu, p8_cpu
+
+    # The int8 KV cache on the fp32 cut: the card's quantized cache against the CPU's.
+    gpu.cache_dtype = cpu.cache_dtype = torch.int8
+    results["kv8"] = parity_pair(gpu, cpu, p_gpu, p_cpu, seed, "fp32, int8 KV cache", {"flash_fwd": 2}, {},
+                                 train=False)
+    gpu.cache_dtype = cpu.cache_dtype = torch.bfloat16
     if spec:
         results["spec_fp32"] = spec_exact_fp32(gpu, p_gpu)
+    del gpu, cpu, p_gpu, p_cpu
+    release_memory()
+
+    # Phi-2 (the kernels at head dim 80; biases drawn, not zero) and Mistral with
+    # its window cut to 64, below the 352-token prefill.
+    phi_gpu, phi_cpu, pp_gpu, pp_cpu = parity_cut(PHI_IDS, seed, biases=True)
+    results["phi"] = parity_pair(phi_gpu, phi_cpu, pp_gpu, pp_cpu, seed, "phi fp32", {"flash_fwd": 2}, {})
+    del phi_gpu, phi_cpu, pp_gpu, pp_cpu
+    m_gpu, m_cpu, pm_gpu, pm_cpu = parity_cut(MISTRAL_IDS, seed, sliding_window=64)
+    results["mistral_window64"] = parity_pair(m_gpu, m_cpu, pm_gpu, pm_cpu, seed, "mistral fp32 window 64",
+                                              {"flash_fwd": 2}, {}, train=False)
+    del m_gpu, m_cpu, pm_gpu, pm_cpu
+    release_memory()
     return results
+
+
+def parity_cut(ids, seed: int, biases: bool = False, **llm_overrides):
+    """A registered VLM at full width cut to 2 decoder layers and 3-block
+    towers, fp32, on the card and on the CPU with the same weights (drawn on
+    the card; with `biases`, a Phi tree's biases drawn from N(0, 0.1^2))."""
+    import dataclasses
+
+    import torch
+
+    from bridgelang_tpu_torch.models.llm.tokenizer import ByteFallbackTokenizer
+    from bridgelang_tpu_torch.models.vision.vit import VIT_CONFIGS
+    from bridgelang_tpu_torch.models.vla import OpenVLA
+    from bridgelang_tpu_torch.models.vlm import VLMConfig
+    from bridgelang_tpu_torch.training.trainer import tree_map
+
+    cfg = dataclasses.replace(
+        VLMConfig.from_ids(*ids, llm_overrides=dict(n_layers=2, **llm_overrides)),
+        vision_override=(dataclasses.replace(VIT_CONFIGS["dinov2-vit-l"], depth=3),
+                         dataclasses.replace(VIT_CONFIGS["siglip-vit-so400m"], depth=3)))
+    gpu = OpenVLA(cfg, STATS, tokenizer=ByteFallbackTokenizer(), dtype=torch.float32, device="cuda")
+    cpu = OpenVLA(cfg, STATS, tokenizer=ByteFallbackTokenizer(), dtype=torch.float32, device="cpu")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p_gpu = gpu.init_params(g)
+    if biases:
+        llm = p_gpu["llm"]
+        for t in [lp[k] for lp in llm["layers"] for k in ("attn_norm_bias", "bq", "bk", "bv", "bo", "b_up", "b_down")]:
+            t.normal_(0.0, 0.1, generator=g)
+        llm["final_norm_bias"].normal_(0.0, 0.1, generator=g)
+        llm["lm_head_bias"].normal_(0.0, 0.1, generator=g)
+    return gpu, cpu, p_gpu, tree_map(lambda t: t.cpu(), p_gpu)
 
 
 def export_round_trip(gpu, p_gpu) -> dict:
@@ -2193,6 +2295,220 @@ def parity_pair(gpu, cpu, p_gpu, p_cpu, seed: int, label: str, gen_counts: dict,
     if abs(l_gpu - l_cpu) > 1e-5 * abs(l_cpu) or g_err > 1e-4 * g_max:
         fail(f"parity ({label}): the train step disagrees between the card (kernels) and the CPU (plain versions)")
     return dict(result, loss_rel_err=abs(l_gpu - l_cpu) / abs(l_cpu), grad_err=g_err, grad_max=g_max)
+
+
+# --- phase: the decoder variants (Phi-2, Mistral, the int8 KV cache) ------------------
+
+# (model id, vision backbone, LLM backbone, projector) of registered VLMs
+LLAMA_IDS = ("prism-dinosiglip-224px+7b", "dinosiglip-vit-so-224px", "llama2-7b-pure", "no-align+fused-gelu-mlp")
+PHI_IDS = ("prism-phi-dinosiglip+3b", "dinosiglip-vit-so-224px", "phi-2-3b", "no-align+fused-gelu-mlp")
+MISTRAL_IDS = ("prism-mistral-dinosiglip+7b", "dinosiglip-vit-so-224px", "mistral-v0.1-7b-pure",
+               "no-align+fused-gelu-mlp")
+MISTRAL_LAYERS = 8       # of its 32 decoder layers: bounds the phase's time
+PHI_LORA_STEPS = 3       # timed LoRA steps of the Phi VLA after one warm step
+KV8_BAND = 0.05          # int8 against bf16 KV cache: |dlogit| <= 0.05 max|logit| (the w8a8 paths' rule)
+
+
+def build_registered(ids, seed: int, **llm_overrides):
+    """A registered VLM (model id, vision id, LLM id, projector) as an
+    OpenVLA at full width in bf16, random weights drawn on the card from
+    `seed`; `llm_overrides` cut its decoder (n_layers)."""
+    import torch
+
+    from bridgelang_tpu_torch.models.llm.tokenizer import ByteFallbackTokenizer
+    from bridgelang_tpu_torch.models.vla import OpenVLA
+    from bridgelang_tpu_torch.models.vlm import VLMConfig
+
+    cfg = VLMConfig.from_ids(*ids, llm_overrides=llm_overrides or None)
+    model = OpenVLA(cfg, STATS, tokenizer=ByteFallbackTokenizer(), dtype=torch.bfloat16, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n_llm = base_param_count(params["llm"])
+    log(f"{ids[0]}: {cfg.llm.n_layers} decoder layers (dim {cfg.llm.dim}, {cfg.llm.n_heads} heads of "
+        f"{cfg.llm.head_dim}, {cfg.llm.n_kv_heads} KV heads, window {cfg.llm.sliding_window}), "
+        f"{n_llm / 1e9:.3f} B decoder parameters; {tensor_gb(params):.2f} GB of bf16 weights drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def graph_decode_ms(model, params, b: int) -> float:
+    """Decode ms per token of a replayed B=b greedy predict: the host-clock
+    medians of 7-token and 1-token predicts, their difference over 6."""
+    imgs = frames(b, seed=21)
+    t1, t7 = (time_graph_generate(model, params, imgs, INSTRUCTIONS[:b], n) for n in (1, ACTION_DIM))
+    return (t7 - t1) / (ACTION_DIM - 1)
+
+
+def teacher_forced_logits(model, params, imgs, tokens, cache_dtype):
+    """Logits [B, 7, V] (fp32) of the prefill and of 6 decode steps fed
+    `tokens` [B, 7] (the same for every cache dtype), over a KV cache of
+    `cache_dtype`."""
+    import numpy as np
+    import torch
+
+    from bridgelang_tpu_torch.models.llm.llama import lm_logits
+    from bridgelang_tpu_torch.ops.image_ops import frames_to_tensor, preprocess_batch
+
+    b, n = tokens.shape
+    ids, mask = model.pad_prompt([model.prepare_prompt_ids(t) for t in INSTRUCTIONS[:b]])
+    pix = preprocess_batch(frames_to_tensor(np.stack(imgs[:b]), model.device), model.image_transform,
+                           dtype=model.dtype)
+    cfg = model.cfg.llm
+    tok = torch.as_tensor(tokens, device=model.device).long()
+    with torch.inference_mode():
+        last, cache, true_len = model._prefill(params, torch.as_tensor(ids, device=model.device),
+                                               torch.as_tensor(mask, device=model.device), pix, n, cache_dtype)
+        steps = [lm_logits(params["llm"], last, cfg)]
+        for i in range(n - 1):
+            steps.append(model._decode_logits(params, cfg, tok[:, i:i + 1], (true_len + i)[:, None], cache))
+        return torch.cat(steps, dim=1).float()
+
+
+def kv_cache_int8(model, params, label: str) -> dict:
+    """The int8 KV cache (codes + bf16 per-(token, head) scales) against the
+    bf16 cache on one served model: replayed ids equal eager ids under the
+    int8 cache at B=1 and B=4, each predict launching flash_fwd once per
+    layer (the prefill); teacher-forced logits over the bf16 run's ids
+    within KV8_BAND max|logit| of the bf16 cache's, the argmax equal where
+    the bf16 top-2 margin clears twice that, token 0 equal (the prefill
+    attends unquantized); the server refuses the speculative default; cache
+    GB at B=4 and decode ms per token at B=1 and B=4 for both dtypes."""
+    import numpy as np
+    import torch
+
+    from bridgelang_tpu_torch.models.llm.llama import init_kv_cache
+    from bridgelang_tpu_torch.serving.server import VLAServer
+
+    imgs = frames(4, seed=13)
+    n_layers = model.cfg.llm.n_layers
+    f_len = model.pad_prompt([model.prepare_prompt_ids(INSTRUCTIONS[0])])[0].shape[1] + model.num_patches
+    out = {"cache_gb_b4": {}, "decode_ms_per_token": {}}
+    model.graphs.clear()
+    for dtype in (torch.bfloat16, torch.int8):
+        name = str(dtype).replace("torch.", "")
+        model.cache_dtype = dtype
+        cache = init_kv_cache(model.cfg.llm, 4, f_len + ACTION_DIM, dtype=dtype, device="meta")
+        out["cache_gb_b4"][name] = tensor_gb(cache)
+        out["decode_ms_per_token"][name] = {b: graph_decode_ms(model, params, b) for b in (1, 4)}
+    log(f"{label} KV cache at B=4, S={f_len + ACTION_DIM}: bf16 {out['cache_gb_b4']['bfloat16']:.4f} GB, int8 "
+        f"{out['cache_gb_b4']['int8']:.4f} GB; decode ms per token (graphs) "
+        + "; ".join(f"{k}: B=1 {v[1]:.3f}, B=4 {v[4]:.3f}" for k, v in out["decode_ms_per_token"].items()))
+
+    model.cache_dtype = torch.bfloat16
+    model.use_graphs = False
+    ref = model.predict_action_batch(params, imgs, INSTRUCTIONS[:4], return_tokens=True)[1]
+    model.cache_dtype = torch.int8
+    ids = {}
+    for use_graphs in (True, False):
+        model.use_graphs = use_graphs
+        for b in (1, 4):
+            ids[(use_graphs, b)] = model.predict_action_batch(params, imgs[:b], INSTRUCTIONS[:b], return_tokens=True)[1]
+    model.use_graphs = True
+    for b in (1, 4):
+        same = np.array_equal(ids[(True, b)], ids[(False, b)])
+        log(f"{label} int8 KV cache: B={b} ids, graph {ids[(True, b)].tolist()} eager {ids[(False, b)].tolist()} "
+            f"{'equal' if same else 'DIFFER'}")
+        if not same:
+            fail(f"{label}: replayed graph ids differ from eager ids under the int8 KV cache at B={b}")
+    reset_launch_counts()
+    model.predict_action_batch(params, imgs[:1], INSTRUCTIONS[:1])
+    launches = launch_counts()
+    expect_counts(launches, {"flash_fwd": n_layers}, f"{label} int8 KV cache predict")
+
+    want = teacher_forced_logits(model, params, imgs, ref, torch.bfloat16)
+    got = teacher_forced_logits(model, params, imgs, ref, torch.int8)
+    band = KV8_BAND * want.abs().amax(dim=-1)  # [B, 7]
+    diff = (got - want).abs().amax(dim=-1)
+    top2 = torch.topk(want, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * band
+    same_argmax = got.argmax(dim=-1) == want.argmax(dim=-1)
+    use = float((diff / band).max())
+    log(f"{label} int8 KV cache vs bf16, teacher-forced over the bf16 ids {ref.tolist()}: max|dlogit| / "
+        f"({KV8_BAND} max|logit|) = {use:.3f}; {int(clear.sum())} of {clear.numel()} steps clear twice the band, "
+        f"argmax equal on {int((same_argmax & clear).sum())} of them; token-0 logits max|d| {float(diff[:, 0].max()):.3g}")
+    if use > 1.0 or not bool(same_argmax[clear].all()) or not np.array_equal(ids[(False, 4)][:, 0], ref[:, 0]):
+        fail(f"{label}: the int8 KV cache leaves the bf16 cache's logits band or argmax")
+
+    server = VLAServer(model, params, max_batch=1, speculative_default=True, device=model.device)
+    refused = not server.speculative_default
+    server.close()
+    if not refused:
+        fail(f"{label}: the server kept the speculative default with an int8 KV cache")
+    log(f"{label} int8 KV cache: VLAServer(speculative_default=True) serves greedy (speculative default off)")
+    model.cache_dtype = torch.bfloat16
+    model.graphs.clear()
+    release_memory()
+    return dict(out, logit_band_use=use, steps_clear=int(clear.sum()), ids_int8=ids[(True, 4)].tolist(),
+                ids_bf16=ref.tolist(), launches=launches)
+
+
+def phi_phase() -> dict:
+    """Phi-2 (prism-phi-dinosiglip+3b) at full width and depth, bf16 random
+    weights: served through graphs (ids equal to eager, 32 flash_fwd at
+    D=80 per predict) and VLAServer; the int8 KV cache; LoRA steps (64/32/32
+    flash launches at D=80 per step); then packed to int4 and served w4a8
+    (6 projections x 32 layers = 192 int4_mm_a8 and quantize_a8 per pass)."""
+    import torch
+
+    from bridgelang_tpu_torch.ops.quant import quantize_llm_int4
+
+    model, params = build_registered(PHI_IDS, SEED)
+    n_layers = model.cfg.llm.n_layers
+    out = {"llm_gb": tensor_gb(params["llm"]), "model_gb": tensor_gb(params)}
+    ids, _ = model.pad_prompt([model.prepare_prompt_ids(INSTRUCTIONS[0])])
+    out["prefill_len"] = ids.shape[1] + model.num_patches
+    log(f"phi: prompt bucket {ids.shape[1]} + {model.num_patches} patches = prefill {out['prefill_len']}")
+    imgs = frames(4, seed=3)
+    out["warmup_peak_gb"], out["capture_s"] = graphs_equal_eager(model, params, "phi bf16", imgs)
+    out["decode_ms_per_token"] = graph_decode_ms(model, params, 1)
+    out["profile"] = profile_predict(model, params)
+    out["serve"] = serve(model, params, N_SINGLE_REQUESTS, {"flash_fwd": n_layers})
+    log(f"phi serve: median batch-1 /act {out['serve']['median_ms']:.1f} ms, micro-batch of 4 "
+        f"{out['serve']['batch4_ms']:.1f} ms; decode {out['decode_ms_per_token']:.3f} ms per token (graphs); "
+        f"decoder {out['llm_gb']:.2f} GB, model {out['model_gb']:.2f} GB")
+    out["kv8"] = kv_cache_int8(model, params, "phi")
+    model.graphs.clear()
+    release_memory()
+    out["lora"] = train_adapters(model, params, SEED, "phi_lora", PHI_LORA_STEPS,
+                                 {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers},
+                                 require_fall=False)
+    model.graphs.clear()
+    release_memory()
+
+    params = dict(params, llm=quantize_llm_int4(params["llm"], group=INT4_GROUP))
+    release_memory()
+    model4 = w8a8_model(model, w8a8=True)
+    per_pass = 6 * n_layers  # wq, wk, wv, wo, w_up, w_down: Phi has no w_gate
+    per_predict = {"flash_fwd": n_layers, "int4_mm_a8": ACTION_DIM * per_pass, "quantize_a8": ACTION_DIM * per_pass}
+    peaks4, _ = graphs_equal_eager(model4, params, "phi int4 w4a8", imgs, buckets=(1, 4))
+    _, counts4 = counted_ids(model4, params, imgs[0], INSTRUCTIONS[0], per_predict, "phi int4 w4a8 predict")
+    out["int4"] = dict(llm_gb=tensor_gb(params["llm"]), warmup_peak_gb=peaks4, launches=counts4,
+                       decode_ms_per_token=graph_decode_ms(model4, params, 1), profile=profile_predict(model4, params))
+    log(f"phi int4 w4a8: decoder + int8 embedding and head {out['int4']['llm_gb']:.2f} GB; {per_pass} int4_mm_a8 "
+        f"and quantize_a8 per decoder pass; decode {out['int4']['decode_ms_per_token']:.3f} ms per token (graphs)")
+    model4.graphs.clear()
+    del model, model4, params
+    release_memory()
+    return out
+
+
+def mistral_phase() -> dict:
+    """Mistral (prism-mistral-dinosiglip+7b: 8 KV heads, window 4096) at
+    full width, its decoder cut to MISTRAL_LAYERS layers: graph ids equal to
+    eager at B=1 and B=4, MISTRAL_LAYERS flash_fwd launches per predict."""
+    model, params = build_registered(MISTRAL_IDS, SEED + 1, n_layers=MISTRAL_LAYERS)
+    imgs = frames(4, seed=3)
+    peaks, capture_s = graphs_equal_eager(model, params, "mistral", imgs, buckets=(1, 4))
+    ids, counts = counted_ids(model, params, imgs[0], INSTRUCTIONS[0], {"flash_fwd": MISTRAL_LAYERS}, "mistral predict")
+    out = dict(warmup_peak_gb=peaks, capture_s=capture_s, ids=ids, launches=counts,
+               decode_ms_per_token=graph_decode_ms(model, params, 1))
+    log(f"mistral ({MISTRAL_LAYERS} layers): ids {ids}; {MISTRAL_LAYERS} flash_fwd per predict; decode "
+        f"{out['decode_ms_per_token']:.3f} ms per token (graphs)")
+    model.graphs.clear()
+    del model, params
+    release_memory()
+    return out
 
 
 # --- phase: fine-tuning through the port's entry points ------------------------------
@@ -2708,18 +3024,18 @@ def report_build(logs: dict) -> None:
     bwd = _build.load("flash_bwd").flash_bwd_smem_bytes
     int4 = _build.load("int4_matmul").int4_mm_smem_bytes
     flash.argtypes, bwd.argtypes, int4.argtypes = [smem, smem], [smem, smem, smem], [smem, smem]
-    log("dynamic shared memory per block: flash_fwd bf16 D=128 {} B, D=64 {} B, fp32 D=128 {} B; "
-        "flash_bwd_dq bf16 D=128 {} B, fp32 {} B; flash_bwd_dkv bf16 D=128 {} B, fp32 {} B; "
-        "int4_mm bf16 M>64 {} B, M<=64 {} B".format(flash(128, 1), flash(64, 1), flash(128, 0), bwd(0, 128, 1),
-                                                    bwd(0, 128, 0), bwd(1, 128, 1), bwd(1, 128, 0), int4(5632, 1),
-                                                    int4(64, 1)))
+    log("dynamic shared memory per block: flash_fwd bf16 D=128 {} B, D=80 {} B, D=64 {} B, fp32 D=128 {} B, "
+        "D=80 {} B; flash_bwd_dq bf16 D=128 {} B, D=80 {} B, fp32 {} B; flash_bwd_dkv bf16 D=128 {} B, D=80 {} B, "
+        "fp32 {} B; int4_mm bf16 M>64 {} B, M<=64 {} B".format(
+            flash(128, 1), flash(80, 1), flash(64, 1), flash(128, 0), flash(80, 0), bwd(0, 128, 1), bwd(0, 80, 1),
+            bwd(0, 128, 0), bwd(1, 128, 1), bwd(1, 80, 1), bwd(1, 128, 0), int4(5632, 1), int4(64, 1)))
     lib = _build.load("int4_matmul")
     if hasattr(lib, "int4_mm_a8_smem_bytes"):  # absent from an earlier checkout timed with --package-root
         a8, splits = lib.int4_mm_a8_smem_bytes, lib.int4_mm_a8_splits
         a8.argtypes, splits.argtypes = [smem], [smem] * 4
         log(f"int4_mm_a8: split-K kernel (M<=16) {a8(1)} B, wgmma kernel (M>16) {a8(352)} B of dynamic shared memory; "
             "split-K blocks per column tile at M<=16: " + ", ".join(
-                f"{sh} {splits(k, n // 2, INT4_GROUP, 0)}" for sh, (k, n) in INT4_SHAPES_7B.items()))
+                f"{sh} {splits(k, n // 2, INT4_GROUP, 0)}" for sh, (k, n) in INT4_SHAPES.items()))
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: dict, timing: dict, **extra) -> dict:
@@ -2745,7 +3061,7 @@ def release_memory() -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description="torch port smoke run on one GPU")
     ap.add_argument("--phases",
-                    default="build,load,kernels,serve,spec,parallel,train,int8,int4,qlora,finetune,parity",
+                    default="build,load,kernels,serve,spec,parallel,train,int8,int4,qlora,variants,finetune,parity",
                     help="comma-separated subset, for bring-up; the full run is the default; `cold` (not in "
                          "the default) runs only the device-side cold-L2 timings of the kernels phase")
     ap.add_argument("--package-root", default=ROOT,
@@ -2780,7 +3096,7 @@ def main() -> None:
     serve_t = 352
     loaded = None
     ft_ckpt = None
-    if phases & {"load", "serve", "spec", "parallel", "train", "int8", "int4", "qlora", "finetune"}:
+    if phases & {"load", "serve", "spec", "parallel", "train", "int8", "int4", "qlora", "variants", "finetune"}:
         model, params = build_7b(SEED)
         if "load" in phases:  # every later phase serves and trains the weights loaded through load_vla
             model, params, loaded = load_phase(model, params, keep_ckpt="finetune" in phases)
@@ -2858,6 +3174,12 @@ def main() -> None:
         release_memory()
         params = dict(params, llm=tree_map(lambda t: t.to("cuda"), params["llm"]))
 
+    kv8_7b = None
+    if "variants" in phases:  # the int8 KV cache on the bf16 7B, before int4 packs it
+        t_variants = time.perf_counter()
+        kv8_7b = kv_cache_int8(model, params, "7B")
+        t_variants = time.perf_counter() - t_variants
+
     served4 = qlora = None
     if phases & {"int4", "qlora"}:
         from bridgelang_tpu_torch.ops.quant import quantize_llm_int4
@@ -2888,6 +3210,13 @@ def main() -> None:
     del model, params
     release_memory()
 
+    variants = None
+    if "variants" in phases:
+        t0 = time.perf_counter()
+        variants = {"kv8_7b": kv8_7b, "phi": phi_phase(), "mistral": mistral_phase()}
+        variants["seconds"] = t_variants + time.perf_counter() - t0
+        log(f"variants: the phase took {variants['seconds']:.1f} s")
+
     tuned = None
     if "finetune" in phases:
         tuned = finetune_phase(ft_ckpt, (trained or {}).get("dots", {}).get("peak_memory_gb", TRAIN_DOTS_PEAK_GB))
@@ -2902,6 +3231,11 @@ def main() -> None:
                    "parallel": (parallel or {}).get("launches", zero), "load": (loaded or {}).get("launches", zero),
                    "finetune": (tuned or {}).get("launches", zero),
                    **{f"spec_{kind}": result["launches"] for kind, result in spec.items()}}
+        if variants:
+            phi = variants["phi"]
+            by_path.update(kv8_7b=variants["kv8_7b"]["launches"], kv8_phi=phi["kv8"]["launches"],
+                           phi_serve=phi["serve"]["launches"], phi_lora=phi["lora"]["launches"],
+                           phi_int4=phi["int4"]["launches"], mistral=variants["mistral"]["launches"])
 
         def launches(name):
             return {path: counts[name] for path, counts in by_path.items()}
@@ -2912,7 +3246,7 @@ def main() -> None:
         entry = kernel_entry("flash_fwd", "bridgelang_tpu_torch/csrc/flash_fwd.cu",
                              "bridgelang_tpu/ops/flash_attention.py:59", launches("flash_fwd"), row,
                              shape=row["shape"], event_ms=row["kernel_ms"], library_event_ms=timing_rows[0]["library_ms"],
-                             timings=timing_rows,
+                             d80_device=cold["flash_fwd_d80"], timings=timing_rows,
                              note="ms and library_ms: device time per launch from a captured CUDA graph of "
                                   "back-to-back launches (inputs warm in L2, as the prefill leaves them); event_ms, "
                                   "library_event_ms and the timings: CUDA events around calls, the earlier series")
@@ -2935,21 +3269,26 @@ def main() -> None:
             entry["load"] = {k: v for k, v in loaded.items() if k != "launches"}
         if tuned:
             entry["finetune"] = {k: v for k, v in tuned.items() if k != "launches"}
+        if variants:
+            entry["variants"] = variants
         entries = [entry]
         for name, line, ms_key, err in (("flash_bwd_dq", "bridgelang_tpu/ops/flash_attention.py:116", "dq_ms", "dq"),
                                         ("flash_bwd_dkv", "bridgelang_tpu/ops/flash_attention.py:156", "dkv_ms", "dkv")):
-            bound, bound_by = bwd_timing["bounds"][err]
-            timing = dict(max_abs_err=bwd_err[err], ms=bwd_timing[ms_key], plain_ms=bwd_timing["plain_ms"],
-                          bound_ms=bound, bound_by=bound_by, library_ms=bwd_timing["library_ms"])
+            bt = bwd_timing["train_b16"]
+            bound, bound_by = bt["bounds"][err]
+            timing = dict(max_abs_err=bwd_err[err], ms=bt[ms_key], plain_ms=bt["plain_ms"],
+                          bound_ms=bound, bound_by=bound_by, library_ms=bt["library_ms"])
             entries.append(kernel_entry(
                 name, "bridgelang_tpu_torch/csrc/flash_bwd.cu", line, launches(name), timing,
                 tolerance_use=max(r[w]["use"] for r in bwd_readings.values()
                                   for w in ({"dq": ("dq",), "dkv": ("dk", "dv")}[err])),
-                shape=bwd_timing["shape"], library_backend=bwd_timing["library_backend"],
-                library_unpinned=bwd_timing["unpinned"],
-                readings=bwd_timing["readings"][err if err == "dq" else "dkv"] + bwd_timing["readings"]["sdpa"],
+                shape=bt["shape"], library_backend=bt["library_backend"],
+                library_unpinned=bt["unpinned"],
+                readings=bt["readings"][err if err == "dq" else "dkv"] + bt["readings"]["sdpa"],
+                d80={k: bwd_timing["phi_train_b16"][k] for k in ("shape", ms_key, "plain_ms", "library_ms", "bounds")},
                 note=f"ms and library_ms: medians of {BWD_ROUNDS} interleaved rounds (readings: the kernel's, then "
-                     "SDPA's); plain_ms and library_ms compute dq, dk and dv together"))
+                     "SDPA's); plain_ms and library_ms compute dq, dk and dv together; d80: the same at Phi-2's "
+                     "LoRA shape (head dim 80)"))
         # headline shapes: w_gate at decode (the most launched a8 shape) and at the QLoRA M
         a8_cold = {f"{sh} M={m}": r for (sh, m), r in cold["int4_mm_a8"].items()}
         for name, line, mode, m, key in (("int4_mm_a8", "bridgelang_tpu/ops/int4_matmul.py:114", "a8", 1, "a8"),

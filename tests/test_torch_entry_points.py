@@ -69,13 +69,37 @@ def test_parse_args_takes_every_deploy_config_field():
 def test_deploy_refuses_what_it_cannot_serve(ckpts, registries, monkeypatch):
     with pytest.raises(FileNotFoundError, match="openvla/openvla-7b.*zero-egress"):
         deploy.build_server(deploy.parse_args(["--device", "cpu"]))
-    for flag, value in (("--int4_shards", "2"), ("--mesh_spec", "tensor=2"), ("--kv_cache_int8", "true")):
+    for flag, value in (("--int4_shards", "2"), ("--mesh_spec", "tensor=2")):
         with pytest.raises(ValueError, match=flag):
             deploy.build_server(deploy.parse_args(["--checkpoint", str(ckpts["single"][2]), "--device", "cpu",
                                                    flag, value]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         deploy.build_server(deploy.parse_args(["--checkpoint", str(ckpts["single"][2])]))
+
+
+def test_deploy_serves_the_int8_kv_cache_without_the_speculative_default():
+    """`deploy --kv_cache_int8 true` on the smoke model: the model decodes
+    over the int8 cache, the server's speculative default is off (the JAX
+    deploy turns it off too), and /act answers what an eager predict over
+    that cache gives."""
+    server = deploy.build_server(deploy.parse_args(
+        ["--random_init_for_smoke", "true", "--device", "cpu", "--kv_cache_int8", "true", "--warmup", "false"]))
+    model, params = server.model, server.params
+    assert model.cache_dtype == torch.int8 and not server.speculative_default and model.cfg.llm.w8a8
+    img = np.random.default_rng(5).integers(0, 256, size=(64, 64, 3), dtype=np.uint8)
+    httpd = server.serve_background(port=0)
+    try:
+        got, tokens = client_act("127.0.0.1", httpd.server_address[1], img, "pick up the red block",
+                                 return_tokens=True)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+    assert tokens is None  # a greedy answer: a speculative one carries its ids
+    assert np.asarray(got).shape == (7,) and np.isfinite(got).all()
+    np.testing.assert_array_equal(np.asarray(got, np.float32), model.predict_action(params, img, "pick up the red block"))
+    assert server.stats()["requests"] == 1
 
 
 def test_deploy_checkpoint_serves_what_jax_predicts(ckpts, registries, monkeypatch):

@@ -146,8 +146,11 @@ def test_kv_cache_dtypes():
     for dtype in (torch.bfloat16, torch.float32):
         c = tllama.init_kv_cache(cfg, 2, 9, dtype=dtype)
         assert c["k"].dtype == dtype and c["k"].shape == (2, 2, 9, 4, 64) and not c["v"].any()
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        tllama.init_kv_cache(cfg, 2, 9, dtype=torch.int8)
+    c = tllama.init_kv_cache(cfg, 2, 9, dtype=torch.int8)  # codes and bf16 per-(token, head) scales, as JAX
+    want = jllama.init_kv_cache(jllama.LLMConfig(**SMALL_VOCAB), 2, 9, dtype=jnp.int8)
+    assert {k: (tuple(v.shape), str(v.dtype).replace("torch.", "")) for k, v in c.items()} == {
+        k: (tuple(v.shape), str(v.dtype)) for k, v in want.items()}
+    assert c["k"].dtype == torch.int8 and c["k_scale"].dtype == torch.bfloat16 and not any(v.any() for v in c.values())
 
 
 def test_full_attention_equals_jax_under_a_general_mask():

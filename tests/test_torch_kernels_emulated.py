@@ -8,7 +8,7 @@ chip_smoke.py). This file checks their index math, masks and tile bounds
 without one: the bf16 tensor-core kernels (the backward's P and dS as bf16
 hi + lo pairs included) and the fp32 FMA kernels, at small shapes that cross
 the 64-row tiles, GQA, keys longer than queries, lengths down to 1, a window,
-no causal mask, and NaN in dead key slots. The emulated mma sums in another
+no causal mask, and NaN in dead key slots, at head dims 64, 80 and 128. The emulated mma sums in another
 order than the tensor cores, so the rules are the card's: the forward's o
 within FWD_ATOL and lse within 1e-3 on valid rows; the backward per element
 under GRAD_TOL (grad_tolerance_use <= 1), dead key slots exactly zero.
@@ -56,6 +56,10 @@ CASES = {
     "window100": (1, 200, 256, 2, 1, 64, [190], 100, True, torch.bfloat16),
     "t1_not_causal_d128": (2, 1, 70, 2, 2, 128, [70, 5], None, False, torch.bfloat16),
     "window30_not_causal_d128": (1, 140, 140, 2, 2, 128, [140], 30, False, torch.bfloat16),
+    # Phi-2's head dim: 10 chunks of 16 bytes per row, the swizzle's tail chunks
+    "ragged_d80": (2, 130, 130, 2, 2, 80, [130, 70], None, True, torch.bfloat16),
+    "gqa_d80_fp32": (2, 70, 70, 4, 2, 80, [70, 33], None, True, torch.float32),
+    "window20_keys_longer_gqa_d80": (1, 100, 140, 2, 1, 80, [120], 20, True, torch.bfloat16),
 }
 
 

@@ -36,7 +36,7 @@ from bridgelang_tpu_torch.ops.flash_attention import (
 )
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import FWD_ATOL, GRAD_TOL, INT4_SHAPES_7B, INT4_TOL, grad_tolerance_use  # noqa: E402
+from chip_smoke import FWD_ATOL, GRAD_TOL, INT4_SHAPES_7B, INT4_SHAPES_PHI, INT4_TOL, grad_tolerance_use  # noqa: E402
 
 # (b, t, s, h, hkv, d, lengths, window, causal)
 CASES = {
@@ -46,6 +46,8 @@ CASES = {
     "window": (2, 256, 256, 4, 4, 128, [256, 200], 100, True),
     "not_causal": (1, 128, 128, 2, 2, 64, [90], None, False),
     "serving_7b": (2, 352, 352, 32, 32, 128, [331, 300], None, True),
+    "serving_phi_d80": (2, 352, 352, 32, 32, 80, [331, 300], None, True),
+    "gqa_window_d80": (2, 200, 256, 8, 2, 80, [190, 77], 64, True),
 }
 
 
@@ -91,6 +93,13 @@ BF16_FWD_CASES = {
     "gqa_hkv8": (2, 352, 352, 32, 8, 128, [352, 300], None),
     "window100": (2, 304, 304, 8, 8, 128, [304, 250], 100),
     "window100_d64": (2, 200, 256, 4, 2, 64, [190, 77], 100),
+    # Phi-2's head dim 80: 10 chunks of 16 bytes per row, the swizzle's tail
+    "t63_d80": (2, 63, 63, 4, 4, 80, [63, 40], None),
+    "t65_d80": (2, 65, 65, 4, 4, 80, [65, 1], None),
+    "t352_d80": (1, 352, 352, 32, 32, 80, [352], None),
+    "cache_s_gt_t_d80": (2, 65, 130, 4, 4, 80, [64, 1], None),
+    "gqa_hkv8_d80": (2, 352, 352, 32, 8, 80, [352, 300], None),
+    "window100_d80": (2, 200, 256, 4, 2, 80, [190, 77], 100),
 }
 
 # The bf16 tensor-core backward at the same edges, and each T at the other
@@ -105,6 +114,8 @@ BF16_BWD_CASES = {
     "t63": (2, 63, 63, 4, 4, 128, [63, 40], None, True),
     "t64_d64": (2, 64, 64, 4, 4, 64, [64, 64], None, True),
     "t65": (2, 65, 65, 4, 4, 128, [65, 1], None, True),
+    "t1_not_causal_d80": (2, 1, 70, 4, 4, 80, [70, 5], None, False),
+    "phi_train_b4_d80": (4, 352, 352, 32, 32, 80, [352, 330, 301, 266], None, True),
 }
 
 
@@ -288,9 +299,11 @@ def test_remat_policies_agree_through_the_kernels(cuda_device):
 
 # --- the packed-int4 matmul kernels -------------------------------------------------------
 
-# (K, N, group): 7B's wq, w_gate and w_down at group 128, and w_gate at group 256
+# (K, N, group): 7B's wq, w_gate and w_down at group 128, and w_gate at group 256;
+# Phi-2's wq, w_up and w_down (20 and 80 groups of 128)
 INT4_SHAPES = {**{name: (k, n, 128) for name, (k, n) in INT4_SHAPES_7B.items()},
-               "w_gate_g256": (*INT4_SHAPES_7B["w_gate"], 256)}
+               "w_gate_g256": (*INT4_SHAPES_7B["w_gate"], 256),
+               **{name.replace(" ", "_"): (k, n, 128) for name, (k, n) in INT4_SHAPES_PHI.items()}}
 
 
 def _int4_weights(k, n, group, device, seed):

@@ -204,8 +204,17 @@ def test_building_blocks_match_jax():
 
 
 def test_unported_llm_options_raise():
-    with pytest.raises(NotImplementedError):
-        tllama.init_kv_cache(tllama.LLM_CONFIGS["llama2-7b-pure"], 1, 8, dtype=torch.int8)
-    with pytest.raises(NotImplementedError):
-        tllama.init_llm_params(torch.Generator(), tllama.LLM_CONFIGS["phi-2-3b"])
-    assert tllama.LLM_CONFIGS.keys() == jllama.LLM_CONFIGS.keys()
+    """Every registered LLM is ported (the registries match); what the
+    kernels still refuse is a head dim outside KERNEL_HEAD_DIMS, checked
+    before the device (a CPU tensor at a kernel head dim is refused for its
+    device instead)."""
+    from bridgelang_tpu_torch.ops import flash_attention as tfa
+
+    assert tllama.LLM_CONFIGS == {k: tllama.LLMConfig(**dataclasses.asdict(v)) for k, v in jllama.LLM_CONFIGS.items()}
+    assert tfa.KERNEL_HEAD_DIMS == (64, 80, 128)
+    assert {c.head_dim for c in tllama.LLM_CONFIGS.values()} <= set(tfa.KERNEL_HEAD_DIMS)
+    lengths = torch.tensor([4], dtype=torch.int32)
+    for d, match in ((96, "head dims"), (80, "CUDA device")):
+        q = torch.zeros((1, 4, 2, d), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=match):
+            tfa._launch(q, q, q, lengths, True, None)
