@@ -1,7 +1,7 @@
 """LoRA (or full) fine-tuning of an OpenVLA checkpoint on the card.
 
     python -m bridgelang_tpu_torch.finetune --vla_path /ckpts/openvla-7b \
-        --data_root_dir /data/native --dataset_name libero_spatial_no_noops \
+        --data_root_dir /data/tfds --dataset_name libero_spatial_no_noops \
         [--use_lora true] [--lora_rank 32] [--use_quantization true] [--quantization_bits 8] \
         [--parallel_decode true] [--action_chunk 8] [--device cuda]
 
@@ -9,9 +9,11 @@ Counterpart of scripts/finetune.py: every field of its `FinetuneConfig`
 under its name and default, plus `--device` (CUDA unless `--device cpu`; no
 fallback). `--vla_path` is a local checkpoint in the HF OpenVLA layout
 (`models/load.load_vla`, w8a8 off: a quantized base trains with bf16
-activations). `--data_root_dir` is read as a native episode store
-(`<root>/<dataset_name>/*.tfrecord`, vla/datasets/native_loader.py), the one
-format the port reads until the TFDS reader is ported.
+activations). `--data_root_dir` holds the dataset as TFDS prepared it
+(`<root>/<dataset_name>/<version>/`, read without TensorFlow by
+vla/datasets/rlds/tfds_reader.py) or as a native episode store
+(`<root>/<dataset_name>/*.tfrecord`, vla/datasets/native_loader.py); the
+layout of the directory picks the reader.
 
 LoRA adds r=`lora_rank` adapters to every projection; `--use_quantization`
 freezes an int8 (`--quantization_bits 8`) or packed int4 (4) base under them.
@@ -120,7 +122,6 @@ def main(cfg: FinetuneConfig) -> Path:
     from bridgelang_tpu_torch.training.trainer import (
         OptimConfig, init_train_state, make_optimizer, make_vla_train_step)
     from bridgelang_tpu_torch.util.seeding import root_key, set_global_seed
-    from bridgelang_tpu_torch.vla.datasets.native_loader import native_builder_factory
     from bridgelang_tpu_torch.vla.materialize import get_vla_dataset_and_collator
 
     if cfg.mesh_shape is not None:
@@ -151,7 +152,6 @@ def main(cfg: FinetuneConfig) -> Path:
         shuffle_buffer_size=cfg.shuffle_buffer_size,
         image_aug=cfg.image_aug,
         pad_token_id=shell.cfg.llm.pad_token_id,
-        builder_factory=native_builder_factory(cfg.data_root_dir),
         action_chunk=cfg.action_chunk,
         seed=cfg.seed,
         num_workers=0 if device.type == "cpu" else None,  # the CPU's cores run the step too

@@ -1,13 +1,13 @@
 """ctypes bindings for the port's native (C++) library: TFRecord framing with
-CRC32C checks and the action bin codec.
+CRC32C checks and the action bin codec (`src/tfrecord.cc`), and the JPEG
+decoder and PNG unfilter of `native.image` (`src/image_decode.cc`).
 
 Counterpart of bridgelang_tpu/native/__init__.py, over the port's own copy
-of the source (`native/src/tfrecord.cc`). The library is compiled at first
-use with
+of the record source. The library is compiled at first use with
 
-    g++ -O2 -shared -fPIC -std=c++17 -o native/build/libbridgelang_native-<hash>.so src/tfrecord.cc
+    g++ -O2 -shared -fPIC -std=c++17 -o native/build/libbridgelang_native-<hash>.so src/*.cc
 
-into a git-ignored directory; the hash covers the source and the flags, so
+into a git-ignored directory; the hash covers every source and the flags, so
 an edited source is rebuilt. Unlike the JAX package, nothing degrades: if
 `g++` is missing or the build fails, the first call raises. Files written
 by either package's writer read back byte-equal through the other's reader.
@@ -27,7 +27,8 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parent / "src" / "tfrecord.cc"
+SOURCES = (Path(__file__).resolve().parent / "src" / "tfrecord.cc",
+           Path(__file__).resolve().parent / "src" / "image_decode.cc")
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 CXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
 
@@ -36,7 +37,7 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha256(b"".join(s.read_bytes() for s in SOURCES) + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"libbridgelang_native-{digest}.so"
 
 
@@ -48,13 +49,15 @@ def build() -> Path:
         return out
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found: the port's native record library is built with g++ at first use")
+        raise RuntimeError("g++ not found: the port's native library (records, image decoding) is built with g++ "
+                           "at first use")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True, text=True)
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES)], capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed for {SOURCE.name} (exit {proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"g++ failed for {', '.join(s.name for s in SOURCES)} (exit {proc.returncode}):\n"
+                           f"{proc.stderr}")
     os.replace(tmp, out)
     return out
 
@@ -86,6 +89,12 @@ def _load() -> ctypes.CDLL:
             codec = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
             lib.blx_actions_to_tokens.argtypes = codec
             lib.blx_tokens_to_actions.argtypes = codec
+            lib.blx_jpeg_decode.restype = ctypes.c_int
+            lib.blx_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                                            ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int]
+            lib.blx_png_unfilter.restype = ctypes.c_int
+            lib.blx_png_unfilter.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
+                                             ctypes.c_int32, ctypes.c_void_p]
             _lib = lib
     return _lib
 

@@ -1,0 +1,189 @@
+"""JPEG and PNG decoding without TensorFlow, PIL, libjpeg or libpng:
+`decode_image(data, dtype)` gives what
+
+    tf.io.decode_image(data, expand_animations=False, dtype=dtype)
+
+gives for the frames of RLDS datasets, bit for bit (uint8, and float32 for
+the depth path).
+
+JPEG decodes in the native library (`src/image_decode.cc`: libjpeg-turbo's
+fast integer IDCT, fancy upsampling and YCbCr tables, which is what
+TensorFlow's decode_image uses). PNG inflates with the standard library's
+zlib, unfilters rows in the native library and unpacks in numpy, following
+TensorFlow's libpng set-up: palette images expand to RGB (RGBA when a tRNS
+chunk is present), gray images of 1, 2 or 4 bits scale to 8, 16-bit samples
+keep their high byte for uint8. float32 is TensorFlow's
+DecodeImageV2: a JPEG's uint8 times float32(1/255); a PNG decoded at 16 bits
+(8-bit samples times 257) times float32(1/65535). Interlaced (Adam7) PNGs
+decode too. Any other format, and any stream the decoders refuse, raises
+ValueError: nothing falls back to another decoder.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import struct
+import zlib
+
+import numpy as np
+
+from bridgelang_tpu_torch import native
+
+JPEG_MAGIC = b"\xff\xd8\xff"
+PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+_OTHER_MAGIC = {b"GIF8": "GIF", b"BM": "BMP", b"RIFF": "WebP"}
+_ERR_LEN = 256
+
+# Adam7 passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def decode_image(data, dtype=np.uint8) -> np.ndarray:
+    """An encoded JPEG or PNG as [H, W, C] (C = 1 gray, 2 gray+alpha, 3 RGB,
+    4 RGBA): uint8, or float32 in [0, 1]."""
+    data = bytes(data)
+    dtype = np.dtype(dtype)
+    if dtype not in (np.uint8, np.float32):
+        raise ValueError(f"decode_image: dtype must be uint8 or float32, got {dtype}")
+    if data[:3] == JPEG_MAGIC:
+        image = decode_jpeg(data)
+        return image if dtype == np.uint8 else image.astype(np.float32) * np.float32(1.0 / 255)
+    if data[:8] == PNG_MAGIC:
+        if dtype == np.uint8:
+            return decode_png(data, bits=8)
+        return decode_png(data, bits=16).astype(np.float32) * np.float32(1.0 / 65535)
+    for magic, name in _OTHER_MAGIC.items():
+        if data.startswith(magic):
+            raise ValueError(f"decode_image: {name} images are not supported (JPEG and PNG are)")
+    raise ValueError(f"decode_image: not a JPEG or PNG stream (first bytes {data[:8]!r})")
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """A JPEG as uint8 [H, W, 1] (gray) or [H, W, 3] (RGB)."""
+    lib = native._load()
+    hwc = (ctypes.c_int32 * 3)()
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if lib.blx_jpeg_decode(data, len(data), None, 0, hwc, err, _ERR_LEN) < 0:
+        raise ValueError(err.value.decode(errors="replace"))
+    out = np.empty((hwc[0], hwc[1], hwc[2]), np.uint8)
+    if lib.blx_jpeg_decode(data, len(data), out.ctypes.data, out.nbytes, hwc, err, _ERR_LEN) != 0:
+        raise ValueError(err.value.decode(errors="replace"))
+    return out
+
+
+def _chunks(data: bytes):
+    pos = 8
+    while True:
+        if pos + 12 > len(data):
+            raise ValueError("truncated PNG: the stream ends before IEND")
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        end = pos + 12 + length
+        if end > len(data):
+            raise ValueError(f"truncated PNG: the {kind!r} chunk runs past the end")
+        body = data[pos + 8:pos + 8 + length]
+        crc_ok = zlib.crc32(kind + body) == struct.unpack(">I", data[end - 4:end])[0]
+        critical = not kind[0] & 0x20
+        if not crc_ok and critical:
+            raise ValueError(f"corrupt PNG: bad CRC in the {kind!r} chunk")
+        pos = end
+        if crc_ok:
+            yield kind, body
+        if kind == b"IEND":
+            return
+
+
+def _unfilter(raw: memoryview, height: int, rowbytes: int, bpp: int) -> np.ndarray:
+    out = np.empty((height, rowbytes), np.uint8)
+    n = height * (rowbytes + 1)
+    if len(raw) < n:
+        raise ValueError("truncated PNG: not enough image data")
+    if native._load().blx_png_unfilter(bytes(raw[:n]), n, height, rowbytes, bpp, out.ctypes.data) != 0:
+        raise ValueError("corrupt PNG: bad row filter type")
+    return out
+
+
+def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
+    """Unfiltered rows -> [h, width, channels] samples (uint8 or uint16)."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows[:, :width * channels].reshape(h, width, channels)
+    if depth == 16:
+        return rows[:, :width * channels * 2].copy().view(">u2").astype(np.uint16).reshape(h, width, channels)
+    per_byte = 8 // depth
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return vals.reshape(h, rows.shape[1] * per_byte)[:, :width, None].astype(np.uint8)
+
+
+def decode_png(data: bytes, bits: int = 8) -> np.ndarray:
+    """A PNG as [H, W, C] samples at `bits` (8: uint8, 16: uint16)."""
+    ihdr = plte = trns = None
+    idat = []
+    for kind, body in _chunks(data):
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = body
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind != b"IEND" and not kind[0] & 0x20:
+            raise ValueError(f"unsupported PNG: unknown critical chunk {kind!r}")
+    if ihdr is None or not idat:
+        raise ValueError("corrupt PNG: no IHDR or IDAT chunk")
+    width, height, depth, color, compression, filtering, interlace = ihdr
+    if color not in _PNG_CHANNELS or depth not in (1, 2, 4, 8, 16) or compression or filtering or interlace > 1:
+        raise ValueError(f"corrupt PNG: bad IHDR (color type {color}, bit depth {depth})")
+    if width == 0 or height == 0:
+        raise ValueError("corrupt PNG: empty image")
+    channels = _PNG_CHANNELS[color]
+    if (depth < 8 and color not in (0, 3)) or (color == 3 and depth == 16):
+        raise ValueError(f"corrupt PNG: bit depth {depth} with color type {color}")
+    inflater = zlib.decompressobj()
+    try:
+        raw = memoryview(inflater.decompress(b"".join(idat)))
+    except zlib.error as e:
+        raise ValueError(f"corrupt PNG: {e}") from None
+    if not inflater.eof:
+        raise ValueError("truncated PNG: the compressed image data ends early")
+    pixel_bits = channels * depth
+    bpp = max(1, pixel_bits // 8)
+    if not interlace:
+        rows = _unfilter(raw, height, (width * pixel_bits + 7) // 8, bpp)
+        samples = _samples(rows, width, channels, depth)
+    else:
+        dt = np.uint16 if depth == 16 else np.uint8
+        samples = np.empty((height, width, channels), dt)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = (width - x0 + dx - 1) // dx, (height - y0 + dy - 1) // dy
+            if pw <= 0 or ph <= 0:
+                continue
+            rowbytes = (pw * pixel_bits + 7) // 8
+            rows = _unfilter(raw[pos:], ph, rowbytes, bpp)
+            pos += ph * (rowbytes + 1)
+            samples[y0::dy, x0::dx] = _samples(rows, pw, channels, depth)
+    if color == 3:
+        if plte is None:
+            raise ValueError("corrupt PNG: palette image without PLTE")
+        idx = samples[..., 0]
+        if int(idx.max()) >= len(plte):
+            raise ValueError("corrupt PNG: palette index out of range")
+        out = plte[idx]
+        if trns is not None:
+            alpha = np.full(256, 255, np.uint8)
+            alpha[:len(trns)] = np.frombuffer(trns, np.uint8)[:256]
+            out = np.concatenate([out, alpha[idx][..., None]], axis=-1)
+        depth = 8
+    elif depth < 8:
+        out = samples * np.uint8(255 // ((1 << depth) - 1))
+        depth = 8
+    else:
+        out = samples
+    if bits == 8 and depth == 16:  # libpng's png_set_strip_16: the high byte
+        return (out >> 8).astype(np.uint8)
+    if bits == 16 and depth == 8:
+        return out.astype(np.uint16) * np.uint16(257)
+    return np.ascontiguousarray(out)

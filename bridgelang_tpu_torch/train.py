@@ -2,7 +2,7 @@
 the card.
 
     python -m bridgelang_tpu_torch.train --vla.type prism-dinosiglip-224px+mx-bridge \
-        --data_root_dir /data/native --run_root_dir runs [--pretrained_checkpoint ... --resume_step N]
+        --data_root_dir /data/tfds --run_root_dir runs [--pretrained_checkpoint ... --resume_step N]
 
 Counterpart of scripts/train.py: every field of its `TrainConfig` under its
 name and default, plus `--device` (CUDA unless `--device cpu`; no fallback).
@@ -18,9 +18,10 @@ reads the batches the interrupted one would have. Metrics sync to the host every
 steps; an exception saves an emergency checkpoint before it propagates.
 `--profile_dir` writes a torch.profiler trace of steps 10-12.
 
-The data are read from `--data_root_dir` as native episode stores
-(`<root>/<dataset>/*.tfrecord`, one per dataset of `--vla.data_mix`), the
-one format the port reads until the TFDS reader is ported. The byte-fallback
+The data are read from `--data_root_dir`, one directory per dataset of
+`--vla.data_mix`, each a TFDS dataset (`<root>/<dataset>/<version>/`, read
+by vla/datasets/rlds/tfds_reader.py) or a native episode store
+(`<root>/<dataset>/*.tfrecord`): its layout picks the reader. The byte-fallback
 stand-in tokenizer (no `--tokenizer_path`) takes the finetune entry point's
 wider collator bucket. `--vla.mesh_shape` (multi-GPU) and
 `--attention_impl` are refused until ported.
@@ -85,7 +86,6 @@ def main(cfg: TrainConfig):
     from bridgelang_tpu_torch.training.trainer import (
         OptimConfig, init_train_state, make_lr_schedule, make_optimizer, make_vla_train_step)
     from bridgelang_tpu_torch.util.seeding import root_key, set_global_seed
-    from bridgelang_tpu_torch.vla.datasets.native_loader import native_builder_factory
     from bridgelang_tpu_torch.vla.materialize import get_vla_dataset_and_collator
 
     vla = cfg.vla
@@ -125,7 +125,6 @@ def main(cfg: TrainConfig):
         shuffle_buffer_size=vla.shuffle_buffer_size // world,
         image_aug=vla.image_aug,
         pad_token_id=vlm_cfg.llm.pad_token_id,
-        builder_factory=native_builder_factory(cfg.data_root_dir),
         seed=cfg.seed,
         num_workers=0 if device.type == "cpu" else None,  # the CPU's cores run the step too
     )

@@ -7,7 +7,8 @@ normalization runs on the device inside the train step. Action tokens are
 appended numerically (prompt ids + [29871] + action ids + EOS), as in the
 JAX package. `RLDSDataset` and `EpisodicRLDSDataset` read through the
 port's TF-free pipeline (vla/datasets/rlds/dataset.py), from a `builder` per
-dataset (the native episode store: native_loader.native_builder_factory);
+dataset (by default the directory's layout picks it: a TFDS directory or a
+native episode store, rlds/tfds_reader.open_builder);
 `RLDSDataset` yields collated batches made in worker processes from one
 frame stream, and saves and restores that stream's state.
 """
@@ -143,8 +144,9 @@ class PaddedCollatorForActionPrediction:
 class RLDSDataset:
     """Interleaved RLDS frames -> collated fixed-shape batches (JAX
     datasets.py:158-272), with the JAX constructor and augmentation kwargs.
-    `builder_factory(name)` gives each dataset's builder; without one the
-    TFDS reader would be needed, which is not yet ported. `seed` makes the
+    `builder_factory(name)` gives each dataset's builder; without one each
+    `<data_root_dir>/<name>` is read by its layout (a TFDS directory or a
+    native store: rlds/tfds_reader.open_builder). `seed` makes the
     frame order and the augmentation repeatable (None: fresh randomness per
     iteration).
 
@@ -389,7 +391,9 @@ def _stop_processes(stop, procs) -> None:
 
 class EpisodicRLDSDataset:
     """Whole trajectories, one list of transformed frames each (JAX
-    datasets.py:275-298); `builder` as for RLDSDataset."""
+    datasets.py:275-298); `builder` as for RLDSDataset. Encoded frames (a
+    TFDS dataset's images) are decoded and not resized, as TFDS hands them
+    to the JAX package."""
 
     def __init__(self, data_root_dir: str, dataset_name: str, batch_transform: RLDSBatchTransform,
                  train: bool = True, builder=None):
@@ -406,10 +410,12 @@ class EpisodicRLDSDataset:
         self.batch_transform = batch_transform
 
     def __iter__(self) -> Iterator[List[Dict[str, Any]]]:
+        from bridgelang_tpu_torch.vla.datasets.rlds.dataset import frame_transform
         from bridgelang_tpu_torch.vla.datasets.rlds.traj_transforms import tree_map
 
         for traj in self.dataset:
-            yield [self.batch_transform(tree_map(lambda x, i=i: x[i], traj)) for i in range(len(traj["action"]))]
+            yield [self.batch_transform(frame_transform(tree_map(lambda x, i=i: x[i], traj), train=False))
+                   for i in range(len(traj["action"]))]
 
 
 class DummyDataset:

@@ -16,14 +16,15 @@ for the random trajectory transforms. The frame transforms (resize,
 augmentation) run where the batches are made, in `RLDSDataset`'s worker
 processes.
 
-Datasets are read through an injected `builder`: a callable taking a split
-("train", or "train[:N%]" when no validation split exists) and an optional
-`start` (the split's first trajectory to read) and returning an iterator of
-trajectory dicts, such as `native_loader.NativeEpisodeBuilder`. TFDS datasets
-need the TFDS reader, which is not yet ported: without a `builder`,
-`make_dataset_from_rlds` raises. The JAX signatures' `num_parallel_reads` and
-`num_parallel_calls` are accepted and ignored: the port's parallelism is
-`RLDSDataset`'s worker processes.
+Datasets are read through a `builder`: a callable taking a split ("train",
+or "train[:N%]" when no validation split exists) and an optional `start`
+(the split's first trajectory to read) and returning an iterator of
+trajectory dicts. Without one, `<data_dir>/<name>` is opened by its layout
+(`tfds_reader.open_builder`): a TFDS directory through
+`tfds_reader.TfdsBuilder`, a native episode store through
+`native_loader.NativeEpisodeBuilder`. The JAX signatures'
+`num_parallel_reads` and `num_parallel_calls` are accepted and ignored: the
+port's parallelism is `RLDSDataset`'s worker processes.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Seque
 import numpy as np
 import torch
 
-from bridgelang_tpu_torch.vla.datasets.rlds import obs_transforms, traj_transforms
+from bridgelang_tpu_torch.vla.datasets.rlds import obs_transforms, tfds_reader, traj_transforms
 from bridgelang_tpu_torch.vla.datasets.rlds.utils import goal_relabeling, task_augmentation
 from bridgelang_tpu_torch.vla.datasets.rlds.utils.data_utils import (
     AUTOTUNE,
@@ -159,12 +160,10 @@ def rlds_reader(
     image_obs_keys = image_obs_keys or {}
     depth_obs_keys = depth_obs_keys or {}
     if builder is None:
-        raise NotImplementedError(
-            f"{name}: TFDS datasets need the TFDS reader, not yet ported (ROADMAP.md: TFDS/RLDS reading without "
-            "TF); pass a `builder`, e.g. vla.datasets.native_loader.NativeEpisodeBuilder over a native store")
+        builder = tfds_reader.open_builder(data_dir, name)
     if not callable(builder) or hasattr(builder, "as_dataset"):
-        raise NotImplementedError(f"{name}: a TFDS builder needs the TFDS reader, not yet ported; pass a callable "
-                                  "builder(split) -> iterator of trajectories")
+        raise TypeError(f"{name}: a tensorflow_datasets builder cannot be read without TensorFlow; pass no builder "
+                        "(the TFDS directory is read by tfds_reader) or a callable builder(split) -> trajectories")
 
     def restructure(traj: Dict[str, Any]) -> Dict[str, Any]:
         traj = dict(traj, observation=dict(traj["observation"]))

@@ -19,8 +19,13 @@ runs TensorFlow's image ops inside tf.data. Here each op is written out:
 Augmentation (`augment`) runs the ops in `augment_order`, each a
 deterministic function of a factor drawn first from an explicit
 `torch.Generator` (`draw_augment_factors`); the draws cannot match TF's
-stateless ones bit for bit, only their ranges. JPEG-encoded (string) frames
-raise: the port has no image decoder yet.
+stateless ones bit for bit, only their ranges.
+
+Encoded (JPEG or PNG bytes) frames, as the TFDS reader yields them, decode
+through `native.image.decode_image`, bit-equal to `tf.io.decode_image`:
+camera images as uint8 RGB (a gray or gray+alpha image repeats its gray
+channel, an RGBA image drops alpha, as TFDS's Image feature declared with 3
+channels decodes them), depth images as float32 (the first channel).
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from bridgelang_tpu_torch.native.image import decode_image
 
 AUGMENT_OPS = ("random_resized_crop", "random_brightness", "random_contrast", "random_saturation", "random_hue")
 _PI = np.float32(3.14159265359)  # TF's kPI
@@ -282,9 +289,9 @@ def decode_and_resize(
 ) -> Dict[str, Any]:
     """One frame's image_* (uint8 [H, W, 3]) and depth_* (float [H, W]) keys
     resized; an empty string (a padding camera) becomes a zero image of the
-    target size. Images: lanczos3, rounded half to even, saturated to uint8.
-    Depth: bilinear. Encoded (string) frames raise: the port has no JPEG
-    decoder; reading TFDS datasets waits for one."""
+    target size, and an encoded one (JPEG or PNG bytes) is decoded first.
+    Images: lanczos3, rounded half to even, saturated to uint8. Depth:
+    bilinear."""
     image_names = {k[len("image_"):] for k in obs if k.startswith("image_")}
     depth_names = {k[len("depth_"):] for k in obs if k.startswith("depth_")}
     if isinstance(resize_size, tuple) or resize_size is None:
@@ -300,8 +307,7 @@ def decode_and_resize(
             if _is_empty(image):
                 obs[key] = np.zeros((*(size or (1, 1)), 3), np.uint8)
                 continue
-            raise NotImplementedError(f"{key}: encoded (JPEG/PNG) frames need an image decoder, which the port "
-                                      "does not have yet (ROADMAP.md: TFDS/RLDS reading without TF)")
+            image = _rgb(decode_image(_encoded(image)))
         if image.dtype != np.uint8:
             raise ValueError(f"Unsupported image dtype {image.dtype} for {key}")
         if size is not None:
@@ -315,8 +321,7 @@ def decode_and_resize(
             if _is_empty(depth):
                 obs[key] = np.zeros(size or (1, 1), np.float32)
                 continue
-            raise NotImplementedError(f"{key}: encoded depth frames need an image decoder, which the port "
-                                      "does not have yet")
+            depth = decode_image(_encoded(depth), np.float32)[..., 0]
         if size is not None:
             depth = resize_bilinear(depth[..., None], size)[..., 0]
         obs[key] = depth
@@ -325,3 +330,16 @@ def decode_and_resize(
 
 def _is_empty(x: np.ndarray) -> bool:
     return len(x.item() if x.ndim == 0 else x.flat[0]) == 0
+
+
+def _encoded(x: np.ndarray) -> bytes:
+    """The bytes of a 0-d string or object array. A fixed-width bytes array
+    drops trailing NULs, which no JPEG or PNG stream ends with."""
+    return bytes(x.item())
+
+
+def _rgb(image: np.ndarray) -> np.ndarray:
+    channels = image.shape[-1]
+    if channels in (1, 2):
+        return np.repeat(image[..., :1], 3, axis=-1)
+    return image[..., :3] if channels == 4 else image

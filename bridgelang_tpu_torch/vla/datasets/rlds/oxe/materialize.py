@@ -1,8 +1,7 @@
 """Per-dataset loader kwargs from the OXE configs and mixtures (host only).
 
 The port's copy of bridgelang_tpu/vla/datasets/rlds/oxe/materialize.py
-(reference prismatic/vla/datasets/rlds/oxe/materialize.py), with DROID's
-zero-action chunk filter in numpy.
+(reference prismatic/vla/datasets/rlds/oxe/materialize.py).
 """
 
 from __future__ import annotations
@@ -10,29 +9,14 @@ from __future__ import annotations
 import logging
 from typing import Any, Dict, List, Optional, Tuple
 
-import numpy as np
 
 from bridgelang_tpu_torch.vla.datasets.rlds.oxe.configs import ActionEncoding, OXE_DATASET_CONFIGS
+from bridgelang_tpu_torch.vla.datasets.rlds.oxe.droid_utils import zero_action_filter
 from bridgelang_tpu_torch.vla.datasets.rlds.oxe.mixtures import OXE_NAMED_MIXTURES
 from bridgelang_tpu_torch.vla.datasets.rlds.oxe.transforms import OXE_STANDARDIZATION_TRANSFORMS
 from bridgelang_tpu_torch.vla.datasets.rlds.utils.data_utils import NormalizationType
 
 logger = logging.getLogger(__name__)
-
-_DROID_Q01 = np.array([-0.7776297926902771, -0.5803514122962952, -0.5795090794563293,
-                       -0.6464047729969025, -0.7041108310222626, -0.8895104378461838], np.float32)
-_DROID_Q99 = np.array([0.7597932070493698, 0.5726242214441299, 0.7351000607013702,
-                       0.6705610305070877, 0.6464948207139969, 0.8897542208433151], np.float32)
-
-
-def zero_action_filter(frame: Dict[str, Any]) -> bool:
-    """Keep a frame unless its action chunk is all ~zero (DROID's idle
-    stretches). It runs after q99 normalization, so "zero" is the normalized
-    zero action (JAX oxe/droid_utils.py:66-76)."""
-    acts = np.asarray(frame["action"])[..., :6]
-    norm_zero = 2 * (np.zeros_like(acts) - _DROID_Q01) / (_DROID_Q99 - _DROID_Q01 + 1e-8) - 1
-    return bool(np.any(np.abs(acts - norm_zero) > 1e-5))
-
 
 CHUNK_FILTERS = {"zero_action": zero_action_filter}
 

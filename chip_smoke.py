@@ -133,6 +133,21 @@ of which fails the run:
            the bf16 cache's (the argmax equal where the margin clears twice
            that), the server's speculative default off, cache GB at B=4 and
            decode ms per token at B=1 and B=4 for both dtypes.
+  tfds     TFDS datasets read without TensorFlow: every image fixture of
+           tests/data/images decoded on this host, hashed against the
+           manifest of tf.io.decode_image's output (uint8 and float32), and
+           the host's ms per 256x256 JPEG frame; then a TFDS directory in
+           LIBERO's layout (24 episodes x 50 steps, two JPEG cameras from
+           the fixtures, 4 shards, dataset_info.json and features.json) and
+           a small fractal20220817_data one (the action a dict), written
+           with the port's tf.train.Example serializer; finetune.main on the
+           load phase's published-layout 7B over the TFDS root (bf16 LoRA
+           r=32, batch 16, 6 steps, 64/32/32 flash launches per step, the
+           statistics against numpy's quantiles), then train.main at full
+           width with 2 decoder layers over a mixture of both datasets (4
+           steps, frames drawn from each). Host wait per batch and step ms
+           beside the native store's (finetune phase). `build` also compiles
+           the port's host library (g++: TFRecord framing, image decoding).
   finetune the port's entry points over a native episode store that the
            phase writes (LIBERO's layout: 24 episodes x 50 steps, 256x256
            frames from two cameras, 7-D actions, 8-D states), read through
@@ -2583,6 +2598,170 @@ def write_native_store(root: str) -> dict:
                 actions=np.concatenate([a for _, a in sorted(acts, key=lambda x: x[0])]))
 
 
+# --- TFDS datasets written without TensorFlow (the tfds phase, and the tests) ----------
+
+TFDS_VERSION = "1.0.0"
+TFDS_FRACTAL = "fractal20220817_data"
+TFDS_FRACTAL_EPISODES = 8  # the second dataset: RT-1's layout (nested action dict), small
+TFDS_FRACTAL_STEPS = 30
+TFDS_MIX = "smoke_libero_fractal"  # the tfds phase's train.main mixture: both datasets, weight 1 each
+TFDS_FT_STEPS = 6        # finetune.main steps over the TFDS directory
+TFDS_TRAIN_STEPS = 4     # train.main steps over the mixture
+FIXTURE_DIR = os.path.join(ROOT, "tests", "data", "images")
+_TFDS_CLS = "tensorflow_datasets.core.features."
+
+
+def tfds_tensor(shape=(), dtype="float32", scalar=False) -> dict:
+    """A Tensor (or Scalar) node of features.json, TFDS's proto JSON."""
+    cls = "scalar.Scalar" if scalar else "tensor_feature.Tensor"
+    return {"pythonClassName": _TFDS_CLS + cls,
+            "tensor": {"shape": {"dimensions": [str(d) for d in shape]} if shape else {}, "dtype": dtype,
+                       "encoding": "none"}}
+
+
+def tfds_image(shape, fmt: str = "jpeg") -> dict:
+    return {"pythonClassName": _TFDS_CLS + "image_feature.Image",
+            "image": {"shape": {"dimensions": [str(d) for d in shape]}, "dtype": "uint8", "encodingFormat": fmt}}
+
+
+def tfds_text() -> dict:
+    return {"pythonClassName": _TFDS_CLS + "text_feature.Text", "text": {}}
+
+
+def tfds_dict(features: dict) -> dict:
+    return {"pythonClassName": _TFDS_CLS + "features_dict.FeaturesDict", "featuresDict": {"features": features}}
+
+
+def tfds_steps(step: dict, metadata: dict) -> dict:
+    """An RLDS episode: `steps` (a Dataset of the step FeaturesDict) and
+    `episode_metadata`."""
+    return tfds_dict({"steps": {"pythonClassName": _TFDS_CLS + "dataset_feature.Dataset",
+                                "sequence": {"feature": tfds_dict(step), "length": "-1"}},
+                      "episode_metadata": tfds_dict(metadata)})
+
+
+def _rlds_step_flags() -> dict:
+    return {"is_first": tfds_tensor(dtype="bool", scalar=True), "is_last": tfds_tensor(dtype="bool", scalar=True),
+            "is_terminal": tfds_tensor(dtype="bool", scalar=True), "reward": tfds_tensor(scalar=True),
+            "discount": tfds_tensor(scalar=True)}
+
+
+def libero_features(hw: int = 256) -> dict:
+    """features.json of OpenVLA's modified LIBERO RLDS datasets."""
+    return tfds_steps({
+        "observation": tfds_dict({"image": tfds_image((hw, hw, 3)), "wrist_image": tfds_image((hw, hw, 3)),
+                                  "state": tfds_tensor((8,)), "joint_state": tfds_tensor((7,))}),
+        "action": tfds_tensor((7,)), "language_instruction": tfds_text(), **_rlds_step_flags()},
+        {"file_path": tfds_text()})
+
+
+def fractal_features(hw: int = 256) -> dict:
+    """features.json of RT-1's fractal20220817_data (the keys the pipeline
+    reads, and the nested action dict)."""
+    return tfds_steps({
+        "observation": tfds_dict({"image": tfds_image((hw, hw, 3)), "natural_language_instruction": tfds_text(),
+                                  "base_pose_tool_reached": tfds_tensor((7,)), "gripper_closed": tfds_tensor((1,))}),
+        "action": tfds_dict({"world_vector": tfds_tensor((3,)), "rotation_delta": tfds_tensor((3,)),
+                             "gripper_closedness_action": tfds_tensor((1,)),
+                             "terminate_episode": tfds_tensor((3,), "int32"),
+                             "base_displacement_vector": tfds_tensor((2,)),
+                             "base_displacement_vertical_rotation": tfds_tensor((1,))}),
+        **_rlds_step_flags()}, {"episode_id": tfds_text()})
+
+
+def camera_fixtures() -> list:
+    """The 16 committed 256x256 q95 4:2:0 JPEG camera frames."""
+    return [open(os.path.join(FIXTURE_DIR, f"camera_{i:02d}.jpg"), "rb").read() for i in range(16)]
+
+
+def _rlds_flags(t: int, seed: int) -> dict:
+    import numpy as np
+
+    first, last = np.zeros(t, np.int64), np.zeros(t, np.int64)
+    first[0], last[-1] = 1, 1
+    return {"steps/is_first": first, "steps/is_last": last, "steps/is_terminal": last.copy(),
+            "steps/reward": last.astype(np.float32), "steps/discount": np.ones(t, np.float32)}
+
+
+def libero_episode(ep: int, t: int, cameras: list) -> dict:
+    """One episode in LIBERO's layout as {flat feature key: values}: the
+    camera fixtures in turn, 8-D states, 7-D actions (a smooth random walk in
+    [-1, 1], the gripper at -1/+1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(2000 + ep)
+    n = len(cameras)
+    move = np.clip(np.cumsum(rng.normal(0, 0.1, (t, 6)), axis=0), -1, 1)
+    grip = np.where(np.sin(np.arange(t) / 7.0 + ep) > 0, 1.0, -1.0)[:, None]
+    return {"steps/observation/image": [cameras[(ep + i) % n] for i in range(t)],
+            "steps/observation/wrist_image": [cameras[(3 * ep + 2 * i + 7) % n] for i in range(t)],
+            "steps/observation/state": rng.normal(size=(t, 8)).astype(np.float32),
+            "steps/observation/joint_state": rng.normal(size=(t, 7)).astype(np.float32),
+            "steps/action": np.concatenate([move, grip], 1).astype(np.float32),
+            "steps/language_instruction": [INSTRUCTIONS[ep % len(INSTRUCTIONS)].encode()] * t,
+            **_rlds_flags(t, ep), "episode_metadata/file_path": [f"libero/episode_{ep}.hdf5".encode()]}
+
+
+def fractal_episode(ep: int, t: int, cameras: list) -> dict:
+    """One episode in RT-1's layout: the action as a dict, a relative
+    gripper command in {-1, 0, 1}, the instruction under the observation."""
+    import numpy as np
+
+    rng = np.random.default_rng(3000 + ep)
+    n = len(cameras)
+    grip = rng.choice([-1.0, 0.0, 0.0, 1.0], t).astype(np.float32)[:, None]
+    return {"steps/observation/image": [cameras[(5 * ep + i) % n] for i in range(t)],
+            "steps/observation/natural_language_instruction": [INSTRUCTIONS[(ep + 1) % len(INSTRUCTIONS)].encode()] * t,
+            "steps/observation/base_pose_tool_reached": rng.normal(size=(t, 7)).astype(np.float32),
+            "steps/observation/gripper_closed": rng.uniform(0, 1, (t, 1)).astype(np.float32),
+            "steps/action/world_vector": rng.uniform(-0.5, 0.5, (t, 3)).astype(np.float32),
+            "steps/action/rotation_delta": rng.uniform(-0.3, 0.3, (t, 3)).astype(np.float32),
+            "steps/action/gripper_closedness_action": grip,
+            "steps/action/terminate_episode": np.tile(np.array([0, 1, 0], np.int32), (t, 1)),
+            "steps/action/base_displacement_vector": np.zeros((t, 2), np.float32),
+            "steps/action/base_displacement_vertical_rotation": np.zeros((t, 1), np.float32),
+            **_rlds_flags(t, ep), "episode_metadata/episode_id": [f"{ep}".encode()]}
+
+
+def write_tfds_dataset(root: str, name: str, episodes: list, features: dict, n_shards: int,
+                       template=None) -> str:
+    """A TFDS directory <root>/<name>/TFDS_VERSION/ in TFDS's TFRecord layout:
+    `n_shards` shards of consecutive episodes (tf.train.Example records from
+    the port's serializer, framed by the port's TFRecord writer, written in
+    parallel), dataset_info.json (one "train" split with its shard lengths;
+    the default file name template unless `template`) and features.json."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bridgelang_tpu_torch import native
+    from bridgelang_tpu_torch.vla.datasets.rlds.tfds_reader import DEFAULT_TEMPLATE, serialize_example
+
+    out = os.path.join(root, name, TFDS_VERSION)
+    os.makedirs(out, exist_ok=True)
+    bounds = [len(episodes) * i // n_shards for i in range(n_shards + 1)]
+    fmt = template or DEFAULT_TEMPLATE
+
+    def shard(i: int) -> None:
+        path = os.path.join(out, fmt.format(DATASET=name, SPLIT="train", FILEFORMAT="tfrecord",
+                                            SHARD_INDEX=f"{i:05d}", NUM_SHARDS=f"{n_shards:05d}",
+                                            SHARD_X_OF_Y=f"{i:05d}-of-{n_shards:05d}"))
+        with native.TFRecordWriter(path) as w:
+            for ep in episodes[bounds[i]:bounds[i + 1]]:
+                w.write(serialize_example(ep))
+
+    with ThreadPoolExecutor(n_shards) as pool:
+        list(pool.map(shard, range(n_shards)))
+    split = {"name": "train", "shardLengths": [str(bounds[i + 1] - bounds[i]) for i in range(n_shards)],
+             "numBytes": str(sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out)))}
+    if template:
+        split["filepathTemplate"] = template
+    with open(os.path.join(out, "dataset_info.json"), "w") as f:
+        json.dump({"name": name, "version": TFDS_VERSION, "fileFormat": "tfrecord", "moduleName": "chip_smoke",
+                   "splits": [split]}, f, indent=1)
+    with open(os.path.join(out, "features.json"), "w") as f:
+        json.dump(features, f, indent=1)
+    return out
+
+
 class EntryPointProbe:
     """Watches an entry point run without changing it: while installed, the
     trainer's `make_vla_train_step` hands out a wrapped step (per step: wall
@@ -2595,7 +2774,7 @@ class EntryPointProbe:
 
     def __init__(self, label: str, per_step: dict, profile=FT_TIMED, on_first_step=None):
         self.label, self.per_step, self.profile, self.on_first_step = label, per_step, profile, on_first_step
-        self.steps, self.waits, self.saves, self.exports = [], [], [], []
+        self.steps, self.waits, self.saves, self.exports, self.dataset_names = [], [], [], [], []
         self.model = self.optimizer = self.mask = self.state = self.batch = self.dataset = None
         self.profile_result, self.step_peak_gb, self.reader_rss_gb = None, 0.0, None
         self._patches = []
@@ -2629,6 +2808,7 @@ class EntryPointProbe:
                 t0 = time.perf_counter()
                 batch = next(self.it)
                 probe.waits.append(1e3 * (time.perf_counter() - t0))
+                probe.dataset_names.append(list(batch.get("dataset_names", [])))
                 if len(probe.waits) == 1 and self.it._procs:  # the reader (its shuffle buffer full), a worker
                     probe.reader_rss_gb = [vm_rss_gb(p.pid) for p in self.it._procs[:2]]
                 return batch
@@ -3002,6 +3182,157 @@ def finetune_phase(ckpt_dir: str, dots_peak_gb: float) -> dict:
     return result
 
 
+def check_fixture_decodes() -> dict:
+    """Every committed image fixture decoded on this host by the port's
+    native decoder, hashed against manifest.json (what tf.io.decode_image
+    gave where the fixtures were written): the g++ build of this machine held
+    against TensorFlow without TensorFlow. Then the host's decode time of a
+    256x256 q95 4:2:0 camera frame: the median over 10 passes of the 16
+    camera fixtures, one thread."""
+    import hashlib
+
+    import numpy as np
+
+    from bridgelang_tpu_torch.native.image import decode_image
+
+    with open(os.path.join(FIXTURE_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    for name, entry in sorted(manifest.items()):
+        with open(os.path.join(FIXTURE_DIR, name), "rb") as f:
+            data = f.read()
+        for dtype, key in ((np.uint8, "sha256_uint8"), (np.float32, "sha256_float32")):
+            if key not in entry:
+                continue
+            image = decode_image(data, dtype)
+            if list(image.shape) != entry["shape"] or hashlib.sha256(image.tobytes()).hexdigest() != entry[key]:
+                fail(f"tfds: {name} decodes ({dtype.__name__}) to {image.shape} with a hash other than the "
+                     f"manifest's (tf.io.decode_image's {entry['shape']})")
+    cameras = camera_fixtures()
+    per_frame = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        for data in cameras:
+            decode_image(data)
+        per_frame.append(1e3 * (time.perf_counter() - t0) / len(cameras))
+    ms = statistics.median(per_frame)
+    n_hashes = sum(("sha256_float32" in e) + 1 for e in manifest.values())
+    log(f"tfds: {len(manifest)} image fixtures ({n_hashes} decodes) equal tf.io.decode_image's hashes on this host; "
+        f"host decode of a 256x256 q95 4:2:0 JPEG: {ms:.3f} ms per frame (median of 10 passes over 16 frames, one "
+        f"thread; {nvidia_smi_line()})")
+    return dict(fixtures=len(manifest), decodes=n_hashes, decode_ms_per_frame=ms, decode_ms_passes=per_frame)
+
+
+def tfds_phase(ckpt_dir: str) -> dict:
+    """TFDS datasets, as TFDS prepares them, through the port's entry points on
+    a machine without TensorFlow:
+    1. check_fixture_decodes;
+    2. a TFDS directory in LIBERO's layout at the native store's size
+       (FT_EPISODES episodes of FT_EPISODE_STEPS steps, `image` and
+       `wrist_image` JPEGs from the camera fixtures, 8-D state, 7-D action,
+       FT_SHARDS shards, dataset_info.json and features.json), and a small
+       one in RT-1's (fractal20220817_data: the action a dict), both written
+       by write_tfds_dataset;
+    3. finetune.main, unchanged, on the published-layout 7B of `ckpt_dir`
+       with --data_root_dir the TFDS root: bf16 LoRA r=32, batch 16,
+       TFDS_FT_STEPS steps; every step launches the flash kernels 64/32/32,
+       losses finite; the run's statistics equal numpy's quantiles over the
+       written actions after the libero standardization;
+    4. train.main at full width cut to FT_CUT_LAYERS decoder layers over the
+       mixture TFDS_MIX of both datasets (registered for the run),
+       TFDS_TRAIN_STEPS steps; the batches draw from both."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from bridgelang_tpu_torch import finetune, train
+    from bridgelang_tpu_torch.conf import parse_cli
+    from bridgelang_tpu_torch.models.llm import llama
+    from bridgelang_tpu_torch.vla.datasets.rlds.oxe.mixtures import OXE_NAMED_MIXTURES
+
+    t_phase = time.perf_counter()
+    result = {"decode": check_fixture_decodes()}
+    work = tempfile.mkdtemp(prefix="smoke_tfds_", dir=os.path.join(ROOT, "build"))
+    reset_launch_counts()
+    # A statistics cache of its own: the cache is keyed by the dataset's name, split and transform, not its
+    # files (as in the JAX package), and the finetune phase writes other data under the same name.
+    home = os.environ.get("HOME")
+    os.environ["HOME"] = os.path.join(work, "home")
+    try:
+        data = os.path.join(work, "tfds")
+        cameras = camera_fixtures()
+        t0 = time.perf_counter()
+        libero_eps = [libero_episode(ep, FT_EPISODE_STEPS, cameras) for ep in range(FT_EPISODES)]
+        write_tfds_dataset(data, FT_DATASET, libero_eps, libero_features(), FT_SHARDS)
+        write_tfds_dataset(data, TFDS_FRACTAL, [fractal_episode(ep, TFDS_FRACTAL_STEPS, cameras)
+                                                for ep in range(TFDS_FRACTAL_EPISODES)], fractal_features(), 2)
+        n_bytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(data) for f in fs)
+        result["write"] = dict(seconds=time.perf_counter() - t0, bytes=n_bytes)
+        log(f"tfds: {FT_DATASET} ({FT_EPISODES} x {FT_EPISODE_STEPS} steps, 2 JPEG cameras, {FT_SHARDS} shards) and "
+            f"{TFDS_FRACTAL} ({TFDS_FRACTAL_EPISODES} x {TFDS_FRACTAL_STEPS}) written as TFDS directories, "
+            f"{n_bytes / 1e6:.1f} MB in {result['write']['seconds']:.1f} s")
+        runs = os.path.join(work, "runs")
+        lora_step = {"flash_fwd": 2 * N_LAYERS_7B, "flash_bwd_dq": N_LAYERS_7B, "flash_bwd_dkv": N_LAYERS_7B}
+        with EntryPointProbe("tfds finetune bf16 LoRA", lora_step, profile=(1, TFDS_FT_STEPS)) as probe:
+            run = finetune.main(parse_cli(finetune.FinetuneConfig, [
+                "--vla_path", ckpt_dir, "--data_root_dir", data, "--dataset_name", FT_DATASET, "--run_root_dir", runs,
+                "--batch_size", str(TRAIN_BATCH), "--shuffle_buffer_size", str(FT_SHUFFLE), "--save_steps", "1000",
+                "--lora_rank", str(LORA_RANK), "--max_steps", str(TFDS_FT_STEPS), "--image_aug", "true",
+                "--export_hf", "false"]))
+        tuned = probe.summary()
+        stats = json.loads((run / "dataset_statistics.json").read_text())[FT_DATASET]["action"]
+        acts = np.concatenate([ep["steps/action"] for ep in libero_eps])
+        acts[:, -1] = 1.0 - np.clip(acts[:, -1], 0, 1)  # the libero standardization's gripper
+        for key, quantile in (("q01", 0.01), ("q99", 0.99)):
+            want = np.quantile(acts, quantile, axis=0)
+            if not np.allclose(stats[key], want, rtol=1e-6, atol=1e-7):
+                fail(f"tfds finetune: statistics {key} {stats[key]} != numpy's over the written actions "
+                     f"{want.tolist()}")
+        if {n for names in probe.dataset_names for n in names} != {FT_DATASET}:
+            fail(f"tfds finetune: batches from {sorted({n for b in probe.dataset_names for n in b})}")
+        result["finetune"] = tuned
+        del probe
+        release_memory()
+        shutil.rmtree(run)
+
+        full_llm = llama.LLM_CONFIGS["llama2-7b-pure"]
+        llama.LLM_CONFIGS["llama2-7b-pure"] = dataclasses.replace(full_llm, n_layers=FT_CUT_LAYERS)
+        OXE_NAMED_MIXTURES[TFDS_MIX] = [(FT_DATASET, 1.0), (TFDS_FRACTAL, 1.0)]
+        try:
+            cut_step = {"flash_fwd": 2 * FT_CUT_LAYERS, "flash_bwd_dq": FT_CUT_LAYERS, "flash_bwd_dkv": FT_CUT_LAYERS}
+            with EntryPointProbe("tfds train (2 layers, mixture)", cut_step, profile=(1, TFDS_TRAIN_STEPS)) as probe:
+                train.main(parse_cli(train.TrainConfig, [
+                    "--vla.type", "prism-dinosiglip-224px+mx-bridge", "--vla.data_mix", TFDS_MIX,
+                    "--vla.global_batch_size", str(TRAIN_BATCH), "--vla.per_device_batch_size", str(TRAIN_BATCH),
+                    "--vla.expected_device_count", "1", "--vla.shuffle_buffer_size", str(FT_SHUFFLE),
+                    "--vla.freeze_vision_backbone", "true", "--vla.save_interval", "1000",
+                    "--max_steps_override", str(TFDS_TRAIN_STEPS), "--data_root_dir", data, "--run_root_dir", runs,
+                    "--run_id", "tfds"]))
+        finally:
+            llama.LLM_CONFIGS["llama2-7b-pure"] = full_llm
+            OXE_NAMED_MIXTURES.pop(TFDS_MIX, None)
+        mixed = probe.summary()
+        drawn = {n: sum(b.count(n) for b in probe.dataset_names) for n in (FT_DATASET, TFDS_FRACTAL)}
+        if not all(drawn.values()):
+            fail(f"tfds train: the mixture's batches drew {drawn} frames per dataset")
+        mixed["frames_per_dataset"] = drawn
+        log(f"tfds train: the mixture's batches drew {drawn} frames per dataset")
+        result["train"] = mixed
+        del probe
+        release_memory()
+    finally:
+        if home is None:
+            os.environ.pop("HOME", None)
+        else:
+            os.environ["HOME"] = home
+        shutil.rmtree(work, ignore_errors=True)
+    result["launches"] = launch_counts()
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"tfds phase: {result['phase_s']:.1f} s; launches {result['launches']}; {nvidia_smi_line()}")
+    return result
+
+
 def report_build(logs: dict) -> None:
     """Each kernel's ptxas report (registers, spills, static shared memory)
     and the dynamic shared memory its launcher asks for."""
@@ -3061,7 +3392,7 @@ def release_memory() -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description="torch port smoke run on one GPU")
     ap.add_argument("--phases",
-                    default="build,load,kernels,serve,spec,parallel,train,int8,int4,qlora,variants,finetune,parity",
+                    default="build,load,kernels,serve,spec,parallel,train,int8,int4,qlora,variants,tfds,finetune,parity",
                     help="comma-separated subset, for bring-up; the full run is the default; `cold` (not in "
                          "the default) runs only the device-side cold-L2 timings of the kernels phase")
     ap.add_argument("--package-root", default=ROOT,
@@ -3087,21 +3418,30 @@ def main() -> None:
     smi = nvidia_smi_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {smi}")
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bridgelang_tpu_torch import native
+
     t0 = time.perf_counter()
-    logs = _build.build_all()
-    log(f"build: {len(logs)} source(s) in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(1) as pool:  # g++ for the host library beside the nvcc builds
+        host_lib = pool.submit(lambda: (native.build(), time.perf_counter() - t0))
+        logs = _build.build_all()
+        lib_path, lib_s = host_lib.result()
+    log(f"build: {len(logs)} source(s) in {time.perf_counter() - t0:.1f} s; the host library "
+        f"{os.path.basename(lib_path)} ({', '.join(s.name for s in native.SOURCES)}, g++) in {lib_s:.1f} s")
     report_build(logs)
 
     model = params = None
     serve_t = 352
     loaded = None
     ft_ckpt = None
-    if phases & {"load", "serve", "spec", "parallel", "train", "int8", "int4", "qlora", "variants", "finetune"}:
+    if phases & {"load", "serve", "spec", "parallel", "train", "int8", "int4", "qlora", "variants", "tfds",
+                  "finetune"}:
         model, params = build_7b(SEED)
         if "load" in phases:  # every later phase serves and trains the weights loaded through load_vla
-            model, params, loaded = load_phase(model, params, keep_ckpt="finetune" in phases)
+            model, params, loaded = load_phase(model, params, keep_ckpt=bool(phases & {"tfds", "finetune"}))
             ft_ckpt = loaded.pop("ckpt_dir", None)
-        elif "finetune" in phases:
+        elif phases & {"tfds", "finetune"}:
             import tempfile
 
             ft_ckpt = tempfile.mkdtemp(prefix="smoke_ckpt_", dir=os.path.join(ROOT, "build"))
@@ -3217,9 +3557,22 @@ def main() -> None:
         variants["seconds"] = t_variants + time.perf_counter() - t0
         log(f"variants: the phase took {variants['seconds']:.1f} s")
 
+    tfds = None
+    if "tfds" in phases:  # before finetune, which deletes the published 7B
+        tfds = tfds_phase(ft_ckpt)
+        if "finetune" not in phases:
+            import shutil
+
+            shutil.rmtree(ft_ckpt, ignore_errors=True)
+
     tuned = None
     if "finetune" in phases:
         tuned = finetune_phase(ft_ckpt, (trained or {}).get("dots", {}).get("peak_memory_gb", TRAIN_DOTS_PEAK_GB))
+    if tfds and tuned:
+        a, b = tfds["finetune"], tuned["lora"]
+        log(f"host wait per batch, median of the profiled steps: TFDS (JPEGs decoded in the batch workers) "
+            f"{a['median_data_wait_ms']:.1f} ms, native store (raw frames) {b['median_data_wait_ms']:.1f} ms; step "
+            f"{a['median_step_ms']:.1f} vs {b['median_step_ms']:.1f} ms; {smi}")
 
     parity = parity_card_vs_cpu(SEED, spec="spec" in phases) if "parity" in phases else None
 
@@ -3229,7 +3582,7 @@ def main() -> None:
                    "int8_serve": (served8 or {}).get("launches", zero),
                    "int4_serve": (served4 or {}).get("launches", zero), "qlora": (qlora or {}).get("launches", zero),
                    "parallel": (parallel or {}).get("launches", zero), "load": (loaded or {}).get("launches", zero),
-                   "finetune": (tuned or {}).get("launches", zero),
+                   "finetune": (tuned or {}).get("launches", zero), "tfds": (tfds or {}).get("launches", zero),
                    **{f"spec_{kind}": result["launches"] for kind, result in spec.items()}}
         if variants:
             phi = variants["phi"]
@@ -3269,6 +3622,8 @@ def main() -> None:
             entry["load"] = {k: v for k, v in loaded.items() if k != "launches"}
         if tuned:
             entry["finetune"] = {k: v for k, v in tuned.items() if k != "launches"}
+        if tfds:
+            entry["tfds"] = {k: v for k, v in tfds.items() if k != "launches"}
         if variants:
             entry["variants"] = variants
         entries = [entry]

@@ -21,6 +21,10 @@ pipeline, on the CPU, over inputs made from seeds with numpy.
 * Each colour op at fixed factors against `tf.image.adjust_*`, and the
   random crop's bilinear resize against `tf.image.resize`: atol 1/255
   (measured: below 5e-7).
+* Encoded frames: a JPEG camera frame and a 16-bit PNG depth map through
+  both packages' `decode_and_resize` (224 -> 224, where the resizes agree):
+  equal.
+* RT-1's nested-action standardization (fractal20220817_data): equal.
 * The whole `RLDSDataset` over one native store (train=False, shuffle
   buffer 1, no augmentation, the JAX tf.data set deterministic, so both read
   the file order): input_ids, attention_mask and labels equal, frames within
@@ -228,8 +232,15 @@ def test_standardize_transforms_equal_jax(name):
     got = getattr(toxe, name)({k: (dict(v) if isinstance(v, dict) else v) for k, v in traj.items()})
     _assert_tree_equal(got, want)
     assert toxe.OXE_STANDARDIZATION_TRANSFORMS.keys() == joxe.OXE_STANDARDIZATION_TRANSFORMS.keys()
-    with pytest.raises(NotImplementedError, match="TFDS"):
-        toxe.OXE_STANDARDIZATION_TRANSFORMS["fractal20220817_data"](traj)
+    # RT-1's nested action dict (fractal20220817_data), which the TFDS reader yields
+    rng = np.random.default_rng(6)
+    rt1 = {"observation": {"image_0": traj["observation"]["image_0"],
+                           "natural_language_instruction": np.array([b"pick up the can"] * 12)},
+           "action": {"world_vector": rng.normal(size=(12, 3)).astype(np.float32),
+                      "rotation_delta": rng.normal(size=(12, 3)).astype(np.float32),
+                      "gripper_closedness_action": rng.choice([-1.0, 0.0, 1.0], (12, 1)).astype(np.float32)}}
+    want = _np_tree(joxe.OXE_STANDARDIZATION_TRANSFORMS["fractal20220817_data"](tf.nest.map_structure(tf.constant, rt1)))
+    _assert_tree_equal(toxe.OXE_STANDARDIZATION_TRANSFORMS["fractal20220817_data"](rt1), want)
 
 
 def test_statistics_and_normalization_equal_jax(tmp_path):
@@ -324,8 +335,18 @@ def test_augmentation_draws_stay_in_range_and_repeat():
     b = tobs.augment({"image_primary": frame}, torch.Generator().manual_seed(5), kw)["image_primary"]
     np.testing.assert_array_equal(a, b)
     assert a.dtype == np.uint8 and a.shape == frame.shape and not np.array_equal(a, frame)
-    with pytest.raises(NotImplementedError, match="decoder"):
-        tobs.decode_and_resize({"image_primary": np.array(b"\xff\xd8jpeg")}, (8, 8))
+    # encoded frames decode as TF decodes them: a JPEG camera frame (resized 224 -> 224, where the port's
+    # lanczos3 equals TF's) and a 16-bit PNG depth map as float32
+    jpeg = tf.io.encode_jpeg(frame, quality=95).numpy()
+    want = jobs.decode_and_resize({"image_primary": tf.constant(jpeg)}, (224, 224))["image_primary"].numpy()
+    encoded = np.empty((), dtype=object)
+    encoded[()] = jpeg
+    np.testing.assert_array_equal(tobs.decode_and_resize({"image_primary": encoded}, (224, 224))["image_primary"], want)
+    depth = tf.io.encode_png(np.random.default_rng(7).integers(0, 65535, (20, 24, 1), dtype=np.uint16)).numpy()
+    want = jobs.decode_and_resize({"depth_primary": tf.constant(depth)}, None)["depth_primary"].numpy()
+    got = tobs.decode_and_resize({"depth_primary": np.array(depth)}, None)["depth_primary"]
+    assert got.dtype == want.dtype == np.float32 and got.shape == want.shape == (20, 24)
+    np.testing.assert_array_equal(got, want)
 
 
 # --- the whole pipeline -----------------------------------------------------------
@@ -433,8 +454,27 @@ def test_rlds_dataset_train_mode_repeats_with_a_seed_and_resumes(tmp_path, monke
     assert not np.array_equal(other["frames"], first[0]["frames"])
     with pytest.raises(ValueError, match="saved for"):
         make(4).batches(saved)
-    with pytest.raises(NotImplementedError, match="TFDS"):
-        tdataset.make_dataset_from_rlds("libero_spatial_no_noops", train=True)
+    # without a builder the directory's layout picks the reader: here the native store
+    by_layout, stats = tdataset.make_dataset_from_rlds("libero_spatial_no_noops", str(tmp_path / "store"), train=True,
+                                                       **_libero_kwargs())
+    given, given_stats = tdataset.make_dataset_from_rlds(
+        "libero_spatial_no_noops", train=True, builder=tnl.NativeEpisodeBuilder(tmp_path / "store" /
+                                                                                "libero_spatial_no_noops"),
+        **_libero_kwargs())
+    _assert_tree_equal(stats, given_stats)
+    for a, b in zip(by_layout, given):
+        _assert_tree_equal(a, b)
+
+
+def _libero_kwargs():
+    kw = tmat_kwargs("libero_spatial_no_noops")
+    return {k: v for k, v in kw.items() if k not in ("name", "data_dir", "chunk_filter_fn")}
+
+
+def tmat_kwargs(name):
+    from bridgelang_tpu_torch.vla.datasets.rlds.oxe.materialize import make_oxe_dataset_kwargs
+
+    return make_oxe_dataset_kwargs(name, "unused")
 
 
 def make_state(dataset, n):

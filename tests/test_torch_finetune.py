@@ -19,6 +19,9 @@ source with the saved adapters merged, loads in both packages and predicts
 the same ids.
 `train.main` trains, saves, resumes through `--pretrained_checkpoint` and
 `--resume_step` (validate_resume) and ends bit-equal to the uninterrupted run.
+Both entry points also read TFDS directories (JPEG frames, written as the
+smoke run's tfds phase writes them) with no flag: the directory's layout
+picks the reader, and train.main's mixture draws from both datasets.
 """
 
 import json
@@ -45,6 +48,9 @@ from bridgelang_tpu_torch.ops import image_ops as timg
 from bridgelang_tpu_torch.training import lora as tlora
 from bridgelang_tpu_torch.training import trainer as ttrainer
 from bridgelang_tpu_torch.training.checkpointing import validate_resume
+import chip_smoke
+from bridgelang_tpu_torch.vla.datasets.rlds.oxe.mixtures import OXE_NAMED_MIXTURES
+from bridgelang_tpu_torch.vla.datasets.rlds.tfds_reader import TfdsBuilder
 from tests.test_torch_data_pipeline import write_store
 from tests.test_torch_load import TOWERS, ckpts, registries, set_transform  # noqa: F401 (fixtures)
 from tests.test_torch_training import RANK, _batches, _np, _numpy_adapters, _with_adapters, pair  # noqa: F401
@@ -242,3 +248,60 @@ def test_train_main_saves_resumes_bit_equal(registries, tiny_transform, tmp_path
         train.main(parse_cli(train.TrainConfig, common + [
             "--run_id", "c", "--pretrained_checkpoint", str(ckpts_a[0]), "--resume_step", "2"]))
     assert train.stage_of(parse_cli(train.TrainConfig, ["--vla.freeze_vision_backbone", "true"]).vla) == "vla-train"
+
+
+def test_entry_points_read_tfds_directories(ckpts, registries, tiny_transform, tmp_path, monkeypatch):  # noqa: F811
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    data = str(tmp_path / "tfds")
+    cams = chip_smoke.camera_fixtures()
+    chip_smoke.write_tfds_dataset(data, "libero_spatial_no_noops", [chip_smoke.libero_episode(e, 6, cams)
+                                                                    for e in range(3)], chip_smoke.libero_features(), 2)
+    chip_smoke.write_tfds_dataset(data, chip_smoke.TFDS_FRACTAL, [chip_smoke.fractal_episode(e, 4, cams)
+                                                                  for e in range(2)], chip_smoke.fractal_features(), 1)
+    assert isinstance(TfdsBuilder(data, "libero_spatial_no_noops"), TfdsBuilder)
+    run = finetune.main(parse_cli(finetune.FinetuneConfig, [
+        "--vla_path", str(ckpts["fused"][2]), "--data_root_dir", data, "--run_root_dir", str(tmp_path / "runs"),
+        "--batch_size", "4", "--max_steps", "2", "--save_steps", "1000", "--lora_rank", "4",
+        "--shuffle_buffer_size", "8", "--export_hf", "false", "--device", "cpu"]))
+    stats = json.loads((run / "dataset_statistics.json").read_text())
+    assert stats["libero_spatial_no_noops"]["num_transitions"] == 18
+
+    names = []  # the dataset of every frame train.main's batches hold
+    from bridgelang_tpu_torch.vla import materialize
+
+    real = materialize.get_vla_dataset_and_collator
+
+    def watched(*a, **k):
+        ds, tok, coll = real(*a, **k)
+        batches = ds.batches
+
+        def recording(state=None):
+            it = batches(state)
+            nxt = it.__next__
+
+            class Recorded:
+                def __iter__(self):
+                    return self
+
+                def __next__(self):
+                    b = nxt()
+                    names.extend(b["dataset_names"])
+                    return b
+
+                def __getattr__(self, name):
+                    return getattr(it, name)
+
+            return Recorded()
+
+        ds.batches = recording
+        return ds, tok, coll
+
+    monkeypatch.setattr(materialize, "get_vla_dataset_and_collator", watched)
+    monkeypatch.setitem(OXE_NAMED_MIXTURES, "tfds_mix", [("libero_spatial_no_noops", 1.0),
+                                                          (chip_smoke.TFDS_FRACTAL, 1.0)])
+    state = train.main(parse_cli(train.TrainConfig, [
+        "--vla.type", "debug", "--vla.data_mix", "tfds_mix", "--vla.save_interval", "1000",
+        "--data_root_dir", data, "--run_root_dir", str(tmp_path / "runs"), "--max_steps_override", "3",
+        "--run_id", "mix", "--device", "cpu"]))
+    assert state.step == 3
+    assert set(names) == {"libero_spatial_no_noops", chip_smoke.TFDS_FRACTAL}
