@@ -1,6 +1,7 @@
 """ctypes bindings for the port's native (C++) library: TFRecord framing with
 CRC32C checks and the action bin codec (`src/tfrecord.cc`), and the JPEG
-decoder and PNG unfilter of `native.image` (`src/image_decode.cc`).
+decoder, PNG unfilter and PIL-equal bicubic resize of `native.image`
+(`src/image_decode.cc`).
 
 Counterpart of bridgelang_tpu/native/__init__.py, over the port's own copy
 of the record source. The library is compiled at first use with
@@ -91,10 +92,14 @@ def _load() -> ctypes.CDLL:
             lib.blx_tokens_to_actions.argtypes = codec
             lib.blx_jpeg_decode.restype = ctypes.c_int
             lib.blx_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-                                            ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int]
+                                            ctypes.POINTER(ctypes.c_int32), ctypes.c_int32, ctypes.c_char_p,
+                                            ctypes.c_int]
             lib.blx_png_unfilter.restype = ctypes.c_int
             lib.blx_png_unfilter.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
                                              ctypes.c_int32, ctypes.c_void_p]
+            lib.blx_resize_bicubic_pil.restype = ctypes.c_int
+            lib.blx_resize_bicubic_pil.argtypes = [ctypes.c_void_p] + [ctypes.c_int32] * 3 + [ctypes.c_void_p] + \
+                [ctypes.c_int32] * 2
             _lib = lib
     return _lib
 

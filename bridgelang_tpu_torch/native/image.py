@@ -17,6 +17,17 @@ DecodeImageV2: a JPEG's uint8 times float32(1/255); a PNG decoded at 16 bits
 (8-bit samples times 257) times float32(1/65535). Interlaced (Adam7) PNGs
 decode too. Any other format, and any stream the decoders refuse, raises
 ValueError: nothing falls back to another decoder.
+
+The VLM pretraining data and the `generate` / `demo` entry points read
+images as PIL does instead: `open_rgb(path)` gives what
+
+    np.asarray(Image.open(path).convert("RGB"))
+
+gives, and `load_image(path, size)` what `...convert("RGB").resize((size,
+size))` gives (Pillow's BICUBIC resample, `resize_bicubic_pil`), bit for bit.
+PIL decodes JPEG with libjpeg-turbo's accurate integer IDCT (JDCT_ISLOW),
+which `decode_jpeg(data, dct_method="INTEGER_ACCURATE")` selects (TF's name
+for it); the rest of the JPEG path is shared with decode_image.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ _ERR_LEN = 256
 # Adam7 passes: (first column, first row, column step, row step)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+DCT_METHODS = {"INTEGER_FAST": 0, "INTEGER_ACCURATE": 1}
 
 
 def decode_image(data, dtype=np.uint8) -> np.ndarray:
@@ -53,21 +65,30 @@ def decode_image(data, dtype=np.uint8) -> np.ndarray:
         if dtype == np.uint8:
             return decode_png(data, bits=8)
         return decode_png(data, bits=16).astype(np.float32) * np.float32(1.0 / 65535)
+    _refuse(data, "decode_image")
+
+
+def _refuse(data: bytes, caller: str):
     for magic, name in _OTHER_MAGIC.items():
         if data.startswith(magic):
-            raise ValueError(f"decode_image: {name} images are not supported (JPEG and PNG are)")
-    raise ValueError(f"decode_image: not a JPEG or PNG stream (first bytes {data[:8]!r})")
+            raise ValueError(f"{caller}: {name} images are not supported (JPEG and PNG are)")
+    raise ValueError(f"{caller}: not a JPEG or PNG stream (first bytes {data[:8]!r})")
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """A JPEG as uint8 [H, W, 1] (gray) or [H, W, 3] (RGB)."""
+def decode_jpeg(data: bytes, dct_method: str = "INTEGER_FAST") -> np.ndarray:
+    """A JPEG as uint8 [H, W, 1] (gray) or [H, W, 3] (RGB), through
+    libjpeg-turbo's fast ("INTEGER_FAST", TensorFlow's default) or accurate
+    ("INTEGER_ACCURATE", PIL's) integer IDCT."""
+    if dct_method not in DCT_METHODS:
+        raise ValueError(f"decode_jpeg: dct_method must be one of {sorted(DCT_METHODS)}, got {dct_method!r}")
+    accurate = DCT_METHODS[dct_method]
     lib = native._load()
     hwc = (ctypes.c_int32 * 3)()
     err = ctypes.create_string_buffer(_ERR_LEN)
-    if lib.blx_jpeg_decode(data, len(data), None, 0, hwc, err, _ERR_LEN) < 0:
+    if lib.blx_jpeg_decode(data, len(data), None, 0, hwc, accurate, err, _ERR_LEN) < 0:
         raise ValueError(err.value.decode(errors="replace"))
     out = np.empty((hwc[0], hwc[1], hwc[2]), np.uint8)
-    if lib.blx_jpeg_decode(data, len(data), out.ctypes.data, out.nbytes, hwc, err, _ERR_LEN) != 0:
+    if lib.blx_jpeg_decode(data, len(data), out.ctypes.data, out.nbytes, hwc, accurate, err, _ERR_LEN) != 0:
         raise ValueError(err.value.decode(errors="replace"))
     return out
 
@@ -187,3 +208,69 @@ def decode_png(data: bytes, bits: int = 8) -> np.ndarray:
     if bits == 16 and depth == 8:
         return out.astype(np.uint16) * np.uint16(257)
     return np.ascontiguousarray(out)
+
+
+def open_rgb(src) -> np.ndarray:
+    """What np.asarray(Image.open(src).convert("RGB")) gives, as uint8
+    [H, W, 3]; `src` is a path or the encoded bytes.
+
+    JPEG: the accurate integer IDCT; gray replicated to RGB. PNG, by PIL's
+    mode: "1", "L" (1-, 2-, 4-, 8-bit gray scaled to 8 bits) and "LA"
+    replicate the gray samples; "P" takes the palette's colours (a tRNS
+    chunk is dropped); "RGB" and "RGBA" keep the colour samples. Alpha is
+    dropped, never composited. 16-bit samples keep their high byte (PIL's
+    RGB;16B, RGBA;16B and LA;16B unpackers), except 16-bit gray, which PIL
+    opens as "I;16" and converts by clipping each value to 255. Any other
+    format raises ValueError naming it."""
+    data = _read(src)
+    if data[:3] == JPEG_MAGIC:
+        image = decode_jpeg(data, dct_method="INTEGER_ACCURATE")
+    elif data[:8] == PNG_MAGIC:
+        color, depth = _png_color_and_depth(data)
+        if color == 0 and depth == 16:
+            image = np.minimum(decode_png(data, bits=16), 255).astype(np.uint8)
+        else:
+            image = decode_png(data, bits=8)
+    else:
+        _refuse(data, "open_rgb")
+    if image.shape[-1] in (1, 2):
+        return np.repeat(image[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(image[..., :3])
+
+
+def resize_bicubic_pil(rgb: np.ndarray, size) -> np.ndarray:
+    """What PIL's Image.resize(size) gives for an RGB image: BICUBIC
+    (a = -0.5, the support scaled by the downscale factor), fixed-point taps
+    with 22 fractional bits, the horizontal pass first. `size` is (width,
+    height), as PIL's."""
+    rgb = np.ascontiguousarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[-1] != 3:
+        raise ValueError(f"resize_bicubic_pil: needs uint8 [H, W, 3], got {rgb.dtype} {list(rgb.shape)}")
+    w, h = int(size[0]), int(size[1])
+    if (h, w) == rgb.shape[:2]:
+        return rgb.copy()
+    out = np.empty((h, w, 3), np.uint8)
+    if native._load().blx_resize_bicubic_pil(rgb.ctypes.data, rgb.shape[0], rgb.shape[1], 3, out.ctypes.data,
+                                             h, w) != 0:
+        raise ValueError(f"resize_bicubic_pil: bad size {(w, h)}")
+    return out
+
+
+def load_image(src, size: int) -> np.ndarray:
+    """What np.asarray(Image.open(src).convert("RGB").resize((size, size)))
+    gives: the VLM pretraining datasets' frames."""
+    return resize_bicubic_pil(open_rgb(src), (size, size))
+
+
+def _read(src) -> bytes:
+    if isinstance(src, (bytes, bytearray, memoryview)):
+        return bytes(src)
+    with open(src, "rb") as f:
+        return f.read()
+
+
+def _png_color_and_depth(data: bytes):
+    if data[12:16] != b"IHDR" or len(data) < 29:
+        raise ValueError("corrupt PNG: no IHDR chunk first")
+    depth, color = data[24], data[25]
+    return color, depth

@@ -1,6 +1,8 @@
-// JPEG decoding and PNG row unfiltering for the data pipeline, without
-// libjpeg or libpng: what tf.io.decode_image(x, expand_animations=False)
-// gives on the frames of RLDS datasets, bit for bit.
+// JPEG decoding, PNG row unfiltering and PIL's bicubic resize for the data
+// pipelines, without libjpeg, libpng or PIL: what
+// tf.io.decode_image(x, expand_animations=False) gives on the frames of RLDS
+// datasets, and what PIL's Image.open(p).convert("RGB").resize(size) gives
+// on the images of VLM pretraining, bit for bit.
 //
 // TensorFlow decodes JPEG through libjpeg-turbo with its defaults for
 // decode_image: the fast integer IDCT (JDCT_IFAST, jidctfst.c), "fancy"
@@ -10,6 +12,9 @@
 // routines' integer arithmetic; libjpeg-turbo's SIMD versions of them are
 // built to give the same bytes, and where the two part ways (out-of-range
 // IDCT output on corrupt data) the saturating SIMD clamp is the one kept.
+// PIL (and tf.io.decode_jpeg(dct_method="INTEGER_ACCURATE")) decode with
+// the accurate integer IDCT instead (JDCT_ISLOW, jidctint.c), selected per
+// call; everything else is shared.
 //
 // Supported: baseline and extended sequential Huffman (SOF0, SOF1) and
 // progressive Huffman (SOF2) JPEGs, 8-bit samples, 1 or 3 components,
@@ -18,13 +23,18 @@
 // fail with a message naming the marker; so does a corrupt or cut stream.
 //
 // C interface (ctypes):
-//   int blx_jpeg_decode(data, n, out, out_cap, hwc[3], err, err_len)
+//   int blx_jpeg_decode(data, n, out, out_cap, hwc[3], accurate, err, err_len)
 //     out == NULL (or too small): parse the header only, fill hwc, return 1;
-//     else decode into out ([h, w, c] uint8), return 0; -1 on error.
+//     else decode into out ([h, w, c] uint8) with the fast (accurate == 0)
+//     or the accurate integer IDCT, return 0; -1 on error.
 //   int blx_png_unfilter(raw, raw_len, height, rowbytes, bpp, out)
 //     PNG filter types 0-4 undone row by row; 0, or -1 on a bad stream.
+//   int blx_resize_bicubic_pil(in, h, w, c, out, out_h, out_w)
+//     PIL's ImagingResample with its BICUBIC filter on [h, w, c] uint8 into
+//     [out_h, out_w, c]; 0, or -1 on bad sizes.
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -190,6 +200,7 @@ struct Component {
   int dw = 0, dh = 0;                 // downsampled width and height in samples
   bool latched = false;
   int16_t mult[64] = {0};             // fast-IDCT dequantization multipliers (natural order)
+  int16_t quant[64] = {0};            // accurate-IDCT multipliers: the quantization table (natural order)
   std::vector<int16_t> coef;          // bw * bh blocks of 64 coefficients (natural order)
   int dc_pred = 0;
 };
@@ -431,6 +442,7 @@ struct Jpeg {
       // DESCALE(quantval * aanscale, CONST_BITS - IFAST_SCALE_BITS) = 14 - 2
       int32_t x = static_cast<int32_t>(qt[c.tq][i]) * kAanScales[i];
       c.mult[i] = static_cast<int16_t>((x + (1 << 11)) >> 12);
+      c.quant[i] = static_cast<int16_t>(qt[c.tq][i]);  // ISLOW_MULT_TYPE is a short
     }
     c.latched = true;
   }
@@ -682,16 +694,116 @@ void idct_ifast(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
   }
 }
 
+// jidctint.c (JDCT_ISLOW): the LL&M IDCT with 13-bit constants, products
+// rounded (DESCALE) after each pass, PASS1_BITS = 2 kept between them.
+constexpr int64_t kF0_298 = 2446, kF0_390 = 3196, kF0_541 = 4433, kF0_765 = 6270, kF0_899 = 7373,
+                  kF1_175 = 9633, kF1_501 = 12299, kF1_847 = 15137, kF1_961 = 16069, kF2_053 = 16819,
+                  kF2_562 = 20995, kF3_072 = 25172;
+constexpr int kConstBits = 13, kPass1Bits = 2;
+inline int64_t descale(int64_t x, int n) { return (x + (int64_t{1} << (n - 1))) >> n; }
+inline uint8_t clamp_islow(int64_t x) {  // DESCALE(x, CONST_BITS + PASS1_BITS + 3), recentred, saturated
+  x = descale(x, kConstBits + kPass1Bits + 3) + 128;
+  return static_cast<uint8_t>(x < 0 ? 0 : (x > 255 ? 255 : x));
+}
+
+// One 1-D pass of jidctint.c on in[0], in[s], ..., in[7 s] (already
+// dequantized): the even part from 0, 2, 4, 6, the odd part from 1, 3, 5, 7.
+struct IslowOut {
+  int64_t tmp10, tmp11, tmp12, tmp13, tmp0, tmp1, tmp2, tmp3;
+};
+inline IslowOut islow_1d(int64_t c0, int64_t c1, int64_t c2, int64_t c3, int64_t c4, int64_t c5, int64_t c6,
+                         int64_t c7) {
+  int64_t z1 = (c2 + c6) * kF0_541;
+  int64_t tmp2 = z1 + c6 * -kF1_847;
+  int64_t tmp3 = z1 + c2 * kF0_765;
+  int64_t tmp0 = (c0 + c4) * (int64_t{1} << kConstBits);
+  int64_t tmp1 = (c0 - c4) * (int64_t{1} << kConstBits);
+  IslowOut o;
+  o.tmp10 = tmp0 + tmp3;
+  o.tmp13 = tmp0 - tmp3;
+  o.tmp11 = tmp1 + tmp2;
+  o.tmp12 = tmp1 - tmp2;
+  tmp0 = c7;
+  tmp1 = c5;
+  tmp2 = c3;
+  tmp3 = c1;
+  z1 = tmp0 + tmp3;
+  int64_t z2 = tmp1 + tmp2, z3 = tmp0 + tmp2, z4 = tmp1 + tmp3;
+  int64_t z5 = (z3 + z4) * kF1_175;
+  tmp0 *= kF0_298;
+  tmp1 *= kF2_053;
+  tmp2 *= kF3_072;
+  tmp3 *= kF1_501;
+  z1 *= -kF0_899;
+  z2 *= -kF2_562;
+  z3 *= -kF1_961;
+  z4 *= -kF0_390;
+  z3 += z5;
+  z4 += z5;
+  o.tmp0 = tmp0 + z1 + z3;
+  o.tmp1 = tmp1 + z2 + z4;
+  o.tmp2 = tmp2 + z2 + z3;
+  o.tmp3 = tmp3 + z1 + z4;
+  return o;
+}
+
+void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
+  int ws[64];
+  for (int col = 0; col < 8; col++) {
+    const int16_t* ip = in + col;
+    const int16_t* qp = q + col;
+    int* wp = ws + col;
+    if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 && ip[40] == 0 && ip[48] == 0 && ip[56] == 0) {
+      int dc = (ip[0] * qp[0]) * (1 << kPass1Bits);
+      for (int r = 0; r < 8; r++) wp[8 * r] = dc;
+      continue;
+    }
+    int64_t d[8];
+    for (int r = 0; r < 8; r++) d[r] = static_cast<int64_t>(ip[8 * r]) * qp[8 * r];
+    IslowOut o = islow_1d(d[0], d[1], d[2], d[3], d[4], d[5], d[6], d[7]);
+    const int n = kConstBits - kPass1Bits;
+    wp[0] = static_cast<int>(descale(o.tmp10 + o.tmp3, n));
+    wp[56] = static_cast<int>(descale(o.tmp10 - o.tmp3, n));
+    wp[8] = static_cast<int>(descale(o.tmp11 + o.tmp2, n));
+    wp[48] = static_cast<int>(descale(o.tmp11 - o.tmp2, n));
+    wp[16] = static_cast<int>(descale(o.tmp12 + o.tmp1, n));
+    wp[40] = static_cast<int>(descale(o.tmp12 - o.tmp1, n));
+    wp[24] = static_cast<int>(descale(o.tmp13 + o.tmp0, n));
+    wp[32] = static_cast<int>(descale(o.tmp13 - o.tmp0, n));
+  }
+  for (int row = 0; row < 8; row++) {
+    const int* w = ws + 8 * row;
+    uint8_t* op = out + static_cast<size_t>(row) * stride;
+    // A row of zero AC terms takes DESCALE(w[0], PASS1_BITS + 3): the same
+    // value the full pass gives, so no special case is needed.
+    IslowOut o = islow_1d(w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7]);
+    op[0] = clamp_islow(o.tmp10 + o.tmp3);
+    op[7] = clamp_islow(o.tmp10 - o.tmp3);
+    op[1] = clamp_islow(o.tmp11 + o.tmp2);
+    op[6] = clamp_islow(o.tmp11 - o.tmp2);
+    op[2] = clamp_islow(o.tmp12 + o.tmp1);
+    op[5] = clamp_islow(o.tmp12 - o.tmp1);
+    op[3] = clamp_islow(o.tmp13 + o.tmp0);
+    op[4] = clamp_islow(o.tmp13 - o.tmp0);
+  }
+}
+
 // One component's samples at full resolution: IDCT of every block, then
 // jdsample.c's upsampler for its ratio. Rows and columns past the
 // downsampled size repeat the last real one (jdmainct.c's context rows).
-std::vector<uint8_t> component_plane(const Component& c, int max_h, int max_v, int width, int height) {
+std::vector<uint8_t> component_plane(const Component& c, int max_h, int max_v, int width, int height,
+                                     bool accurate) {
   const int pw = c.bw * 8, ph = c.bh * 8;
   std::vector<uint8_t> plane(static_cast<size_t>(pw) * ph);
   for (int by = 0; by < c.bh; by++)
-    for (int bx = 0; bx < c.bw; bx++)
-      idct_ifast(&c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64], c.mult,
-                 &plane[static_cast<size_t>(by) * 8 * pw + bx * 8], pw);
+    for (int bx = 0; bx < c.bw; bx++) {
+      const int16_t* blk = &c.coef[(static_cast<size_t>(by) * c.bw + bx) * 64];
+      uint8_t* dst = &plane[static_cast<size_t>(by) * 8 * pw + bx * 8];
+      if (accurate)
+        idct_islow(blk, c.quant, dst, pw);
+      else
+        idct_ifast(blk, c.mult, dst, pw);
+    }
   const int hx = max_h / c.h, vx = max_v / c.v;
   if (hx == 1 && vx == 1) {
     std::vector<uint8_t> out(static_cast<size_t>(width) * height);
@@ -791,19 +903,19 @@ struct YccTables {
   }
 };
 
-void decode_jpeg(const uint8_t* data, size_t n, uint8_t* out) {
+void decode_jpeg(const uint8_t* data, size_t n, uint8_t* out, bool accurate) {
   Jpeg j(data, n);
   j.run(true);
   for (int i = 0; i < j.ncomp; i++)
     if (!j.comp[i].latched) fail("truncated JPEG: a component has no scan");
   const int w = j.width, h = j.height;
   if (j.ncomp == 1) {
-    std::vector<uint8_t> y = component_plane(j.comp[0], j.max_h, j.max_v, w, h);
+    std::vector<uint8_t> y = component_plane(j.comp[0], j.max_h, j.max_v, w, h, accurate);
     std::memcpy(out, y.data(), y.size());
     return;
   }
   std::vector<uint8_t> planes[3];
-  for (int i = 0; i < 3; i++) planes[i] = component_plane(j.comp[i], j.max_h, j.max_v, w, h);
+  for (int i = 0; i < 3; i++) planes[i] = component_plane(j.comp[i], j.max_h, j.max_v, w, h, accurate);
   static const YccTables t;  // built once, thread-safely (decodes may run in parallel threads)
   auto lim = [](int v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); };
   const size_t npx = static_cast<size_t>(w) * h;
@@ -816,6 +928,61 @@ void decode_jpeg(const uint8_t* data, size_t n, uint8_t* out) {
   }
 }
 
+// PIL's libImaging/Resample.c for 8-bit bands with the BICUBIC filter
+// (a = -0.5, support 2 scaled by the downscale factor): coefficients in
+// double, normalised, rounded to fixed point with PRECISION_BITS = 22; the
+// horizontal pass first, into an 8-bit image of only the rows the vertical
+// pass reads; each sum starts at half a unit and is clipped by clip8.
+constexpr int kPrecisionBits = 32 - 8 - 2;
+
+double bicubic_filter(double x) {
+  const double a = -0.5;
+  if (x < 0.0) x = -x;
+  if (x < 1.0) return ((a + 2.0) * x - (a + 3.0)) * x * x + 1;
+  if (x < 2.0) return (((x - 5) * x + 8) * x - 4) * a;
+  return 0.0;
+}
+
+inline uint8_t clip8(int in) {  // PIL's lookup table: 128 zeros, 0..255, 128 times 255
+  int v = in >> kPrecisionBits;
+  return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+}
+
+// precompute_coeffs + normalize_coeffs_8bpc: for each output index its first
+// input index, its tap count, and ksize fixed-point taps.
+int resample_coeffs(int in_size, float in0, float in1, int out_size, std::vector<int>& bounds,
+                    std::vector<int32_t>& kk) {
+  double scale = static_cast<double>(in1 - in0) / out_size;
+  double filterscale = scale < 1.0 ? 1.0 : scale;
+  double support = 2.0 * filterscale;
+  const int ksize = static_cast<int>(std::ceil(support)) * 2 + 1;
+  std::vector<double> k(static_cast<size_t>(out_size) * ksize, 0.0);
+  bounds.assign(static_cast<size_t>(out_size) * 2, 0);
+  for (int xx = 0; xx < out_size; xx++) {
+    double center = in0 + (xx + 0.5) * scale;
+    double ww = 0.0, ss = 1.0 / filterscale;
+    int xmin = static_cast<int>(center - support + 0.5);
+    if (xmin < 0) xmin = 0;
+    int xmax = static_cast<int>(center + support + 0.5);
+    if (xmax > in_size) xmax = in_size;
+    xmax -= xmin;
+    double* kp = &k[static_cast<size_t>(xx) * ksize];
+    for (int x = 0; x < xmax; x++) {
+      double w = bicubic_filter((x + xmin - center + 0.5) * ss);
+      kp[x] = w;
+      ww += w;
+    }
+    for (int x = 0; x < xmax; x++)
+      if (ww != 0.0) kp[x] /= ww;
+    bounds[xx * 2] = xmin;
+    bounds[xx * 2 + 1] = xmax;
+  }
+  kk.resize(k.size());
+  for (size_t i = 0; i < k.size(); i++)
+    kk[i] = static_cast<int32_t>(k[i] < 0 ? -0.5 + k[i] * (1 << kPrecisionBits) : 0.5 + k[i] * (1 << kPrecisionBits));
+  return ksize;
+}
+
 void set_error(char* err, int err_len, const std::string& msg) {
   if (err && err_len > 0) {
     std::snprintf(err, static_cast<size_t>(err_len), "%s", msg.c_str());
@@ -826,8 +993,8 @@ void set_error(char* err, int err_len, const std::string& msg) {
 
 extern "C" {
 
-int blx_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_cap, int32_t* hwc, char* err,
-                    int err_len) {
+int blx_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_cap, int32_t* hwc, int32_t accurate,
+                    char* err, int err_len) {
   try {
     Jpeg header(data, static_cast<size_t>(n));
     header.run(false);
@@ -836,7 +1003,7 @@ int blx_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t out_ca
     hwc[2] = header.channels();
     const int64_t need = static_cast<int64_t>(hwc[0]) * hwc[1] * hwc[2];
     if (out == nullptr || out_cap < need) return 1;
-    decode_jpeg(data, static_cast<size_t>(n), out);
+    decode_jpeg(data, static_cast<size_t>(n), out, accurate != 0);
     return 0;
   } catch (const DecodeError& e) {
     set_error(err, err_len, e.msg);
@@ -885,6 +1052,58 @@ int blx_png_unfilter(const uint8_t* raw, int64_t raw_len, int32_t height, int64_
         return -1;
     }
     prev = o;
+  }
+  return 0;
+}
+
+// PIL's ImagingResampleInner: a pass runs only where its size changes.
+int blx_resize_bicubic_pil(const uint8_t* in, int32_t h, int32_t w, int32_t c, uint8_t* out, int32_t out_h,
+                           int32_t out_w) {
+  if (h < 1 || w < 1 || c < 1 || out_h < 1 || out_w < 1) return -1;
+  std::vector<int> bh, bv;
+  std::vector<int32_t> kh, kv;
+  const int ksh = resample_coeffs(w, 0.0f, static_cast<float>(w), out_w, bh, kh);
+  const int ksv = resample_coeffs(h, 0.0f, static_cast<float>(h), out_h, bv, kv);
+  const bool need_h = out_w != w, need_v = out_h != h;
+  const int y_first = bv[0], y_last = bv[(out_h - 1) * 2] + bv[(out_h - 1) * 2 + 1];
+  const uint8_t* src = in;
+  int src_h = h, src_w = w, row0 = 0;
+  std::vector<uint8_t> tmp;
+  if (need_h) {
+    const int th = need_v ? y_last - y_first : h;
+    row0 = need_v ? y_first : 0;
+    tmp.resize(static_cast<size_t>(th) * out_w * c);
+    for (int y = 0; y < th; y++) {
+      const uint8_t* srow = in + (static_cast<size_t>(y) + row0) * w * c;
+      uint8_t* drow = &tmp[static_cast<size_t>(y) * out_w * c];
+      for (int xx = 0; xx < out_w; xx++) {
+        const int xmin = bh[xx * 2], xmax = bh[xx * 2 + 1];
+        const int32_t* k = &kh[static_cast<size_t>(xx) * ksh];
+        for (int ch = 0; ch < c; ch++) {
+          int ss = 1 << (kPrecisionBits - 1);
+          for (int x = 0; x < xmax; x++) ss += srow[(x + xmin) * c + ch] * k[x];
+          drow[xx * c + ch] = clip8(ss);
+        }
+      }
+    }
+    src = tmp.data();
+    src_h = th;
+    src_w = out_w;
+  }
+  if (!need_v) {
+    std::memcpy(out, src, static_cast<size_t>(src_h) * src_w * c);
+    return 0;
+  }
+  const int shift = need_h ? y_first : 0;  // the vertical bounds index the rows the horizontal pass kept
+  for (int yy = 0; yy < out_h; yy++) {
+    const int ymin = bv[yy * 2] - shift, ymax = bv[yy * 2 + 1];
+    const int32_t* k = &kv[static_cast<size_t>(yy) * ksv];
+    uint8_t* drow = out + static_cast<size_t>(yy) * src_w * c;
+    for (int xx = 0; xx < src_w * c; xx++) {
+      int ss = 1 << (kPrecisionBits - 1);
+      for (int y = 0; y < ymax; y++) ss += src[(static_cast<size_t>(y) + ymin) * src_w * c + xx] * k[y];
+      drow[xx] = clip8(ss);
+    }
   }
   return 0;
 }

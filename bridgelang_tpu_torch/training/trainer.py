@@ -8,9 +8,10 @@ clip, AdamW update, with frames preprocessed on the device inside the step.
 
 The optimizer follows optax's semantics, not torch.optim's:
 `optax.chain(clip_by_global_norm(max_norm), adamw(schedule, b1, b2, eps=1e-8,
-weight_decay, mask=ndim >= 2))`, optionally inside `optax.MultiSteps`. It
-keeps moments for the trainable tensors only, and reads the learning rate
-schedule at its 0-based update count.
+weight_decay, mask=ndim >= 2))` with the mask taken in the JAX layout
+(decay_flags), optionally inside `optax.MultiSteps`. It keeps moments for
+the trainable tensors only, and reads the learning rate schedule at its
+0-based update count.
 
 Parameters update IN PLACE (the JAX step returns new ones): a train step
 changes the trainable tensors of `state.params` and the moments in
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -108,18 +110,22 @@ def trainable_tensors(params: Params, trainable_mask: Optional[Params]) -> List[
     """The tensors to train, in a fixed order: those the mask marks, or every
     floating-point tensor without a mask. Integer tensors (packed int4 and
     int8 weights) never train: a mask that marks one raises."""
+    return [p for p, m in zip(tree_leaves(params), trainable_marks(params, trainable_mask)) if m]
+
+
+def trainable_marks(params: Params, trainable_mask: Optional[Params]) -> List[bool]:
+    """Per leaf (tree_leaves order): whether trainable_tensors takes it."""
     leaves = tree_leaves(params)
     if trainable_mask is None:
-        return [p for p in leaves if p.is_floating_point()]
+        return [p.is_floating_point() for p in leaves]
     flags = tree_leaves(trainable_mask)
     if len(flags) != len(leaves):
         raise ValueError(f"trainable_mask has {len(flags)} leaves, params {len(leaves)}")
-    chosen = [p for p, m in zip(leaves, flags) if m]
-    bad = [p for p in chosen if not p.is_floating_point()]
+    bad = [p for p, m in zip(leaves, flags) if m and not p.is_floating_point()]
     if bad:
         raise ValueError(f"trainable_mask marks {len(bad)} integer (quantized) tensors, which cannot train; "
                          "train adapters over a quantized base (training.lora.lora_trainable_mask)")
-    return chosen
+    return [bool(m) for m in flags]
 
 
 # --- optimizer ---------------------------------------------------------------------
@@ -131,8 +137,8 @@ class AdamW:
     * clip: scale by max_norm / norm only when norm >= max_norm (optax
       `clip_by_global_norm`; not clip_grad_norm_'s norm + 1e-6);
     * Adam: mu_hat / (sqrt(nu_hat) + eps), bias-corrected at count + 1;
-    * decoupled decay wd * p on tensors with ndim >= 2, added to the update
-      before the learning rate scales it;
+    * decoupled decay wd * p on the tensors `decay` marks (decay_flags),
+      added to the update before the learning rate scales it;
     * `grad_accum_steps` > 1: optax.MultiSteps; the running mean of the
       micro-batch gradients goes through clip + Adam on every k-th call, and
       the other calls leave the parameters and moments as they are.
@@ -190,16 +196,42 @@ class AdamW:
         state["count"] = count
 
 
+_VIT_BLOCK = re.compile(r"(^|\.)blocks\.\d+\.")
+
+
+def decay_flags(params: Params) -> List[bool]:
+    """Per leaf (tree_leaves order): whether AdamW decays it. The JAX package
+    decays the leaves of rank >= 2 in its layout, where each layer stack (the
+    LLM's `layers`, a ViT's `blocks`) is one tensor with a leading layer axis.
+    So every per-layer tensor here decays, its norms and biases included, and
+    any other tensor decays when ndim >= 2."""
+
+    def walk(tree, stacked: bool) -> List[bool]:
+        if isinstance(tree, dict):
+            return [f for k, v in tree.items()
+                    for f in walk(v, stacked or k == "layers" or _VIT_BLOCK.search(k) is not None)]
+        if isinstance(tree, (list, tuple)):
+            return [f for v in tree for f in walk(v, stacked)]
+        return [stacked or tree.ndim >= 2]
+
+    return walk(params, False)
+
+
 def make_optimizer(cfg: OptimConfig, params: Params, trainable_mask: Optional[Params] = None,
                    grad_accum_steps: int = 1) -> AdamW:
     """AdamW over the trainable tensors only (frozen tensors get no moments),
-    decaying those with ndim >= 2."""
-    return AdamW(cfg, [p.ndim >= 2 for p in trainable_tensors(params, trainable_mask)], grad_accum_steps)
+    decaying those decay_flags marks."""
+    marks = trainable_marks(params, trainable_mask)
+    return AdamW(cfg, [d for d, m in zip(decay_flags(params), marks) if m], grad_accum_steps)
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt(sum of squares) over all tensors, in fp32."""
-    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
+    """sqrt(sum of squares) over all tensors, as an fp32 scalar. The sums
+    accumulate in fp64: torch's fp32 norm on the CPU drifts by ~5e-4
+    relative over an LM head's 2M entries (XLA's, which optax uses, does
+    not)."""
+    norms = [torch.linalg.vector_norm(t, dtype=torch.float64) for t in tensors]
+    return torch.linalg.vector_norm(torch.stack(norms)).float()
 
 
 def init_train_state(params: Params, optimizer: AdamW, trainable_mask: Optional[Params] = None) -> TrainState:

@@ -148,6 +148,13 @@ of which fails the run:
            steps, frames drawn from each). Host wait per batch and step ms
            beside the native store's (finetune phase). `build` also compiles
            the port's host library (g++: TFRecord framing, image decoding).
+  scripts  the port's demo and generate entry points on the load phase's
+           published-layout 7B with their defaults (int8 w8a8 on load) and a
+           committed 640x480 JPEG read by open_rgb: demo.main's action equal
+           to predict_action's on the same frame; generate.main with two
+           turns on standard input and 128 new tokens, each reply's ids
+           equal to generate_greedy's on the conversation's prompt; the eager
+           int8 prefill ms and decode ms per token.
   finetune the port's entry points over a native episode store that the
            phase writes (LIBERO's layout: 24 episodes x 50 steps, 256x256
            frames from two cameras, 7-D actions, 8-D states), read through
@@ -163,6 +170,22 @@ of which fails the run:
            5th step bit-equal). The entry points run unchanged; the phase
            times their steps, batches, saves and exports from outside, and
            profiles steps 3-8.
+  pretrain VLM pretraining through pretrain.run (what pretrain.main runs),
+           random fp32 weights from the seed, over a LLaVA-layout directory
+           written here (558k-shaped captions, mix665k-shaped chats with
+           text-only ones past the bucket, images from the committed
+           fixtures), 16 x (2048 + 256) fused tokens per micro-batch, "full"
+           remat, grad_accum 2, 4 micro-steps per stage: every fixture read
+           to Pillow's manifest hashes first; the align stage on the 7B at
+           full width and depth (only the projector changes; the epoch-end
+           checkpoint of the whole state read back for the projector and its
+           moments, bit-equal; 64/32/32 flash launches per micro-step); the
+           finetune stage on the 7B cut to 8 decoder layers (LLM and
+           projector change, the towers do not); then the flash kernels at
+           T = 2304 against their plain versions (B = 2, the runs' lengths)
+           and timed at B = 16 beside SDPA and the bound. Step ms, padded
+           and real tokens/s, useful-FLOP share, peak GB, host ms per batch,
+           save s and GB.
   parity   a depth-cut fp32 model with the same weights on the card
            (through the kernels) and on the CPU (plain versions): the
            action token ids must be equal, and one LoRA train step must
@@ -324,14 +347,24 @@ def valid_mask(t, s, lengths, window, device="cpu"):
     return m
 
 
+def read_keys(mask, k) -> int:
+    """Bytes of k (or of v) that the function must read: the keys that some
+    row attends under `mask` [B, T, S]. A key at or past its row's length is
+    never read (the kernels stop at the length's last block)."""
+    _, _, hkv, d = k.shape
+    return int(mask.any(dim=1).sum()) * hkv * d * k.element_size()
+
+
 def bound_ms(q, k, v, lengths, window):
     """Least time for the function: max(bytes moved / HBM rate, FLOPs / peak).
-    Bytes: q, k, v, lengths read once; o and lse written once. FLOPs: 4*D per
-    attended (row, key) pair (QK^T and PV), counted from this run's lengths."""
+    Bytes: q and lengths read once, k and v read once for each key some row
+    attends (read_keys), o and lse written once. FLOPs: 4*D per attended
+    (row, key) pair (QK^T and PV); both counted from this run's lengths."""
     b, t, h, d = q.shape
     s = k.shape[1]
-    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + 4 * b * h * t + 4 * b
-    pairs = int(valid_mask(t, s, lengths.cpu().tolist(), window).sum()) * h
+    mask = valid_mask(t, s, lengths.cpu().tolist(), window)
+    n_bytes = 2 * q.numel() * q.element_size() + 2 * read_keys(mask, k) + 4 * b * h * t + 4 * b
+    pairs = int(mask.sum()) * h
     flops = 4.0 * d * pairs
     peak = PEAK_FLOPS[str(q.dtype).replace("torch.", "")]
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
@@ -340,16 +373,18 @@ def bound_ms(q, k, v, lengths, window):
 
 def bwd_bound_ms(q, k, lengths, window, which):
     """Least time for one backward kernel's function: max(bytes / HBM rate,
-    FLOPs / peak). Bytes: q, k, v, dO, lengths read once, lse and delta
-    (f32 [B, H, T]) read once, the outputs (dq; or dk and dv) written once.
-    FLOPs per attended (row, key) pair: dq needs S, dP and dS.K (6 D); dk/dv
-    need S, dP, P^T.dO and dS^T.Q (8 D); the whole backward 10 D."""
+    FLOPs / peak). Bytes: q, dO, lengths read once, k and v read once for
+    each key some row attends (read_keys), lse and delta (f32 [B, H, T])
+    read once, the outputs (dq; or dk and dv, dead keys' zeros included)
+    written once. FLOPs per attended (row, key) pair: dq needs S, dP and dS.K
+    (6 D); dk/dv need S, dP, P^T.dO and dS^T.Q (8 D); the whole backward 10 D."""
     b, t, h, d = q.shape
     s = k.shape[1]
     e = q.element_size()
-    inputs = (2 * q.numel() + 2 * k.numel()) * e + 2 * 4 * b * h * t + 4 * b
+    mask = valid_mask(t, s, lengths.cpu().tolist(), window)
+    inputs = 2 * q.numel() * e + 2 * read_keys(mask, k) + 2 * 4 * b * h * t + 4 * b
     outputs = {"dq": q.numel() * e, "dkv": 2 * k.numel() * e, "both": (q.numel() + 2 * k.numel()) * e}[which]
-    pairs = int(valid_mask(t, s, lengths.cpu().tolist(), window).sum()) * h
+    pairs = int(mask.sum()) * h
     flops = {"dq": 6, "dkv": 8, "both": 10}[which] * d * pairs
     peak = PEAK_FLOPS[str(q.dtype).replace("torch.", "")]
     t_bytes, t_ops = (inputs + outputs) / HBM_BYTES_PER_S, flops / peak
@@ -410,11 +445,14 @@ def check_backward_kernels():
         worst["dkv"] = max(worst["dkv"], r["dk"]["err"], r["dv"]["err"])
 
         if name in BWD_TIMED:
-            timing[name] = time_backward(name, q, k, v, do, o, lse, delta, lens, window)
+            timing[name] = time_backward(name, q, k, v, do, lse, delta, lens, window)
+            timing[name]["plain_ms"] = cuda_ms(
+                lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, lens, True, window), 5)
+            log(f"timing bwd {name}: plain backward {timing[name]['plain_ms']:.4f} ms")
     return timing, worst, readings
 
 
-def time_backward(name, q, k, v, do, o, lse, delta, lens, window) -> dict:
+def time_backward(name, q, k, v, do, lse, delta, lens, window) -> dict:
     """The backward kernels against the yardstick at one shape: each the
     median of BWD_ROUNDS rounds, kernels and SDPA's backward interleaved
     (kernels, SDPA, SDPA, kernels, ...). SDPA runs pinned to the
@@ -424,7 +462,7 @@ def time_backward(name, q, k, v, do, o, lse, delta, lens, window) -> dict:
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    from bridgelang_tpu_torch.ops.flash_attention import flash_attention_bwd_plain, flash_bwd_dkv, flash_bwd_dq
+    from bridgelang_tpu_torch.ops.flash_attention import flash_bwd_dkv, flash_bwd_dq
 
     b, t, h, d = q.shape
     s = k.shape[1]
@@ -449,7 +487,6 @@ def time_backward(name, q, k, v, do, o, lse, delta, lens, window) -> dict:
                 readings["dq"].append(cuda_ms(lambda: flash_bwd_dq(q, k, v, do, lse, delta, lens, True, window), 20))
                 readings["dkv"].append(cuda_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, lens, True, window), 20))
     dq_ms, dkv_ms, library_ms = (statistics.median(readings[w]) for w in ("dq", "dkv", "sdpa"))
-    plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, lens, True, window), 5)
     # For the record only: the backend SDPA picks unpinned, and its backward's time.
     out_default = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     default_ms = cuda_ms(lambda: torch.autograd.grad(out_default, (qt, kt, vt), dot, retain_graph=True), 20)
@@ -459,11 +496,11 @@ def time_backward(name, q, k, v, do, o, lse, delta, lens, window) -> dict:
         f"{bounds['dq'][0]:.4f} ms, {bounds['dq'][1]}), dk/dv {dkv_ms:.4f} ms (bound {bounds['dkv'][0]:.4f} ms, "
         f"{bounds['dkv'][1]}), pair {dq_ms + dkv_ms:.4f} ms; sdpa backward (yardstick, backend "
         f"EFFICIENT_ATTENTION, grad_fn {backend}) {library_ms:.4f} ms (unpinned: grad_fn {default_backend}, "
-        f"{default_ms:.4f} ms); plain backward {plain_ms:.4f} ms; "
+        f"{default_ms:.4f} ms); "
         f"whole-backward bound {bounds['both'][0]:.4f} ms ({bounds['both'][1]}); readings "
         + json.dumps({w: [round(x, 4) for x in xs] for w, xs in readings.items()}))
     return dict(shape=f"B={b} T={t} S={s} H={h} D={d} bf16 (lengths {min(lengths)}-{max(lengths)})", d=d,
-                dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms, library_ms=library_ms, library_backend=backend,
+                dq_ms=dq_ms, dkv_ms=dkv_ms, library_ms=library_ms, library_backend=backend,
                 unpinned=dict(backend=default_backend, ms=default_ms), bounds=bounds, readings=readings)
 
 
@@ -2768,13 +2805,15 @@ class EntryPointProbe:
     ms to the end of the device's work, the host's wait for the batch,
     launches, loss; torch.profiler with CUDA activity only over steps
     `profile` = [a, b) (None: none); it keeps the model, optimizer, mask, last state and
-    batch), the dataset's batches are timed as they come, and checkpoint
-    saves and HF exports are timed. `per_step`: the launches every step must
-    make (else the run fails)."""
+    batch), the dataset's batches are timed as they come (RLDS: the wait for
+    each batch; LLaVA: each batch's host work, its items and the collator),
+    and checkpoint saves and HF exports are timed. `per_step`: the launches
+    every step must make (else the run fails)."""
 
     def __init__(self, label: str, per_step: dict, profile=FT_TIMED, on_first_step=None):
         self.label, self.per_step, self.profile, self.on_first_step = label, per_step, profile, on_first_step
         self.steps, self.waits, self.saves, self.exports, self.dataset_names = [], [], [], [], []
+        self.host_batch_ms, self._items_ms = [], 0.0
         self.model = self.optimizer = self.mask = self.state = self.batch = self.dataset = None
         self.profile_result, self.step_peak_gb, self.reader_rss_gb = None, 0.0, None
         self._patches = []
@@ -2786,12 +2825,14 @@ class EntryPointProbe:
     def __enter__(self):
         import torch
 
+        from bridgelang_tpu_torch import preprocessing
         from bridgelang_tpu_torch.extern import hf_export
         from bridgelang_tpu_torch.training import checkpointing, trainer
         from bridgelang_tpu_torch.vla import materialize
 
         probe = self
         make_step, get_dataset = trainer.make_vla_train_step, materialize.get_vla_dataset_and_collator
+        get_llava = preprocessing.get_dataset_and_collator
         save, export = checkpointing.CheckpointManager.save, hf_export.export_checkpoint
 
         class TimedBatches:
@@ -2831,6 +2872,35 @@ class EntryPointProbe:
             probe.dataset = ds
             return TimedDataset(ds), tok, coll
 
+        class TimedItems:  # a LLaVA dataset: the items' host ms add up until the collator ends the batch
+            def __init__(self, ds):
+                self.ds = ds
+
+            def __getattr__(self, name):
+                return getattr(self.ds, name)
+
+            def __len__(self):
+                return len(self.ds)
+
+            def __getitem__(self, i):
+                t0 = time.perf_counter()
+                item = self.ds[i]
+                probe._items_ms += 1e3 * (time.perf_counter() - t0)
+                return item
+
+        def get_llava_timed(*a, **k):
+            ds, collator = get_llava(*a, **k)
+            probe.dataset = ds
+
+            def collate(examples):
+                t0 = time.perf_counter()
+                batch = collator(examples)
+                probe.host_batch_ms.append(probe._items_ms + 1e3 * (time.perf_counter() - t0))
+                probe._items_ms = 0.0
+                return batch
+
+            return TimedItems(ds), collate
+
         def make_step_probed(model, optimizer, *a, **k):
             step = make_step(model, optimizer, *a, **k)
             probe.model, probe.optimizer, probe.mask = model, optimizer, k.get("trainable_mask")
@@ -2856,7 +2926,8 @@ class EntryPointProbe:
                 torch.cuda.synchronize()
                 ms = 1e3 * (time.perf_counter() - t0)
                 counts = {k2: v - before[k2] for k2, v in launch_counts().items()}
-                probe.steps.append(dict(ms=ms, loss=loss, launches=counts))
+                probe.steps.append(dict(ms=ms, loss=loss, launches=counts,
+                                        mask_sums=batch["attention_mask"].sum(dim=1).tolist()))
                 probe.step_peak_gb = max(probe.step_peak_gb, torch.cuda.max_memory_allocated() / 1e9)
                 if probe.profile and i == probe.profile[1] - 1 and getattr(probe, "_prof", None) is not None:
                     probe._finish_profile()
@@ -2886,6 +2957,7 @@ class EntryPointProbe:
 
         self._patch(trainer, "make_vla_train_step", make_step_probed)
         self._patch(materialize, "get_vla_dataset_and_collator", get_dataset_timed)
+        self._patch(preprocessing, "get_dataset_and_collator", get_llava_timed)
         self._patch(checkpointing.CheckpointManager, "save", save_timed)
         self._patch(hf_export, "export_checkpoint", export_timed)
         self._t0 = time.perf_counter()
@@ -2899,8 +2971,12 @@ class EntryPointProbe:
         kernels = [e for e in self._prof.events() if e.device_type == DeviceType.CUDA]
         n = self.profile[1] - self.profile[0]
         busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        by_name = {}
+        for e in kernels:
+            by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3 / n
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         self.profile_result = (dict(steps=n, wall_ms=wall_ms, device_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
-                                    launches_per_step=len(kernels) / n) if kernels else None)
+                                    launches_per_step=len(kernels) / n, top_ms_per_step=top) if kernels else None)
         self._prof = None
 
     def __exit__(self, *exc):
@@ -2921,7 +2997,7 @@ class EntryPointProbe:
                  median_step_ms=statistics.median(s["ms"] for s in timed) if timed else None,
                  median_data_wait_ms=statistics.median(waits[a:b]) if waits[a:b] else None,
                  step_peak_gb=self.step_peak_gb, reader_rss_gb=self.reader_rss_gb, profile=self.profile_result,
-                 saves=self.saves, exports=self.exports,
+                 saves=self.saves, exports=self.exports, host_batch_ms=self.host_batch_ms,
                  launches={k: sum(s["launches"][k] for s in self.steps) for k in KERNEL_NAMES})
         idle = (self.profile_result or {}).get("idle_share")
         log(f"{self.label}: {self.wall_s:.1f} s in the entry point, {len(self.steps)} steps, losses {[round(x, 4) for x in r['losses']]}; step ms "
@@ -3333,6 +3409,468 @@ def tfds_phase(ckpt_dir: str) -> dict:
     return result
 
 
+# --- phases scripts and pretrain -------------------------------------------------
+
+GEN_TURNS = ("What is on the table in this picture?", "And what lies to the left of it?")
+GEN_MAX_NEW = 128        # generate's default max_new_tokens
+PT_MODEL = "prism-dinosiglip-224px+7b"
+PT_GLOBAL_BATCH = 32     # both stages' global batch in the smoke: grad_accum 2 over the registry's 16 per card
+PT_MICRO_STEPS = 4       # max_steps_override: 4 micro-steps, 2 accumulated updates per stage
+PT_ALIGN_EXAMPLES = 64   # the align chat.json (558k shape): 4 micro-batches of 16
+PT_FT_IMAGE_EXAMPLES = 48  # the finetune JSON (mix665k shape): 3 multimodal micro-batches
+PT_FT_TEXT_EXAMPLES = 16   # and 1 text-only one, some past the 2048-token bucket
+PT_FT_LAYERS = 8         # the finetune stage's cut: AdamW's fp32 state of all 32 layers (~109 GB) needs FSDP
+PT_KERNEL_B = 2          # rows 1-3 against their plain versions at T=2304 (the plain scores: ~1.4 GB of fp32)
+PT_PATCHES = 256
+WORDS = ("a the red blue green small large wooden metal table cup block spoon towel drawer robot arm gripper "
+         "kitchen counter plate bowl left right next to on under behind near holding placed open closed white "
+         "black bright dark shiny person dog cat street car window tree sky building sign").split()
+
+
+def check_pil_fixtures() -> dict:
+    """Every committed image fixture through open_rgb and load_image(224) on
+    this host, hashed against manifest.json (what Pillow gave where the
+    fixtures were written: Image.open(f).convert("RGB") and its BICUBIC
+    resize to 224x224), without Pillow; then the host's load_image ms for a
+    640x480 JPEG (median of 10 passes over the 3 COCO-sized fixtures)."""
+    import hashlib
+
+    from bridgelang_tpu_torch.native.image import load_image, open_rgb, resize_bicubic_pil
+
+    with open(os.path.join(FIXTURE_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    for name, entry in sorted(manifest.items()):
+        rgb = open_rgb(os.path.join(FIXTURE_DIR, name))
+        got = (hashlib.sha256(rgb.tobytes()).hexdigest(),
+               hashlib.sha256(resize_bicubic_pil(rgb, (224, 224)).tobytes()).hexdigest())
+        if got != (entry["sha256_pil_rgb"], entry["sha256_pil_224"]):
+            fail(f"pretrain: {name} reads (open_rgb, load_image 224) to hashes other than the manifest's (Pillow's)")
+    coco = sorted(n for n in manifest if n.startswith("coco_"))
+    per_image = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        for name in coco:
+            load_image(os.path.join(FIXTURE_DIR, name), 224)
+        per_image.append(1e3 * (time.perf_counter() - t0) / len(coco))
+    ms = statistics.median(per_image)
+    log(f"pretrain: {len(manifest)} image fixtures read (open_rgb, load_image 224) to Pillow's hashes on this host; "
+        f"load_image of a 640x480 JPEG {ms:.2f} ms (median of 10 passes over {len(coco)}, one thread)")
+    return dict(fixtures=len(manifest), load_ms_640x480=ms, load_ms_passes=per_image)
+
+
+def _sentence(rng, n_words: int) -> str:
+    return " ".join(WORDS[i] for i in rng.integers(0, len(WORDS), n_words)).capitalize() + "."
+
+
+def write_llava_root(root: str) -> dict:
+    """A LLaVA-layout dataset root in DatasetConfig "llava-v15"'s paths:
+    download/llava-laion-cc-sbu-558k/chat.json (the 558k shape: one human
+    prompt with <image>, one caption; captions of 4-40 words) over
+    00000/*.jpg|png, and download/llava-v1.5-instruct/llava_v1_5_mix665k.json
+    (the mix665k shape: multi-turn chats over coco/train2017/*.jpg and
+    gqa/images/*.png, and text-only chats, a quarter of them past the
+    2048-token bucket under the byte tokenizer). The images are the committed
+    fixtures (256x256 cameras, 640x480 COCO-sized frames, PNGs)."""
+    import shutil
+
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    jpgs = sorted(f for f in os.listdir(FIXTURE_DIR) if f.startswith(("camera_", "coco_")))
+    pngs = ["rgb8_61x83.png", "rgba8_61x83.png", "palette_trns_61x83.png"]
+    sources = jpgs + pngs
+    align_dir = os.path.join(root, "download", "llava-laion-cc-sbu-558k")
+    ft_dir = os.path.join(root, "download", "llava-v1.5-instruct")
+    align, finetune = [], []
+    for i in range(PT_ALIGN_EXAMPLES):
+        src = sources[i % len(sources)]
+        rel = f"00000/{i:09d}{os.path.splitext(src)[1]}"
+        os.makedirs(os.path.dirname(os.path.join(align_dir, rel)), exist_ok=True)
+        shutil.copy(os.path.join(FIXTURE_DIR, src), os.path.join(align_dir, rel))
+        align.append({"id": f"{i:09d}", "image": rel, "conversations": [
+            {"from": "human", "value": "<image>\nGive a brief description of the image."},
+            {"from": "gpt", "value": _sentence(rng, int(rng.integers(4, 41)))}]})
+    for i in range(PT_FT_IMAGE_EXAMPLES):
+        src = sources[(3 * i) % len(sources)]
+        rel = f"coco/train2017/{i:012d}.jpg" if src.endswith(".jpg") else f"gqa/images/{i}.png"
+        os.makedirs(os.path.dirname(os.path.join(ft_dir, rel)), exist_ok=True)
+        shutil.copy(os.path.join(FIXTURE_DIR, src), os.path.join(ft_dir, rel))
+        turns = [{"from": "human", "value": "<image>\n" + _sentence(rng, 8)[:-1] + "?"}]
+        for t in range(1 + i % 4):
+            if t:
+                turns.append({"from": "human", "value": _sentence(rng, 6)[:-1] + "?"})
+            turns.append({"from": "gpt", "value": _sentence(rng, int(rng.integers(3, 12 + 60 * (i % 5 == 0))))})
+        finetune.append({"id": str(i), "image": rel, "conversations": turns})
+    for i in range(PT_FT_TEXT_EXAMPLES):
+        long = i % 4 == 0  # > 2048 byte tokens: the collator truncates
+        finetune.append({"id": f"text-{i}", "conversations": [
+            {"from": "human", "value": _sentence(rng, 10)[:-1] + "?"},
+            {"from": "gpt", "value": " ".join(_sentence(rng, 20) for _ in range(40 if long else 1 + i % 3))}]})
+    with open(os.path.join(align_dir, "chat.json"), "w") as f:
+        json.dump(align, f)
+    with open(os.path.join(ft_dir, "llava_v1_5_mix665k.json"), "w") as f:
+        json.dump(finetune, f)
+    return dict(align=len(align), finetune_image=PT_FT_IMAGE_EXAMPLES, finetune_text=PT_FT_TEXT_EXAMPLES,
+                image_sources=len(sources))
+
+
+def leaf_checksums(params) -> dict:
+    """name -> an int64 sum of each fp32 tensor's bit patterns (any update
+    of a trained tensor moves it), over vision, projector and llm leaves."""
+    import torch
+
+    out = {}
+
+    def walk(prefix, tree):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(f"{prefix}.{k}" if prefix else k, v)
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                walk(f"{prefix}.{i}", v)
+        else:
+            bits = tree.detach().view({4: torch.int32, 2: torch.int16, 1: torch.int8}[tree.element_size()])
+            out[prefix] = bits.sum(dtype=torch.int64)
+
+    walk("", params)
+    return {k: int(v) for k, v in out.items()}
+
+
+def pretrain_stage(cfg, vlm_cfg, label: str, per_step: dict, trained: set, read_back: bool) -> dict:
+    """pretrain.run, unchanged, watched by EntryPointProbe (step ms, launches
+    per micro-step, each batch's host work: the dataset's image loads and the
+    collator; saves; a profile of micro-step 2 only, so that micro-steps
+    3-PT_MICRO_STEPS, which are timed, run without the profiler).
+    Checks: finite losses (the probe); the leaves that changed are exactly
+    those of the groups `trained` (vision, projector, llm); with
+    `read_back`, the epoch-end checkpoint's projector and its AdamW moments
+    read back (memory-mapped: only those tensors) bit-equal to the live
+    state."""
+    import torch
+
+    from bridgelang_tpu_torch import pretrain
+
+    before = {}
+    with EntryPointProbe(label, per_step, profile=(1, 2),
+                         on_first_step=lambda s: before.update(leaf_checksums(s.params))) as probe:
+        state = pretrain.run(cfg, vlm_cfg)
+    r = probe.summary()
+    after = leaf_checksums(state.params)
+    changed = {k.split(".")[0] for k in after if after[k] != before[k]}
+    unchanged_trained = sorted(k for k in after if k.split(".")[0] in trained and after[k] == before[k])
+    log(f"{label}: groups whose tensors changed {sorted(changed)}; trained groups' tensors left unchanged "
+        f"{unchanged_trained[:6]}{' ...' if len(unchanged_trained) > 6 else ''}")
+    if changed != trained or unchanged_trained:
+        fail(f"{label}: expected every tensor of {sorted(trained)} and nothing else to change; changed groups "
+             f"{sorted(changed)}, unchanged trained tensors {unchanged_trained[:6]}")
+    if state.opt_state["count"] != PT_MICRO_STEPS // 2 or state.step != PT_MICRO_STEPS:
+        fail(f"{label}: {state.step} micro-steps and {state.opt_state['count']} updates, expected "
+             f"{PT_MICRO_STEPS} and {PT_MICRO_STEPS // 2}")
+    save = r["saves"][-1]
+    if read_back:
+        saved = torch.load(os.path.join(save["path"], "state.pt"), map_location="cpu", weights_only=True, mmap=True)
+        live = [state.params["projector"][k] for k in state.params["projector"]]
+        pairs = [(f"projector.{k}", saved["params"]["projector"][k], state.params["projector"][k])
+                 for k in state.params["projector"]]
+        pairs += [(f"opt_state.{m}[{i}]", saved["opt_state"][m][i], state.opt_state[m][i])
+                  for m in ("mu", "nu") for i in range(len(live))]
+        for name, got, want in pairs:
+            if got.shape != want.shape or not torch.equal(bits(got), bits(want.detach().cpu())):
+                fail(f"{label}: the checkpoint's {name} differs from the live state")
+        log(f"{label}: the checkpoint's projector ({len(live)} tensors) and its AdamW moments read back bit-equal "
+            f"to the live state")
+        del saved
+    n_vis = sum(t.numel() for t in state.params["vision"].values())
+    n_llm = sum(t.numel() for k, t in state.params["llm"].items() if k not in ("layers", "embed"))
+    n_llm += sum(t.numel() for lp in state.params["llm"]["layers"] for t in lp.values())
+    n_trainable = sum(t.numel() for t in state.opt_state["mu"])
+    probe_steps = probe.steps
+    del state, probe  # the probe holds the last state and batch
+    release_memory()
+    b, t_pad = TRAIN_BATCH, cfg.model.llm_max_length + PT_PATCHES
+    k_llm = 4 if trained == {"projector"} else 6  # forward + input gradient (+ weight gradient)
+    steps = []
+    for s in probe_steps:
+        real = sum(s["mask_sums"]) + PT_PATCHES * len(s["mask_sums"])
+        sec = s["ms"] / 1e3
+        flops = k_llm * n_llm * real + 2 * n_vis * PT_PATCHES * b
+        steps.append(dict(ms=s["ms"], real_tokens=real, padded_tokens=b * t_pad, lengths=[m + PT_PATCHES for m in
+                                                                                      s["mask_sums"]],
+                          real_tokens_per_s=real / sec, padded_tokens_per_s=b * t_pad / sec,
+                          useful_flop_share=flops / sec / PEAK_FLOPS["bfloat16"],
+                          padded_flop_share=(k_llm * n_llm * b * t_pad + 2 * n_vis * PT_PATCHES * b) / sec
+                          / PEAK_FLOPS["bfloat16"]))
+    timed = steps[2:]  # after the profiled micro-step 2
+    med = statistics.median(x["ms"] for x in timed)
+    summary = dict(
+        median_step_ms=med, steps=steps, losses=r["losses"], peak_gb=r["step_peak_gb"], profile=r["profile"],
+        host_ms_per_batch=r["host_batch_ms"], median_host_ms_per_batch=statistics.median(r["host_batch_ms"]),
+        save_s=save["seconds"], save_gb=save["bytes"] / 1e9, launches=r["launches"], wall_s=r["wall_s"],
+        params=dict(vision=n_vis, llm_without_embedding=n_llm, trainable=n_trainable),
+        median_real_tokens_per_s=statistics.median(x["real_tokens_per_s"] for x in timed),
+        median_padded_tokens_per_s=statistics.median(x["padded_tokens_per_s"] for x in timed),
+        median_useful_flop_share=statistics.median(x["useful_flop_share"] for x in timed),
+        median_padded_flop_share=statistics.median(x["padded_flop_share"] for x in timed))
+    idle = (r["profile"] or {}).get("idle_share")
+    log(f"{label}: median micro-step {med:.1f} ms (steps 3-{PT_MICRO_STEPS}, unprofiled); tokens/s padded "
+        f"{summary['median_padded_tokens_per_s']:.0f}, real {summary['median_real_tokens_per_s']:.0f}; useful-FLOP "
+        f"share of 989 TFLOP/s {100 * summary['median_useful_flop_share']:.1f}% (real tokens; "
+        f"{100 * summary['median_padded_flop_share']:.1f}% over padded rows; {k_llm} x {n_llm / 1e9:.2f} B LLM "
+        f"parameters per token + the towers' forward, no recompute, no attention); peak {r['step_peak_gb']:.2f} GB; "
+        f"device idle {'not measured' if idle is None else f'{100 * idle:.1f}%'} (top kernels, ms per micro-step: "
+        f"{[(name, round(ms, 1)) for name, ms in (r['profile'] or {}).get('top_ms_per_step', [])]}); host ms per batch "
+        f"({TRAIN_BATCH} image loads + collate) {[round(x, 1) for x in r['host_batch_ms']]}; save "
+        f"{save['seconds']:.1f} s, {save['bytes'] / 1e9:.2f} GB; trainable {n_trainable / 1e9:.3f} B; "
+        f"fused lengths per micro-step {[(min(x['lengths']), max(x['lengths'])) for x in steps]}; "
+        f"{nvidia_smi_line()}")
+    return summary
+
+
+def check_attention_t2304(align_lengths, ft_lengths) -> dict:
+    """Rows 1-3 at the pretraining length (T = S = 2304, H = 32, D = 128,
+    bf16) against their plain versions, B = PT_KERNEL_B rows (the shortest
+    align row and a full finetune row; the longest align row and the shortest
+    finetune row): o and lse under FWD_ATOL, dq, dk, dv under GRAD_TOL, dead
+    keys' dk/dv exactly 0. Then each timed at B = 16 with the lengths of a
+    real micro-batch of each stage: the kernel, SDPA's memory-efficient
+    kernel with the equivalent boolean mask (forward; autograd backward) and
+    the bound for those lengths."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from bridgelang_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_plain, flash_attention_plain, flash_bwd_dkv, flash_bwd_dq)
+
+    t = 2048 + PT_PATCHES
+    checks = {"short_and_full": [min(align_lengths), max(ft_lengths)],
+              "long_caption_and_short_chat": [max(align_lengths), min(ft_lengths)]}
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "use": 0.0}
+    for i, (name, lengths) in enumerate(checks.items()):
+        q, k, v, lens = attention_case(PT_KERNEL_B, t, t, 32, 32, 128, lengths, None, torch.bfloat16, seed=500 + i)
+        o, lse = flash_attention(q, k, v, lengths=lens, causal=True)
+        po, plse = flash_attention_plain(q, k, v, lengths=lens, causal=True)
+        err_o = max((o[bi, :L].float() - po[bi, :L].float()).abs().max().item() for bi, L in enumerate(lengths))
+        err_lse = max((lse[bi, :, :L] - plse[bi, :, :L]).abs().max().item() for bi, L in enumerate(lengths))
+        do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(600 + i), device="cuda",
+                         dtype=q.dtype)
+        delta = (do.float() * po.float()).sum(dim=-1).transpose(1, 2).contiguous()
+        dq = flash_bwd_dq(q, k, v, do, plse, delta, lens, True, None)
+        dk, dv = flash_bwd_dkv(q, k, v, do, plse, delta, lens, True, None)
+        pdq, pdk, pdv = flash_attention_bwd_plain(q, k, v, po, plse, do, lens, True, None)
+        uses = {w: grad_tolerance_use(g, p) for w, g, p in (("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv))}
+        errs = {w: (g.float() - p.float()).abs().max().item() for w, g, p in (("dq", dq, pdq), ("dk", dk, pdk),
+                                                                             ("dv", dv, pdv))}
+        dead = max(max(dk[bi, L:].abs().max().item(), dv[bi, L:].abs().max().item()) if L < t else 0.0
+                   for bi, L in enumerate(lengths))
+        finite = all(torch.isfinite(x).all() for x in (o, dq, dk, dv))
+        ok = finite and err_o <= FWD_ATOL["bfloat16"] and err_lse <= 1e-3 and max(uses.values()) <= 1.0 and dead == 0
+        log(f"kernel t2304 {name}: B={PT_KERNEL_B} T=S={t} H=32 D=128 bf16 lengths {lengths}: max|o-plain| "
+            f"{err_o:.3e} (tol {FWD_ATOL['bfloat16']}), max|lse-plain| {err_lse:.3e}; "
+            + "; ".join(f"{w} max|err| {errs[w]:.3e} tolerance use {uses[w]:.3g}" for w in uses)
+            + f"; dead-key dk/dv {dead} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"flash kernels disagree with their plain versions at T={t} ({name}, lengths {lengths})")
+        worst.update(fwd=max(worst["fwd"], err_o), dq=max(worst["dq"], errs["dq"]),
+                     dkv=max(worst["dkv"], errs["dk"], errs["dv"]), use=max([worst["use"], *uses.values()]))
+        plain_fwd_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, lengths=lens, causal=True), 3)
+        plain_bwd_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, po, plse, do, lens, True, None), 3)
+        log(f"timing t2304 {name} B={PT_KERNEL_B}: plain forward {plain_fwd_ms:.3f} ms, plain backward "
+            f"{plain_bwd_ms:.3f} ms (the yardstick shapes of the check)")
+        del q, k, v, o, lse, po, plse, do, delta, dq, dk, dv, pdq, pdk, pdv
+    torch.cuda.empty_cache()
+    timings = {}
+    for i, (stage, lengths) in enumerate((("align", align_lengths), ("finetune", ft_lengths))):
+        q, k, v, lens = attention_case(TRAIN_BATCH, t, t, 32, 32, 128, lengths, None, torch.bfloat16, seed=700 + i)
+        do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(800 + i), device="cuda",
+                         dtype=q.dtype)
+        o, lse = flash_attention(q, k, v, lengths=lens, causal=True)
+        delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+        fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, lengths=lens, causal=True), 20)
+        mask = valid_mask(t, t, lengths, None, device="cuda")[:, None]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 20)
+        fwd_bound = bound_ms(q, k, v, lens, None)
+        bwd = time_backward(f"t2304_{stage}_b16", q, k, v, do, lse, delta, lens, None)
+        timings[stage] = dict(shape=f"B={TRAIN_BATCH} T=S={t} H=32 D=128 bf16", lengths=list(lengths),
+                              fwd_ms=fwd_ms, fwd_library_ms=sdpa_fwd_ms, fwd_bound=fwd_bound,
+                              dq_ms=bwd["dq_ms"], dkv_ms=bwd["dkv_ms"], bwd_library_ms=bwd["library_ms"],
+                              bwd_bounds=bwd["bounds"], bwd_readings=bwd["readings"])
+        log(f"timing t2304 {stage} B={TRAIN_BATCH} (lengths {min(lengths)}-{max(lengths)}, mean "
+            f"{sum(lengths) / len(lengths):.0f}): flash_fwd {fwd_ms:.4f} ms (bound {fwd_bound[0]:.4f} ms, "
+            f"{fwd_bound[1]}; sdpa {sdpa_fwd_ms:.4f} ms), dq {bwd['dq_ms']:.4f} ms, dk/dv {bwd['dkv_ms']:.4f} ms "
+            f"(sdpa backward {bwd['library_ms']:.4f} ms)")
+        del q, k, v, do, o, lse, delta, mask, qt, kt, vt
+        torch.cuda.empty_cache()
+    return dict(worst=worst, timings=timings, plain_fwd_ms_b2=plain_fwd_ms, plain_bwd_ms_b2=plain_bwd_ms,
+                checks=checks)
+
+
+def pretrain_phase() -> dict:
+    """The port's `pretrain` entry point on the card (pretrain.run, which
+    pretrain.main calls with the registry model's VLMConfig), over a LLaVA
+    layout written here (write_llava_root), random fp32 weights from the
+    seed, the byte tokenizer, micro-batches of 16 x (2048 + 256) fused
+    tokens, "full" remat, global batch PT_GLOBAL_BATCH (grad_accum 2),
+    PT_MICRO_STEPS micro-steps per stage:
+    1. check_pil_fixtures;
+    2. align on prism-dinosiglip-224px+7b at full width and depth: only the
+       projector changes; its checkpoint (the whole state, ~30 GB) read back
+       for the projector and its moments; 64/32/32 flash launches per
+       micro-step;
+    3. the finetune stage on the same model cut to PT_FT_LAYERS decoder
+       layers: the LLM and the projector change, the towers do not;
+       2 x 8 / 8 / 8 launches per micro-step;
+    4. check_attention_t2304 with the lengths of the micro-batches just run.
+    Launch counts cover steps 2-3 only. Each run directory goes once it is
+    checked."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from bridgelang_tpu_torch import pretrain
+    from bridgelang_tpu_torch.conf import DatasetConfig, ModelConfig
+
+    t_phase = time.perf_counter()
+    result = {"images": check_pil_fixtures()}
+    work = tempfile.mkdtemp(prefix="smoke_pt_", dir=os.path.join(ROOT, "build"))
+    log(f"pretrain: {disk_free_gb(work):.1f} GB free under {work}")
+    try:
+        root = os.path.join(work, "llava")
+        t0 = time.perf_counter()
+        result["data"] = dict(write_llava_root(root), seconds=time.perf_counter() - t0)
+        m = dataclasses.replace(ModelConfig.get(PT_MODEL), align_global_batch_size=PT_GLOBAL_BATCH,
+                                finetune_global_batch_size=PT_GLOBAL_BATCH)
+        ds = dataclasses.replace(DatasetConfig.get("llava-v15"), dataset_root_dir=root)
+        runs = os.path.join(work, "runs")
+
+        def config(stage):
+            return pretrain.PretrainConfig(model=m, dataset=ds, stage=stage, run_root_dir=runs, run_id=stage,
+                                           seed=SEED, remat_policy="full", max_steps_override=PT_MICRO_STEPS)
+
+        def per_step(n_layers):
+            return {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers}
+
+        vlm_cfg = pretrain.vlm_config(m)
+        reset_launch_counts()
+        result["align"] = pretrain_stage(config("align"), vlm_cfg, "pretrain align (7B, 32 layers)",
+                                         per_step(N_LAYERS_7B), {"projector"}, read_back=True)
+        shutil.rmtree(os.path.join(runs, "align"))
+        cut = dataclasses.replace(vlm_cfg, llm=dataclasses.replace(vlm_cfg.llm, n_layers=PT_FT_LAYERS))
+        result["finetune"] = pretrain_stage(config("finetune"), cut, f"pretrain finetune ({PT_FT_LAYERS} layers)",
+                                            per_step(PT_FT_LAYERS), {"projector", "llm"}, read_back=False)
+        shutil.rmtree(os.path.join(runs, "finetune"))
+        result["launches"] = launch_counts()
+        lengths = {s: result[s]["steps"][0]["lengths"] for s in ("align", "finetune")}
+        result["kernels_t2304"] = check_attention_t2304(lengths["align"], lengths["finetune"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"pretrain phase: {result['phase_s']:.1f} s; launches {result['launches']}; {nvidia_smi_line()}")
+    return result
+
+
+def scripts_phase(ckpt_dir: str) -> dict:
+    """The port's `demo` and `generate` entry points on the load phase's
+    published-layout 7B, with their defaults (int8 w8a8 on load), on a
+    committed 640x480 JPEG read by open_rgb:
+    1. demo.main: its action equals predict_action of the same model on the
+       same decoded frame;
+    2. generate.main with GEN_TURNS fed on standard input, max_new_tokens
+       128: each reply's ids equal generate_greedy's on the conversation's
+       prompt, built again here; the prefill's ms and the decode's ms per
+       token (the same call at 1 and at 128 new tokens, CUDA-synchronized).
+    Launch counts cover the two entry points only."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from bridgelang_tpu_torch import demo, generate
+    from bridgelang_tpu_torch.models import load as load_mod
+    from bridgelang_tpu_torch.models.llm.prompting import get_prompt_builder
+    from bridgelang_tpu_torch.models.llm.tokenizer import get_tokenizer
+    from bridgelang_tpu_torch.native.image import open_rgb
+    from bridgelang_tpu_torch.ops.image_ops import preprocess_batch
+
+    t_phase = time.perf_counter()
+    image = os.path.join(FIXTURE_DIR, "coco_00_640x480.jpg")
+    loaded, real_load = [], load_mod.load_vla
+
+    def capturing_load(*a, **k):
+        model, params = real_load(*a, **k)
+        loaded.append((model, params))
+        return model, params
+
+    reset_launch_counts()
+    load_mod.load_vla = capturing_load
+    stdin = sys.stdin
+    try:
+        t0 = time.perf_counter()
+        action = demo.main(demo.DemoConfig(checkpoint=ckpt_dir, image=image, instruction=INSTRUCTIONS[0]))
+        demo_s = time.perf_counter() - t0
+        demo_launches = launch_counts()
+        sys.stdin = io.StringIO("\n".join(GEN_TURNS) + "\n")
+        t0 = time.perf_counter()
+        replies = generate.main(generate.GenerateConfig(checkpoint=ckpt_dir, image=image, max_new_tokens=GEN_MAX_NEW))
+        generate_s = time.perf_counter() - t0
+    finally:
+        sys.stdin = stdin
+        load_mod.load_vla = real_load
+    launches = launch_counts()
+    gen_launches = {k: launches[k] - demo_launches[k] for k in launches}
+    expect_counts(gen_launches, {"flash_fwd": N_LAYERS_7B * len(GEN_TURNS)}, "generate.main (one prefill per turn)")
+    if demo_launches["flash_fwd"] < N_LAYERS_7B:
+        fail(f"demo.main launched flash_fwd {demo_launches['flash_fwd']} times, fewer than one prefill")
+
+    (dm, dp), (gm, gp) = loaded
+    frame = open_rgb(image)
+    again = dm.predict_action(dp, frame, INSTRUCTIONS[0])
+    if not np.array_equal(np.asarray(action), np.asarray(again)) or not np.isfinite(action).all():
+        fail(f"demo.main's action {np.asarray(action).tolist()} != predict_action's {np.asarray(again).tolist()}")
+
+    tok = get_tokenizer(None)
+    pixels = preprocess_batch(torch.from_numpy(frame[None]).to(gm.device), gm.image_transform, dtype=gm.dtype)
+    builder = get_prompt_builder(gm.cfg.llm_family)
+    eos = gm.cfg.llm.eos_token_id
+    prefill_ms = per_token_ms = None
+    with torch.inference_mode():
+        for turn, reply in zip(GEN_TURNS, replies):
+            builder.add_turn("human", turn)
+            ids = torch.tensor([tok.encode(builder.get_prompt())], dtype=torch.int32, device=gm.device)
+            mask = torch.ones_like(ids)
+
+            def greedy(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = gm.generate_greedy(gp, ids, mask, pixels, max_new_tokens=n)[0].cpu().tolist()
+                return out, 1e3 * (time.perf_counter() - t0)
+
+            want, full_ms = greedy(GEN_MAX_NEW)
+            want = want[: want.index(eos)] if eos in want else want
+            if reply != want:
+                fail(f"generate.main's reply to {turn!r} differs from generate_greedy's: {reply[:12]} ... vs "
+                     f"{want[:12]} ...")
+            if prefill_ms is None:
+                prefill_ms = statistics.median(greedy(1)[1] for _ in range(3))
+                per_token_ms = (full_ms - prefill_ms) / (GEN_MAX_NEW - 1)
+                prompt_tokens = ids.shape[1]
+            builder.add_turn("gpt", tok.decode(want))
+    del loaded, dm, dp, gm, gp, pixels
+    release_memory()
+    result = dict(demo_s=demo_s, generate_s=generate_s, action=np.asarray(action).tolist(),
+                  reply_lengths=[len(r) for r in replies], prefill_ms=prefill_ms, decode_ms_per_token=per_token_ms,
+                  prompt_tokens=prompt_tokens, launches=launches, demo_launches=demo_launches,
+                  phase_s=time.perf_counter() - t_phase)
+    log(f"scripts: demo.main {demo_s:.1f} s (load int8, one action {np.round(action, 4).tolist()}, equal to "
+        f"predict_action's); generate.main {generate_s:.1f} s for {len(GEN_TURNS)} turns of up to {GEN_MAX_NEW} "
+        f"tokens (replies {result['reply_lengths']} ids, equal to generate_greedy's); eager int8 prefill "
+        f"({prompt_tokens} + {PT_PATCHES} tokens) {prefill_ms:.1f} ms, decode {per_token_ms:.2f} ms per token; "
+        f"launches {launches}; phase {result['phase_s']:.1f} s; {nvidia_smi_line()}")
+    return result
+
+
 def report_build(logs: dict) -> None:
     """Each kernel's ptxas report (registers, spills, static shared memory)
     and the dynamic shared memory its launcher asks for."""
@@ -3392,7 +3930,8 @@ def release_memory() -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description="torch port smoke run on one GPU")
     ap.add_argument("--phases",
-                    default="build,load,kernels,serve,spec,parallel,train,int8,int4,qlora,variants,tfds,finetune,parity",
+                    default="build,load,kernels,serve,spec,parallel,train,int8,int4,qlora,variants,tfds,scripts,"
+                            "finetune,pretrain,parity",
                     help="comma-separated subset, for bring-up; the full run is the default; `cold` (not in "
                          "the default) runs only the device-side cold-L2 timings of the kernels phase")
     ap.add_argument("--package-root", default=ROOT,
@@ -3436,12 +3975,13 @@ def main() -> None:
     loaded = None
     ft_ckpt = None
     if phases & {"load", "serve", "spec", "parallel", "train", "int8", "int4", "qlora", "variants", "tfds",
-                  "finetune"}:
+                  "scripts", "finetune"}:
         model, params = build_7b(SEED)
         if "load" in phases:  # every later phase serves and trains the weights loaded through load_vla
-            model, params, loaded = load_phase(model, params, keep_ckpt=bool(phases & {"tfds", "finetune"}))
+            model, params, loaded = load_phase(model, params,
+                                               keep_ckpt=bool(phases & {"tfds", "scripts", "finetune"}))
             ft_ckpt = loaded.pop("ckpt_dir", None)
-        elif phases & {"tfds", "finetune"}:
+        elif phases & {"tfds", "scripts", "finetune"}:
             import tempfile
 
             ft_ckpt = tempfile.mkdtemp(prefix="smoke_ckpt_", dir=os.path.join(ROOT, "build"))
@@ -3557,13 +4097,15 @@ def main() -> None:
         variants["seconds"] = t_variants + time.perf_counter() - t0
         log(f"variants: the phase took {variants['seconds']:.1f} s")
 
-    tfds = None
+    tfds = scripts = None
     if "tfds" in phases:  # before finetune, which deletes the published 7B
         tfds = tfds_phase(ft_ckpt)
-        if "finetune" not in phases:
-            import shutil
+    if "scripts" in phases:
+        scripts = scripts_phase(ft_ckpt)
+    if ft_ckpt and "finetune" not in phases:
+        import shutil
 
-            shutil.rmtree(ft_ckpt, ignore_errors=True)
+        shutil.rmtree(ft_ckpt, ignore_errors=True)
 
     tuned = None
     if "finetune" in phases:
@@ -3574,6 +4116,8 @@ def main() -> None:
             f"{a['median_data_wait_ms']:.1f} ms, native store (raw frames) {b['median_data_wait_ms']:.1f} ms; step "
             f"{a['median_step_ms']:.1f} vs {b['median_step_ms']:.1f} ms; {smi}")
 
+    pretrained = pretrain_phase() if "pretrain" in phases else None  # after finetune: the 7B's align save is ~30 GB
+
     parity = parity_card_vs_cpu(SEED, spec="spec" in phases) if "parity" in phases else None
 
     if timing_rows:
@@ -3583,6 +4127,8 @@ def main() -> None:
                    "int4_serve": (served4 or {}).get("launches", zero), "qlora": (qlora or {}).get("launches", zero),
                    "parallel": (parallel or {}).get("launches", zero), "load": (loaded or {}).get("launches", zero),
                    "finetune": (tuned or {}).get("launches", zero), "tfds": (tfds or {}).get("launches", zero),
+                   "scripts": (scripts or {}).get("launches", zero),
+                   "pretrain": (pretrained or {}).get("launches", zero),
                    **{f"spec_{kind}": result["launches"] for kind, result in spec.items()}}
         if variants:
             phi = variants["phi"]
@@ -3626,6 +4172,20 @@ def main() -> None:
             entry["tfds"] = {k: v for k, v in tfds.items() if k != "launches"}
         if variants:
             entry["variants"] = variants
+        if scripts:
+            entry["scripts"] = {k: v for k, v in scripts.items() if k != "launches"}
+        t2304 = None
+        if pretrained:
+            entry["pretrain"] = {k: v for k, v in pretrained.items() if k not in ("launches", "kernels_t2304")}
+            t2304 = pretrained["kernels_t2304"]
+            entry["t2304"] = dict(
+                max_abs_err=t2304["worst"]["fwd"], plain_ms_b2=t2304["plain_fwd_ms_b2"], checks=t2304["checks"],
+                **{stage: dict(shape=x["shape"], lengths=x["lengths"], ms=x["fwd_ms"], library_ms=x["fwd_library_ms"],
+                               bound_ms=x["fwd_bound"][0], bound_by=x["fwd_bound"][1])
+                   for stage, x in t2304["timings"].items()},
+                note="flash_fwd at the pretraining length, B=16 with each stage's first micro-batch's fused "
+                     "lengths: CUDA events around calls; library: SDPA's memory-efficient kernel with the "
+                     "equivalent boolean mask; plain_ms_b2: the plain forward at B=2 (the check's shape)")
         entries = [entry]
         for name, line, ms_key, err in (("flash_bwd_dq", "bridgelang_tpu/ops/flash_attention.py:116", "dq_ms", "dq"),
                                         ("flash_bwd_dkv", "bridgelang_tpu/ops/flash_attention.py:156", "dkv_ms", "dkv")):
@@ -3633,8 +4193,19 @@ def main() -> None:
             bound, bound_by = bt["bounds"][err]
             timing = dict(max_abs_err=bwd_err[err], ms=bt[ms_key], plain_ms=bt["plain_ms"],
                           bound_ms=bound, bound_by=bound_by, library_ms=bt["library_ms"])
+            extra_t2304 = {}
+            if t2304:
+                extra_t2304["t2304"] = dict(
+                    max_abs_err=t2304["worst"][err], tolerance_use=t2304["worst"]["use"],
+                    plain_ms_b2=t2304["plain_bwd_ms_b2"],
+                    **{stage: dict(shape=x["shape"], ms=x[ms_key], library_ms=x["bwd_library_ms"],
+                                   bound_ms=x["bwd_bounds"][err][0], bound_by=x["bwd_bounds"][err][1])
+                       for stage, x in t2304["timings"].items()},
+                    note="medians of interleaved rounds at B=16 T=2304 with each stage's first micro-batch's "
+                         "lengths; library_ms: SDPA's memory-efficient autograd backward (dq, dk, dv together); "
+                         "plain_ms_b2: the plain backward at B=2")
             entries.append(kernel_entry(
-                name, "bridgelang_tpu_torch/csrc/flash_bwd.cu", line, launches(name), timing,
+                name, "bridgelang_tpu_torch/csrc/flash_bwd.cu", line, launches(name), timing, **extra_t2304,
                 tolerance_use=max(r[w]["use"] for r in bwd_readings.values()
                                   for w in ({"dq": ("dq",), "dkv": ("dk", "dv")}[err])),
                 shape=bt["shape"], library_backend=bt["library_backend"],

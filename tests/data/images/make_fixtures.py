@@ -16,9 +16,15 @@ records). It writes:
 * PNG: 8-bit RGB and RGBA, 16-bit gray (a depth map, decoded to float32 on
   the depth path), palette with and without tRNS, 1-bit gray, and an Adam7
   interlaced RGB image (`encode_adam7_png` below).
+* coco_00_640x480.jpg ... coco_02_640x480.jpg: 640x480 frames (COCO's
+  common size, the VLM pretraining images): Pillow quality 90 4:2:0, Pillow
+  quality 85 progressive, tf.io.encode_jpeg quality 95.
 * manifest.json: each file's shape and the sha256 of
   tf.io.decode_image(data, expand_animations=False) as uint8 bytes, and for
-  the PNGs and one JPEG also of the float32 decode.
+  the PNGs and one JPEG also of the float32 decode; and the sha256 of what
+  Pillow gives: np.asarray(Image.open(f).convert("RGB")) (`sha256_pil_rgb`)
+  and the same resized to 224x224 (`sha256_pil_224`, the pretraining
+  datasets' frames).
 
 Every frame comes from a seed, so a rerun writes the same pixels (the
 encoders' bytes may differ across library versions; the manifest follows
@@ -38,6 +44,8 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 N_CAMERA = 16
+N_COCO = 3
+PIL_SIZE = 224
 
 # zigzag index -> natural index
 ZIGZAG = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14,
@@ -268,14 +276,23 @@ def fixtures() -> dict:
     out["palette_trns_61x83.png"] = pil(pal, "PNG", transparency=5)
     out["gray1bit_61x83.png"] = pil(Image.fromarray(small[..., 1]).convert("1"), "PNG")
     out["adam7_rgb_61x83.png"] = encode_adam7_png(small)
+    coco = [camera_frame(40 + i, 480, 640) for i in range(N_COCO)]
+    out["coco_00_640x480.jpg"] = pil(coco[0], "JPEG", quality=90)
+    out["coco_01_640x480.jpg"] = pil(coco[1], "JPEG", quality=85, progressive=True)
+    out["coco_02_640x480.jpg"] = tf.io.encode_jpeg(coco[2], quality=95).numpy()
     return out
 
 
 def manifest_entry(data: bytes, float32: bool) -> dict:
     import tensorflow as tf
+    from PIL import Image
 
     u8 = tf.io.decode_image(data, expand_animations=False, dtype=tf.uint8).numpy()
     entry = {"shape": list(u8.shape), "sha256_uint8": hashlib.sha256(u8.tobytes()).hexdigest()}
+    with Image.open(io.BytesIO(data)) as im:
+        rgb = im.convert("RGB")
+        entry["sha256_pil_rgb"] = hashlib.sha256(np.asarray(rgb).tobytes()).hexdigest()
+        entry["sha256_pil_224"] = hashlib.sha256(np.asarray(rgb.resize((PIL_SIZE, PIL_SIZE))).tobytes()).hexdigest()
     if float32:
         f32 = tf.io.decode_image(data, expand_animations=False, dtype=tf.float32).numpy()
         entry["sha256_float32"] = hashlib.sha256(f32.tobytes()).hexdigest()

@@ -165,7 +165,10 @@ def test_port_imports_no_checkpoint_libraries():
     files = sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for new in ("finetune.py", "train.py", "native/__init__.py", "vla/materialize.py", "vla/datasets/native_loader.py",
                 "vla/datasets/rlds/dataset.py", "vla/datasets/rlds/obs_transforms.py",
-                "vla/datasets/rlds/oxe/transforms.py", "vla/datasets/rlds/utils/data_utils.py"):
+                "vla/datasets/rlds/oxe/transforms.py", "vla/datasets/rlds/utils/data_utils.py", "pretrain.py",
+                "preprocess.py", "generate.py", "demo.py", "native/image.py", "preprocessing/__init__.py",
+                "preprocessing/datasets.py", "preprocessing/materialize.py", "preprocessing/download.py",
+                "util/profiling.py"):
         assert pkg / new in files, new
     banned = {"safetensors", "transformers", "huggingface_hub", "tensorflow", "tensorflow_datasets", "dlimp", "PIL",
               "jax", "jaxlib", "bridgelang_tpu"}
