@@ -119,9 +119,13 @@ def export_state_dict(params: Dict[str, Any], dead_keys: Optional[Set[str]] = No
 
 
 def hf_config(model) -> Dict[str, Any]:
-    """The OpenVLAConfig-schema config.json of the JAX exporter."""
+    """The OpenVLAConfig-schema config.json of the JAX exporter. A decoder
+    with a sliding window (Mistral) also writes it, as HF's MistralConfig
+    does (`text_config.model_type` "mistral", `sliding_window`): the JAX
+    exporter drops it, and its loader takes the window from the registry id
+    alone."""
     cfg = model.cfg
-    return {
+    out = {
         "model_type": "openvla",
         "architectures": ["OpenVLAForActionPrediction"],
         "vision_backbone_id": cfg.vision_backbone_id,
@@ -138,6 +142,9 @@ def hf_config(model) -> Dict[str, Any]:
                         "num_attention_heads": cfg.llm.n_heads, "num_key_value_heads": cfg.llm.n_kv_heads,
                         "intermediate_size": cfg.llm.intermediate_size, "rms_norm_eps": cfg.llm.norm_eps},
     }
+    if cfg.llm.sliding_window is not None:
+        out["text_config"].update(model_type="mistral", sliding_window=cfg.llm.sliding_window)
+    return out
 
 
 def write_sidecars(model, out_dir: Union[Path, str]) -> None:

@@ -291,7 +291,9 @@ def load_vla(
     posture) also quantizes activations per token; pass False for a QLoRA
     base. `device`: CUDA by default (raises without a card); "cpu" runs the
     plain path. The tokenizer is left unset, as in the JAX package (deploy
-    sets it)."""
+    sets it). The decoder's config comes from the registry id; a
+    `text_config.sliding_window` in config.json (the port's export of a
+    windowed decoder) overrides the registry's window."""
     from bridgelang_tpu_torch._device import resolve_device
     from bridgelang_tpu_torch.models.vision import vit as vit_mod
     from bridgelang_tpu_torch.models.vla import OpenVLA
@@ -305,6 +307,10 @@ def load_vla(
         hf_cfg = json.load(f)
     if w8a8 is None:
         w8a8 = quantize_int8 or quantize_int4
+    overrides = {"w8a8": bool(w8a8), "int4_shards": int4_shards} if (w8a8 or int4_shards > 1) else {}
+    window = hf_cfg.get("text_config", {}).get("sliding_window")
+    if window is not None:  # the export's window wins over the registry's (a JAX export writes none)
+        overrides["sliding_window"] = int(window)
     cfg = VLMConfig.from_ids(
         model_id=hf_cfg.get("_name_or_path", str(path.name)),
         vision_backbone_id=hf_cfg["vision_backbone_id"],
@@ -312,7 +318,7 @@ def load_vla(
         arch_specifier=hf_cfg["arch_specifier"],
         image_resize_strategy=hf_cfg["image_resize_strategy"],
         llm_max_length=hf_cfg.get("llm_max_length", 2048),
-        llm_overrides=({"w8a8": bool(w8a8), "int4_shards": int4_shards} if (w8a8 or int4_shards > 1) else None),
+        llm_overrides=overrides or None,
     )
     norm_stats = hf_cfg.get("norm_stats") or {}
     stats_file = path / "dataset_statistics.json"

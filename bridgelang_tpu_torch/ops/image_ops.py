@@ -129,6 +129,16 @@ def _transform_one_tower(img01: torch.Tensor, spec: ImageTowerSpec, strategy: st
     return normalize(out, spec.mean, spec.std)
 
 
+def preprocess_image(
+    image_u8: torch.Tensor,
+    config: ImageTransformConfig,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """One [H, W, 3] uint8 frame -> [num_towers * 3, size, size] in `dtype`:
+    the unbatched `preprocess_batch` (the HF processor's channel stack)."""
+    return preprocess_batch(image_u8[None], config, dtype)[0]
+
+
 def preprocess_batch(
     images_u8: torch.Tensor,
     config: ImageTransformConfig,
@@ -167,6 +177,18 @@ def transform_config_for_backbone(vision_backbone_id: str, image_resize_strategy
     if vision_backbone_id not in table:
         raise KeyError(f"Unknown vision backbone {vision_backbone_id!r}")
     return ImageTransformConfig(strategy=image_resize_strategy, towers=table[vision_backbone_id])
+
+
+def crop_and_resize_eval(image01: torch.Tensor, crop_scale: float = 0.9) -> torch.Tensor:
+    """[H, W, 3] float image in [0, 1] -> the center crop of sqrt(crop_scale)
+    of each side, resized back to (H, W): the eval-time twin of training's
+    random resized crop. The bicubic resize overshoots [0, 1]; the result is
+    not clipped (the JAX function's). On the image's device."""
+    h, w = image01.shape[0], image01.shape[1]
+    ratio = float(np.sqrt(crop_scale))
+    ch, cw = int(round(h * ratio)), int(round(w * ratio))
+    cropped = center_crop(image01.permute(2, 0, 1)[None], (ch, cw))
+    return resize(cropped, (h, w), "bicubic")[0].permute(1, 2, 0)
 
 
 def frames_to_tensor(frames: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -17,7 +17,8 @@ of which fails the run:
            kernels (int4_mm_a8, int4_mm) against their plain versions at
            the three 7B projection shapes (a8 at M 1, 352, 1408; bf16 at M
            1, 352, 5632) and Phi-2's three (a8 at M 1, 4, 352, 1408: K 2560
-           in 20 groups, 10240 in 80), groups 256 and 512, fp32 activations, shard-blocked
+           in 20 groups, 10240 in 80; bf16 at its QLoRA M 5888), groups 256
+           and 512, fp32 activations, shard-blocked
            packs, ragged M and the a8 kernels' edges (M 4, 16, 17, 65;
            w_down's split-K split does not divide its 86 groups), element
            by element (INT4_TOL); the quantize_a8 kernel bit-equal to
@@ -126,7 +127,10 @@ of which fails the run:
            predict) and VLAServer, the int8 KV cache on it, 3 LoRA steps
            (B=16, 112 + 256 tokens, full remat: 64/32/32 flash launches per
            step, losses finite), then packed to int4 and served w4a8 (192
-           int4_mm_a8 and quantize_a8 per decoder pass); Mistral
+           int4_mm_a8 and quantize_a8 per decoder pass), then 3 QLoRA steps
+           over the int4 base with w8a8 off (384 int4_mm per step at Phi's
+           shapes, 64/32/32 flash launches, losses finite), merged and
+           predicting through the merged int4 weights; Mistral
            (prism-mistral-dinosiglip+7b) cut to 8 of its 32 layers (ids equal
            to eager, 8 flash_fwd per predict). The int8 cache: ids of graphs
            equal to eager, teacher-forced logits within 0.05 max|logit| of
@@ -155,6 +159,24 @@ of which fails the run:
            turns on standard input and 128 new tokens, each reply's ids
            equal to generate_greedy's on the conversation's prompt; the eager
            int8 prefill ms and decode ms per token.
+  robot    robot evaluation on the load phase's published-layout 7B:
+           verify.main with its defaults (int8 w8a8 on load, 16 calls: p50,
+           p90, finite actions, 32 flash_fwd per predict), --golden_record
+           then --golden on the bf16 load (every record's tokens exact),
+           --speculative_stream (16 ticks: the accept histogram) and
+           --quantize_int4 (8 calls, 224 int4_mm_a8 and quantize_a8 per
+           decoder pass); inspect_checkpoint.main on the published 7B and on a
+           port run dir (tensors and bytes as written); run_libero_eval.main
+           over a fake `libero` package (256 px, center crop, 2 tasks x 2
+           episodes x 8 steps) in greedy mode (each action equal to
+           predict_action's on the cropped frame), speculative (each tick's
+           ids equal to greedy's), remote (RemoteVLA against
+           VLAServer.serve_background on the card: actions equal to
+           in-process) and chunk mode (--action_chunk 8: one model pass per 8
+           ticks), with each mode's closed-loop rate; run_bridgev2_eval.main
+           over a fake WidowX stack with the prompts answered, 2 episodes of
+           10 steps (every step sent, the achieved rate against 5 Hz, the
+           policy's ms per step).
   finetune the port's entry points over a native episode store that the
            phase writes (LIBERO's layout: 24 episodes x 50 steps, 256x256
            frames from two cameras, 7-D actions, 8-D states), read through
@@ -180,7 +202,7 @@ of which fails the run:
            full width and depth (only the projector changes; the epoch-end
            checkpoint of the whole state read back for the projector and its
            moments, bit-equal; 64/32/32 flash launches per micro-step); the
-           finetune stage on the 7B cut to 8 decoder layers (LLM and
+           finetune stage on the 7B cut to 4 decoder layers (LLM and
            projector change, the towers do not); then the flash kernels at
            T = 2304 against their plain versions (B = 2, the runs' lengths)
            and timed at B = 16 beside SDPA and the bound. Step ms, padded
@@ -200,7 +222,9 @@ of which fails the run:
            leaves bit-equal, batch-2 ids equal. Then a 2-layer fp32 Phi-2 cut
            (the kernels at head dim 80, biases drawn): equal ids and one LoRA
            step under the same rule; a 2-layer fp32 Mistral cut with its
-           window at 64, below the 352-token prefill: equal ids.
+           window at 64, below the 352-token prefill: equal ids. And a
+           golden bundle recorded by verify.record_golden on the CPU from the
+           fp32 cut replays on the card (verify.replay_golden) token-exact.
 Then one line {"kernels": [...]}, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout,
 it exits non-zero and prints no result.
@@ -274,6 +298,7 @@ INT4_SHAPES_7B = {"wq": (4096, 4096), "w_gate": (4096, 11008), "w_down": (11008,
 # Phi-2's projections: K 2560 (20 groups of 128) or 10240 (80 groups)
 INT4_SHAPES_PHI = {"phi wq": (2560, 2560), "phi w_up": (2560, 10240), "phi w_down": (10240, 2560)}
 INT4_SHAPES = {**INT4_SHAPES_7B, **INT4_SHAPES_PHI}
+PHI_QLORA_M = 16 * 368  # int4_mm's M in a Phi-2 QLoRA step: B = 16 x (112 + 256) fused tokens
 INT4_PER_PASS = 7 * N_LAYERS_7B   # int4 launches per decoder pass: 7 projections x 32 layers
 ACTION_DIM = 7           # decoder passes per predict: the prefill and 6 decode steps
 QLORA_STEPS = 6          # timed QLoRA steps after one warm step
@@ -611,10 +636,12 @@ def check_int4_kernels() -> dict:
               ("w_gate", "a8", 65, 128, 1), ("wq", "a8", 1, 512, 1), ("w_down", "a8", 1, 256, 1),
               ("w_gate", "a8", 1, 128, 2), ("w_gate", "a8", 4, 128, 2)]
     cases += [(sh, "a8", m, INT4_GROUP, 1) for sh in INT4_SHAPES_PHI for m in (1, 4, 352, 1408)]
+    cases += [(sh, "bfloat16", PHI_QLORA_M, INT4_GROUP, 1) for sh in INT4_SHAPES_PHI]
     timed = {("wq", "a8", 1), ("w_gate", "a8", 1), ("w_down", "a8", 1), ("wq", "a8", 352), ("w_gate", "a8", 352),
              ("w_down", "a8", 352), ("wq", "bfloat16", 5632), ("w_gate", "bfloat16", 5632),
              ("w_down", "bfloat16", 5632)}
     timed |= {(sh, "a8", m) for sh in INT4_SHAPES_PHI for m in (1, 352)}
+    timed |= {(sh, "bfloat16", PHI_QLORA_M) for sh in INT4_SHAPES_PHI}
     worst = {"a8": (0.0, 0.0), "float": (0.0, 0.0)}
     rows, blocked = [], []
     for i, (shape, mode, m, group, n_shards) in enumerate(cases):
@@ -679,7 +706,7 @@ def check_int4_kernels() -> dict:
             kfn = (lambda: im.int4_mm_a8(xin, packed, scales)) if mode == "a8" else (lambda: im.int4_mm(xin, packed, scales))
             pfn = ((lambda: im.int4_matmul_a8_plain(xin, packed, scales)) if mode == "a8"
                    else (lambda: im.int4_matmul_plain(xin, packed, scales)))
-            kernel_ms = cuda_ms(kfn, 50 if m < 5632 else 10)
+            kernel_ms = cuda_ms(kfn, 50 if m < 5632 else 10)  # 10 at the QLoRA M (5632; Phi's 5888)
             plain_ms = cuda_ms(pfn, 3, warmup=1)
             w_bf = dequant_int4(packed, scales, torch.bfloat16).t().contiguous()  # [N, K], ahead of time
             x_bf = x.to(torch.bfloat16)
@@ -1562,7 +1589,7 @@ def train_adapters(model, params, seed: int, label: str, steps: int, per_step: d
     n_vis = sum(t.numel() for part in ("vision", "projector") for t in tree_leaves(params[part]))
     vis_tokens = b * (model.num_patches + 5)  # bench.py's count: DINOv2's 256 patches + class + 4 registers
     flops = 4.0 * n_base * tokens + 6.0 * n_lora * tokens + 2.0 * n_vis * vis_tokens
-    base_kind = "packed-int4 (group 128)" if label == "qlora" else "bf16"
+    base_kind = "packed-int4 (group 128)" if any(k.endswith("_scale4") for k in params["llm"]["layers"][0]) else "bf16"
     log(f"{label}: {model.cfg.model_id} {base_kind} base ({n_base / 1e9:.3f} B LLM params) + r={LORA_RANK} fp32 adapters "
         f"({n_lora / 1e6:.1f} M params), batch {b} x {f} fused tokens, full remat, AdamW lr {LORA_LR}; "
         f"useful FLOPs per step {flops:.4g}")
@@ -2076,6 +2103,7 @@ def parity_card_vs_cpu(seed: int, spec: bool) -> dict:
     gpu, cpu, p_gpu, p_cpu = parity_cut(LLAMA_IDS, seed)
     results = {"float": parity_pair(gpu, cpu, p_gpu, p_cpu, seed, "fp32", {"flash_fwd": 2}, {})}
     results["export"] = export_round_trip(gpu, p_gpu)
+    results["golden"] = golden_cpu_to_card(gpu, cpu, p_gpu, p_cpu)
 
     # The same cut with its decoder packed to int4 on the card (one pack,
     # copied to the CPU): w4a8 and bf16-path tokens, and a QLoRA step.
@@ -2129,6 +2157,33 @@ def parity_card_vs_cpu(seed: int, spec: bool) -> dict:
     del m_gpu, m_cpu, pm_gpu, pm_cpu
     release_memory()
     return results
+
+
+PARITY_GOLDEN_RECORDS = 2
+
+
+def golden_cpu_to_card(gpu, cpu, p_gpu, p_cpu) -> dict:
+    """verify's golden-trajectory kit across devices: a bundle recorded by
+    verify.record_golden on the CPU (plain versions) from the fp32 cut,
+    replayed on the card (the kernels, through the graphs) by
+    verify.replay_golden: every record's tokens exact."""
+    import tempfile
+
+    from bridgelang_tpu_torch import verify
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        path = os.path.join(tmp, "golden_cpu.npz")
+        t0 = time.perf_counter()
+        verify.record_golden(cpu, p_cpu, path, PARITY_GOLDEN_RECORDS, None)
+        record_s = time.perf_counter() - t0
+        reset_launch_counts()
+        n_pass, n_total, failures = verify.replay_golden(gpu, p_gpu, path)
+        counts = launch_counts()
+    log(f"parity (golden): a bundle of {n_total} records recorded on the CPU in {record_s:.1f} s, replayed on the "
+        f"card: {n_pass}/{n_total} records exact; launches {counts} {failures[:2]}")
+    if n_pass != n_total or counts["flash_fwd"] < 2:
+        fail(f"parity (golden): {n_pass}/{n_total} records replayed exactly on the card: {failures[:2]}")
+    return dict(passed=n_pass, total=n_total, record_s=record_s, launches=counts)
 
 
 def parity_cut(ids, seed: int, biases: bool = False, **llm_overrides):
@@ -2500,7 +2555,9 @@ def phi_phase() -> dict:
     weights: served through graphs (ids equal to eager, 32 flash_fwd at
     D=80 per predict) and VLAServer; the int8 KV cache; LoRA steps (64/32/32
     flash launches at D=80 per step); then packed to int4 and served w4a8
-    (6 projections x 32 layers = 192 int4_mm_a8 and quantize_a8 per pass)."""
+    (6 projections x 32 layers = 192 int4_mm_a8 and quantize_a8 per pass);
+    then QLoRA over the int4 base with w8a8 off (384 int4_mm per step at
+    Phi's shapes, 64/32/32 flash launches), merged and predicting."""
     import torch
 
     from bridgelang_tpu_torch.ops.quant import quantize_llm_int4
@@ -2539,6 +2596,14 @@ def phi_phase() -> dict:
                        decode_ms_per_token=graph_decode_ms(model4, params, 1), profile=profile_predict(model4, params))
     log(f"phi int4 w4a8: decoder + int8 embedding and head {out['int4']['llm_gb']:.2f} GB; {per_pass} int4_mm_a8 "
         f"and quantize_a8 per decoder pass; decode {out['int4']['decode_ms_per_token']:.3f} ms per token (graphs)")
+    model4.graphs.clear()
+    release_memory()
+    # QLoRA over the int4 base (w8a8 off, as the 7B qlora phase): int4_mm at Phi's shapes in the forward and
+    # the full-remat recompute (2 x 6 projections x 32 layers), the flash pair at head dim 80 in the backward;
+    # then the merge (dequantize, add, requantize) and one action through the merged int4 weights.
+    out["qlora"] = train_adapters(w8a8_model(model, w8a8=False), params, SEED, "phi_qlora", PHI_LORA_STEPS,
+                                  {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers,
+                                   "int4_mm": 2 * per_pass}, serve_model=model4, require_fall=False)
     model4.graphs.clear()
     del model, model4, params
     release_memory()
@@ -3419,7 +3484,8 @@ PT_MICRO_STEPS = 4       # max_steps_override: 4 micro-steps, 2 accumulated upda
 PT_ALIGN_EXAMPLES = 64   # the align chat.json (558k shape): 4 micro-batches of 16
 PT_FT_IMAGE_EXAMPLES = 48  # the finetune JSON (mix665k shape): 3 multimodal micro-batches
 PT_FT_TEXT_EXAMPLES = 16   # and 1 text-only one, some past the 2048-token bucket
-PT_FT_LAYERS = 8         # the finetune stage's cut: AdamW's fp32 state of all 32 layers (~109 GB) needs FSDP
+PT_FT_LAYERS = 4         # the finetune stage's cut: AdamW's fp32 state of all 32 layers (~109 GB) needs FSDP;
+#                          4, not 8 (PR 12), keeps the whole smoke near 1000 s of its 1200 s limit
 PT_KERNEL_B = 2          # rows 1-3 against their plain versions at T=2304 (the plain scores: ~1.4 GB of fp32)
 PT_PATCHES = 256
 WORDS = ("a the red blue green small large wooden metal table cup block spoon towel drawer robot arm gripper "
@@ -3871,6 +3937,470 @@ def scripts_phase(ckpt_dir: str) -> dict:
     return result
 
 
+# --- phase: robot evaluation (verify, inspect_checkpoint, the LIBERO and BridgeV2 harnesses) ------
+
+VERIFY_CALLS = 16        # verify.main's default run (int8 w8a8 on load)
+VERIFY_INT4_CALLS = 8    # verify --quantize_int4 true
+GOLDEN_RECORDS = 4       # the bf16 golden bundle: one batch-4 predict
+SPEC_STREAM_TICKS = 16   # measured ticks of --speculative_stream (tick 0, the graph capture, left out)
+LIBERO_RES = 256         # run_libero_eval's default camera resolution
+LIBERO_TASKS = 2
+LIBERO_EPISODES = 2      # per task
+LIBERO_STEPS = 8         # policy steps before the fake task succeeds: one chunk of ROBOT_CHUNK
+ROBOT_CHUNK = 8          # --action_chunk of the chunk mode
+BRIDGE_EPISODES = 2
+BRIDGE_STEPS = 10        # 2 s of control per episode at the 5 Hz target
+
+
+def smooth_frame(h: int, w: int, t: float):
+    """A camera frame that drifts with t (values in [40, 215])."""
+    import numpy as np
+
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    chans = [127 + 60 * np.sin(0.05 * x + 0.03 * y + 0.4 * t + c) + 25 * np.cos(0.02 * y - 0.3 * t * c)
+             for c in range(3)]
+    return np.clip(np.stack(chans, -1), 40, 215).astype(np.uint8)
+
+
+class FakeLibero:
+    """A `libero` package in sys.modules while the phase runs: LIBERO_TASKS
+    tasks whose env renders drifting frames upside down (as LIBERO does) and
+    succeeds after LIBERO_STEPS policy steps. Each policy tick records the
+    upright frame the policy saw, the action the env received and the time."""
+
+    def __init__(self):
+        import types
+
+        self.ticks = []  # (task, episode, frame, action, time)
+        self.starts = {}  # (task, episode) -> the time its settle steps ended
+        rec, settle = self, 10
+
+        class Env:
+            def __init__(self, bddl_file_name, camera_heights, camera_widths):
+                self.hw, self.task = (camera_heights, camera_widths), int(bddl_file_name[4:-5])
+
+            def _obs(self):
+                self.frame = smooth_frame(*self.hw, self.t)
+                return {"agentview_image": self.frame[::-1, ::-1]}
+
+            def reset(self):
+                self.steps = 0
+
+            def set_init_state(self, state):
+                self.t, self.episode = float(state[0]), int(state[1])
+                return self._obs()
+
+            def step(self, action):
+                import numpy as np
+
+                self.steps += 1
+                if self.steps == settle:
+                    rec.starts[(self.task, self.episode)] = time.perf_counter()
+                elif self.steps > settle:
+                    rec.ticks.append((self.task, self.episode, self.frame, np.asarray(action), time.perf_counter()))
+                    self.t += 0.5
+                return self._obs(), 0.0, self.steps >= settle + LIBERO_STEPS, {}
+
+            def close(self):
+                pass
+
+        class Task:
+            def __init__(self, i):
+                self.language = INSTRUCTIONS[i % len(INSTRUCTIONS)]
+
+        class Suite:
+            n_tasks = LIBERO_TASKS
+
+            def get_task(self, i):
+                return Task(i)
+
+            def get_task_bddl_file_path(self, i):
+                return f"task{i}.bddl"
+
+            def get_task_init_states(self, i):
+                import numpy as np
+
+                return [np.array([3.0 * i + e, e]) for e in range(LIBERO_EPISODES)]
+
+        benchmark = types.ModuleType("libero.libero.benchmark")
+        benchmark.get_benchmark_dict = lambda: {"libero_spatial": Suite}
+        envs = types.ModuleType("libero.libero.envs")
+        envs.OffScreenRenderEnv = Env
+        inner = types.ModuleType("libero.libero")
+        inner.benchmark, inner.envs = benchmark, envs
+        outer = types.ModuleType("libero")
+        outer.libero = inner
+        self.modules = {"libero": outer, "libero.libero": inner, "libero.libero.benchmark": benchmark,
+                        "libero.libero.envs": envs}
+
+    def __enter__(self):
+        sys.modules.update(self.modules)
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.modules:
+            sys.modules.pop(name, None)
+
+    def rate_hz(self) -> float:
+        """Closed-loop rate: an episode's policy ticks over the time from the
+        end of its settle steps to its last tick (each tick's policy call and
+        env step, a chunk's model pass included); the median over episodes
+        (the first episode of a mode captures the graphs)."""
+        last = {tick[:2]: tick[4] for tick in self.ticks}
+        return statistics.median(LIBERO_STEPS / (last[ep] - t0) for ep, t0 in self.starts.items())
+
+
+class FakeWidowX:
+    """`widowx_envs.widowx_env_service` in sys.modules: a client whose
+    observations are [3, S, S] float images in [0, 1] and an 8-D state; it
+    records each action's time and blocking flag."""
+
+    def __init__(self, im_size: int):
+        import types
+
+        self.steps, self.moves, self.im_size = [], 0, im_size
+        rec = self
+
+        class Client:
+            def __init__(self, host, port):
+                self.n = 0
+
+            def init(self, env_params):
+                rec.env_params = env_params
+
+            def get_observation(self):
+                import numpy as np
+
+                img = smooth_frame(rec.im_size, rec.im_size, 0.2 * self.n).transpose(2, 0, 1) / 255.0
+                return {"image": img.reshape(-1), "state": np.full(7, 0.01 * self.n)}
+
+            def step_action(self, action, blocking=False):
+                rec.steps.append((time.perf_counter(), blocking))
+                self.n += 1
+
+            def reset(self):
+                pass
+
+            def move(self, transform, duration=0.8, blocking=True):
+                rec.moves += 1
+
+        class Configs:
+            DefaultEnvParams = {"fix_zangle": 0.1, "move_duration": 0.2}
+
+        service = types.ModuleType("widowx_envs.widowx_env_service")
+        service.WidowXClient, service.WidowXConfigs = Client, Configs
+        pkg = types.ModuleType("widowx_envs")
+        pkg.widowx_env_service = service
+        self.modules = {"widowx_envs": pkg, "widowx_envs.widowx_env_service": service}
+
+    def __enter__(self):
+        sys.modules.update(self.modules)
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.modules:
+            sys.modules.pop(name, None)
+
+
+class SharedInt8Load:
+    """While it is entered, load_vla of an int8 (w8a8) checkpoint returns one
+    shared (model, params): verify's int8 runs and both harnesses serve the
+    same loaded 7B instead of loading it four times. Other loads (the bf16
+    golden record and replay, int4) go through as they are."""
+
+    def __init__(self):
+        self.cached = None
+
+    def __enter__(self):
+        from bridgelang_tpu_torch.models import load as load_mod
+
+        self.real = load_mod.load_vla
+
+        def load(path, **kw):
+            if not kw.get("quantize_int8") or kw.get("quantize_int4"):
+                return self.real(path, **kw)
+            if self.cached is None:
+                self.cached = self.real(path, **kw)
+            return self.cached
+
+        load_mod.load_vla = load
+        return self
+
+    def __exit__(self, *exc):
+        from bridgelang_tpu_torch.models import load as load_mod
+
+        load_mod.load_vla = self.real
+        if self.cached is not None:
+            self.cached[0].graphs.clear()
+        self.cached = None
+        release_memory()
+
+
+def verify_run(label: str, **fields):
+    """verify.main on the published 7B with `fields`, its launches counted."""
+    from bridgelang_tpu_torch import verify
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = verify.main(verify.VerifyConfig(**fields))
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    release_memory()
+    log(f"robot: verify {label}: {out}; {seconds:.1f} s (a load of the 7B included unless shared); launches {counts}")
+    return dict(out, seconds=seconds), counts
+
+
+def verify_phase(ckpt_dir: str, tmp: str) -> dict:
+    """verify.main on the published 7B: the default run (int8 w8a8 on load,
+    VERIFY_CALLS calls; p50, p90, finite actions), a golden bundle recorded
+    and replayed on the bf16 load (every record's tokens exact), the
+    speculative stream (the accept histogram), and --quantize_int4 (224
+    int4_mm_a8 and quantize_a8 launches per decoder pass)."""
+    out, launches = {}, dict.fromkeys(KERNEL_NAMES, 0)
+
+    def add(counts):
+        for k in KERNEL_NAMES:
+            launches[k] += counts[k]
+
+    # One capture per key: the first predict's warm-up runs eagerly (and counts), then the graph replays.
+    out["int8"], counts = verify_run("default (int8 w8a8)", checkpoint=ckpt_dir, calls=VERIFY_CALLS)
+    expect_counts(counts, {"flash_fwd": N_LAYERS_7B * (VERIFY_CALLS + 1)}, "verify default")
+    add(counts)
+    golden = os.path.join(tmp, "golden_7b_bf16.npz")
+    out["record"], counts = verify_run("--golden_record (bf16)", checkpoint=ckpt_dir, quantize_int8=False,
+                                       golden_record=golden, calls=GOLDEN_RECORDS)
+    add(counts)
+    out["replay"], counts = verify_run("--golden (bf16)", checkpoint=ckpt_dir, quantize_int8=False, golden=golden)
+    add(counts)
+    if out["replay"]["passed"] != GOLDEN_RECORDS:
+        fail(f"robot: the golden replay passed {out['replay']['passed']} of {GOLDEN_RECORDS} records")
+    out["stream"], counts = verify_run("--speculative_stream (int8 w8a8)", checkpoint=ckpt_dir,
+                                       speculative_stream=True, calls=SPEC_STREAM_TICKS + 1)
+    add(counts)
+    passes = counts["flash_fwd"] / N_LAYERS_7B  # one prefill per tick, plus the captures' warm-up runs
+    if len(out["stream"]["accepts"]) != SPEC_STREAM_TICKS or not SPEC_STREAM_TICKS + 1 <= passes <= SPEC_STREAM_TICKS + 3:
+        fail(f"robot: the speculative stream measured {len(out['stream']['accepts'])} ticks with {passes} prefills")
+    out["int4"], counts = verify_run("--quantize_int4 true", checkpoint=ckpt_dir, quantize_int4=True,
+                                     calls=VERIFY_INT4_CALLS)
+    predicts = VERIFY_INT4_CALLS + 1
+    expect_counts(counts, {"flash_fwd": N_LAYERS_7B * predicts, "int4_mm_a8": ACTION_DIM * INT4_PER_PASS * predicts,
+                           "quantize_a8": ACTION_DIM * INT4_PER_PASS * predicts}, "verify --quantize_int4")
+    add(counts)
+    log(f"robot: verify p50 / p90: int8 w8a8 {out['int8']['p50_ms']:.1f} / {out['int8']['p90_ms']:.1f} ms, int4 w4a8 "
+        f"{out['int4']['p50_ms']:.1f} / {out['int4']['p90_ms']:.1f} ms; golden bf16 {GOLDEN_RECORDS}/{GOLDEN_RECORDS} "
+        f"records exact; speculative stream accept histogram (k = 1..7) {out['stream']['hist']}, p50 "
+        f"{out['stream']['p50_ms']:.1f} ms")
+    out["launches"] = launches
+    return out
+
+
+def inspect_phase(ckpt_dir: str, written: dict, tmp: str) -> dict:
+    """inspect_checkpoint.main on the published 7B (tensors and bytes as the
+    load phase wrote them) and on a port run dir (a CheckpointManager save of
+    the 7B's projector with its AdamW state: tensors and bytes as saved)."""
+    import torch
+
+    from bridgelang_tpu_torch import inspect_checkpoint
+    from bridgelang_tpu_torch.training.checkpointing import CheckpointManager
+    from bridgelang_tpu_torch.training.trainer import OptimConfig, init_train_state, make_optimizer, tree_leaves
+    from bridgelang_tpu_torch.util.safetensors_io import SafetensorsFile, checkpoint_files
+
+    t0 = time.perf_counter()
+    hf = inspect_checkpoint.main(inspect_checkpoint.InspectConfig(path=ckpt_dir, limit=8))
+    hf_s = time.perf_counter() - t0
+    if (hf["tensors"], hf["bytes"]) != (written["tensors"], written["bytes"]):
+        fail(f"robot: inspect_checkpoint counts {hf['tensors']} tensors, {hf['bytes']} bytes; the load phase wrote "
+             f"{written['tensors']}, {written['bytes']}")
+    projector = {}
+    for f in checkpoint_files(ckpt_dir):
+        sf = SafetensorsFile(f)
+        projector.update({k: sf.get_tensor(k).float() for k in sf.keys() if k.startswith("projector.")})
+    params = {"projector": projector}
+    opt = make_optimizer(OptimConfig(), params)
+    state = init_train_state(params, opt)
+    path = CheckpointManager(os.path.join(tmp, "run"), keep=1).save(state, step=1, epoch=0, loss=1.0)
+    saved = [t for t in tree_leaves({"params": state.params, "opt": state.opt_state}) if isinstance(t, torch.Tensor)]
+    run = inspect_checkpoint.main(inspect_checkpoint.InspectConfig(path=os.path.join(tmp, "run"), limit=8))
+    want = (len(saved), sum(t.numel() * t.element_size() for t in saved))
+    if (run["tensors"], run["bytes"]) != want:
+        fail(f"robot: inspect_checkpoint on {path} counts {run['tensors']} tensors, {run['bytes']} bytes; "
+             f"saved {want}")
+    log(f"robot: inspect_checkpoint: the published 7B {hf['tensors']} tensors, {hf['bytes'] / 1e9:.2f} GB in "
+        f"{hf_s:.2f} s (as written); the run dir's state.pt {run['tensors']} tensors, {run['bytes'] / 1e6:.1f} MB "
+        f"(as saved)")
+    return dict(hf=dict(hf, seconds=hf_s), run=run)
+
+
+def libero_phase(ckpt_dir: str, tmp: str, shared: SharedInt8Load) -> dict:
+    """run_libero_eval.main with the fake simulator (LIBERO_TASKS tasks x
+    LIBERO_EPISODES episodes x LIBERO_STEPS steps, 256 px, center crop) in
+    each policy mode, on the int8 checkpoint that `shared` loaded once:
+    * greedy: each action the env received equals predict_action's on the
+      tick's frame cropped as the harness crops it (on the card);
+    * speculative: each tick's ids equal greedy's on that frame;
+    * remote: RemoteVLA against VLAServer.serve_background of the same model
+      (speculative by default); each action equals the in-process
+      predict_action on the frame cropped on the host, as RemoteVLA does;
+    * chunk (--action_chunk ROBOT_CHUNK): one model pass per ROBOT_CHUNK
+      ticks.
+    The closed-loop rate of each mode (one over the median tick interval)."""
+    import numpy as np
+
+    from bridgelang_tpu_torch.experiments.robot import openvla_utils as ou
+    from bridgelang_tpu_torch.experiments.robot.libero import run_libero_eval as rle
+    from bridgelang_tpu_torch.experiments.robot.robot_utils import invert_gripper_action, normalize_gripper_action
+    from bridgelang_tpu_torch.serving.server import VLAServer
+
+    def run(mode, **kw):
+        cfg = rle.LiberoEvalConfig(pretrained_checkpoint=ckpt_dir, num_trials_per_task=LIBERO_EPISODES,
+                                   unnorm_key="bridge_orig", center_crop=True, resolution=LIBERO_RES,
+                                   local_log_dir=os.path.join(tmp, "logs"), **kw)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with FakeLibero() as sim:
+            rle.main(cfg)
+        seconds = time.perf_counter() - t0
+        n = LIBERO_TASKS * LIBERO_EPISODES * LIBERO_STEPS
+        if len(sim.ticks) != n:
+            fail(f"robot: libero {mode}: {len(sim.ticks)} policy ticks, expected {n} (an episode died)")
+        log(f"robot: libero {mode}: {n} ticks in {seconds:.1f} s, closed loop {sim.rate_hz():.2f} Hz; launches "
+            f"{launch_counts()}")
+        return sim, dict(seconds=seconds, hz=sim.rate_hz(), launches=launch_counts())
+
+    def expected(vla_model, params, frame, instruction, device):
+        action, ids = vla_model.predict_action_batch(params, [ou.crop_frame_u8(frame, device=device)], [instruction],
+                                                     unnorm_key="bridge_orig", return_tokens=True)
+        return invert_gripper_action(normalize_gripper_action(action[0], binarize=True)), ids[0]
+
+    out, spec_ids = {}, []
+    real_predict = ou.InProcessVLA.predict
+
+    def recording_predict(self, image, instruction, unnorm_key):
+        action = real_predict(self, image, instruction, unnorm_key)
+        if self.speculative:
+            spec_ids.append(np.asarray(self._last_tokens))
+        return action
+
+    ou.InProcessVLA.predict = recording_predict
+    try:
+        greedy, out["greedy"] = run("greedy")
+        model, params = shared.cached
+        instr = [INSTRUCTIONS[t % len(INSTRUCTIONS)] for t, *_ in greedy.ticks]
+        want_ids = []
+        for tick, text in zip(greedy.ticks, instr):
+            want, ids = expected(model, params, tick[2], text, model.device)
+            want_ids.append(ids)
+            if not np.array_equal(tick[3], want):
+                fail(f"robot: libero greedy: the env got {tick[3].tolist()}, predict_action gives {want.tolist()}")
+        spec, out["speculative"] = run("speculative", speculative=True)
+        for i, (tick, ids) in enumerate(zip(spec.ticks, spec_ids)):
+            if not np.array_equal(tick[2], greedy.ticks[i][2]) or not np.array_equal(ids, want_ids[i]):
+                fail(f"robot: libero speculative tick {i}: ids {ids.tolist()} != greedy's {want_ids[i].tolist()}")
+        server = VLAServer(model, params, device=model.device)
+        httpd = server.serve_background(port=0)
+        try:
+            remote, out["remote"] = run("remote", remote_host="127.0.0.1", remote_port=httpd.server_address[1])
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.close()
+        for tick, text in zip(remote.ticks, instr):
+            want, _ = expected(model, params, tick[2], text, "cpu")
+            if not np.array_equal(tick[3], want):
+                fail(f"robot: libero remote: the env got {tick[3].tolist()}, in-process gives {want.tolist()}")
+        passes = []
+        real_chunk = model.predict_action_chunk
+        model.predict_action_chunk = lambda *a, **k: passes.append(1) or real_chunk(*a, **k)
+        try:
+            _, out["chunk"] = run("chunk", action_chunk=ROBOT_CHUNK)
+        finally:
+            del model.predict_action_chunk
+        if len(passes) * ROBOT_CHUNK != LIBERO_TASKS * LIBERO_EPISODES * LIBERO_STEPS:
+            fail(f"robot: libero chunk: {len(passes)} model passes for {LIBERO_TASKS * LIBERO_EPISODES * LIBERO_STEPS} "
+                 f"ticks, expected one per {ROBOT_CHUNK}")
+        out["chunk"]["passes"] = len(passes)
+    finally:
+        ou.InProcessVLA.predict = real_predict
+    del model, params
+    log("robot: libero closed-loop rates (Hz): " + ", ".join(f"{m} {r['hz']:.2f}" for m, r in out.items())
+        + f"; greedy actions equal predict_action's, speculative ids equal greedy's, remote actions equal "
+          f"in-process, chunk {out['chunk']['passes']} passes for {LIBERO_TASKS * LIBERO_EPISODES * LIBERO_STEPS} ticks")
+    return out
+
+
+def bridge_phase(ckpt_dir: str, tmp: str) -> dict:
+    """run_bridgev2_eval.main with a fake WidowX stack and the prompts
+    answered (the task, then Enter), BRIDGE_EPISODES episodes of
+    BRIDGE_STEPS steps with the in-process policy (int8 on load, the shared
+    load of robot_phase): every step
+    sends an action, non-blocking; the achieved control rate against the
+    5 Hz target and the policy's ms per step."""
+    import builtins
+
+    from bridgelang_tpu_torch.experiments.robot import openvla_utils as ou
+    from bridgelang_tpu_torch.experiments.robot.bridge import run_bridgev2_eval as rbe
+
+    prompts = iter([INSTRUCTIONS[0]])
+    policy_ms = []
+    real_input, real_predict = builtins.input, ou.InProcessVLA.predict
+
+    def timed_predict(self, image, instruction, unnorm_key):
+        t0 = time.perf_counter()
+        action = real_predict(self, image, instruction, unnorm_key)
+        policy_ms.append(1e3 * (time.perf_counter() - t0))
+        return action
+
+    cfg = rbe.BridgeEvalConfig(pretrained_checkpoint=ckpt_dir, max_episodes=BRIDGE_EPISODES, max_steps=BRIDGE_STEPS,
+                               rollout_dir=os.path.join(tmp, "rollouts"))
+    builtins.input = lambda *a: next(prompts, "")
+    ou.InProcessVLA.predict = timed_predict
+    t0 = time.perf_counter()
+    try:
+        with FakeWidowX(cfg.resize_hw) as robot:
+            rbe.main(cfg)
+    finally:
+        builtins.input, ou.InProcessVLA.predict = real_input, real_predict
+    seconds = time.perf_counter() - t0
+    release_memory()
+    if len(robot.steps) != BRIDGE_EPISODES * BRIDGE_STEPS or any(b for _, b in robot.steps):
+        fail(f"robot: bridge: {len(robot.steps)} actions sent, expected {BRIDGE_EPISODES * BRIDGE_STEPS} "
+             "non-blocking ones (a step raised)")
+    gaps = [b[0] - a[0] for i, (a, b) in enumerate(zip(robot.steps, robot.steps[1:])) if (i + 1) % BRIDGE_STEPS]
+    hz = 1.0 / statistics.median(gaps)
+    steady = policy_ms[1:]  # the first predict captures the graph
+    out = dict(seconds=seconds, hz=hz, target_hz=cfg.control_frequency, policy_ms_median=statistics.median(steady),
+               policy_ms_max=max(steady), moves=robot.moves)
+    log(f"robot: bridge: {len(robot.steps)} steps in {BRIDGE_EPISODES} episodes, achieved {hz:.2f} Hz against the "
+        f"{cfg.control_frequency:g} Hz target; policy {out['policy_ms_median']:.1f} ms per step (median, max "
+        f"{out['policy_ms_max']:.1f}); {seconds:.1f} s")
+    return out
+
+
+def robot_phase(ckpt_dir: str, written: dict) -> dict:
+    """verify, inspect_checkpoint and the two harnesses on the load phase's
+    published-layout 7B (see verify_phase, inspect_phase, libero_phase,
+    bridge_phase); the int8 load is shared (SharedInt8Load)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="smoke_robot_", dir=os.path.join(ROOT, "build"))
+    try:
+        with SharedInt8Load() as shared:
+            result = {"verify": verify_phase(ckpt_dir, tmp), "inspect": inspect_phase(ckpt_dir, written, tmp)}
+            result["libero"] = libero_phase(ckpt_dir, tmp, shared)
+            result["bridge"] = bridge_phase(ckpt_dir, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(result["verify"]["launches"])
+    for mode in result["libero"].values():
+        launches = {k: launches[k] + mode["launches"][k] for k in KERNEL_NAMES}
+    result["launches"] = launches
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"robot phase: {result['phase_s']:.1f} s; launches {launches}; {nvidia_smi_line()}")
+    return result
+
+
 def report_build(logs: dict) -> None:
     """Each kernel's ptxas report (registers, spills, static shared memory)
     and the dynamic shared memory its launcher asks for."""
@@ -3931,7 +4461,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description="torch port smoke run on one GPU")
     ap.add_argument("--phases",
                     default="build,load,kernels,serve,spec,parallel,train,int8,int4,qlora,variants,tfds,scripts,"
-                            "finetune,pretrain,parity",
+                            "robot,finetune,pretrain,parity",
                     help="comma-separated subset, for bring-up; the full run is the default; `cold` (not in "
                          "the default) runs only the device-side cold-L2 timings of the kernels phase")
     ap.add_argument("--package-root", default=ROOT,
@@ -3961,6 +4491,14 @@ def main() -> None:
 
     from bridgelang_tpu_torch import native
 
+    seconds, last = {}, [time.perf_counter()]
+
+    def mark(phase: str) -> None:
+        """Add the seconds since the previous mark to `phase`."""
+        now = time.perf_counter()
+        seconds[phase] = seconds.get(phase, 0.0) + now - last[0]
+        last[0] = now
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:  # g++ for the host library beside the nvcc builds
         host_lib = pool.submit(lambda: (native.build(), time.perf_counter() - t0))
@@ -3969,26 +4507,28 @@ def main() -> None:
     log(f"build: {len(logs)} source(s) in {time.perf_counter() - t0:.1f} s; the host library "
         f"{os.path.basename(lib_path)} ({', '.join(s.name for s in native.SOURCES)}, g++) in {lib_s:.1f} s")
     report_build(logs)
+    mark("build")
 
     model = params = None
     serve_t = 352
     loaded = None
-    ft_ckpt = None
-    if phases & {"load", "serve", "spec", "parallel", "train", "int8", "int4", "qlora", "variants", "tfds",
-                  "scripts", "finetune"}:
+    ft_ckpt = written = None
+    on_ckpt = {"tfds", "scripts", "robot", "finetune"}  # the phases that read the published-layout 7B
+    if phases & {"load", "serve", "spec", "parallel", "train", "int8", "int4", "qlora", "variants"} | on_ckpt:
         model, params = build_7b(SEED)
         if "load" in phases:  # every later phase serves and trains the weights loaded through load_vla
-            model, params, loaded = load_phase(model, params,
-                                               keep_ckpt=bool(phases & {"tfds", "scripts", "finetune"}))
-            ft_ckpt = loaded.pop("ckpt_dir", None)
-        elif phases & {"tfds", "scripts", "finetune"}:
+            model, params, loaded = load_phase(model, params, keep_ckpt=bool(phases & on_ckpt))
+            ft_ckpt, written = loaded.pop("ckpt_dir", None), loaded["write"]
+        elif phases & on_ckpt:
             import tempfile
 
+            os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
             ft_ckpt = tempfile.mkdtemp(prefix="smoke_ckpt_", dir=os.path.join(ROOT, "build"))
-            write_published_checkpoint(model, params, ft_ckpt)
+            written = write_published_checkpoint(model, params, ft_ckpt)
         ids, _ = model.pad_prompt([model.prepare_prompt_ids(INSTRUCTIONS[0])])
         serve_t = ids.shape[1] + model.num_patches
         log(f"serving prefill length: {ids.shape[1]}-token prompt bucket + {model.num_patches} patches = {serve_t}")
+        mark("load")
     timing_rows, max_err, bwd_timing, bwd_err, bwd_readings, int4_checks, cold = [], None, None, None, None, None, None
     quantize_errs = None
     if "kernels" in phases:
@@ -3998,15 +4538,19 @@ def main() -> None:
         quantize_errs = check_quantize_and_route()
     if phases & {"kernels", "cold"}:
         cold = cold_timings("this checkout" if os.path.abspath(args.package_root) == ROOT else args.package_root)
+        mark("kernels")
 
     served = parallel = None
     spec = {}
     if "serve" in phases:
         served = serve_kind(model, params, "bf16", {"flash_fwd": N_LAYERS_7B})
+        mark("serve")
     if "spec" in phases:
         spec["bf16"] = spec_phase(model, params, "bf16", int4=False)
+        mark("spec")
     if "parallel" in phases:
         parallel = parallel_phase(model, params, (served or {}).get("median_ms", float("nan")))
+        mark("parallel")
     if model is not None:
         model.graphs.clear()
         release_memory()
@@ -4018,6 +4562,7 @@ def main() -> None:
                                   "flash_bwd_dkv": N_LAYERS_7B}, dots_steps=DOTS_STEPS, resume_check=True)
         model.graphs.clear()  # the merged weights' predict captured its own
         release_memory()
+        mark("train")
 
     served8 = None
     if "int8" in phases:
@@ -4053,12 +4598,14 @@ def main() -> None:
         del model8, params8
         release_memory()
         params = dict(params, llm=tree_map(lambda t: t.to("cuda"), params["llm"]))
+        mark("int8")
 
     kv8_7b = None
     if "variants" in phases:  # the int8 KV cache on the bf16 7B, before int4 packs it
         t_variants = time.perf_counter()
         kv8_7b = kv_cache_int8(model, params, "7B")
         t_variants = time.perf_counter() - t_variants
+        mark("variants")
 
     served4 = qlora = None
     if phases & {"int4", "qlora"}:
@@ -4087,6 +4634,7 @@ def main() -> None:
                                    serve_model=model4)
         model4.graphs.clear()
         del model4
+        mark("int4, qlora")
     del model, params
     release_memory()
 
@@ -4096,29 +4644,45 @@ def main() -> None:
         variants = {"kv8_7b": kv8_7b, "phi": phi_phase(), "mistral": mistral_phase()}
         variants["seconds"] = t_variants + time.perf_counter() - t0
         log(f"variants: the phase took {variants['seconds']:.1f} s")
+        mark("variants")
 
-    tfds = scripts = None
+    tfds = scripts = robot = None
     if "tfds" in phases:  # before finetune, which deletes the published 7B
         tfds = tfds_phase(ft_ckpt)
+        mark("tfds")
     if "scripts" in phases:
         scripts = scripts_phase(ft_ckpt)
+        mark("scripts")
+    if "robot" in phases:
+        robot = robot_phase(ft_ckpt, written)
+        mark("robot")
     if ft_ckpt and "finetune" not in phases:
         import shutil
 
         shutil.rmtree(ft_ckpt, ignore_errors=True)
+        mark("cleanup")
 
     tuned = None
     if "finetune" in phases:
         tuned = finetune_phase(ft_ckpt, (trained or {}).get("dots", {}).get("peak_memory_gb", TRAIN_DOTS_PEAK_GB))
+        mark("finetune")
     if tfds and tuned:
         a, b = tfds["finetune"], tuned["lora"]
         log(f"host wait per batch, median of the profiled steps: TFDS (JPEGs decoded in the batch workers) "
             f"{a['median_data_wait_ms']:.1f} ms, native store (raw frames) {b['median_data_wait_ms']:.1f} ms; step "
             f"{a['median_step_ms']:.1f} vs {b['median_step_ms']:.1f} ms; {smi}")
 
-    pretrained = pretrain_phase() if "pretrain" in phases else None  # after finetune: the 7B's align save is ~30 GB
+    pretrained = None
+    if "pretrain" in phases:  # after finetune: the 7B's align save is ~30 GB
+        pretrained = pretrain_phase()
+        mark("pretrain")
 
-    parity = parity_card_vs_cpu(SEED, spec="spec" in phases) if "parity" in phases else None
+    parity = None
+    if "parity" in phases:
+        parity = parity_card_vs_cpu(SEED, spec="spec" in phases)
+        mark("parity")
+    seconds = {k: round(v, 1) for k, v in seconds.items() if v >= 0.05}
+    log(f"seconds per phase: {json.dumps(seconds)}; total {sum(seconds.values()):.1f} s")
 
     if timing_rows:
         zero = dict.fromkeys(KERNEL_NAMES, 0)
@@ -4127,14 +4691,15 @@ def main() -> None:
                    "int4_serve": (served4 or {}).get("launches", zero), "qlora": (qlora or {}).get("launches", zero),
                    "parallel": (parallel or {}).get("launches", zero), "load": (loaded or {}).get("launches", zero),
                    "finetune": (tuned or {}).get("launches", zero), "tfds": (tfds or {}).get("launches", zero),
-                   "scripts": (scripts or {}).get("launches", zero),
+                   "scripts": (scripts or {}).get("launches", zero), "robot": (robot or {}).get("launches", zero),
                    "pretrain": (pretrained or {}).get("launches", zero),
                    **{f"spec_{kind}": result["launches"] for kind, result in spec.items()}}
         if variants:
             phi = variants["phi"]
             by_path.update(kv8_7b=variants["kv8_7b"]["launches"], kv8_phi=phi["kv8"]["launches"],
                            phi_serve=phi["serve"]["launches"], phi_lora=phi["lora"]["launches"],
-                           phi_int4=phi["int4"]["launches"], mistral=variants["mistral"]["launches"])
+                           phi_int4=phi["int4"]["launches"], phi_qlora=phi["qlora"]["launches"],
+                           mistral=variants["mistral"]["launches"])
 
         def launches(name):
             return {path: counts[name] for path, counts in by_path.items()}
@@ -4174,6 +4739,8 @@ def main() -> None:
             entry["variants"] = variants
         if scripts:
             entry["scripts"] = {k: v for k, v in scripts.items() if k != "launches"}
+        if robot:
+            entry["robot"] = {k: v for k, v in robot.items() if k != "launches"}
         t2304 = None
         if pretrained:
             entry["pretrain"] = {k: v for k, v in pretrained.items() if k not in ("launches", "kernels_t2304")}
@@ -4234,8 +4801,10 @@ def main() -> None:
                                   "wrapper calls on one weight, the earlier series")
             if name == "int4_mm_a8" and served4:
                 extra["int4_serve"] = {k: served4[k] for k in serve_keys + ("model_gb", "llm_gb")}
-            if name == "int4_mm" and qlora:
-                extra["qlora"] = qlora
+            if name == "int4_mm":
+                extra["phi"] = [r for r in rows if r["case"].startswith("phi")]
+                if qlora:
+                    extra["qlora"] = qlora
             entries.append(kernel_entry(name, "bridgelang_tpu_torch/csrc/int4_matmul.cu", line, launches(name),
                                         timing, **extra))
         qz = cold["quantize_a8"]

@@ -168,7 +168,10 @@ def test_port_imports_no_checkpoint_libraries():
                 "vla/datasets/rlds/oxe/transforms.py", "vla/datasets/rlds/utils/data_utils.py", "pretrain.py",
                 "preprocess.py", "generate.py", "demo.py", "native/image.py", "preprocessing/__init__.py",
                 "preprocessing/datasets.py", "preprocessing/materialize.py", "preprocessing/download.py",
-                "util/profiling.py"):
+                "util/profiling.py", "verify.py", "inspect_checkpoint.py", "experiments/robot/robot_utils.py",
+                "experiments/robot/openvla_utils.py", "experiments/robot/libero/run_libero_eval.py",
+                "experiments/robot/libero/regenerate_libero_dataset.py", "experiments/robot/bridge/widowx_env.py",
+                "experiments/robot/bridge/bridgev2_utils.py", "experiments/robot/bridge/run_bridgev2_eval.py"):
         assert pkg / new in files, new
     banned = {"safetensors", "transformers", "huggingface_hub", "tensorflow", "tensorflow_datasets", "dlimp", "PIL",
               "jax", "jaxlib", "bridgelang_tpu"}
