@@ -14,7 +14,9 @@
 // and one helper of the w4a8 route, no TPU kernel's counterpart (XLA fuses it
 // into the jitted program there):
 //   quantize_a8 <- ops/quant.py `quantize_activations_per_token`: per row,
-//                  scale = absmax / 127 (1 for a zero row) and q = rint(x / scale).
+//                  scale = absmax / 127 (1 for a zero row) and q = rint(x / scale);
+//                  absmax is the row's own, or one given per row (a row-parallel
+//                  product's K shard quantized with the whole row's absmax).
 //
 // Weights: the JAX package's `out-paired-lobias/v2` bytes, packed [K, N/2]
 // int8: byte [r, c] holds code[r, c] + 8 in the low nibble and
@@ -997,17 +999,22 @@ __device__ __forceinline__ float qz_at(const void* x, int x_bf16, long i) {
 }
 
 __global__ void __launch_bounds__(QZ_NT)
-quantize_a8_kernel(const void* __restrict__ x, int x_bf16, int8_t* __restrict__ q, float* __restrict__ xs, int K) {
+quantize_a8_kernel(const void* __restrict__ x, int x_bf16, const float* __restrict__ absmax, int8_t* __restrict__ q,
+                   float* __restrict__ xs, int K) {
   __shared__ float warp_max[QZ_NT / 32];
   const long row = (long)blockIdx.x * K;
   float amax = 0.0f;
-  for (int k = threadIdx.x; k < K; k += QZ_NT) amax = nan_max(amax, fabsf(qz_at(x, x_bf16, row + k)));
+  if (absmax) {  // given: the whole row's, of which x holds a K shard
+    amax = absmax[blockIdx.x];
+  } else {
+    for (int k = threadIdx.x; k < K; k += QZ_NT) amax = nan_max(amax, fabsf(qz_at(x, x_bf16, row + k)));
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) amax = nan_max(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = amax;
-  __syncthreads();
+    for (int o = 16; o > 0; o >>= 1) amax = nan_max(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = amax;
+    __syncthreads();
 #pragma unroll
-  for (int w = 0; w < QZ_NT / 32; ++w) amax = nan_max(amax, warp_max[w]);
+    for (int w = 0; w < QZ_NT / 32; ++w) amax = nan_max(amax, warp_max[w]);
+  }
   const float scale = amax == 0.0f ? 1.0f : __fdiv_rn(amax, 127.0f);
   if (threadIdx.x == 0) xs[blockIdx.x] = scale;
   for (int k = threadIdx.x; k < K; k += QZ_NT) q[row + k] = (int8_t)rintf(__fdiv_rn(qz_at(x, x_bf16, row + k), scale));
@@ -1063,8 +1070,9 @@ int launch_tc_for(int M, const void* x, const void* packed, const void* scales, 
   return launch_tc<4, 2>(x, packed, scales, out, M, K, N2, group, ldp, lds, ldo, st);
 }
 
-int launch_quantize(const void* x, int x_bf16, void* q, void* xs, int M, int K, cudaStream_t st) {
-  quantize_a8_kernel<<<M, QZ_NT, 0, st>>>(x, x_bf16, static_cast<int8_t*>(q), static_cast<float*>(xs), K);
+int launch_quantize(const void* x, int x_bf16, const void* absmax, void* q, void* xs, int M, int K, cudaStream_t st) {
+  quantize_a8_kernel<<<M, QZ_NT, 0, st>>>(x, x_bf16, static_cast<const float*>(absmax), static_cast<int8_t*>(q),
+                                          static_cast<float*>(xs), K);
   return (int)cudaGetLastError();
 }
 
@@ -1109,10 +1117,12 @@ extern "C" unsigned long long stream_capture_id(void* stream) {
   return status == cudaStreamCaptureStatusActive ? id : 0;
 }
 
-// x [M, K] (x_dtype 0: fp32, 1: bf16, contiguous) -> q int8 [M, K], xs f32 [M].
-extern "C" int quantize_a8(const void* x, int x_dtype, void* q, void* xs, int M, int K, void* stream) {
+// x [M, K] (x_dtype 0: fp32, 1: bf16, contiguous) -> q int8 [M, K], xs f32 [M]. absmax: null (each row's
+// own), or f32 [M] that replaces it.
+extern "C" int quantize_a8(const void* x, int x_dtype, const void* absmax, void* q, void* xs, int M, int K,
+                           void* stream) {
   if (M <= 0 || K <= 0 || x_dtype < 0 || x_dtype > 1) return (int)cudaErrorInvalidValue;
-  return launch_quantize(x, x_dtype, q, xs, M, K, static_cast<cudaStream_t>(stream));
+  return launch_quantize(x, x_dtype, absmax, q, xs, M, K, static_cast<cudaStream_t>(stream));
 }
 
 // x [M, K] (dtype 0: fp32, 1: bf16), packed, scales as above -> out [M, 2 N2] in x's dtype.

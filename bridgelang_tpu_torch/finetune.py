@@ -34,8 +34,17 @@ statistics are the source's plus the fine-tuning dataset's, so `deploy
 
 With the byte-fallback stand-in tokenizer (no `--tokenizer_path`), one token
 per byte makes a prompt ~70 tokens: the collator's bucket is 96 instead of
-64 (widened for action chunks as usual). `--mesh_shape` other than None is
-refused until multi-GPU training is ported.
+64 (widened for action chunks as usual).
+
+`--mesh_shape` ("fsdp=N", "replica=R,fsdp=F") trains on a device mesh, one
+process per device started by torchrun (`torchrun --nproc_per_node N -m
+bridgelang_tpu_torch.finetune ... --mesh_shape fsdp=N`; a single process with
+`--mesh_shape fsdp=1` runs the same code on one device): each rank keeps its
+blocks of the parameters (parallel/sharding.PARAM_RULES; the adapters
+whole), reads its share of the data (the pipeline's process index), and the
+step gathers and reduce-scatters (parallel/fsdp.py). The checkpoint is
+sharded (`dcp/`, every rank writes its blocks); rank 0 writes the HF export
+from the gathered parameters. `tensor` > 1 is refused (not ported yet).
 """
 
 from __future__ import annotations
@@ -124,11 +133,11 @@ def main(cfg: FinetuneConfig) -> Path:
     from bridgelang_tpu_torch.util.seeding import root_key, set_global_seed
     from bridgelang_tpu_torch.vla.materialize import get_vla_dataset_and_collator
 
-    if cfg.mesh_shape is not None:
-        raise NotImplementedError("--mesh_shape: multi-GPU training is not yet ported (ROADMAP.md Queue 1)")
+    from bridgelang_tpu_torch.parallel.fsdp import MeshTraining, training_mesh
+
     if cfg.use_quantization and cfg.quantization_bits not in (4, 8):
         raise ValueError(f"quantization_bits must be 4 or 8, got {cfg.quantization_bits}")
-    device = resolve_device(cfg.device)
+    mesh, device = training_mesh(cfg.mesh_shape, resolve_device(cfg.device))
     set_global_seed(cfg.seed)
     world = overwatch.world_size()
 
@@ -179,15 +188,20 @@ def main(cfg: FinetuneConfig) -> Path:
 
     ocfg = OptimConfig(learning_rate=cfg.learning_rate, lr_scheduler_type="constant", total_steps=cfg.max_steps)
     optimizer = make_optimizer(ocfg, params, trainable_mask=trainable, grad_accum_steps=cfg.grad_accumulation_steps)
+    mesh_training = None
+    if mesh is not None:
+        mesh_training = MeshTraining.for_params(mesh, params)
+        params = mesh_training.shard(params)
     step_fn = make_vla_train_step(model, optimizer, trainable_mask=trainable, image_transform=model.image_transform,
-                                  remat_policy=cfg.remat_policy, parallel_decode_objective=cfg.parallel_decode)
-    state = init_train_state(params, optimizer, trainable_mask=trainable)
+                                  remat_policy=cfg.remat_policy, parallel_decode_objective=cfg.parallel_decode,
+                                  mesh=mesh_training)
+    state = init_train_state(params, optimizer, trainable_mask=trainable, mesh=mesh_training)
     del params
     ckpt = CheckpointManager(run_dir)
     metrics = VLAMetrics(build_trackers(cfg.trackers.split(","), exp_id, run_dir, config_to_dict(cfg)),
                          exp_id, is_rank_zero=overwatch.is_rank_zero())
     source_hf = cfg.vla_path if Path(cfg.vla_path).is_dir() else None
-    export_dir = run_dir if (cfg.export_hf and overwatch.is_rank_zero()) else None
+    export_dir = run_dir if cfg.export_hf else None
 
     step, loss = 0, float("nan")
     with contextlib.closing(batches):
@@ -202,23 +216,31 @@ def main(cfg: FinetuneConfig) -> Path:
             if step % 10 == 0:
                 overwatch.info(metrics.push())
             if step % cfg.save_steps == 0:
-                _save(ckpt, state, step, loss, trainable if cfg.use_lora else None, model, export_dir, source_hf)
-    _save(ckpt, state, step, loss, trainable if cfg.use_lora else None, model, export_dir, source_hf)
+                _save(ckpt, state, step, loss, trainable if cfg.use_lora else None, model, export_dir, source_hf,
+                      mesh_training)
+    _save(ckpt, state, step, loss, trainable if cfg.use_lora else None, model, export_dir, source_hf, mesh_training)
     metrics.finalize()
     return run_dir
 
 
-def _save(ckpt, state, step: int, loss: float, lora_mask=None, model=None, hf_export_dir=None, source_hf=None):
+def _save(ckpt, state, step: int, loss: float, lora_mask=None, model=None, hf_export_dir=None, source_hf=None,
+          mesh_training=None):
     """The checkpoint (a LoRA run's: its trainable state, `lora_mask`), and
     with `hf_export_dir` the HF export (`<hf_export_dir>/hf_export`, latest
     only) of the parameters with the adapters merged into the base (the
-    reference's merge-and-unload), in the source checkpoint's dtype."""
+    reference's merge-and-unload), in the source checkpoint's dtype. On a
+    mesh every rank saves its blocks and joins the gathers; rank 0 alone
+    writes the export."""
     from bridgelang_tpu_torch.extern.hf_export import export_checkpoint, source_dtype
+    from bridgelang_tpu_torch.parallel.fsdp import full_params
     from bridgelang_tpu_torch.training.lora import merge_lora
 
-    ckpt.save(state, step=step, epoch=0, loss=loss, only_trainable_mask=lora_mask)
+    ckpt.save(state, step=step, epoch=0, loss=loss, only_trainable_mask=lora_mask, mesh=mesh_training)
     if hf_export_dir is not None and model is not None:
-        params = dict(state.params, llm=merge_lora(state.params["llm"])) if lora_mask is not None else state.params
+        whole = full_params(mesh_training, state.params)
+        if not overwatch.is_rank_zero():
+            return
+        params = dict(whole, llm=merge_lora(whole["llm"])) if lora_mask is not None else whole
         dtype = source_dtype(source_hf) if source_hf is not None else torch.float32
         export_checkpoint(model, params, Path(hf_export_dir) / "hf_export", source_hf=source_hf, dtype=dtype)
 

@@ -12,7 +12,10 @@ the port reads and writes:
     (`training/checkpointing.py`; the latest step), or one step directory,
     read with `torch.load(..., map_location="cpu", weights_only=True,
     mmap=True)`: the tensors stay mapped on disk and nothing is copied to a
-    device. The JAX package's Orbax run dirs are refused with a message.
+    device; a mesh run's sharded steps (`step-*/dcp/`, written by every
+    rank) from the checkpoint's metadata alone, each tensor under its whole
+    shape, so the summary is the one of the same state saved whole. The JAX
+    package's Orbax run dirs are refused with a message.
 
 Every field of the JAX script's `InspectConfig` under its name and default,
 plus `--device`: the entry points' device rule (CUDA unless `--device cpu`;
@@ -116,6 +119,15 @@ def state_rows(state_file: Path) -> List[Row]:
     return sorted(rows)
 
 
+def sharded_rows(step_dir: Path) -> List[Row]:
+    """One row per tensor of a mesh run's sharded step (`dcp/`), from its
+    metadata: the key ("params/llm/layers/0/wq"), the whole shape, dtype and bytes."""
+    from bridgelang_tpu_torch.training.checkpointing import sharded_metadata
+
+    return sorted((k, shape, str(dtype).replace("torch.", ""), dtype.itemsize * math.prod(shape))
+                  for k, (shape, dtype) in sharded_metadata(step_dir).items())
+
+
 def inspect_hf(ckpt_dir: Path, cfg: InspectConfig) -> Dict[str, Any]:
     files = sorted(ckpt_dir.glob("*.safetensors"))
     print(f"[inspect] HF-format checkpoint: {len(files)} safetensors file(s)")
@@ -131,6 +143,11 @@ def inspect_hf(ckpt_dir: Path, cfg: InspectConfig) -> Dict[str, Any]:
 def inspect_state(step_dir: Path, cfg: InspectConfig) -> Dict[str, Any]:
     from bridgelang_tpu_torch.training.checkpointing import STATE_FILE
 
+    from bridgelang_tpu_torch.training.checkpointing import SHARDED_DIR
+
+    if (step_dir / SHARDED_DIR).exists():
+        print(f"[inspect] sharded torch checkpoint: {step_dir.name}/{SHARDED_DIR}")
+        return _summarize(sharded_rows(step_dir), cfg)
     print(f"[inspect] torch checkpoint: {step_dir.name}/{STATE_FILE}")
     return _summarize(state_rows(step_dir / STATE_FILE), cfg)
 
@@ -138,7 +155,7 @@ def inspect_state(step_dir: Path, cfg: InspectConfig) -> Dict[str, Any]:
 def main(cfg: InspectConfig) -> Dict[str, Any]:
     """Inspect cfg.path -> the summary of `_summarize`."""
     from bridgelang_tpu_torch._device import resolve_device
-    from bridgelang_tpu_torch.training.checkpointing import STATE_FILE
+    from bridgelang_tpu_torch.training.checkpointing import SHARDED_DIR, STATE_FILE
 
     resolve_device(cfg.device)
     path = Path(cfg.path)
@@ -146,10 +163,11 @@ def main(cfg: InspectConfig) -> Dict[str, Any]:
         raise SystemExit(f"no such path: {path}")
     if list(path.glob("*.safetensors")):
         return inspect_hf(path, cfg)
-    if (path / STATE_FILE).exists():
+    if (path / STATE_FILE).exists() or (path / SHARDED_DIR).exists():
         return inspect_state(path, cfg)
     if (path / "checkpoints").exists():
-        ckpts = sorted(p for p in (path / "checkpoints").glob("step-*") if (p / STATE_FILE).exists())
+        ckpts = sorted(p for p in (path / "checkpoints").glob("step-*")
+                       if (p / STATE_FILE).exists() or (p / SHARDED_DIR).exists())
         if not ckpts:
             raise SystemExit(f"{path}/checkpoints holds no step-*/{STATE_FILE}")
         return inspect_state(ckpts[-1], cfg)

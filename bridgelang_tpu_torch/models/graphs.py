@@ -31,9 +31,14 @@ one `torch.cuda.CUDAGraph` per key and replays it:
   the step index (the one read in the middle of a predict) and replays
   graph B, one fix-up decode step that reads and increments the step index
   and rewrites the outputs, n - j0 times.
-* Launch counts: the kernel wrappers count launches on the host, which a
-  replay never reaches. Each graph records the launches its capture made
-  and adds them to the wrappers' `.launches` on every replay; the capture
+* Collectives: on a serving mesh (OpenVLA.use_mesh) a graph holds the
+  decoder's all-reduces and the logits' gather as NCCL launches on the
+  capture stream; the warm-up before the capture creates the communicator.
+  Every rank captures and replays the same keys in the same order.
+* Launch counts: the kernel wrappers (and a mesh's tensor group, its
+  collectives) count launches on the host, which a replay never reaches.
+  Each graph records the launches its capture made and adds them to the
+  wrappers' `.launches` on every replay; the capture
   itself counts nothing (the warm-up run before it counts, as the eager
   launches it is).
 * The weights: a graph reads the tensors of the params it was captured
@@ -240,7 +245,8 @@ class PredictGraphs:
             body()
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
-        wrappers = counted_wrappers()
+        tp = getattr(self.model.cfg.llm, "tp", None)
+        wrappers = counted_wrappers() + ([tp] if tp is not None else [])  # tp: its collectives
         before = [fn.launches for fn in wrappers]
         graph = torch.cuda.CUDAGraph()
         torch._C._cuda_clearCublasWorkspaces()

@@ -77,6 +77,7 @@ from torch.utils.checkpoint import (
 from bridgelang_tpu_torch.ops.flash_attention import flash_attention
 from bridgelang_tpu_torch.ops.int4_matmul import matmul_int4, matmul_int4_a8
 from bridgelang_tpu_torch.ops.quant import INT4_COLUMN_PARALLEL, quantize_activations_per_token
+from bridgelang_tpu_torch.parallel.collectives import row_product
 
 Params = Dict[str, Any]
 
@@ -112,6 +113,25 @@ class LLMConfig:
         rd = int(self.rotary_pct * self.head_dim)
         assert rd % 2 == 0, f"rotary_dim must be even, got {rd} (head_dim={self.head_dim})"
         return rd
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallelLLMConfig(LLMConfig):
+    """An LLMConfig whose decoder leaves are this rank's blocks: `tp` (a
+    parallel/collectives.TensorParallel, set by OpenVLA.use_mesh) says which
+    are split and runs the collectives. A subclass, so that the plain config
+    keeps exactly the JAX config's fields; `dataclasses.replace` keeps `tp`."""
+
+    tp: Optional[Any] = dataclasses.field(default=None, compare=False, repr=False)
+
+    @classmethod
+    def of(cls, cfg: LLMConfig, tp) -> "TensorParallelLLMConfig":
+        return cls(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(LLMConfig)}, tp=tp)
+
+
+def tensor_parallel(cfg: LLMConfig):
+    """The config's TensorParallel, or None on one device."""
+    return getattr(cfg, "tp", None)
 
 
 LLM_CONFIGS: Dict[str, LLMConfig] = {
@@ -191,8 +211,11 @@ def init_kv_cache(
     """KV cache [L, B, S, Hkv, hd] of zeros (bf16 serves, fp32 gives the
     exact speculative contract). dtype=torch.int8 stores codes plus bf16
     per-(token, head) scales `k_scale`/`v_scale` [L, B, S, Hkv]: half the
-    bytes of the bf16 cache."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    bytes of the bf16 cache. Under tensor parallelism with split heads the
+    cache holds this rank's KV heads."""
+    tp = tensor_parallel(cfg)
+    n_kv = tp.local_kv_heads(cfg.n_kv_heads) if tp is not None else cfg.n_kv_heads
+    shape = (cfg.n_layers, batch, max_len, n_kv, cfg.head_dim)
     cache = {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
     if dtype == torch.int8:
         cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device)
@@ -325,7 +348,7 @@ def _remat_context(name: Optional[str]):
     raise ValueError(f"Unknown remat policy {name!r} (use 'full' or 'dots')")
 
 
-def proj(x: torch.Tensor, lp: Params, name: str, cfg: LLMConfig) -> torch.Tensor:
+def proj(x: torch.Tensor, lp: Params, name: str, cfg: LLMConfig, row_tp=None) -> torch.Tensor:
     """Base projection plus the optional LoRA update (x A^T) B^T, with the
     adapters cast to the activation dtype (JAX `_block.proj`).
 
@@ -341,20 +364,28 @@ def proj(x: torch.Tensor, lp: Params, name: str, cfg: LLMConfig) -> torch.Tensor
     (`quantize_activations_per_token`), the exact int8 x int8 -> int32
     product (`_int8_product`), then acc * token scale * column scale in fp32,
     cast to x's dtype. Otherwise the weight is cast to x's dtype, multiplied,
-    and each output column scaled in x's dtype."""
+    and each output column scaled in x's dtype.
+
+    `row_tp` (a TensorParallel): x and the weight are this rank's blocks of
+    the contraction dim, multiplied under `TensorParallel.row_product`'s
+    policy (the partial sums meet in int32 for w8a8, in f32 for w4a8, in x's
+    dtype otherwise). A column block of a shard-blocked int4 pack is one
+    plain pack on its rank."""
     s4 = lp.get(name + "_scale4")
     s8 = lp.get(name + "_scale")
     if s4 is not None:
-        shards = cfg.int4_shards if name in INT4_COLUMN_PARALLEL else 1
-        y = (matmul_int4_a8 if cfg.w8a8 else matmul_int4)(x, lp[name], s4, shards)
+        tp = tensor_parallel(cfg)
+        column_block = tp is not None and tp.split.get(name, False)
+        shards = cfg.int4_shards if name in INT4_COLUMN_PARALLEL and not column_block else 1
+        y = (matmul_int4_a8 if cfg.w8a8 else matmul_int4)(x, lp[name], s4, shards, row_tp=row_tp)
     elif s8 is not None and cfg.w8a8 and x.shape[1] >= W8A8_MIN_CHUNK:
-        q, xs = quantize_activations_per_token(x)
-        acc = _int8_product(q.reshape(-1, q.shape[-1]), lp[name]).view(*q.shape[:-1], -1)
+        acc, xs = row_product(row_tp, x, lambda q: _int8_product(q.reshape(-1, q.shape[-1]), lp[name]).view(
+            *q.shape[:-1], -1), quantize_activations_per_token)
         y = (acc.float() * xs * s8[:, 0].float()).to(x.dtype)
     elif s8 is not None:
-        y = F.linear(x, lp[name].to(x.dtype)) * s8[:, 0].to(x.dtype)
+        y = row_product(row_tp, x, lambda x: F.linear(x, lp[name].to(x.dtype)))[0] * s8[:, 0].to(x.dtype)
     else:
-        y = F.linear(x, lp[name])
+        y = row_product(row_tp, x, lambda x: F.linear(x, lp[name]))[0]
     a = lp.get(name + "_lora_a")
     if a is not None:
         y = y + F.linear(F.linear(x, a.to(x.dtype)), lp[name + "_lora_b"].to(x.dtype))
@@ -371,6 +402,23 @@ def _int8_product(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if q.is_cuda and m <= 16:
         q = torch.cat([q, q.new_zeros((32 - m, q.shape[1]))])
     return torch._int_mm(q.contiguous(), w.t())[:m]
+
+
+def _row_proj(x: torch.Tensor, lp: Params, name: str, cfg: LLMConfig, x_split: bool) -> torch.Tensor:
+    """A row-parallel product (wo, w_down) under tensor parallelism: a split
+    leaf takes this rank's block of x (x's own block when the column
+    products before it were split, else a slice) and sums the partials; a
+    replicated leaf (an int4 leaf that cannot be row-split) takes the whole x,
+    gathered from the column blocks when they were split."""
+    tp = tensor_parallel(cfg)
+    if tp is None:
+        return proj(x, lp, name, cfg)
+    w_split = tp.split.get(name, False)
+    if w_split and not x_split:
+        x = tp.block(x)
+    elif x_split and not w_split:
+        x = tp.gather(x)
+    return proj(x, lp, name, cfg, row_tp=tp if w_split else None)
 
 
 def _block(
@@ -391,21 +439,29 @@ def _block(
     attention runs over the whole (dequantized) cache under `mask`; without,
     attention runs over the chunk itself: through the flash kernel with
     `lengths` valid keys (`attention="flash"`), or under `mask` ("masked",
-    `full_attention`). Returns (x, the chunk's unquantized (k, v))."""
+    `full_attention`). Returns (x, the chunk's unquantized (k, v)).
+
+    Under tensor parallelism (a TensorParallelLLMConfig) the layer's leaves
+    are this rank's blocks: the column products give this rank's heads (and
+    MLP columns), attention runs on them, and the row products sum over the
+    group (`_row_proj`)."""
     B, T, _ = x.shape
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     phi = cfg.arch == "phi"
+    tp = tensor_parallel(cfg)
+    heads_split = tp is not None and tp.split.get("wq", False)
 
     if phi:
         h_in = layer_norm(x, lp["attn_norm"], lp["attn_norm_bias"], cfg.norm_eps)
     else:
         h_in = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q, k, v = (proj(h_in, lp, name, cfg) for name in ("wq", "wk", "wv"))
+    h_cols = tp.copy(h_in) if heads_split else h_in
+    q, k, v = (proj(h_cols, lp, name, cfg) for name in ("wq", "wk", "wv"))
     if cfg.use_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = apply_rope(q.view(B, T, H, hd), cos, sin, cfg.rotary_dim)
-    k = apply_rope(k.view(B, T, Hkv, hd), cos, sin, cfg.rotary_dim)
-    v = v.view(B, T, Hkv, hd)
+    q = apply_rope(q.view(B, T, -1, hd), cos, sin, cfg.rotary_dim)
+    k = apply_rope(k.view(B, T, -1, hd), cos, sin, cfg.rotary_dim)
+    v = v.view(B, T, -1, hd)
 
     if kv is None and attention == "masked":
         attn_out = full_attention(q, k, v, mask)
@@ -428,16 +484,21 @@ def _block(
             attn_k, attn_v = cache_k.to(q.dtype), cache_v.to(q.dtype)
         attn_out = cached_attention(q, attn_k, attn_v, mask)
 
-    attn_out = proj(attn_out.reshape(B, T, H * hd), lp, "wo", cfg)
+    attn_out = _row_proj(attn_out.reshape(B, T, -1), lp, "wo", cfg, heads_split)
     if cfg.use_bias:
-        attn_out = attn_out + lp["bo"]
+        attn_out = attn_out + lp["bo"]  # replicated: added once, after the reduction
+    mlp_split = tp is not None and tp.split.get("w_up", False)
     if phi:  # the parallel residual: x + attn(ln x) + mlp(ln x)
-        up = F.gelu(proj(h_in, lp, "w_up", cfg) + lp["b_up"], approximate="tanh")
-        mlp_out = proj(up, lp, "w_down", cfg) + lp["b_down"]
+        h_mlp = h_cols if mlp_split == heads_split else (tp.copy(h_in) if mlp_split else h_in)
+        up = F.gelu(proj(h_mlp, lp, "w_up", cfg) + lp["b_up"], approximate="tanh")
+        mlp_out = _row_proj(up, lp, "w_down", cfg, mlp_split) + lp["b_down"]
         return x + attn_out + mlp_out, (k, v)
     x = x + attn_out
     h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    mlp_out = proj(F.silu(proj(h2, lp, "w_gate", cfg)) * proj(h2, lp, "w_up", cfg), lp, "w_down", cfg)
+    if mlp_split:
+        h2 = tp.copy(h2)
+    mlp_out = _row_proj(F.silu(proj(h2, lp, "w_gate", cfg)) * proj(h2, lp, "w_up", cfg), lp, "w_down", cfg,
+                        mlp_split)
     return x + mlp_out, (k, v)
 
 
@@ -534,7 +595,10 @@ def lm_logits(params: Params, hidden: torch.Tensor, cfg: LLMConfig) -> torch.Ten
     """Logits over the PADDED vocabulary (argmax runs over all of it). An
     int8 head ([V, D] with `lm_head_scale` [V, 1]) runs in the hidden dtype
     and scales each vocabulary column after the product, as the JAX package;
-    a Phi head adds `lm_head_bias` after both."""
+    a Phi head adds `lm_head_bias` after both. A vocab-split head (tensor
+    parallelism) computes this rank's block of the vocabulary and gathers the
+    blocks in order, so an argmax over the result breaks ties at the lowest
+    global index, as on one device."""
     head = params["lm_head"]
     if head.dtype == torch.int8:
         logits = F.linear(hidden, head.to(hidden.dtype)) * params["lm_head_scale"].to(hidden.dtype)[:, 0]
@@ -542,4 +606,7 @@ def lm_logits(params: Params, hidden: torch.Tensor, cfg: LLMConfig) -> torch.Ten
         logits = F.linear(hidden, head)
     if cfg.arch == "phi":
         logits = logits + params["lm_head_bias"]
+    tp = tensor_parallel(cfg)
+    if tp is not None and tp.split.get("lm_head", False):
+        logits = tp.gather(logits, dim=-1)
     return logits

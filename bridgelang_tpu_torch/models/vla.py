@@ -13,10 +13,17 @@ of the JAX package's jitted programs; `use_graphs = False` runs the same
 functions eagerly instead, and only when the caller says so. On the CPU the
 predicts run eagerly: the same functions, which the tests hold against the
 JAX package.
+
+`use_mesh` serves over a device mesh (the JAX `use_mesh` / `_put`): the
+decoder runs tensor-parallel on this rank's blocks of the weights
+(parallel/sharding.SERVING_RULES; the collectives in models/llm/llama.py and
+inside the captured graphs), one process per device, rank 0 leading each
+predict and the other ranks following it (serving/mesh.MeshPredictor).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -66,6 +73,43 @@ class OpenVLA(PrismaticVLM):
         # measurements and tests that ask for the eager path by name).
         self.use_graphs = True
         self.graphs = PredictGraphs(self)
+        self.serving_mesh = None
+        self.mesh_predictor = None
+
+    # --- multi-device serving ---
+
+    def use_mesh(self, mesh, params: Params, int4_shards: int = 1) -> Params:
+        """Serve over `mesh` (parallel/mesh.make_mesh; every rank calls this
+        with the same whole `params`) -> this rank's blocks of `params`,
+        placed by `parallel.sharding.serving_param_pspecs`. The decoder then
+        runs tensor-parallel over the mesh's `tensor` axis, batches split over
+        `replica` when they divide, and rank 0 leads every predict (the other
+        ranks run `self.mesh_predictor.follow(local_params)`). A `tensor` that
+        does not divide the head counts (or would split a GQA group) is
+        refused, as scripts/deploy.py refuses it; `int4_shards` is the
+        pack-time shard count of an int4 tree."""
+        from bridgelang_tpu_torch.models.llm.llama import TensorParallelLLMConfig
+        from bridgelang_tpu_torch.parallel.collectives import make_tensor_parallel
+        from bridgelang_tpu_torch.parallel.mesh import mesh_sizes
+        from bridgelang_tpu_torch.parallel.sharding import serving_param_pspecs, shard_params
+        from bridgelang_tpu_torch.serving.mesh import MeshPredictor
+
+        llm = self.cfg.llm
+        tensor = mesh_sizes(mesh)["tensor"]
+        if llm.n_heads % tensor or llm.n_kv_heads % tensor:
+            raise ValueError(f"tensor={tensor} does not divide the head counts ({llm.n_heads}/{llm.n_kv_heads}): "
+                             "a rank would hold part of a head or of a GQA group")
+        specs = serving_param_pspecs(mesh, params, int4_shards)
+        layer = specs["llm"]["layers"][0]
+        names = [n for n in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down") if n in layer]
+        split = {n: "tensor" in tuple(layer[n]) for n in names}
+        split["lm_head"] = "tensor" in tuple(specs["llm"]["lm_head"])
+        tp = make_tensor_parallel(mesh, split)
+        self.cfg = dataclasses.replace(self.cfg, llm=TensorParallelLLMConfig.of(llm, tp))
+        self.serving_mesh = mesh
+        self.mesh_predictor = MeshPredictor(self, mesh)
+        self.graphs.clear()
+        return shard_params(mesh, params, specs)
 
     def get_action_dim(self, unnorm_key: Optional[str] = None) -> int:
         return len(self.get_action_stats(unnorm_key)["q01"])
@@ -111,7 +155,14 @@ class OpenVLA(PrismaticVLM):
         """`inputs`: ids, mask, frames (uint8) or pixels, q01, q99, stat_mask,
         and for the speculative mode draft and margin, as numpy arrays or
         tensors. A CUDA model replays its graphs; otherwise the predict runs
-        eagerly on the model's device. -> the packed output on the device."""
+        eagerly on the model's device. -> the packed output on the device.
+        On a serving mesh rank 0 announces the predict to the other ranks
+        first (serving/mesh.MeshPredictor)."""
+        if self.mesh_predictor is not None:
+            return self.mesh_predictor.predict(mode, params, inputs, n_tokens)
+        return self._predict_local(mode, params, inputs, n_tokens)
+
+    def _predict_local(self, mode: str, params: Params, inputs: Dict[str, Any], n_tokens: int) -> torch.Tensor:
         if self.device.type == "cuda" and self.use_graphs:
             return self.graphs.run(mode, params, dict(inputs), n_tokens)
         t = {k: torch.as_tensor(v, device=self.device) for k, v in inputs.items() if k != "margin"}

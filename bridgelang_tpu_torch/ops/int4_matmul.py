@@ -34,22 +34,26 @@ tensor they take the JAX package's route at each shape: the plain version
 where its kernel is eligible (`int4_kernel_eligible`), dequantize-then-matmul
 where it is not. `n_shards` > 1 declares a shard-blocked pack: each column
 block is a plain v2 matrix over its own output columns (`_int4_route_blocked`;
-on the card one launch per block, writing its columns of one output). The
-row-parallel declaration of the JAX functions waits for multi-GPU support: on
-one device a row-parallel leaf is an unblocked pack, `n_shards` = 1.
+on the card one launch per block, writing its columns of one output). Under
+tensor parallelism a rank holds one column block (a plain pack, `n_shards` =
+1 there) or K rows of a row-parallel leaf (`row_tp`: the partial products
+meet in one all-reduce, `TensorParallel.row_product`); `int4_row_shardable` and
+`int4_tp_fallback_matmuls` (the card's rule, not the TPU's) decide which.
 
 Not ported, as TPU heuristics: the v5e tile chooser (`_choose_tiles`,
 `_TUNED_DECODE_TILES`, `_tile_vmem_bytes`, the `_HBM_BPS`... cost
 constants), the 8-row padding of short M, and the two TPU-memory escapes to
 the fallback (outputs over 64 MB, and no tiling that fits VMEM). On the card
 every shape the kernel takes launches it, the QLoRA `w_gate`/`w_up` products
-(a 5632 x 11008 bf16 output) included. The SPMD wrappers, `int4_row_shardable`
-and `int4_tp_fallback_matmuls` wait for multi-GPU support.
+(a 5632 x 11008 bf16 output) included. The SPMD wrappers (custom
+partitioning) are GSPMD's: here the decoder holds local blocks and calls the
+collectives itself (parallel/collectives.py).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -77,6 +81,46 @@ def cuda_kernel_shape_ok(k: int, n: int, n_groups: int) -> bool:
     if n % (2 * BLOCK_N2) != 0 or n_groups <= 0 or k % n_groups != 0:
         return False
     return (k // n_groups) % GROUP == 0
+
+
+def int4_row_shardable(k: int, n_groups: int, n_devices: int) -> bool:
+    """True when a [K, N//2] packed weight's rows AND its K//group scale
+    groups split evenly over n_devices with group boundaries intact (the
+    JAX package's rule)."""
+    if k % n_devices or n_groups % n_devices:
+        return False
+    group = k // n_groups
+    return (k // n_devices) % group == 0
+
+
+def int4_tp_fallback_matmuls(cfg, group: int, tensor: int) -> list:
+    """Projections whose shard-local geometry the card's kernels cannot take
+    under a tensor=`tensor` mesh with a shard-blocked pack: the JAX audit
+    with the CUDA rule (`cuda_kernel_shape_ok`: N/2 % 64, group % 128) in
+    place of the TPU's (N % 256). Column-parallel leaves are checked on their
+    N/`tensor` block; a row-parallel leaf on its K/`tensor` rows when
+    `int4_row_shardable`, else whole (it is then replicated and its input
+    gathered). The 7B passes at tensor=2 (w_gate N/2 = 2752 = 43 x 64) and
+    fails w_gate/w_up at 4 (N/2 = 1376); the 13B passes at 4 (1728 = 27 x
+    64), where the JAX audit passes it at 2 only. On a CUDA tensor a flagged
+    product raises (no dequantizing fallback); deploy refuses the mesh."""
+    head_dim = cfg.dim // cfg.n_heads
+    col = {"wq": (cfg.dim, cfg.n_heads * head_dim), "wk": (cfg.dim, cfg.n_kv_heads * head_dim),
+           "wv": (cfg.dim, cfg.n_kv_heads * head_dim), "w_gate": (cfg.dim, cfg.intermediate_size),
+           "w_up": (cfg.dim, cfg.intermediate_size)}
+    row = {"wo": (cfg.n_heads * head_dim, cfg.dim), "w_down": (cfg.intermediate_size, cfg.dim)}
+    if cfg.arch == "phi":
+        col.pop("w_gate")
+    bad = []
+    for name, (k, n) in col.items():
+        if n % tensor or k % group or not cuda_kernel_shape_ok(k, n // tensor, k // group):
+            bad.append(name)
+    for name, (k, n) in row.items():
+        groups = k // group if k % group == 0 else 0
+        local_k = k // tensor if groups and int4_row_shardable(k, groups, tensor) else k
+        if not groups or not cuda_kernel_shape_ok(local_k, n, local_k // group):
+            bad.append(name)
+    return bad
 
 
 # --- plain versions (the CPU path, and what the kernels are held against) ---------
@@ -129,7 +173,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "int4_mm_a8": [_P] * 7 + [_I] * 9 + [_P],
     "int4_mm": [_P] * 4 + [_I] * 8 + [_P],
-    "quantize_a8": [_P, _I, _P, _P, _I, _I, _P],
+    "quantize_a8": [_P, _I, _P, _P, _P, _I, _I, _P],
     "stream_capture_id": [_P],
 }
 _RESTYPES = {"stream_capture_id": ctypes.c_ulonglong}
@@ -266,21 +310,27 @@ def int4_mm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torc
     return _launch_float(x, packed, scales)
 
 
-def quantize_a8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_a8(x: torch.Tensor, absmax: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [M, K] (fp32 or bf16) -> (q int8 [M, K], scale f32 [M, 1]), the
-    bits of `quantize_activations_per_token`: its kernel on a CUDA tensor
-    (contiguous x), the plain version on a CPU tensor."""
+    bits of `quantize_activations_per_token(x, absmax)`: its kernel on a
+    CUDA tensor (contiguous x), the plain version on a CPU tensor. `absmax`
+    (f32 [M, 1], contiguous) replaces each row's own: a row-parallel
+    product quantizes its K shard with the whole row's."""
     if _on(x, "quantize_a8") == "cpu":
-        return quantize_activations_per_token(x)
+        return quantize_activations_per_token(x, absmax)
     if x.dtype not in _DTYPE_CODES or x.dim() != 2 or not x.is_contiguous():
         raise TypeError(f"quantize_a8 takes a contiguous 2-D float32 or bfloat16 tensor, got {x.dtype} "
                         f"{tuple(x.shape)} strides {x.stride()}")
     m, k = x.shape
+    if absmax is not None and (absmax.dtype != torch.float32 or absmax.numel() != m or not absmax.is_contiguous()
+                               or absmax.device != x.device):
+        raise ValueError(f"quantize_a8: absmax must be {m} contiguous float32 row maxima on {x.device}")
     q = torch.empty((m, k), dtype=torch.int8, device=x.device)
     xs = torch.empty((m, 1), dtype=torch.float32, device=x.device)
     if m == 0 or k == 0:
         return q, xs.fill_(1.0)
-    err = _fn("quantize_a8")(x.data_ptr(), _DTYPE_CODES[x.dtype], q.data_ptr(), xs.data_ptr(), m, k, _stream(x))
+    err = _fn("quantize_a8")(x.data_ptr(), _DTYPE_CODES[x.dtype], None if absmax is None else absmax.data_ptr(),
+                             q.data_ptr(), xs.data_ptr(), m, k, _stream(x))
     if err != 0:
         raise RuntimeError(f"quantize_a8 launch failed with CUDA error {err}")
     quantize_a8.launches += 1
@@ -361,31 +411,58 @@ class _MatmulInt4(torch.autograd.Function):
 
 
 class _MatmulInt4A8(torch.autograd.Function):
+    """w4a8: `quantize_a8`, then the product. On one device and a CUDA
+    tensor the product's epilogue applies the token scale and the cast.
+    Row-parallel (`tp`, a parallel/collectives.TensorParallel) the policy
+    is `tp.row_product`'s: the K shard quantized with the whole row's absmax,
+    the f32 partials all-reduced, then the token scale and the cast (the
+    JAX `_make_int4_spmd_rowsharded`: psum of the shard-local route)."""
+
     @staticmethod
-    def forward(ctx, x, packed, scales, n_shards):
+    def forward(ctx, x, packed, scales, n_shards, tp):
         *lead, k = x.shape
-        x2 = x.reshape(-1, k)
-        if _on(x2, "matmul_int4_a8") == "cuda":  # two launches: quantize; product, token scale and cast
-            q, xs = quantize_a8(x2.contiguous())
+        x2 = x.reshape(-1, k).contiguous()
+        if tp is None and _on(x2, "matmul_int4_a8") == "cuda":  # two launches: quantize; product, scale, cast
+            q, xs = quantize_a8(x2)
             out = _int4_route_blocked(q, packed, scales, True, n_shards, xs, x.dtype)
         else:
-            q, xs = quantize_activations_per_token(x2)
-            out = (_int4_route_blocked(q, packed, scales, True, n_shards) * xs).to(x.dtype)
+            product = functools.partial(_int4_route_blocked, packed=packed, scales=scales, a8=True, n_shards=n_shards)
+            if tp is None:
+                q, xs = quantize_a8(x2)
+                acc = product(q)
+            else:
+                acc, xs = tp.row_product(x2, product, quantize_a8)
+            out = (acc * xs).to(x.dtype)
         ctx.save_for_backward(packed, scales)
         ctx.n_shards = n_shards
         return out.reshape(*lead, out.shape[-1])
 
-    backward = staticmethod(_backward)
+    @staticmethod
+    def backward(ctx, g):
+        return (*_backward(ctx, g), None)
 
 
-def matmul_int4(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, n_shards: int = 1) -> torch.Tensor:
+def matmul_int4(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, n_shards: int = 1,
+                row_tp=None) -> torch.Tensor:
     """x [..., K] @ packed int4 weight -> [..., N] in x's dtype (bf16 or
-    fp32 sums per group, as the JAX `_kernel`). Differentiable in x."""
-    return _MatmulInt4.apply(x, packed, scales, n_shards)
+    fp32 sums per group, as the JAX `_kernel`). Differentiable in x.
+
+    Tensor parallelism (parallel/collectives.TensorParallel): a column block
+    of a shard-blocked pack is a plain pack here (`n_shards` 1) and its
+    product needs no collective; `row_tp` declares `packed` this rank's K
+    rows (with their own scale groups) and x its K block: the partial
+    products are summed over the group (the JAX `row_parallel=True`); the
+    input gradient is this rank's K block of the whole one."""
+    def product(x):
+        return _MatmulInt4.apply(x, packed, scales, n_shards)
+
+    return product(x) if row_tp is None else row_tp.row_product(x, product)[0]
 
 
-def matmul_int4_a8(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, n_shards: int = 1) -> torch.Tensor:
+def matmul_int4_a8(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, n_shards: int = 1,
+                   row_tp=None) -> torch.Tensor:
     """w4a8: x quantized per token to int8 (absmax/127), the int8 x int4
     product in exact per-group int32 sums, then scales and the token scale
-    -> [..., N] in x's dtype. The backward is straight-through."""
-    return _MatmulInt4A8.apply(x, packed, scales, n_shards)
+    -> [..., N] in x's dtype. The backward is straight-through. `row_tp`:
+    row-parallel, as `matmul_int4`."""
+    return _MatmulInt4A8.apply(x, packed, scales, n_shards, row_tp)

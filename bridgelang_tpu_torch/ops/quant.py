@@ -54,16 +54,21 @@ INT4_PACK_LAYOUT = "out-paired-lobias/v2"
 INT4_COLUMN_PARALLEL = ("wq", "wk", "wv", "w_gate", "w_up")
 
 
-def quantize_activations_per_token(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_activations_per_token(x: torch.Tensor, absmax: Optional[torch.Tensor] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token symmetric absmax/127 int8 quantization -> (q int8 [..., K],
     scale f32 [..., 1]); dequant is `acc * scale`. torch.round and jnp.round
     both round half to even, so the codes equal the JAX package's. The 127
     is a tensor, not a Python number: CUDA torch turns a division by a CPU
     scalar into a multiplication by its reciprocal, which rounds differently
     for some absmax; a tensor divisor is one IEEE division on either device
-    (as the card's quantize_a8 kernel and the CPU compute it)."""
+    (as the card's quantize_a8 kernel and the CPU compute it). `absmax`
+    [..., 1] fp32, when given, replaces x's own: a row-parallel product
+    quantizes its K shard with the whole row's absmax (the maximum over the
+    tensor group), so its codes are the unsharded ones."""
     xf = x.float()
-    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    if absmax is None:
+        absmax = xf.abs().amax(dim=-1, keepdim=True)
     scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / torch.full_like(absmax, 127.0))
     return torch.round(xf / scale).to(torch.int8), scale
 

@@ -23,9 +23,13 @@ state) under `<run_root_dir>/<run_id>/checkpoints/`.
 
 As in the JAX script, `--pretrained_checkpoint` is accepted and not read
 (the reference loads an align-stage projector there; neither package does
-yet). `--mesh_shape` other than None is refused until multi-GPU training is
-ported; the JAX package shards the state with FSDP there, which the 7B's
-finetune stage needs (~109 GB of fp32 state and moments). On one 80 GB card
+yet). `--mesh_shape` ("fsdp=N", "replica=R,fsdp=F"; one process per device
+under torchrun) shards the state with FSDP (parallel/fsdp.py), which the 7B's
+finetune stage needs (~109 GB of fp32 state and moments): each rank keeps
+its blocks, the micro-batch is per-device batch x data ranks, every rank
+draws the same batch order and collates its own rows of each micro-batch,
+and each epoch's save is sharded (`dcp/`). `tensor` > 1 is refused (not
+ported yet). On one 80 GB card
 the 7B's align stage at 16 x (2048 + 256) tokens needs `--remat_policy
 full`: the default "dots" keeps every layer's matmul outputs.
 """
@@ -98,12 +102,11 @@ def run(cfg: PretrainConfig, vlm_cfg):
         OptimConfig, init_train_state, make_optimizer, make_vla_train_step)
     from bridgelang_tpu_torch.util.seeding import root_key, set_global_seed
 
-    if cfg.mesh_shape is not None:
-        raise NotImplementedError("--mesh_shape: multi-GPU (FSDP) pretraining is not yet ported (ROADMAP.md Queue 1)")
-    if overwatch.world_size() > 1:
-        raise NotImplementedError("pretraining runs on one card: the port has no gradient all-reduce yet "
-                                  "(ROADMAP.md Queue 1)")
-    device = resolve_device(cfg.device)
+    from bridgelang_tpu_torch.parallel.fsdp import MeshTraining, training_mesh
+    from bridgelang_tpu_torch.parallel.sharding import data_rank_and_count
+
+    mesh, device = training_mesh(cfg.mesh_shape, resolve_device(cfg.device))
+    data_rank, data_ranks = data_rank_and_count(mesh) if mesh is not None else (0, 1)
     set_global_seed(cfg.seed)
     m, stage = cfg.model, cfg.stage
     hp = stage_hparams(m, stage)
@@ -118,7 +121,7 @@ def run(cfg: PretrainConfig, vlm_cfg):
 
     params = model.init_params(root_key(cfg.seed, device), param_dtype=torch.float32)
     trainable = model.trainable_mask(params, stage)
-    micro_bsz = hp["per_device_batch_size"] * overwatch.world_size()
+    micro_bsz = hp["per_device_batch_size"] * data_ranks
     grad_accum = max(1, hp["global_batch_size"] // micro_bsz)
     steps_per_epoch = len(dataset) // hp["global_batch_size"]
     total_steps = cfg.max_steps_override or (hp["epochs"] * steps_per_epoch) or 1000
@@ -127,9 +130,14 @@ def run(cfg: PretrainConfig, vlm_cfg):
                        max_grad_norm=hp["max_grad_norm"], lr_scheduler_type=hp["lr_scheduler_type"],
                        warmup_ratio=hp["warmup_ratio"], total_steps=total_steps)
     optimizer = make_optimizer(ocfg, params, trainable_mask=trainable, grad_accum_steps=grad_accum)
+    mesh_training = None
+    if mesh is not None:
+        mesh_training = MeshTraining.for_params(mesh, params)
+        params = mesh_training.shard(params)
     step_fn = make_vla_train_step(model, optimizer, trainable_mask=trainable, compute_dtype=torch.bfloat16,
-                                  image_transform=model.image_transform, remat_policy=cfg.remat_policy)
-    state = init_train_state(params, optimizer, trainable_mask=trainable)
+                                  image_transform=model.image_transform, remat_policy=cfg.remat_policy,
+                                  mesh=mesh_training)
+    state = init_train_state(params, optimizer, trainable_mask=trainable, mesh=mesh_training)
     del params
     ckpt = CheckpointManager(run_dir)
     if overwatch.is_rank_zero():
@@ -139,14 +147,15 @@ def run(cfg: PretrainConfig, vlm_cfg):
     overwatch.info("Pretraining stage %s: %d examples, micro-batch %d, grad_accum %d, %d steps", stage, len(dataset),
                    micro_bsz, grad_accum, total_steps)
 
-    batcher = SplitModalityBatcher(dataset.get_modality_lengths(), micro_bsz, seed=cfg.seed,
-                                   process_index=overwatch.rank(), process_count=overwatch.world_size())
+    batcher = SplitModalityBatcher(dataset.get_modality_lengths(), micro_bsz, seed=cfg.seed)
+    rows = micro_bsz // data_ranks  # this rank's rows of each micro-batch
     step, mtr = 0, None
     for epoch in range(hp["epochs"]):
         for batch_indices in batcher.batches(epoch):
             if step >= total_steps:
                 break
-            batch = collator([dataset[i] for i in batch_indices])
+            mine = batch_indices[data_rank * rows:(data_rank + 1) * rows]
+            batch = collator([dataset[i] for i in mine])
             del batch["multimodal_indices"]
             state, mtr = step_fn(state, to_device(batch, device))
             step += 1
@@ -155,7 +164,7 @@ def run(cfg: PretrainConfig, vlm_cfg):
                 overwatch.info(metrics.push())
         if mtr is None:
             raise ValueError(f"epoch {epoch} gave no batch: {len(dataset)} examples, micro-batch {micro_bsz}")
-        ckpt.save(state, step=step, epoch=epoch, loss=float(mtr["loss"]))
+        ckpt.save(state, step=step, epoch=epoch, loss=float(mtr["loss"]), mesh=mesh_training)
     metrics.finalize()
     return state
 

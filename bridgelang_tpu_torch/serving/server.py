@@ -9,7 +9,10 @@ response adds "tokens") or `horizon` (a chunk of actions from one parallel
 forward, for parallel-objective models). At batch 1 the server decodes
 speculatively by default, drafting from its own history of the same
 (instruction, unnorm_key). Every model pass holds one lock: a CUDA model's
-graphs run one predict at a time.
+graphs run one predict at a time. On a serving mesh (deploy --mesh_spec)
+rank 0 runs this server and leads each predict (serving/mesh.py); /stats
+adds the world size, the mesh shape, the predicts and the decoder's
+collectives.
 """
 
 from __future__ import annotations
@@ -160,6 +163,16 @@ class VLAServer:
             "requests": n, "errors": e, "model_passes": nb, "uptime_s": round(time.time() - self._started, 1),
             "max_batch": self.max_batch,
         }
+        mesh = getattr(self.model, "serving_mesh", None)
+        if mesh is not None:  # a tensor-parallel deploy: its shape, predicts and the decoder's collectives
+            payload["world_size"] = int(mesh.size())
+            payload["mesh"] = {name: int(mesh.size(i)) for i, name in enumerate(mesh.mesh_dim_names)}
+            payload["predicts"] = self.model.mesh_predictor.predicts
+            payload["collectives"] = self.model.cfg.llm.tp.launches
+        if self.device.type == "cuda":  # each kernel wrapper's launches (replays count what their capture recorded)
+            from bridgelang_tpu_torch.models.graphs import counted_wrappers
+
+            payload["kernel_launches"] = {fn.__name__: fn.launches for fn in counted_wrappers()}
         if recent:
             payload["latency_ms"] = {
                 "p50": round(float(np.percentile(recent, 50)), 1),

@@ -23,12 +23,24 @@ The data are read from `--data_root_dir`, one directory per dataset of
 by vla/datasets/rlds/tfds_reader.py) or a native episode store
 (`<root>/<dataset>/*.tfrecord`): its layout picks the reader. The byte-fallback
 stand-in tokenizer (no `--tokenizer_path`) takes the finetune entry point's
-wider collator bucket. `--vla.mesh_shape` (multi-GPU) and
-`--attention_impl` are refused until ported.
+wider collator bucket. `--attention_impl` (ring attention) is refused until
+ported.
+
+Multi-GPU: under torchrun (`torchrun --nproc_per_node N -m
+bridgelang_tpu_torch.train ...`) or with `--vla.mesh_shape`, each rank trains
+on one device over the mesh `--vla.mesh_shape` names, or by default the one
+`strategy_mesh_spec(--vla.train_strategy, world, devices per node)` gives
+(fsdp-full-shard and fsdp-shard-grad-op: fsdp inside a node, replicas
+across nodes; ddp: replicas); fsdp-shard-grad-op keeps the parameters whole
+and shards AdamW's state (parallel/fsdp.py). Each rank reads its share of
+the data; checkpoints are sharded (`dcp/`) and resume at another world size
+(each rank's data stream resumes when the world size is the run's).
+`tensor` > 1 is refused (not ported yet).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -88,13 +100,20 @@ def main(cfg: TrainConfig):
     from bridgelang_tpu_torch.util.seeding import root_key, set_global_seed
     from bridgelang_tpu_torch.vla.materialize import get_vla_dataset_and_collator
 
+    from bridgelang_tpu_torch.parallel.fsdp import MeshTraining, mesh_strategy, training_mesh
+    from bridgelang_tpu_torch.parallel.mesh import initialize_distributed, strategy_mesh_spec
+
     vla = cfg.vla
-    if vla.mesh_shape is not None:
-        raise NotImplementedError("--vla.mesh_shape: multi-GPU training is not yet ported (ROADMAP.md Queue 1)")
     if cfg.attention_impl is not None:
         raise NotImplementedError("--attention_impl: the port's training attention is the flash kernel; ring "
-                                  "attention waits for multi-GPU (ROADMAP.md Queue 1)")
+                                  "attention comes with multi-GPU part 2 (ROADMAP.md Queue 1 item 7b)")
     device = resolve_device(cfg.device)
+    mesh_shape = vla.mesh_shape
+    if mesh_shape is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        initialize_distributed(device_type=device.type)
+        world = torch.distributed.get_world_size()
+        mesh_shape = strategy_mesh_spec(vla.train_strategy, world, int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+    mesh, device = training_mesh(mesh_shape, device)
     set_global_seed(cfg.seed)
     world = overwatch.world_size()
     if world != vla.expected_device_count:
@@ -151,14 +170,18 @@ def main(cfg: TrainConfig):
                        max_grad_norm=vla.max_grad_norm, lr_scheduler_type=vla.lr_scheduler_type,
                        warmup_ratio=vla.warmup_ratio, total_steps=total_steps)
     optimizer = make_optimizer(ocfg, params, trainable_mask=trainable)
+    mesh_training = None
+    if mesh is not None:
+        mesh_training = MeshTraining.for_params(mesh, params, mesh_strategy(vla.train_strategy))
+        params = mesh_training.shard(params)
     step_fn = make_vla_train_step(model, optimizer, trainable_mask=trainable, image_transform=model.image_transform,
-                                  remat_policy=cfg.remat_policy)
-    state = init_train_state(params, optimizer, trainable_mask=trainable)
+                                  remat_policy=cfg.remat_policy, mesh=mesh_training)
+    state = init_train_state(params, optimizer, trainable_mask=trainable, mesh=mesh_training)
     del params
 
     ckpt = CheckpointManager(run_dir)
     if cfg.pretrained_checkpoint is not None:
-        state = ckpt.restore(cfg.pretrained_checkpoint, state)
+        state = ckpt.restore(cfg.pretrained_checkpoint, state, mesh=mesh_training)
         overwatch.info("Restored checkpoint %s", cfg.pretrained_checkpoint)
     metrics = VLAMetrics(build_trackers(cfg.trackers.split(","), run_id, run_dir, config_to_dict(cfg)), run_id,
                          is_rank_zero=overwatch.is_rank_zero(), resume_step=start_step)
@@ -207,9 +230,13 @@ def main(cfg: TrainConfig):
             if step % vla.save_interval == 0:
                 flush()
                 t0 = time.time()
-                ckpt.save(state, step=step, epoch=0, loss=float(m["loss"]), data_state=batches.state(step - start_step))
+                ckpt.save(state, step=step, epoch=0, loss=float(m["loss"]), data_state=batches.state(step - start_step),
+                          mesh=mesh_training)
                 overwatch.info("Saved checkpoint at step %d (%.1fs)", step, time.time() - t0)
     except (KeyboardInterrupt, Exception) as e:  # noqa: BLE001 (re-raised)
+        if mesh_training is not None:  # the other ranks may be inside a collective: no collective save
+            overwatch.error("Training interrupted at step %d (%s) on a mesh; no emergency checkpoint", step, e)
+            raise
         overwatch.error("Training interrupted at step %d (%s); saving emergency checkpoint", step, e)
         ckpt.save(state, step=step, epoch=0, loss=0.0, data_state=batches.state(step - start_step))
         raise
@@ -217,7 +244,7 @@ def main(cfg: TrainConfig):
         batches.close()
     flush()
     ckpt.save(state, step=step, epoch=0, loss=float(last_loss) if last_loss is not None else float("nan"),
-              data_state=batches.state(step - start_step))
+              data_state=batches.state(step - start_step), mesh=mesh_training)
     metrics.finalize()
     overwatch.info("Training complete at step %d", step)
     return state

@@ -16,6 +16,16 @@ dataset_statistics.json sidecars with the int4 pack layout, and
 The optimizer state is saved (the reference's FSDP path drops it); with
 `only_trainable_mask` the frozen parameters are dropped (saved as None), as
 the reference's `only_trainable` default, and `restore` keeps the target's.
+
+A run on a mesh (`mesh`, a parallel/fsdp.MeshTraining) writes sharded state
+instead: `<step dir>/dcp/`, a `torch.distributed.checkpoint` directory in
+which every rank writes its blocks (each leaf a DTensor with its placements,
+a replicated leaf written once) under the keys "params/llm/layers/0/wq",
+"opt_state/mu/0", "step", ... No rank gathers the state, which the 7B's
+fine-tuning stage would not fit. `restore` reads it into any target: a mesh
+of another size (DCP reshards the blocks) or whole tensors in one process.
+Each rank's data stream state goes beside it (`data_state-<rank>-of-<n>.pt`);
+a resume at another world size starts its streams afresh.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from bridgelang_tpu_torch.training.trainer import TrainState
 CKPT_DIR_RE = re.compile(r"step-(\d+)-epoch-(\d+)-loss=([0-9.]+)")
 STATE_FILE = "state.pt"
 DATA_STATE_FILE = "data_state.pt"
+SHARDED_DIR = "dcp"  # a mesh run's sharded state (torch.distributed.checkpoint)
 
 
 def checkpoint_name(step: int, epoch: int, loss: float) -> str:
@@ -52,6 +63,73 @@ def parse_checkpoint_name(name: str) -> Tuple[int, int, float]:
 
 def _rank() -> int:
     return torch.distributed.get_rank() if torch.distributed.is_available() and torch.distributed.is_initialized() else 0
+
+
+def _world() -> int:
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def _trainable_mask(params):
+    """Which leaves train: init_train_state marks them requires_grad."""
+    if isinstance(params, dict):
+        return {k: _trainable_mask(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_trainable_mask(v) for v in params]
+    return params.requires_grad
+
+
+def _sharded_state(state: TrainState, mesh, keep_mask=None) -> Dict[str, Any]:
+    """The flat DCP state dict of `state` on `mesh`: params (the leaves
+    `keep_mask` marks, all without it) and the optimizer state as DTensors
+    over this rank's tensors, numbers as they are; or, without a mesh, the
+    same keys over whole tensors."""
+    from bridgelang_tpu_torch.parallel.fsdp import flat_state
+
+    def leaf(t, spec):
+        if mesh is None:
+            return t.detach()
+        return mesh.dtensor(t.detach(), spec, whole=not mesh.shards_params)
+
+    sd: Dict[str, Any] = {"step": int(state.step)}
+    keep = [True] * len(flat_state("", state.params)) if keep_mask is None else [
+        bool(m) for _, m in flat_state("", keep_mask)]
+    specs = flat_state("", mesh.specs) if mesh is not None else [(None, None)] * len(keep)
+    for (key, t), (_, spec), k in zip(flat_state("params", state.params), specs, keep):
+        if k:
+            sd[key] = leaf(t, spec)
+    opt_specs = mesh.leaf_specs(_trainable_mask(state.params)) if mesh is not None else None
+    for key, value in flat_state("opt_state", state.opt_state):
+        if isinstance(value, torch.Tensor):
+            i = int(key.rsplit("/", 1)[1])
+            sd[key] = value if mesh is None else mesh.dtensor(value, opt_specs[i])
+        else:
+            sd[key] = value
+    return sd
+
+
+def _set_path(tree, key: str, value):
+    """tree[...][...] = value along a "a/b/0/c" key; returns the tree."""
+    parts = key.split("/")
+    node = tree
+    for p in parts[:-1]:
+        node = node[int(p)] if isinstance(node, list) else node[p]
+    last = parts[-1]
+    if isinstance(node, list):
+        node[int(last)] = value
+    else:
+        node[last] = value
+    return tree
+
+
+def sharded_metadata(step_dir) -> Dict[str, Any]:
+    """{key: (global shape, dtype)} of a sharded checkpoint's tensors (numbers skipped)."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+
+    meta = dcp.FileSystemReader(str(Path(step_dir) / SHARDED_DIR)).read_metadata()
+    return {k: (tuple(v.size), v.properties.dtype) for k, v in meta.state_dict_metadata.items()
+            if isinstance(v, TensorStorageMetadata)}
 
 
 def _drop_frozen(params, mask):
@@ -108,15 +186,20 @@ class CheckpointManager:
             shutil.rmtree(old, ignore_errors=True)
 
     def save(self, state: TrainState, step: int, epoch: int, loss: float,
-             only_trainable_mask: Optional[Any] = None, data_state: Optional[Dict[str, Any]] = None) -> Path:
+             only_trainable_mask: Optional[Any] = None, data_state: Optional[Dict[str, Any]] = None,
+             mesh=None) -> Path:
         """Save params, optimizer state and step (the frozen params dropped
         when `only_trainable_mask` is given), and with `data_state` the data
         stream's state (`data_state.pt`, read by `load_data_state`). Each
         file is written under a temporary name and renamed, the state last,
-        so a checkpoint is whole or absent."""
+        so a checkpoint is whole or absent. With `mesh` every rank calls this
+        and writes its blocks (`dcp/`) and its data stream's state; rank 0
+        writes the marker after all ranks are done."""
+        path = self.ckpt_root / checkpoint_name(step, epoch, loss)
+        if mesh is not None:
+            return self._save_sharded(path, state, only_trainable_mask, data_state, mesh)
         params = state.params if only_trainable_mask is None else _drop_frozen(state.params, only_trainable_mask)
         payload = {"step": int(state.step), "params": params, "opt_state": state.opt_state}
-        path = self.ckpt_root / checkpoint_name(step, epoch, loss)
         if _rank() == 0:
             path.mkdir(parents=True, exist_ok=True)
             files = ([(DATA_STATE_FILE, data_state)] if data_state is not None else []) + [(STATE_FILE, payload)]
@@ -128,10 +211,34 @@ class CheckpointManager:
             self._enforce_retention()
         return path
 
-    def restore(self, path, target_state: TrainState) -> TrainState:
+    def _save_sharded(self, path: Path, state: TrainState, keep_mask, data_state, mesh) -> Path:
+        import torch.distributed as dist
+        import torch.distributed.checkpoint as dcp
+
+        if _rank() == 0:
+            path.mkdir(parents=True, exist_ok=True)
+        dist.barrier()
+        dcp.save(_sharded_state(state, mesh, keep_mask), checkpoint_id=str(path / SHARDED_DIR))
+        if data_state is not None:
+            name = f"data_state-{_rank()}-of-{_world()}.pt"
+            torch.save(data_state, path / (name + ".tmp"))
+            os.replace(path / (name + ".tmp"), path / name)
+        dist.barrier()
+        if _rank() == 0:
+            (self.run_dir / "latest-checkpoint.txt").write_text(path.name)
+            self._enforce_retention()
+        return path
+
+    def restore(self, path, target_state: TrainState, mesh=None) -> TrainState:
         """The checkpoint's values copied into `target_state`'s tensors in
         place (their devices kept); leaves saved as None keep the target's.
+        A sharded checkpoint (`dcp/`) restores into a target on `mesh` (this
+        rank's blocks; any mesh size) or, without one, into whole tensors.
         Returns the target state."""
+        if (Path(path) / SHARDED_DIR).exists():
+            return self._restore_sharded(Path(path), target_state, mesh)
+        if mesh is not None:
+            raise ValueError(f"{path} holds a one-process checkpoint ({STATE_FILE}); restore it without a mesh")
         saved = torch.load(Path(path) / STATE_FILE, map_location="cpu", weights_only=True)
         target_state.params = _copy_into(target_state.params, saved["params"], "params")
         target_state.opt_state = _copy_into(target_state.opt_state, saved["opt_state"], "opt_state")
@@ -139,10 +246,35 @@ class CheckpointManager:
         return target_state
 
     @staticmethod
+    def _restore_sharded(path: Path, target_state: TrainState, mesh) -> TrainState:
+        import torch.distributed.checkpoint as dcp
+
+        saved_keys = set(dcp.FileSystemReader(str(path / SHARDED_DIR)).read_metadata().state_dict_metadata)
+        full = _sharded_state(target_state, mesh)
+        sd = {k: v for k, v in full.items() if k in saved_keys}  # frozen leaves a LoRA run dropped keep the target's
+        dcp.load(sd, checkpoint_id=str(path / SHARDED_DIR), no_dist=mesh is None)
+        with torch.no_grad():
+            for key, value in sd.items():
+                target = full[key]
+                if isinstance(value, torch.Tensor):
+                    local = value.to_local() if hasattr(value, "to_local") else value
+                    dest = target.to_local() if hasattr(target, "to_local") else target
+                    if local.data_ptr() != dest.data_ptr():
+                        dest.copy_(local)
+                elif key == "step":
+                    target_state.step = int(value)
+                else:
+                    _set_path(target_state.opt_state, key[len("opt_state/"):], value)
+        return target_state
+
+    @staticmethod
     def load_data_state(path) -> Optional[Dict[str, Any]]:
-        """The data stream's state saved with the checkpoint at `path`, or
-        None if it holds none."""
+        """The data stream's state saved with the checkpoint at `path` (a
+        mesh run's: this rank's, when the world size is the run's), or None
+        if it holds none."""
         file = Path(path) / DATA_STATE_FILE
+        if not file.exists():
+            file = Path(path) / f"data_state-{_rank()}-of-{_world()}.pt"
         return torch.load(file, map_location="cpu", weights_only=True) if file.exists() else None
 
     def latest(self) -> Optional[Path]:

@@ -18,6 +18,13 @@ changes the trainable tensors of `state.params` and the moments in
 `state.opt_state`. Trainable tensors get `requires_grad`; frozen ones get no
 gradient buffer.
 
+On a mesh (`mesh`, a parallel/fsdp.MeshTraining) the same step runs on
+every rank over its rows of the global batch: the state holds this rank's
+blocks (FSDP) or whole tensors (ZeRO-2, data parallelism), the forward
+gathers what it reads, the loss divides by the global token count, the
+gradients are summed over the data ranks, the global norm makes one fp64
+all-reduce, and AdamW updates the local tensors.
+
 Over a packed-int4 base (QLoRA) the frozen projections run through the int4
 kernels (`matmul_int4`, with `w8a8` off) and their input gradient through a
 transient dequantization. Under "dots" remat the int4 kernel's output is not
@@ -28,6 +35,7 @@ does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import re
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -161,9 +169,11 @@ class AdamW:
         return state
 
     @torch.no_grad()
-    def update(self, grads: List[torch.Tensor], state: Dict[str, Any], params: List[torch.Tensor]) -> None:
+    def update(self, grads: List[torch.Tensor], state: Dict[str, Any], params: List[torch.Tensor],
+               norm_fn: Callable[[List[torch.Tensor]], torch.Tensor] = None) -> None:
         """Apply one step IN PLACE to `params` and `state`; `grads` may be
-        scaled in place by the clip."""
+        scaled in place by the clip. `norm_fn` is the clip's global norm
+        (`global_norm`; on a mesh the one that sums every rank's blocks)."""
         grads = [g.to(p.dtype) for g, p in zip(grads, params)]
         if self.k > 1:
             n = state["mini_step"]
@@ -178,7 +188,7 @@ class AdamW:
             for a in acc:
                 a.zero_()
         cfg = self.cfg
-        norm = global_norm(grads)
+        norm = (norm_fn or global_norm)(grads)
         scale = torch.where(norm < cfg.max_grad_norm, torch.ones_like(norm), cfg.max_grad_norm / norm)
         torch._foreach_mul_(grads, scale)
         mu, nu = state["mu"], state["nu"]
@@ -234,16 +244,21 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms)).float()
 
 
-def init_train_state(params: Params, optimizer: AdamW, trainable_mask: Optional[Params] = None) -> TrainState:
-    """Marks the trainable tensors `requires_grad` and builds their moments.
-    Raises on inference tensors (made under torch.inference_mode), which
-    autograd cannot record."""
+def init_train_state(params: Params, optimizer: AdamW, trainable_mask: Optional[Params] = None,
+                     mesh=None) -> TrainState:
+    """Marks the trainable tensors `requires_grad` and builds their moments
+    (on a mesh, a parallel/fsdp.MeshTraining: `params` is what this rank
+    keeps, `mesh.shard(whole params)`, and the moments are this rank's
+    blocks). Raises on inference tensors (made under torch.inference_mode),
+    which autograd cannot record."""
     bad = [i for i, p in enumerate(tree_leaves(params)) if p.is_inference()]
     if bad:
         raise ValueError(f"{len(bad)} parameter tensors are inference tensors; make them outside inference_mode")
     trainable = trainable_tensors(params, trainable_mask)
     for p in trainable:
         p.requires_grad_(True)
+    if mesh is not None:
+        trainable = mesh.optimizer_params(trainable, mesh.leaf_specs(trainable_marks(params, trainable_mask)))
     return TrainState(step=0, params=params, opt_state=optimizer.init(trainable))
 
 
@@ -302,12 +317,15 @@ def _ce_chunk(llm_params, cfg_llm, hc, yc, action_token_begin_idx, centers):
 
 
 def chunked_ce_and_metrics(llm_params: Params, cfg_llm, hidden: torch.Tensor, labels: torch.Tensor,
-                           action_token_begin_idx: int, bin_centers, chunk: int = CE_CHUNK
+                           action_token_begin_idx: int, bin_centers, chunk: int = CE_CHUNK, mesh=None
                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Cross entropy + action metrics without the [B, F, vocab] logits: the
     LM head runs per sequence chunk under torch.utils.checkpoint, so the
     peak logits tensor is [B, chunk, vocab] in both passes. The same values
-    as the dense path (fp32 log-softmax)."""
+    as the dense path (fp32 log-softmax). On a mesh (rows of the global batch
+    on each rank) the loss is this rank's NLL over the global token count,
+    whose sum over the ranks is the global loss, and the metrics are the
+    global batch's."""
     centers = torch.as_tensor(bin_centers, dtype=torch.float32, device=hidden.device)
     h, y = hidden[:, :-1], labels[:, 1:].long()
     t = h.shape[1]
@@ -320,6 +338,9 @@ def chunked_ce_and_metrics(llm_params: Params, cfg_llm, hidden: torch.Tensor, la
         for i in range(n)
     ]
     nll, count, correct, a_count, l1 = (torch.stack(x).sum(dim=0) for x in zip(*parts))
+    if mesh is not None:
+        count = mesh.sum_(count)
+        correct, a_count, l1 = (mesh.concat_rows(x) for x in (correct, a_count, l1))
     return nll / count.clamp(min=1), _metrics(correct, a_count, l1)
 
 
@@ -336,6 +357,7 @@ def make_vla_train_step(
     remat: bool = True,
     remat_policy: Optional[str] = None,
     parallel_decode_objective: bool = False,
+    mesh=None,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """The VLA train step. Batch keys (tensors on the model's device):
     input_ids, attention_mask, labels, and either normalized `pixel_values`
@@ -350,7 +372,11 @@ def make_vla_train_step(
 
     The step updates `state` IN PLACE and returns it with the metrics:
     loss, grad_norm (before clipping), action_accuracy, l1_loss,
-    per_example_accuracy, per_example_l1 (device tensors)."""
+    per_example_accuracy, per_example_l1 (device tensors).
+
+    `mesh` (a parallel/fsdp.MeshTraining): the step runs on this rank's
+    rows of the global batch over the state `init_train_state(mesh=mesh)`
+    made; the metrics are the global batch's on every rank."""
     _, bin_centers = make_bins(n_action_bins)
     vocab_size = model.cfg.llm.vocab_size
     action_begin = vocab_size - (n_action_bins + 1)
@@ -360,7 +386,11 @@ def make_vla_train_step(
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         trainable = trainable_tensors(state.params, trainable_mask)
-        compute_params = tree_map(cast, state.params)
+        if mesh is None:
+            compute_params = tree_map(cast, state.params)
+        else:
+            specs = mesh.leaf_specs(trainable_marks(state.params, trainable_mask))
+            compute_params = mesh.compute_params(state.params, cast)
         if "pixel_values" in batch:
             pixel_values = batch["pixel_values"]
         else:
@@ -372,10 +402,18 @@ def make_vla_train_step(
             remat=remat, remat_policy=remat_policy, parallel_actions=parallel_decode_objective,
         )
         loss, metrics = chunked_ce_and_metrics(compute_params["llm"], model.cfg.llm, hidden, fused_labels,
-                                               action_begin, bin_centers)
+                                               action_begin, bin_centers, mesh=mesh)
         grads = list(torch.autograd.grad(loss, trainable))
-        gnorm = global_norm(grads)
-        optimizer.update(grads, state.opt_state, trainable)
+        if mesh is None:
+            gnorm = global_norm(grads)
+            optimizer.update(grads, state.opt_state, trainable)
+        else:
+            grads = mesh.sync_grads(grads, specs)
+            norm_fn = functools.partial(mesh.global_norm, specs=specs)
+            gnorm = norm_fn(grads)
+            optimizer.update(grads, state.opt_state, mesh.optimizer_params(trainable, specs), norm_fn)
+            mesh.after_update(trainable, specs)
+            loss = mesh.sum_(loss)
         state.step += 1
         return state, dict(metrics, loss=loss.detach(), grad_norm=gnorm)
 

@@ -131,7 +131,7 @@ of which fails the run:
            over the int4 base with w8a8 off (384 int4_mm per step at Phi's
            shapes, 64/32/32 flash launches, losses finite), merged and
            predicting through the merged int4 weights; Mistral
-           (prism-mistral-dinosiglip+7b) cut to 8 of its 32 layers (ids equal
+           (prism-mistral-dinosiglip+7b) cut to 4 of its 32 layers (ids equal
            to eager, 8 flash_fwd per predict). The int8 cache: ids of graphs
            equal to eager, teacher-forced logits within 0.05 max|logit| of
            the bf16 cache's (the argmax equal where the margin clears twice
@@ -156,18 +156,18 @@ of which fails the run:
            published-layout 7B with their defaults (int8 w8a8 on load) and a
            committed 640x480 JPEG read by open_rgb: demo.main's action equal
            to predict_action's on the same frame; generate.main with two
-           turns on standard input and 128 new tokens, each reply's ids
+           turns on standard input and 64 new tokens, each reply's ids
            equal to generate_greedy's on the conversation's prompt; the eager
            int8 prefill ms and decode ms per token.
   robot    robot evaluation on the load phase's published-layout 7B:
-           verify.main with its defaults (int8 w8a8 on load, 16 calls: p50,
+           verify.main (int8 w8a8 on load, 8 calls, its default 16: p50,
            p90, finite actions, 32 flash_fwd per predict), --golden_record
            then --golden on the bf16 load (every record's tokens exact),
-           --speculative_stream (16 ticks: the accept histogram) and
+           --speculative_stream (8 ticks: the accept histogram) and
            --quantize_int4 (8 calls, 224 int4_mm_a8 and quantize_a8 per
            decoder pass); inspect_checkpoint.main on the published 7B and on a
            port run dir (tensors and bytes as written); run_libero_eval.main
-           over a fake `libero` package (256 px, center crop, 2 tasks x 2
+           over a fake `libero` package (256 px, center crop, 1 task x 2
            episodes x 8 steps) in greedy mode (each action equal to
            predict_action's on the cropped frame), speculative (each tick's
            ids equal to greedy's), remote (RemoteVLA against
@@ -182,16 +182,37 @@ of which fails the run:
            frames from two cameras, 7-D actions, 8-D states), read through
            the TF-free pipeline by the dataset's worker processes:
            finetune.main on the load phase's published-layout 7B (bf16 LoRA
-           r=32, batch 16, image_aug, 8 steps, the bf16 HF export loaded
+           r=32, batch 16, image_aug, 6 steps, the bf16 HF export loaded
            back and serving one action under the store's statistics), int8
-           QLoRA (4 steps, no int8 code moves, the merge against the plain
+           QLoRA (3 steps, no int8 code moves, the merge against the plain
            formula), the parallel objective (--action_chunk 8, full remat: no
            flash launch, peak under the train phase's dots peak; an [8, 7]
            chunk from the trained weights), and train.main at full width with
            2 decoder layers (5 steps; resumed from the step-4 checkpoint, the
            5th step bit-equal). The entry points run unchanged; the phase
            times their steps, batches, saves and exports from outside, and
-           profiles steps 3-8.
+           profiles steps 3-6.
+  mesh     multi-GPU at world size W = the visible cards (1 on a one-card
+           machine), on the load phase's published-layout 7B, run inside the
+           finetune phase (which it needs): `deploy --checkpoint <dir>
+           --mesh_spec tensor=W` (int8 w8a8, the default; one process at
+           W = 1, torchrun otherwise) answers 3 /act (a zero draft, so the
+           response carries the ids) with ids and actions equal to the
+           in-process predict_action_speculative of the same load; the same
+           with --quantize_int4 true --int4_shards W (skipped where the card's
+           int4 rule refuses the shard-local shapes; every decoder pass
+           launches 224 int4_mm_a8 and 224 quantize_a8, the row-parallel
+           wo / w_down quantized with the group's absmax); each prints the
+           collectives per predict (/stats: the decoder's all-reduces and the
+           logits' gathers, replayed inside the CUDA graphs) and its /act
+           median beside the same deploy's without --mesh_spec, started
+           with it and answering the same requests (the baseline of this
+           run); then finetune.main --mesh_shape fsdp=W for 3 steps over the
+           finetune phase's store with its first run's flags: losses bit-equal
+           to that run's first 3 at W = 1 (its one-rank NCCL group released
+           after), collectives per step, step ms, peak GB. It prints the NCCL
+           version and says when no collective crossed a device; with more
+           than one card tensor=2 and fsdp=2 run as well.
   pretrain VLM pretraining through pretrain.run (what pretrain.main runs),
            random fp32 weights from the seed, over a LLaVA-layout directory
            written here (558k-shaped captions, mix665k-shaped chats with
@@ -199,7 +220,7 @@ of which fails the run:
            fixtures), 16 x (2048 + 256) fused tokens per micro-batch, "full"
            remat, grad_accum 2, 4 micro-steps per stage: every fixture read
            to Pillow's manifest hashes first; the align stage on the 7B at
-           full width and depth (only the projector changes; the epoch-end
+           full width, cut to 8 of 32 decoder layers (only the projector changes; the epoch-end
            checkpoint of the whole state read back for the projector and its
            moments, bit-equal; 64/32/32 flash launches per micro-step); the
            finetune stage on the 7B cut to 4 decoder layers (LLM and
@@ -297,7 +318,12 @@ INT4_GROUP = 128         # quantize_llm_int4's default group, the serving pack
 INT4_SHAPES_7B = {"wq": (4096, 4096), "w_gate": (4096, 11008), "w_down": (11008, 4096)}  # (K, N) per projection
 # Phi-2's projections: K 2560 (20 groups of 128) or 10240 (80 groups)
 INT4_SHAPES_PHI = {"phi wq": (2560, 2560), "phi w_up": (2560, 10240), "phi w_down": (10240, 2560)}
-INT4_SHAPES = {**INT4_SHAPES_7B, **INT4_SHAPES_PHI}
+# The blocks a rank holds under tensor parallelism (deploy --mesh_spec tensor=T --int4_shards T): the 7B's
+# column blocks and K-row shards at T=2 (wo's 2048 rows in 16 groups, w_down's 5504 in 43: its split-K over
+# 43 groups), and the 13B's w_gate/w_up column block at T=4 (N/2 = 1728)
+INT4_SHAPES_TP = {"t2 wq block": (4096, 2048), "t2 w_gate block": (4096, 5504), "t2 wo rows": (2048, 4096),
+                  "t2 w_down rows": (5504, 4096), "13b t4 w_gate block": (5120, 3456)}
+INT4_SHAPES = {**INT4_SHAPES_7B, **INT4_SHAPES_PHI, **INT4_SHAPES_TP}
 PHI_QLORA_M = 16 * 368  # int4_mm's M in a Phi-2 QLoRA step: B = 16 x (112 + 256) fused tokens
 INT4_PER_PASS = 7 * N_LAYERS_7B   # int4 launches per decoder pass: 7 projections x 32 layers
 ACTION_DIM = 7           # decoder passes per predict: the prefill and 6 decode steps
@@ -544,9 +570,15 @@ def check_kernels(serve_t: int):
         "t304_b4": (4, 304, 304, 32, 32, 128, [304, 290, 271, 256], None, "bfloat16"),
         "phi_serve_b1": (1, T, T, 32, 32, 80, [T - 21], None, "bfloat16"),
         "phi_serve_b4": (4, T, T, 32, 32, 80, [T - 21, T - 9, T - 40, T - 77], None, "bfloat16"),
+        # a rank's heads of the 7B under tensor parallelism: 16 at tensor=2, 8 at tensor=4
+        "tp2_b1": (1, T, T, 16, 16, 128, [T - 21], None, "bfloat16"),
+        "tp2_b4": (4, T, T, 16, 16, 128, [T - 21, T - 9, T - 40, T - 77], None, "bfloat16"),
+        "tp4_b1": (1, T, T, 8, 8, 128, [T - 21], None, "bfloat16"),
+        "tp4_b4": (4, T, T, 8, 8, 128, [T - 21, T - 9, T - 40, T - 77], None, "bfloat16"),
         **ATTENTION_CASES,
     }
-    timed = ("serve_b1", "serve_b4", "t304_b1", "train_b16", "phi_serve_b1", "phi_serve_b4", "phi_train_b16")
+    timed = ("serve_b1", "serve_b4", "t304_b1", "train_b16", "phi_serve_b1", "phi_serve_b4", "phi_train_b16",
+             "tp2_b1", "tp2_b4", "tp4_b1", "tp4_b4")
     # lse is fp32 in both: only the summation order differs (atol 1e-3).
     rows, worst = [], {}
     for i, (name, (b, t, s, h, hkv, d, lengths, window, dtype_name)) in enumerate(cases.items()):
@@ -576,7 +608,7 @@ def check_kernels(serve_t: int):
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 100)
             b_ms, b_by = bound_ms(q, k, v, lens, window)
-            rows.append(dict(case=name, shape=f"B={b} T={t} S={s} H={h} D={d} bf16", d=d, kernel_ms=kernel_ms,
+            rows.append(dict(case=name, shape=f"B={b} T={t} S={s} H={h} D={d} bf16", d=d, h=h, kernel_ms=kernel_ms,
                              plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
                              bound_share=b_ms / kernel_ms, vs_library=kernel_ms / library_ms, max_abs_err=err_o))
             log(f"timing {name}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -637,11 +669,13 @@ def check_int4_kernels() -> dict:
               ("w_gate", "a8", 1, 128, 2), ("w_gate", "a8", 4, 128, 2)]
     cases += [(sh, "a8", m, INT4_GROUP, 1) for sh in INT4_SHAPES_PHI for m in (1, 4, 352, 1408)]
     cases += [(sh, "bfloat16", PHI_QLORA_M, INT4_GROUP, 1) for sh in INT4_SHAPES_PHI]
+    cases += [(sh, "a8", m, INT4_GROUP, 1) for sh in INT4_SHAPES_TP for m in (1, 352)]
     timed = {("wq", "a8", 1), ("w_gate", "a8", 1), ("w_down", "a8", 1), ("wq", "a8", 352), ("w_gate", "a8", 352),
              ("w_down", "a8", 352), ("wq", "bfloat16", 5632), ("w_gate", "bfloat16", 5632),
              ("w_down", "bfloat16", 5632)}
     timed |= {(sh, "a8", m) for sh in INT4_SHAPES_PHI for m in (1, 352)}
     timed |= {(sh, "bfloat16", PHI_QLORA_M) for sh in INT4_SHAPES_PHI}
+    timed |= {(sh, "a8", m) for sh in INT4_SHAPES_TP for m in (1, 352)}
     worst = {"a8": (0.0, 0.0), "float": (0.0, 0.0)}
     rows, blocked = [], []
     for i, (shape, mode, m, group, n_shards) in enumerate(cases):
@@ -774,9 +808,11 @@ def rotated(tensors, n_bytes_each: int):
 def cold_timings(label: str) -> dict:
     """Device-side times, cold L2 (weights rotated over COLD_BYTES of
     copies): int4_mm_a8 at M=1 and M=352 at the three 7B and the three
-    Phi-2 shapes, F.linear over the weight dequantized to bf16 (the
+    Phi-2 shapes and at the blocks a rank holds under tensor parallelism
+    (INT4_SHAPES_TP), F.linear over the weight dequantized to bf16 (the
     yardstick), and flash_fwd at the serving shape B=1 at head dims 128 and
-    80 (its inputs warm, as the prefill writes them just before); each beside its CUDA-event reading around back-to-back wrapper
+    80 and at a rank's 16 and 8 heads (B = 1 and 4) (its inputs warm, as the
+    prefill writes them just before); each beside its CUDA-event reading around back-to-back wrapper
     calls, the series the earlier PRs report. Where the package has it, the
     quantize_a8 kernel. Runs on any checkout's package (--package-root)."""
     import torch
@@ -817,14 +853,18 @@ def cold_timings(label: str) -> dict:
     out = {"int4_mm_a8": rows}
     from bridgelang_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS
 
-    for key, d in (("flash_fwd", 128), ("flash_fwd_d80", 80)):  # the 7B's and Phi-2's head dims
+    ragged = [t - 21, t - 9, t - 40, t - 77]
+    # the 7B's and Phi-2's head dims; then a rank's heads of the 7B at tensor=2 (16) and 4 (8), B = 1 and 4
+    for key, d, h, b in (("flash_fwd", 128, 32, 1), ("flash_fwd_d80", 80, 32, 1), ("flash_fwd_h16_b1", 128, 16, 1),
+                         ("flash_fwd_h16_b4", 128, 16, 4), ("flash_fwd_h8_b1", 128, 8, 1),
+                         ("flash_fwd_h8_b4", 128, 8, 4)):
         if d not in KERNEL_HEAD_DIMS:  # an earlier checkout (--package-root) without D = 80
             continue
-        q_, k_, v_, lens = attention_case(1, t, t, 32, 32, d, [t - 21], None, torch.bfloat16, seed=100)
-        mask = valid_mask(t, t, [t - 21], None, device="cuda")[:, None]
+        q_, k_, v_, lens = attention_case(b, t, t, h, h, d, ragged[:b], None, torch.bfloat16, seed=100)
+        mask = valid_mask(t, t, ragged[:b], None, device="cuda")[:, None]
         qt, kt, vt = (x.transpose(1, 2) for x in (q_, k_, v_))
         out[key] = flash = dict(
-            shape=f"B=1 T={t} S={t} H=32 D={d} bf16",
+            shape=f"B={b} T={t} S={t} H={h} D={d} bf16",
             device_ms=graph_ms([lambda: flash_attention(q_, k_, v_, lengths=lens, causal=True)]),
             event_ms=cuda_ms(lambda: flash_attention(q_, k_, v_, lengths=lens, causal=True), 100),
             library_device_ms=graph_ms([lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)]),
@@ -873,7 +913,8 @@ def time_quantize(label: str) -> dict:
 def check_quantize_and_route() -> dict:
     """The quantize_a8 kernel bit-equal to quantize_activations_per_token
     (bf16 and fp32 rows, zero rows, rows on rounding ties; rows holding a
-    NaN get a NaN scale in both, their codes not compared), and the w4a8
+    NaN get a NaN scale in both, their codes not compared; a row-parallel K
+    shard quantized with the whole row's absmax), and the w4a8
     route on the card (quantize_a8, then int4_mm_a8 with the token scale and
     the cast in its epilogue: two launches) bit-equal to the plain
     composition (int4_matmul_a8_plain(q) * xs).to(x's dtype). Returns the
@@ -911,6 +952,21 @@ def check_quantize_and_route() -> dict:
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"quantize_a8 differs from quantize_activations_per_token in case {name}")
+    for name in ("bf16_m352", "fp32_m37_k11008", "zero_rows", "ties_fp32"):  # a K shard, the whole row's absmax
+        x = cases[name]
+        shard = x[:, :x.shape[1] // 2].contiguous()
+        absmax = x.float().abs().amax(dim=-1, keepdim=True)
+        q, xs = im.quantize_a8(shard, absmax)
+        torch.cuda.synchronize()
+        pq, pxs = quantize_activations_per_token(shard, absmax)
+        code_err = float((q.int() - pq.int()).abs().max())
+        scale_err = float((xs - pxs).abs().max())
+        errs["codes"], errs["scales"] = max(errs["codes"], code_err), max(errs["scales"], scale_err)
+        ok = torch.equal(q, pq) and torch.equal(xs, pxs)
+        log(f"kernel quantize_a8 {name} K shard {tuple(shard.shape)} with the row's absmax: max|codes err| "
+            f"{code_err:g}, max|scales err| {scale_err:g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"quantize_a8 with a given absmax differs from quantize_activations_per_token in case {name}")
     k, n = INT4_SHAPES_7B["w_gate"]
     packed, scales = _quantize4_2d(torch.randn((k, n), generator=g, device="cuda").mul_(k ** -0.5), INT4_GROUP)
     for m, dtype in ((1, torch.bfloat16), (4, torch.bfloat16), (352, torch.bfloat16), (37, torch.float32)):
@@ -2411,7 +2467,7 @@ LLAMA_IDS = ("prism-dinosiglip-224px+7b", "dinosiglip-vit-so-224px", "llama2-7b-
 PHI_IDS = ("prism-phi-dinosiglip+3b", "dinosiglip-vit-so-224px", "phi-2-3b", "no-align+fused-gelu-mlp")
 MISTRAL_IDS = ("prism-mistral-dinosiglip+7b", "dinosiglip-vit-so-224px", "mistral-v0.1-7b-pure",
                "no-align+fused-gelu-mlp")
-MISTRAL_LAYERS = 8       # of its 32 decoder layers: bounds the phase's time
+MISTRAL_LAYERS = 4       # of its 32 decoder layers: bounds the phase's time
 PHI_LORA_STEPS = 3       # timed LoRA steps of the Phi VLA after one warm step
 KV8_BAND = 0.05          # int8 against bf16 KV cache: |dlogit| <= 0.05 max|logit| (the w8a8 paths' rule)
 
@@ -2635,11 +2691,12 @@ FT_EPISODES = 24         # the native store: LIBERO's layout, 256x256 frames, 7-
 FT_EPISODE_STEPS = 50
 FT_FRAME = 256
 FT_SHARDS = 4            # store files, written in parallel
-FT_STEPS = 8             # finetune.main's bf16 LoRA run
-FT_SHORT_STEPS = 4       # the int8-QLoRA and parallel-objective runs
-FT_TIMED = (2, 8)        # steps 3-8: the median step, the data wait and the profiled idle share
-FT_SHUFFLE = 1000        # shuffle-buffer frames: the finetune default of 100_000 holds 19.7 GB of 256x256 frames
-                         # in the one reader process, and filling it would read this 1200-frame store 83 times
+FT_STEPS = 6             # finetune.main's bf16 LoRA run
+FT_SHORT_STEPS = 3       # the int8-QLoRA and parallel-objective runs
+FT_TIMED = (2, FT_STEPS)  # steps 3-6: the median step, the data wait and the profiled idle share
+FT_SHUFFLE = 400         # shuffle-buffer frames: the finetune default of 100_000 holds 19.7 GB of 256x256 frames
+                         # in the one reader process, and filling it would read this 1200-frame store 83 times;
+                         # a smaller buffer shortens each run's first-batch wait
 FT_CHUNK = 8             # --action_chunk of the parallel-objective run
 FT_CUT_LAYERS = 2        # train.main: full width, the decoder cut to 2 layers
 FT_TRAIN_STEPS = 5       # train.main steps of the uninterrupted run (saved at step 4, resumed for step 5)
@@ -2707,7 +2764,7 @@ TFDS_FRACTAL = "fractal20220817_data"
 TFDS_FRACTAL_EPISODES = 8  # the second dataset: RT-1's layout (nested action dict), small
 TFDS_FRACTAL_STEPS = 30
 TFDS_MIX = "smoke_libero_fractal"  # the tfds phase's train.main mixture: both datasets, weight 1 each
-TFDS_FT_STEPS = 6        # finetune.main steps over the TFDS directory
+TFDS_FT_STEPS = 4        # finetune.main steps over the TFDS directory
 TFDS_TRAIN_STEPS = 4     # train.main steps over the mixture
 FIXTURE_DIR = os.path.join(ROOT, "tests", "data", "images")
 _TFDS_CLS = "tensorflow_datasets.core.features."
@@ -3008,9 +3065,8 @@ class EntryPointProbe:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             path = save(mgr, state, step, *a, **k)
-            file = os.path.join(path, "state.pt")
-            probe.saves.append(dict(step=step, seconds=time.perf_counter() - t0, bytes=os.path.getsize(file),
-                                    path=str(path)))
+            n = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+            probe.saves.append(dict(step=step, seconds=time.perf_counter() - t0, bytes=n, path=str(path)))
             return path
 
         def export_timed(model, params, out_dir, *a, **k):
@@ -3104,7 +3160,7 @@ def plain_int8_merge(codes, scale, a, b):
     return torch.clamp(torch.round(w32 / new_scale), -127, 127).to(torch.int8), new_scale.to(torch.bfloat16)
 
 
-def finetune_phase(ckpt_dir: str, dots_peak_gb: float) -> dict:
+def finetune_phase(ckpt_dir: str, dots_peak_gb: float, mesh: bool = False) -> dict:
     """The port's `finetune` and `train` entry points on the card, fed by the
     port's TF-free pipeline from a native store (write_native_store):
     1. finetune.main, bf16 LoRA r=32 on the published-layout 7B of `ckpt_dir`
@@ -3112,15 +3168,17 @@ def finetune_phase(ckpt_dir: str, dots_peak_gb: float) -> dict:
        and the bf16 HF export of the merged model); the export loaded with
        load_vla predicts one action under the store's statistics, inside its
        [q01, q99];
-    2. int8 QLoRA (4 steps): no int8 code moves, and merge_lora of one
+    2. int8 QLoRA (3 steps): no int8 code moves, and merge_lora of one
        layer's trained adapters into the int8 base equals plain_int8_merge;
-    3. the parallel objective (--action_chunk 8, "full" remat, 4 steps): no
+    3. the parallel objective (--action_chunk 8, "full" remat, 3 steps): no
        flash launch, peak under the train phase's "dots" peak; one more
        step under "dots" for its peak; an [8, 7] chunk from the trained
        weights through generate_parallel;
     4. train.main at full width with the decoder cut to FT_CUT_LAYERS layers:
        FT_TRAIN_STEPS steps saved at step 4, then resumed from that
        checkpoint for one step, bit-equal to the uninterrupted run.
+    With `mesh`, the mesh phase (mesh_phase) runs after 3., on the published
+    7B and the store, before they are deleted; its result is "mesh".
     Each run's directory goes once its checks pass, so that the phase's disk
     footprint peaks at the source checkpoint plus one export (~31 GB)."""
     import dataclasses
@@ -3268,6 +3326,11 @@ def finetune_phase(ckpt_dir: str, dots_peak_gb: float) -> dict:
         release_memory()
         result["parallel"] = par
         shutil.rmtree(run)
+        if mesh:
+            counts = launch_counts()  # the finetune phase's counts leave the mesh phase's out
+            result["mesh"] = mesh_phase(ckpt_dir, common, lora["losses"])
+            for name, fn in kernel_wrappers().items():
+                fn.launches = counts[name]
         shutil.rmtree(ckpt_dir, ignore_errors=True)  # the published 7B: train.main draws its own weights
 
         # 4. train.main, depth cut, saved, resumed for one step
@@ -3320,6 +3383,293 @@ def finetune_phase(ckpt_dir: str, dots_peak_gb: float) -> dict:
     result["phase_s"] = time.perf_counter() - t_phase
     log(f"finetune phase: {result['phase_s']:.1f} s; launches {result['launches']}; disk free "
         f"{result['disk_free_gb_before']:.1f} GB before, {result['disk_free_gb_after']:.1f} GB after")
+    return result
+
+
+# --- phase mesh ------------------------------------------------------------------
+
+MESH_REQUESTS = 3        # /act requests to each mesh deploy
+MESH_FT_STEPS = 3        # finetune.main --mesh_shape steps, held to the first steps of the unsharded run
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _get_json(port: int, path: str) -> dict:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        conn.request("GET", path)
+        return json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+
+
+def _launcher(world: int, module: str) -> list:
+    """The command that starts `module` on `world` ranks: one process for a
+    mesh of one card (the entry point makes its one-rank NCCL group), else
+    torchrun with a rendezvous on this host (--standalone)."""
+    if world == 1:
+        return [sys.executable, "-m", module]
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(world), "-m", module]
+
+
+def start_mesh_deploy(ckpt_dir: str, world: int, label: str, extra: list, mesh: bool = True) -> dict:
+    """Start `deploy --checkpoint <dir> --mesh_spec tensor=<world>` (+
+    `extra`) on `world` ranks, or without `mesh` the same deploy without
+    --mesh_spec in one process (the same run's baseline); `finish_mesh_deploy`
+    checks it."""
+    port = _free_port()
+    name = label if mesh else f"{label}_plain"
+    log_path = os.path.join(os.path.dirname(ckpt_dir), f"mesh_deploy_{name}.log")
+    cmd = (_launcher(world, "bridgelang_tpu_torch.deploy") + ["--mesh_spec", f"tensor={world}"] if mesh
+           else [sys.executable, "-m", "bridgelang_tpu_torch.deploy"])
+    cmd += ["--checkpoint", ckpt_dir, "--host", "127.0.0.1", "--port", str(port), *extra]
+    out = open(log_path, "w")
+    return dict(proc=subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT), port=port, out=out,
+                log_path=log_path, t0=time.perf_counter(), label=label, world=world if mesh else 1, mesh=mesh)
+
+
+def finish_mesh_deploy(h: dict, model, params) -> dict:
+    """A started mesh deploy (or its plain baseline): time to listen, then
+    MESH_REQUESTS /act with a zero draft (the speculative path, whose
+    response carries the ids), each action and ids equal to the in-process
+    predict_action_speculative of (model, params); /stats before and after
+    the requests gives the predicts, the decoder's collectives and the
+    serving rank's kernel launches; then the deploy is stopped."""
+    import numpy as np
+
+    from bridgelang_tpu_torch.serving.server import client_act
+
+    proc, port, label, world, mesh = h["proc"], h["port"], h["label"], h["world"], h["mesh"]
+    what = f"{label} tensor={world}" if mesh else f"{label} without --mesh_spec"
+    imgs = frames(MESH_REQUESTS, seed=17)
+    draft = np.zeros(ACTION_DIM, np.int32)
+    try:
+        listen_s = None
+        while time.perf_counter() - h["t0"] < DEPLOY_LISTEN_S and proc.poll() is None:
+            try:
+                if _get_json(port, "/healthz").get("status") == "ok":
+                    listen_s = time.perf_counter() - h["t0"]
+                    break
+            except OSError:
+                time.sleep(0.5)
+        if listen_s is None:
+            raise RuntimeError(f"deploy did not listen within {DEPLOY_LISTEN_S} s (exit code {proc.poll()})")
+        before = _get_json(port, "/stats")
+        lat = []
+        for i, img in enumerate(imgs):
+            t1 = time.perf_counter()
+            got, ids = client_act("127.0.0.1", port, img, INSTRUCTIONS[i], draft_tokens=draft, return_tokens=True,
+                                  timeout=300)
+            lat.append(1e3 * (time.perf_counter() - t1))
+            want, want_ids = model.predict_action_speculative(params, img, INSTRUCTIONS[i], draft)
+            if not (np.array_equal(np.asarray(ids), want_ids) and np.array_equal(np.asarray(got, np.float32), want)):
+                raise RuntimeError(f"/act {i}: ids {list(ids)} and action {list(got)} from the mesh deploy, "
+                                   f"{want_ids.tolist()} and {want.tolist()} in-process")
+        after = _get_json(port, "/stats")
+    except (RuntimeError, OSError, ValueError) as e:
+        h["out"].flush()
+        with open(h["log_path"]) as f:
+            tail = f.read()[-3000:]
+        fail(f"mesh deploy {what}: {e}\n{tail}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        h["out"].close()
+    key = "predicts" if mesh else "requests"
+    predicts = after[key] - before[key]
+    collectives = after["collectives"] - before["collectives"] if mesh else 0
+    launches = {name: after["kernel_launches"][fn] - before["kernel_launches"][fn]  # the serving rank's
+                for name, fn in zip(KERNEL_NAMES, after["kernel_launches"])}
+    if (mesh and (after["world_size"] != world or after["mesh"]["tensor"] != world)) or (not mesh and "mesh" in after) \
+            or predicts != MESH_REQUESTS:
+        fail(f"mesh deploy {what}: /stats {after} (expected {MESH_REQUESTS} predicts)")
+    if (mesh and collectives <= 0) or launches["flash_fwd"] != N_LAYERS_7B * predicts:
+        fail(f"mesh deploy {what}: {collectives} collectives and launches {launches} over {predicts} predicts "
+             f"(expected {N_LAYERS_7B} flash_fwd per predict, and collectives on a mesh)")
+    # int4: every one of the 224 products of a decoder pass quantizes through the kernel, the row-parallel
+    # wo / w_down with the tensor group's absmax (a whole number of passes, 2 to 8 per speculative predict)
+    passes = launches["int4_mm_a8"] / INT4_PER_PASS
+    if label == "int4" and (launches["quantize_a8"] != launches["int4_mm_a8"] or passes != int(passes)
+                            or not 2 * predicts <= passes <= (ACTION_DIM + 1) * predicts):
+        fail(f"mesh deploy {what}: launches {launches} over {predicts} predicts are no whole number of decoder "
+             f"passes of {INT4_PER_PASS} int4_mm_a8 and quantize_a8")
+    if label != "int4" and (launches["int4_mm_a8"] or launches["quantize_a8"] or launches["int4_mm"]):
+        fail(f"mesh deploy {what}: unexpected int4 launches {launches}")
+    r = dict(listen_s=listen_s, act_ms=lat, act_median_ms=statistics.median(lat), predicts=predicts,
+             collectives_per_predict=collectives / predicts, launches=launches)
+    log(f"mesh deploy {what}: listened after {listen_s:.1f} s (started beside the other deploys); "
+        f"{MESH_REQUESTS} x /act ids and actions equal to the in-process predict, latency ms "
+        f"{[round(x, 1) for x in lat]} (median {r['act_median_ms']:.1f}); {r['collectives_per_predict']:.1f} "
+        f"collectives per predict (the decoder's all-reduces and the logits' gathers, replayed in its graphs); "
+        f"launches over the requests {launches}")
+    return r
+
+
+def mesh_finetune(world: int, common: list, unsharded: list) -> dict:
+    """finetune.main --mesh_shape fsdp=<world> for MESH_FT_STEPS steps (bf16
+    LoRA r=32, batch 16, the unsharded run's flags): at one card in this
+    process (a one-rank NCCL group, released after), its losses bit-equal to
+    the unsharded run's first steps, launches and collectives per step, step
+    ms and peak GB; on more cards through torchrun (each rank its share of
+    the data), its losses within 1e-2 relative of the unsharded run's."""
+    import glob
+
+    import torch
+    import torch.distributed as dist
+
+    from bridgelang_tpu_torch import finetune
+    from bridgelang_tpu_torch.conf import parse_cli
+    from bridgelang_tpu_torch.parallel.collectives import collective_launches
+
+    args = common + ["--max_steps", str(MESH_FT_STEPS), "--image_aug", "true", "--export_hf", "false",
+                     "--mesh_shape", f"fsdp={world}", "--trackers", "jsonl"]
+    lora_step = {"flash_fwd": 2 * N_LAYERS_7B, "flash_bwd_dq": N_LAYERS_7B, "flash_bwd_dkv": N_LAYERS_7B}
+    if world == 1:
+        before = collective_launches()
+        with EntryPointProbe(f"finetune fsdp={world}", lora_step, profile=None) as probe:
+            run = finetune.main(parse_cli(finetune.FinetuneConfig, args))
+        r = probe.summary()
+        r["collectives_per_step"] = (collective_launches() - before) / max(1, r["steps"])
+        r["nccl_ranks"] = dist.get_world_size()
+        dist.destroy_process_group()  # the later phases run as one process without a group
+        del probe
+        release_memory()
+        losses = r["losses"]
+        if losses != unsharded[:MESH_FT_STEPS]:
+            fail(f"finetune fsdp={world}: losses {losses} != the unsharded run's {unsharded[:MESH_FT_STEPS]}")
+        log(f"mesh finetune fsdp={world}: losses {losses} bit-equal to the unsharded finetune.main's first "
+            f"{MESH_FT_STEPS}; {r['collectives_per_step']:.0f} collectives per step (each leaf's gather at use, "
+            f"the regather in the recompute, the adapters' and the count's sums); step ms "
+            f"{[round(x, 1) for x in r['step_ms']]}; peak {r['step_peak_gb']:.2f} GB")
+    else:
+        t0 = time.perf_counter()
+        log_path = os.path.join(os.path.dirname(common[common.index("--run_root_dir") + 1]), "mesh_finetune.log")
+        with open(log_path, "w") as out:
+            rc = subprocess.call(_launcher(world, "bridgelang_tpu_torch.finetune") + args, cwd=ROOT, stdout=out,
+                                 stderr=subprocess.STDOUT)
+        if rc != 0:
+            with open(log_path) as f:
+                fail(f"finetune fsdp={world} (torchrun): exit code {rc}\n{f.read()[-3000:]}")
+        rows = [json.loads(line) for p in glob.glob(os.path.join(common[common.index("--run_root_dir") + 1], "*",
+                                                                 "*.jsonl")) for line in open(p)]
+        losses = [row["train/loss"] for row in rows if "train/loss" in row][:MESH_FT_STEPS]
+        if not losses or any(abs(a - b) > 1e-2 * abs(b) for a, b in zip(losses, unsharded)):
+            fail(f"finetune fsdp={world}: losses {losses} vs the unsharded run's {unsharded[:MESH_FT_STEPS]}")
+        r = dict(losses=losses, wall_s=time.perf_counter() - t0)
+        log(f"mesh finetune fsdp={world} (torchrun): losses {losses} (unsharded {unsharded[:MESH_FT_STEPS]})")
+    return r
+
+
+def fsdp_state_gb(fsdp_sizes=(1, 2, 4, 8)) -> dict:
+    """Worked out, not measured: each rank's bytes of the 7B's pretraining
+    finetune stage (projector + LLM trained, every parameter fp32, AdamW's
+    mu and nu and the grad_accum 2 accumulator for the trained tensors) at
+    each fsdp size, from the placements (`param_pspecs`: a leaf the rules
+    shard over fsdp is split, the rest whole), on a meta-device tree; plus
+    the step's transients: this rank's fp32 gradients, the towers, projector,
+    embedding and head gathered in bf16, one decoder layer gathered in bf16."""
+    import torch
+
+    from bridgelang_tpu_torch.models.load import _expected_llm_shapes
+    from bridgelang_tpu_torch.models.vlm import PrismaticVLM, VLMConfig
+    from bridgelang_tpu_torch.parallel.fsdp import _leaves, fsdp_dim
+    from bridgelang_tpu_torch.parallel.sharding import param_pspecs
+
+    model = PrismaticVLM(VLMConfig(), device="cpu")
+    shapes = _expected_llm_shapes(model.cfg.llm)
+    layer = ("wq", "wk", "wv", "wo", "attn_norm", "w_gate", "w_up", "w_down", "mlp_norm")
+    llm = {k: torch.empty(shapes[k], device="meta") for k in ("embed", "final_norm", "lm_head")}
+    llm["layers"] = [{k: torch.empty(shapes[k], device="meta") for k in layer} for _ in range(N_LAYERS_7B)]
+    params = {"vision": dict(model.vision_module.named_parameters()), "projector": dict(model.projector.named_parameters()),
+              "llm": llm}
+    leaves, specs = _leaves(params), _leaves(param_pspecs(params))
+    marks = _leaves(model.trainable_mask(params, "finetune"))
+    eager = sum(p.numel() for name in ("vision", "projector") for p in params[name].values()) + 2 * llm["embed"].numel()
+    out = {}
+    for f in fsdp_sizes:
+        share = [t.numel() / (f if fsdp_dim(s) is not None else 1) for t, s in zip(leaves, specs)]
+        trained = sum(n for n, m in zip(share, marks) if m)
+        out[f"fsdp={f}"] = dict(params=4e-9 * sum(share), moments=8e-9 * trained, accumulator=4e-9 * trained,
+                                grads=4e-9 * trained, gathered_bf16=2e-9 * eager,
+                                layer_bf16=2e-9 * sum(t.numel() for t in llm["layers"][0].values()))
+        out[f"fsdp={f}"]["state"] = sum(out[f"fsdp={f}"][k] for k in ("params", "moments", "accumulator"))
+    log("worked out, not measured: per-rank GB of the 7B's pretraining finetune stage (fp32 params, AdamW mu + nu, "
+        "the accumulator; then the step's transients) " + "; ".join(
+            f"{k}: state {v['state']:.1f} (params {v['params']:.1f}, mu + nu {v['moments']:.1f}, accumulator "
+            f"{v['accumulator']:.1f}), grads {v['grads']:.1f}, gathered {v['gathered_bf16']:.2f} + one layer "
+            f"{v['layer_bf16']:.2f}" for k, v in out.items()))
+    return out
+
+
+def mesh_phase(ckpt_dir: str, common: list, unsharded_losses: list) -> dict:
+    """Multi-GPU on the published-layout 7B at world size = the visible
+    cards: the int8 (w8a8) and the shard-blocked int4 mesh deploys, and
+    finetune.main over an fsdp mesh on the finetune phase's store (see
+    mesh_deploy, mesh_finetune). With one card every collective runs on one
+    rank (NCCL copies within the card) and none crosses a device; with more,
+    tensor=2 and fsdp=2 run too."""
+    import torch
+
+    from bridgelang_tpu_torch.models.llm.llama import LLM_CONFIGS
+    from bridgelang_tpu_torch.models.llm.tokenizer import ByteFallbackTokenizer
+    from bridgelang_tpu_torch.models.load import load_vla
+    from bridgelang_tpu_torch.ops.int4_matmul import int4_tp_fallback_matmuls
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    nccl = ".".join(str(x) for x in torch.cuda.nccl.version())
+    result = {"cards": cards, "nccl": nccl, "deploy": {}, "finetune": {}, "fsdp_state_gb": fsdp_state_gb()}
+    log(f"mesh: NCCL {nccl}, {cards} visible card(s)" + (
+        "; W = 1: every collective below runs on one rank, a copy on the card; none crosses a device"
+        if cards == 1 else ""))
+    reset_launch_counts()
+    worlds = sorted({cards, 2} if cards > 2 else {cards})
+    for world in worlds:
+        kinds = [("int8", [], [], dict(quantize_int8=True))]  # label, mesh flags, baseline flags, reference load
+        if not int4_tp_fallback_matmuls(LLM_CONFIGS["llama2-7b-pure"], INT4_GROUP, world):
+            kinds.append(("int4", ["--quantize_int4", "true", "--int4_shards", str(world)], ["--quantize_int4", "true"],
+                          dict(quantize_int4=True, int4_shards=world)))
+        else:
+            log(f"mesh: int4 at tensor={world} skipped: the card's int4 rule refuses the 7B's shard-local shapes")
+        # The deploys start together and load while this process loads their references. Beside the first
+        # mesh size's, the same deploys without --mesh_spec: their /act medians in this run are the baseline the
+        # mesh's overhead is read from.
+        started = [([start_mesh_deploy(ckpt_dir, world, label, extra)]
+                    + ([start_mesh_deploy(ckpt_dir, 1, label, plain, mesh=False)] if world == worlds[0] else []), quant)
+                   for label, extra, plain, quant in kinds]
+        for handles, quant in started:
+            model, params = load_vla(ckpt_dir, **quant)
+            model.tokenizer = ByteFallbackTokenizer()
+            got = {h["mesh"]: finish_mesh_deploy(h, model, params) for h in handles}
+            label = handles[0]["label"]
+            result["deploy"][f"{label} tensor={world}"] = got[True]
+            if False in got:
+                result["deploy"][f"{label} plain"] = got[False]
+                log(f"mesh: {label} /act median {got[True]['act_median_ms']:.1f} ms at tensor={world} against "
+                    f"{got[False]['act_median_ms']:.1f} ms for the same deploy without --mesh_spec in this run "
+                    f"({got[True]['act_median_ms'] - got[False]['act_median_ms']:+.1f} ms; "
+                    f"{got[True]['collectives_per_predict']:.1f} collectives per predict); {nvidia_smi_line()}")
+            model.graphs.clear()
+            del model, params
+            release_memory()
+        reset_launch_counts()  # the main path's launches: the mesh finetune (the deploys report theirs)
+        result["finetune"][f"fsdp={world}"] = mesh_finetune(world, common, unsharded_losses)
+    result["launches"] = launch_counts()
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"mesh phase: {result['phase_s']:.1f} s; launches of the mesh finetune {result['launches']}; "
+        f"{nvidia_smi_line()}")
     return result
 
 
@@ -3477,13 +3827,14 @@ def tfds_phase(ckpt_dir: str) -> dict:
 # --- phases scripts and pretrain -------------------------------------------------
 
 GEN_TURNS = ("What is on the table in this picture?", "And what lies to the left of it?")
-GEN_MAX_NEW = 128        # generate's default max_new_tokens
+GEN_MAX_NEW = 64         # max_new_tokens of the smoke's generate run (generate's default is 128)
 PT_MODEL = "prism-dinosiglip-224px+7b"
 PT_GLOBAL_BATCH = 32     # both stages' global batch in the smoke: grad_accum 2 over the registry's 16 per card
 PT_MICRO_STEPS = 4       # max_steps_override: 4 micro-steps, 2 accumulated updates per stage
 PT_ALIGN_EXAMPLES = 64   # the align chat.json (558k shape): 4 micro-batches of 16
 PT_FT_IMAGE_EXAMPLES = 48  # the finetune JSON (mix665k shape): 3 multimodal micro-batches
 PT_FT_TEXT_EXAMPLES = 16   # and 1 text-only one, some past the 2048-token bucket
+PT_ALIGN_LAYERS = 8      # the align stage's cut, for the smoke's time: 8 of 32 layers, full width
 PT_FT_LAYERS = 4         # the finetune stage's cut: AdamW's fp32 state of all 32 layers (~109 GB) needs FSDP;
 #                          4, not 8 (PR 12), keeps the whole smoke near 1000 s of its 1200 s limit
 PT_KERNEL_B = 2          # rows 1-3 against their plain versions at T=2304 (the plain scores: ~1.4 GB of fp32)
@@ -3781,10 +4132,10 @@ def pretrain_phase() -> dict:
     tokens, "full" remat, global batch PT_GLOBAL_BATCH (grad_accum 2),
     PT_MICRO_STEPS micro-steps per stage:
     1. check_pil_fixtures;
-    2. align on prism-dinosiglip-224px+7b at full width and depth: only the
-       projector changes; its checkpoint (the whole state, ~30 GB) read back
-       for the projector and its moments; 64/32/32 flash launches per
-       micro-step;
+    2. align on prism-dinosiglip-224px+7b at full width, the decoder cut to
+       PT_ALIGN_LAYERS layers: only the projector changes; its checkpoint
+       (the whole state, ~18 GB) read back for the projector and its moments;
+       2 x 16 / 16 / 16 flash launches per micro-step;
     3. the finetune stage on the same model cut to PT_FT_LAYERS decoder
        layers: the LLM and the projector change, the towers do not;
        2 x 8 / 8 / 8 launches per micro-step;
@@ -3820,8 +4171,9 @@ def pretrain_phase() -> dict:
 
         vlm_cfg = pretrain.vlm_config(m)
         reset_launch_counts()
-        result["align"] = pretrain_stage(config("align"), vlm_cfg, "pretrain align (7B, 32 layers)",
-                                         per_step(N_LAYERS_7B), {"projector"}, read_back=True)
+        align_cut = dataclasses.replace(vlm_cfg, llm=dataclasses.replace(vlm_cfg.llm, n_layers=PT_ALIGN_LAYERS))
+        result["align"] = pretrain_stage(config("align"), align_cut, f"pretrain align (7B, {PT_ALIGN_LAYERS} layers)",
+                                         per_step(PT_ALIGN_LAYERS), {"projector"}, read_back=True)
         shutil.rmtree(os.path.join(runs, "align"))
         cut = dataclasses.replace(vlm_cfg, llm=dataclasses.replace(vlm_cfg.llm, n_layers=PT_FT_LAYERS))
         result["finetune"] = pretrain_stage(config("finetune"), cut, f"pretrain finetune ({PT_FT_LAYERS} layers)",
@@ -3846,7 +4198,7 @@ def scripts_phase(ckpt_dir: str) -> dict:
     2. generate.main with GEN_TURNS fed on standard input, max_new_tokens
        128: each reply's ids equal generate_greedy's on the conversation's
        prompt, built again here; the prefill's ms and the decode's ms per
-       token (the same call at 1 and at 128 new tokens, CUDA-synchronized).
+       token (the same call at 1 and at GEN_MAX_NEW new tokens, CUDA-synchronized).
     Launch counts cover the two entry points only."""
     import io
 
@@ -3939,12 +4291,12 @@ def scripts_phase(ckpt_dir: str) -> dict:
 
 # --- phase: robot evaluation (verify, inspect_checkpoint, the LIBERO and BridgeV2 harnesses) ------
 
-VERIFY_CALLS = 16        # verify.main's default run (int8 w8a8 on load)
+VERIFY_CALLS = 8         # verify.main's run (int8 w8a8 on load; its default is 16)
 VERIFY_INT4_CALLS = 8    # verify --quantize_int4 true
 GOLDEN_RECORDS = 4       # the bf16 golden bundle: one batch-4 predict
-SPEC_STREAM_TICKS = 16   # measured ticks of --speculative_stream (tick 0, the graph capture, left out)
+SPEC_STREAM_TICKS = 8    # measured ticks of --speculative_stream (tick 0, the graph capture, left out)
 LIBERO_RES = 256         # run_libero_eval's default camera resolution
-LIBERO_TASKS = 2
+LIBERO_TASKS = 1          # cut for the smoke's time
 LIBERO_EPISODES = 2      # per task
 LIBERO_STEPS = 8         # policy steps before the fake task succeeds: one chunk of ROBOT_CHUNK
 ROBOT_CHUNK = 8          # --action_chunk of the chunk mode
@@ -4461,7 +4813,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description="torch port smoke run on one GPU")
     ap.add_argument("--phases",
                     default="build,load,kernels,serve,spec,parallel,train,int8,int4,qlora,variants,tfds,scripts,"
-                            "robot,finetune,pretrain,parity",
+                            "robot,finetune,mesh,pretrain,parity",
                     help="comma-separated subset, for bring-up; the full run is the default; `cold` (not in "
                          "the default) runs only the device-side cold-L2 timings of the kernels phase")
     ap.add_argument("--package-root", default=ROOT,
@@ -4469,6 +4821,9 @@ def main() -> None:
                          "git archive) to time its kernels with --phases build,cold")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    if "mesh" in phases and not {"load", "finetune"} <= phases:
+        fail("the mesh phase runs on the load phase's checkpoint and the finetune phase's store: "
+             "--phases build,load,finetune,mesh")
 
     import torch
 
@@ -4664,8 +5019,12 @@ def main() -> None:
 
     tuned = None
     if "finetune" in phases:
-        tuned = finetune_phase(ft_ckpt, (trained or {}).get("dots", {}).get("peak_memory_gb", TRAIN_DOTS_PEAK_GB))
+        tuned = finetune_phase(ft_ckpt, (trained or {}).get("dots", {}).get("peak_memory_gb", TRAIN_DOTS_PEAK_GB),
+                               mesh="mesh" in phases)
         mark("finetune")
+        if "mesh" in tuned:
+            seconds["finetune"] -= tuned["mesh"]["phase_s"]
+            seconds["mesh"] = tuned["mesh"]["phase_s"]
     if tfds and tuned:
         a, b = tfds["finetune"], tuned["lora"]
         log(f"host wait per batch, median of the profiled steps: TFDS (JPEGs decoded in the batch workers) "
@@ -4693,6 +5052,8 @@ def main() -> None:
                    "finetune": (tuned or {}).get("launches", zero), "tfds": (tfds or {}).get("launches", zero),
                    "scripts": (scripts or {}).get("launches", zero), "robot": (robot or {}).get("launches", zero),
                    "pretrain": (pretrained or {}).get("launches", zero),
+                   "mesh_finetune": (tuned or {}).get("mesh", {}).get("launches", zero),
+                   **{f"mesh_deploy {k}": d["launches"] for k, d in (tuned or {}).get("mesh", {}).get("deploy", {}).items()},
                    **{f"spec_{kind}": result["launches"] for kind, result in spec.items()}}
         if variants:
             phi = variants["phi"]
@@ -4711,6 +5072,7 @@ def main() -> None:
                              "bridgelang_tpu/ops/flash_attention.py:59", launches("flash_fwd"), row,
                              shape=row["shape"], event_ms=row["kernel_ms"], library_event_ms=timing_rows[0]["library_ms"],
                              d80_device=cold["flash_fwd_d80"], timings=timing_rows,
+                             tensor_parallel_device={k: cold[k] for k in cold if k.startswith("flash_fwd_h")},
                              note="ms and library_ms: device time per launch from a captured CUDA graph of "
                                   "back-to-back launches (inputs warm in L2, as the prefill leaves them); event_ms, "
                                   "library_event_ms and the timings: CUDA events around calls, the earlier series")
@@ -4732,7 +5094,9 @@ def main() -> None:
         if loaded:
             entry["load"] = {k: v for k, v in loaded.items() if k != "launches"}
         if tuned:
-            entry["finetune"] = {k: v for k, v in tuned.items() if k != "launches"}
+            entry["finetune"] = {k: v for k, v in tuned.items() if k not in ("launches", "mesh")}
+            if "mesh" in tuned:
+                entry["mesh"] = {k: v for k, v in tuned["mesh"].items() if k != "launches"}
         if tfds:
             entry["tfds"] = {k: v for k, v in tfds.items() if k != "launches"}
         if variants:

@@ -1,7 +1,13 @@
 // A CPU emulation of the CUDA pieces that the port's tensor-core kernels use,
 // so that their sources compile with g++ and run on the CPU in tests: one
-// std::thread per CUDA thread, blocks one after another; __syncthreads and
-// __syncwarp are std::barriers; ldmatrix, mma.sync (m16n8k16 bf16 -> fp32,
+// fiber (a ucontext with its own stack) per CUDA thread, all of a block's on
+// the calling thread, blocks one after another. A fiber runs until it waits
+// at a barrier (__syncthreads, __syncwarp and the warp and warpgroup
+// collectives' exchanges) or ends; the next runnable fiber in thread order
+// then runs, and the last to arrive at a barrier releases its waiters and
+// goes on. So a block runs one valid interleaving of its threads, the same
+// one every time, and no OS scheduling is involved (a kernel that deadlocks
+// aborts). ldmatrix, mma.sync (m16n8k16 bf16 -> fp32,
 // m16n8k32 s8 -> s32) and __shfl_xor_sync are warp collectives, and wgmma
 // (A in registers, B through a K-major 128-byte-swizzled shared-memory
 // descriptor: the one layout the kernels build) a warpgroup collective, each
@@ -22,12 +28,14 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <stdio.h>
+#include <stdlib.h>
+#include <ucontext.h>
+
 #include <algorithm>
 #include <atomic>
-#include <barrier>
 #include <functional>
 #include <memory>
-#include <thread>
 #include <vector>
 
 #define __global__
@@ -67,19 +75,59 @@ inline cudaError_t cudaStreamGetCaptureInfo(cudaStream_t, cudaStreamCaptureStatu
   return cudaSuccess;
 }
 
+// The fibers of the running block (emu_launch), the one running, and its entry.
+struct EmuFiber {
+  ucontext_t ctx;
+  bool waiting = false, done = false;
+};
+struct EmuScheduler {
+  ucontext_t main;
+  std::vector<EmuFiber> fibers;
+  int current = 0;
+  const std::function<void()>* body = nullptr;
+};
+inline thread_local EmuScheduler* emu_sched;
+
+inline void emu_fiber_entry() {
+  EmuScheduler* s = emu_sched;
+  (*s->body)();
+  s->fibers[s->current].done = true;  // uc_link returns to the scheduler
+}
+
+// A barrier of `n` fibers: each but the last parks and yields to the
+// scheduler; the last makes the parked ones runnable again and goes on.
+struct EmuBarrier {
+  int n, arrived = 0;
+  std::vector<int> parked;
+  explicit EmuBarrier(int count) : n(count) {}
+  void arrive_and_wait() {
+    EmuScheduler* s = emu_sched;
+    if (++arrived == n) {
+      arrived = 0;
+      for (int f : parked) s->fibers[f].waiting = false;
+      parked.clear();
+      return;
+    }
+    const int me = s->current;
+    s->fibers[me].waiting = true;
+    parked.push_back(me);
+    swapcontext(&s->fibers[me].ctx, &s->main);
+  }
+};
+
 struct WarpState {
-  std::barrier<> bar{32};
+  EmuBarrier bar{32};
   uint32_t u[32][6];
   float f[32];
   int i[32];
 };
 struct WarpgroupState {
-  std::barrier<> bar{128};
+  EmuBarrier bar{128};
   uint32_t a[128][4];
 };
 inline thread_local dim3 threadIdx, blockIdx, gridDim;
 inline thread_local uint8_t* emu_smem;
-inline thread_local std::barrier<>* emu_block;
+inline thread_local EmuBarrier* emu_block;
 inline thread_local WarpState* emu_warp;
 inline thread_local WarpgroupState* emu_wg;
 
@@ -90,25 +138,50 @@ inline int emu_lane() { return threadIdx.x % 32; }
 
 // kernel<<<grid, threads, smem, stream>>>(args) becomes emu_launch(grid, threads, smem, [&] { kernel(args); }).
 inline void emu_launch(dim3 grid, int threads, size_t smem, const std::function<void()>& body) {
+  constexpr size_t STACK = 256 * 1024;  // per fiber; pages are touched only as used
+  std::unique_ptr<char[]> stacks(new char[STACK * threads]);
+  EmuScheduler sched;
+  sched.body = &body;
+  EmuScheduler* outer = emu_sched;
+  emu_sched = &sched;
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) {
         std::vector<uint8_t> shared(smem + 16, 0xCD);
-        std::barrier<> block(threads);
+        EmuBarrier block(threads);
         std::vector<std::unique_ptr<WarpState>> warps;
         for (int w = 0; w < (threads + 31) / 32; ++w) warps.emplace_back(new WarpState);
         std::vector<std::unique_ptr<WarpgroupState>> groups;
         for (int w = 0; w < threads / 128; ++w) groups.emplace_back(new WarpgroupState);
-        std::vector<std::thread> pool;
-        for (int i = 0; i < threads; ++i)
-          pool.emplace_back([&, i] {
+        sched.fibers.assign(threads, EmuFiber());
+        for (int i = 0; i < threads; ++i) {
+          ucontext_t& c = sched.fibers[i].ctx;
+          getcontext(&c);
+          c.uc_stack.ss_sp = stacks.get() + STACK * i;
+          c.uc_stack.ss_size = STACK;
+          c.uc_link = &sched.main;
+          makecontext(&c, emu_fiber_entry, 0);
+        }
+        for (int alive = threads; alive > 0;) {
+          bool ran = false;
+          for (int i = 0; i < threads; ++i) {
+            EmuFiber& f = sched.fibers[i];
+            if (f.done || f.waiting) continue;
             threadIdx = dim3(i), blockIdx = dim3(x, y, z), gridDim = grid;
             emu_smem = shared.data(), emu_block = &block, emu_warp = warps[i / 32].get();
             emu_wg = i / 128 < (int)groups.size() ? groups[i / 128].get() : nullptr;
-            body();
-          });
-        for (auto& t : pool) t.join();
+            sched.current = i;
+            swapcontext(&sched.main, &f.ctx);
+            ran = true;
+            alive -= f.done;
+          }
+          if (!ran) {
+            fprintf(stderr, "cuda_emu: every live thread of block (%u, %u, %u) waits at a barrier\n", x, y, z);
+            abort();
+          }
+        }
       }
+  emu_sched = outer;
 }
 
 // bf16

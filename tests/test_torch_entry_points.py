@@ -69,10 +69,11 @@ def test_parse_args_takes_every_deploy_config_field():
 def test_deploy_refuses_what_it_cannot_serve(ckpts, registries, monkeypatch):
     with pytest.raises(FileNotFoundError, match="openvla/openvla-7b.*zero-egress"):
         deploy.build_server(deploy.parse_args(["--device", "cpu"]))
-    for flag, value in (("--int4_shards", "2"), ("--mesh_spec", "tensor=2")):
-        with pytest.raises(ValueError, match=flag):
-            deploy.build_server(deploy.parse_args(["--checkpoint", str(ckpts["single"][2]), "--device", "cpu",
-                                                   flag, value]))
+    # a mesh larger than the world (one process here) is refused before any process group is made
+    with pytest.raises(AssertionError, match="devices"):
+        deploy.build_server(deploy.parse_args(["--checkpoint", str(ckpts["single"][2]), "--device", "cpu",
+                                               "--mesh_spec", "tensor=2"]))
+    assert not torch.distributed.is_initialized()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         deploy.build_server(deploy.parse_args(["--checkpoint", str(ckpts["single"][2])]))

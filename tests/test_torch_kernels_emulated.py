@@ -20,7 +20,8 @@ quantize_activations_per_token: M from 1 to 130, groups 128 and 256, splits
 that do not divide the group count (the C function's split_groups), a
 column block of a wider pack written into a column block of a wider output,
 the fused token scale in bf16 and f32, zero rows and rounding ties; a row
-holding a NaN gets a NaN scale, as in the plain version. Skips without g++.
+holding a NaN gets a NaN scale, as in the plain version; a K shard
+quantized with a given (the whole row's) absmax. Skips without g++.
 """
 
 import ctypes
@@ -96,7 +97,7 @@ def libraries(tmp_path_factory):
     for name in ("flash_fwd", "flash_bwd", "int4_matmul"):
         cpp = out / f"{name}.cpp"
         cpp.write_text(_emulated_source(name))
-        cmd = [gxx, "-std=c++20", "-O2", "-fno-strict-aliasing", "-pthread", "-shared", "-fPIC", "-w",
+        cmd = [gxx, "-std=c++20", "-O2", "-fno-strict-aliasing", "-shared", "-fPIC", "-w",
                "-I", str(EMU), "-o", str(out / f"{name}.so"), str(cpp)]
         jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
@@ -294,9 +295,37 @@ def test_emulated_quantize_a8_equals_plain(emulated_a8, what, dtype):
     m, k = x.shape
     q = torch.full((m, k), 99, dtype=torch.int8)
     xs = torch.full((m,), 7.0)
-    assert qz(x.data_ptr(), {torch.float32: 0, torch.bfloat16: 1}[dtype], q.data_ptr(), xs.data_ptr(), m, k, None) == 0
+    assert qz(x.data_ptr(), {torch.float32: 0, torch.bfloat16: 1}[dtype], None, q.data_ptr(), xs.data_ptr(), m, k,
+              None) == 0
     want_q, want_s = quantize_activations_per_token(x)
     nan_rows = want_s[:, 0].isnan()
     assert nan_rows.sum() == (2 if what == "nan_rows" else 0)
     assert torch.equal(xs.isnan(), nan_rows)
     assert torch.equal(q[~nan_rows], want_q[~nan_rows]) and torch.equal(xs[~nan_rows], want_s[~nan_rows, 0])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("what", ["random", "zero_rows", "ties"])
+def test_emulated_quantize_a8_with_given_absmax_equals_plain(emulated_a8, what, dtype):
+    """A row-parallel K shard quantized with the whole row's absmax (the
+    kernel's absmax input): codes and scales bit-equal to
+    quantize_activations_per_token(shard, absmax); a zero row keeps scale 1."""
+    _, qz, _ = emulated_a8
+    rng = np.random.default_rng(12)
+    if what == "ties":
+        x = _tie_rows(dtype)
+    else:
+        x = torch.from_numpy((rng.normal(size=(5, 600)) * rng.uniform(0.01, 100, size=(5, 1))).astype(np.float32))
+        x = x.to(dtype)
+        if what == "zero_rows":
+            x[1] = 0
+            x[3, :300] = 0  # zero in this shard only: the row's absmax comes from the other one
+    shard = x[:, :x.shape[1] // 2].contiguous()
+    absmax = x.float().abs().amax(dim=-1, keepdim=True)
+    m, k = shard.shape
+    q = torch.full((m, k), 99, dtype=torch.int8)
+    xs = torch.full((m,), 7.0)
+    assert qz(shard.data_ptr(), {torch.float32: 0, torch.bfloat16: 1}[dtype], absmax.data_ptr(), q.data_ptr(),
+              xs.data_ptr(), m, k, None) == 0
+    want_q, want_s = quantize_activations_per_token(shard, absmax)
+    assert torch.equal(q, want_q) and torch.equal(xs, want_s[:, 0])

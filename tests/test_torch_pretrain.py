@@ -241,7 +241,7 @@ def test_pretrain_micro_steps_match_jax(registries, llava, tmp_path, monkeypatch
 def test_pretrain_main_end_to_end(registries, llava, tmp_path):
     """pretrain.main on the CPU in bf16, as a user runs it: run dir, sidecars,
     the metrics file, the epoch-end checkpoint of the whole state, the
-    micro-step count under max_steps_override, --mesh_shape refused."""
+    micro-step count under max_steps_override, a malformed --mesh_shape refused."""
     cfg, _ = _configs(llava, "align", 1e-3, tmp_path, remat_policy="dots")
     state = pretrain.main(cfg)
     run = tmp_path / "runs" / "r"
@@ -257,8 +257,9 @@ def test_pretrain_main_end_to_end(registries, llava, tmp_path):
     assert len(saved["opt_state"]["mu"]) == len(state.params["projector"])
     assert (run / "latest-checkpoint.txt").read_text() == ckpts[0].name
 
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
+    with pytest.raises(ValueError):  # as the JAX parse_mesh_shape: "1" is no "axis=size"
         pretrain.main(dataclasses.replace(cfg, mesh_shape="1,1"))
+    assert not torch.distributed.is_initialized()
 
 
 def test_pretrain_cli_matches_jax_config():
