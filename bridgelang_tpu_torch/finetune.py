@@ -36,15 +36,19 @@ With the byte-fallback stand-in tokenizer (no `--tokenizer_path`), one token
 per byte makes a prompt ~70 tokens: the collator's bucket is 96 instead of
 64 (widened for action chunks as usual).
 
-`--mesh_shape` ("fsdp=N", "replica=R,fsdp=F") trains on a device mesh, one
-process per device started by torchrun (`torchrun --nproc_per_node N -m
-bridgelang_tpu_torch.finetune ... --mesh_shape fsdp=N`; a single process with
-`--mesh_shape fsdp=1` runs the same code on one device): each rank keeps its
-blocks of the parameters (parallel/sharding.PARAM_RULES; the adapters
-whole), reads its share of the data (the pipeline's process index), and the
-step gathers and reduce-scatters (parallel/fsdp.py). The checkpoint is
-sharded (`dcp/`, every rank writes its blocks); rank 0 writes the HF export
-from the gathered parameters. `tensor` > 1 is refused (not ported yet).
+`--mesh_shape` ("fsdp=N", "replica=R,fsdp=F", "fsdp=F,tensor=T") trains on a
+device mesh, one process per device started by torchrun (`torchrun
+--nproc_per_node N -m bridgelang_tpu_torch.finetune ... --mesh_shape
+fsdp=N`; a single process with `--mesh_shape fsdp=1` runs the same code on
+one device): each rank keeps its blocks of the parameters
+(parallel/sharding.PARAM_RULES; the adapters whole), the decoder runs
+tensor-parallel over `tensor` (the adapters used by block), each data rank
+(replica x fsdp; tensor peers read the same rows) reads its share of the
+data and the batch splits over the data ranks, and the step gathers and
+reduce-scatters (parallel/fsdp.py). The checkpoint is sharded (`dcp/`,
+every rank writes its blocks); rank 0 writes the HF export from the
+gathered parameters. A packed int4 base (`--quantization_bits 4`) trains
+at tensor = 1 only.
 """
 
 from __future__ import annotations
@@ -134,12 +138,13 @@ def main(cfg: FinetuneConfig) -> Path:
     from bridgelang_tpu_torch.vla.materialize import get_vla_dataset_and_collator
 
     from bridgelang_tpu_torch.parallel.fsdp import MeshTraining, training_mesh
+    from bridgelang_tpu_torch.parallel.sharding import data_rank_and_count
 
     if cfg.use_quantization and cfg.quantization_bits not in (4, 8):
         raise ValueError(f"quantization_bits must be 4 or 8, got {cfg.quantization_bits}")
     mesh, device = training_mesh(cfg.mesh_shape, resolve_device(cfg.device))
     set_global_seed(cfg.seed)
-    world = overwatch.world_size()
+    data_rank, data_ranks = data_rank_and_count(mesh) if mesh is not None else (0, 1)
 
     exp_id = (
         f"{Path(cfg.vla_path).name}+{cfg.dataset_name}+b{cfg.batch_size}+lr-{cfg.learning_rate}"
@@ -156,7 +161,7 @@ def main(cfg: FinetuneConfig) -> Path:
         cfg.dataset_name,
         base_tokenizer=tokenizer,
         llm_family=shell.cfg.llm_family,
-        batch_size=cfg.batch_size // world,
+        batch_size=cfg.batch_size // data_ranks,
         prompt_bucket=prompt_bucket_for(tokenizer, cfg.action_chunk),
         shuffle_buffer_size=cfg.shuffle_buffer_size,
         image_aug=cfg.image_aug,
@@ -164,6 +169,7 @@ def main(cfg: FinetuneConfig) -> Path:
         action_chunk=cfg.action_chunk,
         seed=cfg.seed,
         num_workers=0 if device.type == "cpu" else None,  # the CPU's cores run the step too
+        data_shard=(data_ranks, data_rank) if mesh is not None else None,
     )
     batches = iter(dataset)
     del shell

@@ -35,7 +35,9 @@ verify chunk too) use the masked `cached_attention` over the whole cache, as
 in the JAX package. A chunk whose mask lies outside the kernel's causal +
 length family (the parallel decode's query rows) asks for it by name:
 `llm_forward(..., attention="masked")` runs `full_attention`, the JAX
-`attention_impl="xla"`.
+`attention_impl="xla"`; "einsum" runs `cached_attention` over the chunk, and
+"ring" / "ring:<axis>" ring attention over a training mesh's axis
+(ops/ring_attention.py), the JAX `impl="ring"`.
 
 Cast points match the JAX order: `rms_norm` computes in fp32 and casts back;
 RoPE tables are cast to x.dtype before the rotation; `cached_attention`
@@ -117,16 +119,20 @@ class LLMConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TensorParallelLLMConfig(LLMConfig):
-    """An LLMConfig whose decoder leaves are this rank's blocks: `tp` (a
-    parallel/collectives.TensorParallel, set by OpenVLA.use_mesh) says which
-    are split and runs the collectives. A subclass, so that the plain config
-    keeps exactly the JAX config's fields; `dataclasses.replace` keeps `tp`."""
+    """An LLMConfig whose decoder runs on a device mesh: `tp` (a
+    parallel/collectives.TensorParallel, set by OpenVLA.use_mesh for serving
+    and by parallel/fsdp.MeshTraining.bind for training) says which leaves
+    are this rank's blocks and runs the collectives; `mesh` (training) is the
+    DeviceMesh whose axes ring attention runs over. A subclass, so that the
+    plain config keeps exactly the JAX config's fields; `dataclasses.replace`
+    keeps both."""
 
     tp: Optional[Any] = dataclasses.field(default=None, compare=False, repr=False)
+    mesh: Optional[Any] = dataclasses.field(default=None, compare=False, repr=False)
 
     @classmethod
-    def of(cls, cfg: LLMConfig, tp) -> "TensorParallelLLMConfig":
-        return cls(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(LLMConfig)}, tp=tp)
+    def of(cls, cfg: LLMConfig, tp, mesh=None) -> "TensorParallelLLMConfig":
+        return cls(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(LLMConfig)}, tp=tp, mesh=mesh)
 
 
 def tensor_parallel(cfg: LLMConfig):
@@ -326,7 +332,17 @@ def lengths_from_mask(mask: torch.Tensor) -> torch.Tensor:
 # under `cfg.w8a8` (the JAX package's gate): shorter chunks, decode and the
 # speculative verify chunk, cast the weight to the activation dtype.
 W8A8_MIN_CHUNK = 8
-ATTENTION_KINDS = ("flash", "masked")
+# Attention over a chunk without a cache: the flash kernel, `full_attention`
+# under the mask ("masked", JAX impl "xla"), `cached_attention` ("einsum"),
+# or ring attention over a mesh axis ("ring", "ring:<axis>"; fsdp by default).
+ATTENTION_KINDS = ("flash", "masked", "einsum")
+ROW_PARALLEL = ("wo", "w_down")
+
+
+def check_attention(attention: str) -> str:
+    if attention in ATTENTION_KINDS or attention == "ring" or attention.startswith("ring:"):
+        return attention
+    raise ValueError(f"attention={attention!r}: use one of {ATTENTION_KINDS}, 'ring' or 'ring:<axis>'")
 
 # Matmul ops whose outputs the "dots" policy keeps (JAX:
 # dots_with_no_batch_dims_saveable); everything else is recomputed.
@@ -370,26 +386,56 @@ def proj(x: torch.Tensor, lp: Params, name: str, cfg: LLMConfig, row_tp=None) ->
     the contraction dim, multiplied under `TensorParallel.row_product`'s
     policy (the partial sums meet in int32 for w8a8, in f32 for w4a8, in x's
     dtype otherwise). A column block of a shard-blocked int4 pack is one
-    plain pack on its rank."""
+    plain pack on its rank. Adapters under tensor parallelism:
+    `_lora_update`."""
     s4 = lp.get(name + "_scale4")
     s8 = lp.get(name + "_scale")
+    tp = tensor_parallel(cfg)
+    column_block = tp is not None and tp.split.get(name, False) and name not in ROW_PARALLEL
+    lora = _lora_update(lp, name, tp, column_block, row_tp is not None)
+    joins_reduce = lora is not None and row_tp is not None  # a row block's adapter partial, summed with the base's
+    if s8 is not None and s8.shape[0] != lp[name].shape[0]:  # a whole per-column scale beside a column block
+        s8 = tp.block(s8, 0)
     if s4 is not None:
-        tp = tensor_parallel(cfg)
-        column_block = tp is not None and tp.split.get(name, False)
+        if joins_reduce:
+            raise ValueError(f"{name}: adapters over a row-split int4 leaf (train with tensor = 1 over int4)")
         shards = cfg.int4_shards if name in INT4_COLUMN_PARALLEL and not column_block else 1
         y = (matmul_int4_a8 if cfg.w8a8 else matmul_int4)(x, lp[name], s4, shards, row_tp=row_tp)
     elif s8 is not None and cfg.w8a8 and x.shape[1] >= W8A8_MIN_CHUNK:
+        if joins_reduce:
+            raise ValueError(f"{name}: adapters over a row-split int8 leaf with w8a8 on (training runs w8a8 off)")
         acc, xs = row_product(row_tp, x, lambda q: _int8_product(q.reshape(-1, q.shape[-1]), lp[name]).view(
             *q.shape[:-1], -1), quantize_activations_per_token)
         y = (acc.float() * xs * s8[:, 0].float()).to(x.dtype)
+    elif s8 is not None and joins_reduce:  # each column scaled before the reduce, which the partial joins
+        y = row_product(row_tp, x, lambda x: F.linear(x, lp[name].to(x.dtype)) * s8[:, 0].to(x.dtype) + lora(x))[0]
     elif s8 is not None:
         y = row_product(row_tp, x, lambda x: F.linear(x, lp[name].to(x.dtype)))[0] * s8[:, 0].to(x.dtype)
+    elif joins_reduce:
+        y = row_product(row_tp, x, lambda x: F.linear(x, lp[name]) + lora(x))[0]
     else:
         y = row_product(row_tp, x, lambda x: F.linear(x, lp[name]))[0]
-    a = lp.get(name + "_lora_a")
-    if a is not None:
-        y = y + F.linear(F.linear(x, a.to(x.dtype)), lp[name + "_lora_b"].to(x.dtype))
+    if lora is not None and not joins_reduce:
+        y = y + lora(x)
     return y
+
+
+def _lora_update(lp: Params, name: str, tp, column_block: bool, row_block: bool):
+    """x -> (x A^T) B^T of the projection's adapters (None without), cast to
+    x's dtype. On a tensor-parallel rank the adapters (replicated leaves)
+    are used by block: a column block takes B's rows of its output columns,
+    a row block A's columns of its input rows (its partial then joins the
+    base product's before the reduce). Each rank's adapter gradients are
+    then its share, which the trainer sums over the tensor axis."""
+    a = lp.get(name + "_lora_a")
+    if a is None:
+        return None
+    b = lp[name + "_lora_b"]
+    if column_block:
+        b = tp.block(b, 0)
+    if row_block:
+        a = tp.block(a, 1)
+    return lambda x: F.linear(F.linear(x, a.to(x.dtype)), b.to(x.dtype))
 
 
 def _int8_product(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -421,6 +467,30 @@ def _row_proj(x: torch.Tensor, lp: Params, name: str, cfg: LLMConfig, x_split: b
     return proj(x, lp, name, cfg, row_tp=tp if w_split else None)
 
 
+def _ring_or_flash(cfg: LLMConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
+                   attention: str) -> torch.Tensor:
+    """`attention` "ring" / "ring:<axis>" (fsdp by default) over a chunk
+    without a cache, as the JAX `full_attention(impl="ring")`: ring attention
+    (ops/ring_attention.py) over the axis of the config's training mesh when
+    it has more than one rank, all per-example lengths implied by causality;
+    otherwise the default attention, the flash kernel with `lengths` (the
+    JAX package falls back to its XLA path there). A sliding window, or a
+    chunk that does not split over the axis, raises, as in the JAX package;
+    so does a ring over a `tensor` axis that splits the heads."""
+    from bridgelang_tpu_torch.ops.ring_attention import ring_attention_sharded
+
+    axis = attention.split(":", 1)[1] if ":" in attention else "fsdp"
+    mesh = getattr(cfg, "mesh", None)
+    if mesh is None or axis not in mesh.mesh_dim_names or mesh.size(mesh.mesh_dim_names.index(axis)) <= 1:
+        return flash_attention(q, k, v, lengths=lengths, causal=True, window=cfg.sliding_window)[0]
+    if cfg.sliding_window is not None:
+        raise ValueError("ring attention does not support sliding windows")
+    tp = tensor_parallel(cfg)
+    if axis == "tensor" and tp is not None and tp.heads_split():
+        raise ValueError("ring attention over the tensor axis, whose ranks hold different heads: ring over fsdp")
+    return ring_attention_sharded(q, k, v, mesh, axis, causal=True)
+
+
 def _block(
     cfg: LLMConfig,
     lp: Params,
@@ -438,8 +508,9 @@ def _block(
     written IN PLACE at `cache_positions` [B, T] (int8: quantized) and
     attention runs over the whole (dequantized) cache under `mask`; without,
     attention runs over the chunk itself: through the flash kernel with
-    `lengths` valid keys (`attention="flash"`), or under `mask` ("masked",
-    `full_attention`). Returns (x, the chunk's unquantized (k, v)).
+    `lengths` valid keys (`attention="flash"`), under `mask` ("masked",
+    `full_attention`; "einsum", `cached_attention`), or as ring attention
+    ("ring", `_ring_or_flash`). Returns (x, the chunk's unquantized (k, v)).
 
     Under tensor parallelism (a TensorParallelLLMConfig) the layer's leaves
     are this rank's blocks: the column products give this rank's heads (and
@@ -465,6 +536,10 @@ def _block(
 
     if kv is None and attention == "masked":
         attn_out = full_attention(q, k, v, mask)
+    elif kv is None and attention == "einsum":
+        attn_out = cached_attention(q, k, v, mask)
+    elif kv is None and attention != "flash":
+        attn_out = _ring_or_flash(cfg, q, k, v, lengths, attention)
     elif kv is None:
         attn_out, _ = flash_attention(q, k, v, lengths=lengths, causal=True, window=cfg.sliding_window)
     else:
@@ -533,7 +608,8 @@ def llm_forward(
     given it is recovered from `mask`, which must then be causal +
     right-padding (+ window), the family the kernel computes. A chunk under
     any other mask (no cache only) passes `attention="masked"`: it then runs
-    `full_attention` under `mask` and never reaches the kernel.
+    `full_attention` under `mask` and never reaches the kernel. "einsum" and
+    "ring" (no cache only) are the JAX `attention_impl`s of those names.
 
     The cache is updated IN PLACE and returned (JAX returns a new one):
     this saves a copy of the whole cache per step. Returns (hidden [B, T, D],
@@ -546,13 +622,13 @@ def llm_forward(
     """
     if remat and cache is not None:
         raise ValueError("remat is for the training forward, which runs without a KV cache")
-    if attention not in ATTENTION_KINDS or (attention == "masked" and cache is not None):
-        raise ValueError(f"attention={attention!r}: use 'flash', or 'masked' for a chunk without a cache")
+    if check_attention(attention) != "flash" and cache is not None:
+        raise ValueError(f"attention={attention!r} is for a chunk without a cache; the cached paths take 'flash'")
     context_fn = _remat_context(remat_policy) if remat else None
     cos, sin = rope_cos_sin(positions, cfg.rotary_dim, cfg.rope_theta)
     contiguous = cache is not None and cache_write == "contiguous"
     chunk_attention = cache is None or contiguous
-    if chunk_attention and lengths is None and attention == "flash":
+    if chunk_attention and lengths is None and attention not in ("masked", "einsum"):
         lengths = lengths_from_mask(mask)
     x = embeds
     T = x.shape[1]
@@ -600,13 +676,19 @@ def lm_logits(params: Params, hidden: torch.Tensor, cfg: LLMConfig) -> torch.Ten
     blocks in order, so an argmax over the result breaks ties at the lowest
     global index, as on one device."""
     head = params["lm_head"]
+    tp = tensor_parallel(cfg)
+    vocab_split = tp is not None and tp.split.get("lm_head", False)
+    if vocab_split:
+        hidden = tp.copy(hidden)  # training: the hidden state's gradient sums the vocab blocks'
     if head.dtype == torch.int8:
-        logits = F.linear(hidden, head.to(hidden.dtype)) * params["lm_head_scale"].to(hidden.dtype)[:, 0]
+        scale = params["lm_head_scale"]
+        if scale.shape[0] != head.shape[0]:  # a whole per-row scale beside a vocab block
+            scale = tp.block(scale, 0)
+        logits = F.linear(hidden, head.to(hidden.dtype)) * scale.to(hidden.dtype)[:, 0]
     else:
         logits = F.linear(hidden, head)
     if cfg.arch == "phi":
         logits = logits + params["lm_head_bias"]
-    tp = tensor_parallel(cfg)
-    if tp is not None and tp.split.get("lm_head", False):
+    if vocab_split:
         logits = tp.gather(logits, dim=-1)
     return logits

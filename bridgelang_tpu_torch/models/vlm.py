@@ -28,7 +28,9 @@ the flash kernel: the JAX package's short-prompt switch to einsum attention
 
 Training: `forward_train` / `forward_hidden` run the fused sequence through
 the decoder without a cache; attention goes through the flash kernels
-(forward and backward) with the true per-example lengths. The
+(forward and backward) with the true per-example lengths, or as
+`VLMConfig.attention_impl` names it (`decoder_attention`: the masked or
+einsum attention, or ring attention over a mesh axis). The
 `parallel_actions` objective's mask lies outside the kernel's causal +
 length family, so that forward runs `attention="masked"` with plain autograd
 for its backward, as the JAX package runs it on XLA.
@@ -48,6 +50,7 @@ from bridgelang_tpu_torch.models.llm.llama import (
     LLM_FAMILIES,
     W8A8_MIN_CHUNK,
     LLMConfig,
+    check_attention,
     embed_tokens,
     init_kv_cache,
     init_llm_params,
@@ -77,6 +80,12 @@ class VLMConfig:
     # Explicit vision config(s) overriding the registry: a ViTConfig, or a
     # (ViTConfig, ViTConfig) pair for fused towers (tiny test models).
     vision_override: Optional[Any] = None
+    # The training forward's attention (JAX `attention_impl`): None or
+    # "pallas" the flash kernels, "xla" the masked `full_attention`, "einsum"
+    # `cached_attention`, "ring" / "ring:<axis>" ring attention over a mesh
+    # axis (fsdp by default; the flash kernels without a mesh axis of more
+    # than one rank). Generation keeps its cached paths.
+    attention_impl: Optional[str] = None
 
     @classmethod
     def from_ids(
@@ -104,6 +113,19 @@ class VLMConfig:
         return LLM_FAMILIES.get(self.llm_backbone_id, "llama2-pure")
 
 
+ATTENTION_IMPLS = {None: "flash", "pallas": "flash", "xla": "masked", "einsum": "einsum"}
+
+
+def decoder_attention(attention_impl: Optional[str]) -> str:
+    """The decoder's attention kind (llama.llm_forward's `attention`) for a
+    JAX `attention_impl`; an unknown one raises, naming it."""
+    if attention_impl in ATTENTION_IMPLS:
+        return ATTENTION_IMPLS[attention_impl]
+    if (attention_impl or "").startswith("ring"):
+        return check_attention(attention_impl)
+    raise ValueError(f"attention_impl={attention_impl!r}: use None, 'pallas', 'xla', 'einsum', 'ring' or 'ring:<axis>'")
+
+
 class PrismaticVLM:
     """Model orchestrator: configs + module definitions, and functions over
     the parameter dict. `device` defaults to CUDA and raises without a card."""
@@ -126,6 +148,7 @@ class PrismaticVLM:
             self.vision_module = ViT(vo, device=meta)
             self.vision_dim, self.num_patches = vo.width, vo.num_patches
         self.projector = Projector(cfg.arch_specifier, self.vision_dim, cfg.llm.dim, device=meta)
+        self.attention = decoder_attention(cfg.attention_impl)
         self.image_transform = transform_config_for_backbone(cfg.vision_backbone_id, cfg.image_resize_strategy)
 
     # --- params ---------------------------------------------------------
@@ -229,7 +252,7 @@ class PrismaticVLM:
         lengths = fused_mask.sum(dim=1).to(torch.int32)  # exact under right padding
         hidden, _ = llm_forward(
             params["llm"], self.cfg.llm, fused, positions, self._causal_mask(fused_mask),
-            lengths=lengths, remat=remat, remat_policy=remat_policy,
+            lengths=lengths, remat=remat, remat_policy=remat_policy, attention=self.attention,
         )
         return hidden, fused_labels
 

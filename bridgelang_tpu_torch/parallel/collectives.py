@@ -14,6 +14,14 @@
   NCCL launch each.
 * `all_gather_dim` / `reduce_scatter_dim`: a collective along any tensor
   dim (NCCL and gloo gather and scatter along dim 0).
+* `Ring`: one mesh axis as a ring (size, this rank's index) whose `rotate`
+  sends tensors to the next rank and receives the previous rank's in one
+  `batch_isend_irecv` (ops/ring_attention.py, the JAX `ppermute`).
+* `rows_to_time` / `time_to_rows`: the all-to-all over a mesh axis between
+  the data layout, this rank's rows of the whole sequence [B, T, ...], and
+  the ring's, every axis peer's rows of this rank's block of time
+  [n B, T / n, ...]; each is the other's backward (GSPMD's reshard between
+  the batch-sharded activations and the ring's `shard_map` spec).
 
 Every op runs its collective even on a group of one rank (a copy there), so
 a mesh of one device runs the same launches as a larger one. The eager
@@ -64,6 +72,103 @@ def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     collective_launches.launches += 1
     dist.all_reduce(x, op=op, group=group)
     return x
+
+
+def _time_blocks(x: torch.Tensor, n: int) -> torch.Tensor:
+    """[B, T, ...] -> [n, B, T / n, ...]: the n blocks of time, each contiguous."""
+    b, t = x.shape[:2]
+    return x.reshape(b, n, t // n, *x.shape[2:]).transpose(0, 1).contiguous()
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Chunk i of dim 0 to rank i; chunk i of the result from rank i."""
+    collective_launches.launches += 1
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def _rows_to_time(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    y = _all_to_all(_time_blocks(x, n), group)  # [n (source rank), B, T / n, ...]
+    return y.reshape(-1, *y.shape[2:])
+
+
+def _time_to_rows(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    y = _all_to_all(x.reshape(n, x.shape[0] // n, *x.shape[1:]).contiguous(), group)  # [n (time block), B, ...]
+    return y.transpose(0, 1).reshape(y.shape[1], -1, *y.shape[3:])
+
+
+class _RowsToTime(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _rows_to_time(x, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _time_to_rows(g.contiguous(), ctx.group, ctx.n), None, None
+
+
+class _TimeToRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _time_to_rows(x, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rows_to_time(g.contiguous(), ctx.group, ctx.n), None, None
+
+
+def rows_to_time(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """This rank's rows [B, T, ...] -> the rows of the n ranks of `group`
+    (in rank order) over this rank's block of time [n B, T / n, ...]."""
+    return _RowsToTime.apply(x, group, n) if _tracks_grad(x) else _rows_to_time(x, group, n)
+
+
+def time_to_rows(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The inverse of `rows_to_time`."""
+    return _TimeToRows.apply(x, group, n) if _tracks_grad(x) else _time_to_rows(x, group, n)
+
+
+class Ring:
+    """An axis of ranks as a ring: `size`, this rank's `index`, and
+    `start_rotate`, which sends tensors to rank index + 1 and receives rank
+    index - 1's (modulo the size). The sends and receives of one rotate go
+    out together (`batch_isend_irecv`), so that no rank waits on a send
+    before it posts its receive, as a blocking send before a receive would
+    on a ring. Each rotate counts once in `collective_launches`."""
+
+    def __init__(self, group, size: int, index: int):
+        self.group, self.size, self.index = group, size, index
+        self._next = dist.get_global_rank(group, (index + 1) % size)
+        self._prev = dist.get_global_rank(group, (index - 1) % size)
+
+    @classmethod
+    def of(cls, mesh, axis: str) -> "Ring":
+        return cls(mesh.get_group(axis), mesh.size(mesh.mesh_dim_names.index(axis)), mesh.get_local_rank(axis))
+
+    def start_rotate(self, tensors) -> Callable[[], list]:
+        """Post the rotate of `tensors`; the returned function waits for it
+        and gives the received tensors (the previous rank's, same shapes)."""
+        collective_launches.launches += 1
+        sends = [t.contiguous() for t in tensors]
+        outs = [torch.empty_like(t) for t in sends]
+        ops = []
+        for t, o in zip(sends, outs):
+            ops += [dist.P2POp(dist.isend, t, self._next, self.group),
+                    dist.P2POp(dist.irecv, o, self._prev, self.group)]
+        requests = dist.batch_isend_irecv(ops)
+
+        def wait() -> list:
+            for r in requests:
+                r.wait()
+            return outs
+
+        return wait
+
+    def rotate(self, tensors) -> list:
+        return self.start_rotate(tensors)()
 
 
 class _Reduce(torch.autograd.Function):

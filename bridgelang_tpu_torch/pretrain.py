@@ -23,13 +23,14 @@ state) under `<run_root_dir>/<run_id>/checkpoints/`.
 
 As in the JAX script, `--pretrained_checkpoint` is accepted and not read
 (the reference loads an align-stage projector there; neither package does
-yet). `--mesh_shape` ("fsdp=N", "replica=R,fsdp=F"; one process per device
-under torchrun) shards the state with FSDP (parallel/fsdp.py), which the 7B's
-finetune stage needs (~109 GB of fp32 state and moments): each rank keeps
-its blocks, the micro-batch is per-device batch x data ranks, every rank
-draws the same batch order and collates its own rows of each micro-batch,
-and each epoch's save is sharded (`dcp/`). `tensor` > 1 is refused (not
-ported yet). On one 80 GB card
+yet). `--mesh_shape` ("fsdp=N", "replica=R,fsdp=F", "fsdp=F,tensor=T"; one
+process per device under torchrun) shards the state with FSDP
+(parallel/fsdp.py), which the 7B's finetune stage needs (~109 GB of fp32
+state and moments), and runs the decoder tensor-parallel over `tensor`:
+each rank keeps its blocks, the micro-batch is per-device batch x data
+ranks (replica x fsdp), every rank draws the same batch order and collates
+its data rank's rows of each micro-batch (tensor peers the same rows), and
+each epoch's save is sharded (`dcp/`). On one 80 GB card
 the 7B's align stage at 16 x (2048 + 256) tokens needs `--remat_policy
 full`: the default "dots" keeps every layer's matmul outputs.
 """

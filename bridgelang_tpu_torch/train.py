@@ -23,8 +23,11 @@ The data are read from `--data_root_dir`, one directory per dataset of
 by vla/datasets/rlds/tfds_reader.py) or a native episode store
 (`<root>/<dataset>/*.tfrecord`): its layout picks the reader. The byte-fallback
 stand-in tokenizer (no `--tokenizer_path`) takes the finetune entry point's
-wider collator bucket. `--attention_impl` (ring attention) is refused until
-ported.
+wider collator bucket. `--attention_impl` sets `VLMConfig.attention_impl`
+(scripts/train.py:101-104): "ring" (or "ring:<axis>") runs the decoder's
+attention as ring attention over the mesh's fsdp (or named) axis, the
+sequence split in time across its ranks (ops/ring_attention.py); on a mesh
+whose axis has one rank, or without a mesh, the flash kernels as by default.
 
 Multi-GPU: under torchrun (`torchrun --nproc_per_node N -m
 bridgelang_tpu_torch.train ...`) or with `--vla.mesh_shape`, each rank trains
@@ -32,14 +35,17 @@ on one device over the mesh `--vla.mesh_shape` names, or by default the one
 `strategy_mesh_spec(--vla.train_strategy, world, devices per node)` gives
 (fsdp-full-shard and fsdp-shard-grad-op: fsdp inside a node, replicas
 across nodes; ddp: replicas); fsdp-shard-grad-op keeps the parameters whole
-and shards AdamW's state (parallel/fsdp.py). Each rank reads its share of
-the data; checkpoints are sharded (`dcp/`) and resume at another world size
-(each rank's data stream resumes when the world size is the run's).
-`tensor` > 1 is refused (not ported yet).
+and shards AdamW's state (parallel/fsdp.py). `--vla.mesh_shape` with
+`tensor` > 1 runs the decoder tensor-parallel (no strategy gives one, as in
+the JAX package). Each data rank (replica x fsdp; tensor peers read the same
+rows) reads its share of the data; checkpoints are sharded (`dcp/`) and
+resume at another mesh shape (each rank's data stream resumes when the world
+size is the run's).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from dataclasses import dataclass, field
@@ -71,7 +77,7 @@ class TrainConfig:
     profile_dir: Optional[str] = None  # a torch.profiler trace of steps 10-12
     log_interval: int = 10  # device->host metric sync every N steps
     remat_policy: str = "dots"  # "dots" saves matmul outputs; "full" recomputes the whole layer
-    attention_impl: Optional[str] = None  # not ported: the port's attention is the flash kernel
+    attention_impl: Optional[str] = None  # None / "pallas" (flash), "xla", "einsum", "ring", "ring:<axis>"
     device: Optional[str] = None  # cuda (default) | cpu
 
 
@@ -102,11 +108,9 @@ def main(cfg: TrainConfig):
 
     from bridgelang_tpu_torch.parallel.fsdp import MeshTraining, mesh_strategy, training_mesh
     from bridgelang_tpu_torch.parallel.mesh import initialize_distributed, strategy_mesh_spec
+    from bridgelang_tpu_torch.parallel.sharding import data_rank_and_count
 
     vla = cfg.vla
-    if cfg.attention_impl is not None:
-        raise NotImplementedError("--attention_impl: the port's training attention is the flash kernel; ring "
-                                  "attention comes with multi-GPU part 2 (ROADMAP.md Queue 1 item 7b)")
     device = resolve_device(cfg.device)
     mesh_shape = vla.mesh_shape
     if mesh_shape is None and int(os.environ.get("WORLD_SIZE", "1")) > 1:
@@ -116,6 +120,7 @@ def main(cfg: TrainConfig):
     mesh, device = training_mesh(mesh_shape, device)
     set_global_seed(cfg.seed)
     world = overwatch.world_size()
+    data_rank, data_ranks = data_rank_and_count(mesh) if mesh is not None else (0, 1)
     if world != vla.expected_device_count:
         overwatch.warning("Running %r on %d device(s) (config expects %d): the batch per device adjusts",
                           vla.vla_id, world, vla.expected_device_count)
@@ -131,6 +136,8 @@ def main(cfg: TrainConfig):
         arch_specifier=base.arch_specifier if base else "no-align+fused-gelu-mlp",
         image_resize_strategy=base.image_resize_strategy if base else "resize-naive",
     )
+    if cfg.attention_impl:  # scripts/train.py:101-104
+        vlm_cfg = dataclasses.replace(vlm_cfg, attention_impl=cfg.attention_impl)
     model = PrismaticVLM(vlm_cfg, dtype=torch.bfloat16, device=device)
 
     tokenizer = get_tokenizer(cfg.tokenizer_path)
@@ -139,13 +146,14 @@ def main(cfg: TrainConfig):
         vla.data_mix,
         base_tokenizer=tokenizer,
         llm_family=vlm_cfg.llm_family,
-        batch_size=vla.global_batch_size // world,
+        batch_size=vla.global_batch_size // data_ranks,
         prompt_bucket=prompt_bucket_for(tokenizer),
-        shuffle_buffer_size=vla.shuffle_buffer_size // world,
+        shuffle_buffer_size=vla.shuffle_buffer_size // data_ranks,
         image_aug=vla.image_aug,
         pad_token_id=vlm_cfg.llm.pad_token_id,
         seed=cfg.seed,
         num_workers=0 if device.type == "cpu" else None,  # the CPU's cores run the step too
+        data_shard=(data_ranks, data_rank) if mesh is not None else None,
     )
     if overwatch.is_rank_zero():
         save_sidecars(run_dir, config_to_dict(cfg), jsonable(dataset.dataset_statistics))

@@ -82,27 +82,28 @@ def _trainable_mask(params):
 def _sharded_state(state: TrainState, mesh, keep_mask=None) -> Dict[str, Any]:
     """The flat DCP state dict of `state` on `mesh`: params (the leaves
     `keep_mask` marks, all without it) and the optimizer state as DTensors
-    over this rank's tensors, numbers as they are; or, without a mesh, the
-    same keys over whole tensors."""
+    over this rank's tensors (the parameters' kept blocks, the optimizer's
+    blocks: parallel/fsdp.LeafSpec), numbers as they are; or, without a
+    mesh, the same keys over whole tensors."""
     from bridgelang_tpu_torch.parallel.fsdp import flat_state
 
-    def leaf(t, spec):
+    def leaf(t, info):
         if mesh is None:
             return t.detach()
-        return mesh.dtensor(t.detach(), spec, whole=not mesh.shards_params)
+        return mesh.dtensor(t.detach(), info.keep)
 
     sd: Dict[str, Any] = {"step": int(state.step)}
     keep = [True] * len(flat_state("", state.params)) if keep_mask is None else [
         bool(m) for _, m in flat_state("", keep_mask)]
-    specs = flat_state("", mesh.specs) if mesh is not None else [(None, None)] * len(keep)
-    for (key, t), (_, spec), k in zip(flat_state("params", state.params), specs, keep):
+    infos = flat_state("", mesh.leaf_info) if mesh is not None else [(None, None)] * len(keep)
+    for (key, t), (_, info), k in zip(flat_state("params", state.params), infos, keep):
         if k:
-            sd[key] = leaf(t, spec)
-    opt_specs = mesh.leaf_specs(_trainable_mask(state.params)) if mesh is not None else None
+            sd[key] = leaf(t, info)
+    opt_infos = mesh.leaf_specs(_trainable_mask(state.params)) if mesh is not None else None
     for key, value in flat_state("opt_state", state.opt_state):
         if isinstance(value, torch.Tensor):
             i = int(key.rsplit("/", 1)[1])
-            sd[key] = value if mesh is None else mesh.dtensor(value, opt_specs[i])
+            sd[key] = value if mesh is None else mesh.dtensor(value, opt_infos[i].opt)
         else:
             sd[key] = value
     return sd

@@ -20,10 +20,13 @@ gradient buffer.
 
 On a mesh (`mesh`, a parallel/fsdp.MeshTraining) the same step runs on
 every rank over its rows of the global batch: the state holds this rank's
-blocks (FSDP) or whole tensors (ZeRO-2, data parallelism), the forward
-gathers what it reads, the loss divides by the global token count, the
-gradients are summed over the data ranks, the global norm makes one fp64
-all-reduce, and AdamW updates the local tensors.
+blocks (FSDP) or whole tensors (ZeRO-2, data parallelism), each a tensor
+block where the rules split a leaf over `tensor`, the forward gathers what
+it reads over `fsdp` and runs the decoder tensor-parallel, the loss divides
+by the global token count (the LM head's vocabulary blocks gathered per
+chunk, so the loss and the argmax are the unsharded ones), the gradients
+are summed over the data ranks (the adapters' also over `tensor`), the
+global norm sums fp64 squares, and AdamW updates the local tensors.
 
 Over a packed-int4 base (QLoRA) the frozen projections run through the int4
 kernels (`matmul_int4`, with `w8a8` off) and their input gradient through a
@@ -376,8 +379,11 @@ def make_vla_train_step(
 
     `mesh` (a parallel/fsdp.MeshTraining): the step runs on this rank's
     rows of the global batch over the state `init_train_state(mesh=mesh)`
-    made; the metrics are the global batch's on every rank."""
+    made, the decoder on the mesh's tensor blocks (`MeshTraining.bind`);
+    the metrics are the global batch's on every rank."""
     _, bin_centers = make_bins(n_action_bins)
+    if mesh is not None:
+        model = mesh.bind(model)
     vocab_size = model.cfg.llm.vocab_size
     action_begin = vocab_size - (n_action_bins + 1)
 

@@ -148,7 +148,10 @@ class RLDSDataset:
     `<data_root_dir>/<name>` is read by its layout (a TFDS directory or a
     native store: rlds/tfds_reader.open_builder). `seed` makes the
     frame order and the augmentation repeatable (None: fresh randomness per
-    iteration).
+    iteration). `data_shard` (count, index): read every count-th trajectory
+    from the index-th, this rank's share on a mesh (the data rank, so that
+    tensor peers read the same frames); None: the process group's world size
+    and rank, when there is one.
 
     `batches(state)` yields the batches from the start, or from where a
     saved `state()` of an earlier iterator left off. One frame stream
@@ -181,6 +184,7 @@ class RLDSDataset:
         future_action_window_size: int = 0,
         seed: Optional[int] = None,
         num_workers: Optional[int] = None,
+        data_shard: Optional[Tuple[int, int]] = None,
     ):
         from bridgelang_tpu_torch.vla.datasets.rlds.dataset import make_interleaved_dataset
         from bridgelang_tpu_torch.vla.datasets.rlds.oxe.materialize import (
@@ -193,9 +197,11 @@ class RLDSDataset:
 
         per_dataset_kwargs, weights = get_oxe_dataset_kwargs_and_weights(
             data_root_dir, resolve_mixture(data_mix), load_camera_views=load_camera_views)
-        if builder_factory is not None:
-            for kw in per_dataset_kwargs:
+        for kw in per_dataset_kwargs:
+            if builder_factory is not None:
                 kw["builder"] = builder_factory(kw["name"])
+            if data_shard is not None:
+                kw["data_shard"] = data_shard
 
         frame_transform_kwargs: Dict[str, Any] = {"resize_size": resize_resolution}
         if image_aug:

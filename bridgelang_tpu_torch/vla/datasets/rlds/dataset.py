@@ -146,6 +146,7 @@ def rlds_reader(
     num_parallel_calls: int = AUTOTUNE,
     builder=None,
     shard_by_process: bool = True,
+    data_shard: Optional[Tuple[int, int]] = None,
 ) -> RldsReader:
     """One dataset's trajectories, each
 
@@ -155,7 +156,8 @@ def rlds_reader(
     normalized with the dataset's statistics (loaded from a path or dict, or
     computed over the split with the sha256 cache). With several processes
     (torch.distributed), each reads every n-th trajectory; the statistics
-    span them all. `shuffle` is accepted for the JAX signature: the builder
+    span them all. `data_shard` (n, index) names the share (a mesh's data
+    ranks); without it a process group's world size and rank do. `shuffle` is accepted for the JAX signature: the builder
     reads in its own order."""
     image_obs_keys = image_obs_keys or {}
     depth_obs_keys = depth_obs_keys or {}
@@ -197,7 +199,9 @@ def rlds_reader(
 
     split = "train" if train else ("val" if _has_split(builder, "val") else "train[:5%]")
     n_proc, proc_idx = 1, 0
-    if shard_by_process and torch.distributed.is_available() and torch.distributed.is_initialized():
+    if shard_by_process and data_shard is not None:
+        n_proc, proc_idx = data_shard
+    elif shard_by_process and torch.distributed.is_available() and torch.distributed.is_initialized():
         n_proc, proc_idx = torch.distributed.get_world_size(), torch.distributed.get_rank()
     unsharded = Pipeline(lambda: builder(split)).map(restructure)
     if isinstance(dataset_statistics, str):

@@ -35,13 +35,15 @@ def get_vla_dataset_and_collator(
     action_dim: int = 7,
     seed: Optional[int] = None,
     num_workers: Optional[int] = None,
+    data_shard: Optional[Tuple[int, int]] = None,
 ) -> Tuple[RLDSDataset, ActionTokenizer, PaddedCollatorForActionPrediction]:
     """(dataset, action tokenizer, collator). With `action_chunk` > 1 the
     supervised span holds action_dim * action_chunk tokens, so the collator's
     bucket widens to 64 + action_dim * (action_chunk - 1) (JAX
     materialize.py:42-47). `seed` makes the data repeatable; `num_workers`:
     the dataset's batch worker processes (0: none, the batches are made in
-    this process)."""
+    this process); `data_shard` (count, index): this rank's share of the
+    trajectories (RLDSDataset)."""
     action_tokenizer = ActionTokenizer(base_tokenizer)
     batch_transform = RLDSBatchTransform(
         action_tokenizer, base_tokenizer, llm_family=llm_family, predict_stop_token=predict_stop_token,
@@ -66,5 +68,6 @@ def get_vla_dataset_and_collator(
         future_action_window_size=action_chunk - 1,
         seed=seed,
         num_workers=num_workers,
+        data_shard=data_shard,
     )
     return dataset, action_tokenizer, collator

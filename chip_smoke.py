@@ -39,6 +39,23 @@ of which fails the run:
            D=128 and 80) also device-side: a captured CUDA
            graph of launches, the int4 weights rotated over >= 100 MB of
            copies so that every launch reads them cold, as a decode pass does.
+  ring     the ring attention's per-block compute (ops/ring_attention.py) on
+           the card: a virtual ring of n = 2, 4 and 8 blocks of one bf16
+           sequence (B=2, T=2304, the 7B's 32 heads, D=128; Mistral's GQA
+           32/8 at n=4), through the block functions the ranks call with the
+           rotations replaced by indexing. The forward's o and lse against
+           the plain forward over the whole sequence and the whole-sequence
+           kernel (FWD_ATOL, 1e-3); the backward given the whole sequence's
+           o and lse against the whole-sequence kernels, and given the
+           ring's own against the plain virtual ring, each under
+           ring_tolerance_use (GRAD_TOL of the blocks' shares: each block's
+           gradient leaves the kernel rounded to bf16); n (n + 1) / 2
+           launches of each flash kernel per ring pass, exactly. CUDA event
+           times of the ring's forward and backward beside the
+           whole-sequence kernels'; the kernels at one full and one diagonal
+           block of the 8-block ring and at a tensor=2 rank's LoRA step (16
+           heads, B=16, T=352), beside the plain versions, SDPA and the
+           bound.
   load     right after the 7B's random weights are drawn: write them in the
            published HF layout (bf16, three shards with an index,
            config.json, dataset_statistics.json; plus the source-only tensors
@@ -122,14 +139,14 @@ of which fails the run:
            action through the merged int4 weights.
   variants the decoder variants, random bf16 weights from the seed: the int8
            KV cache on the bf16 7B (before int4 packs it); Phi-2
-           (prism-phi-dinosiglip+3b, 32 layers, head dim 80) served through
-           graphs (ids equal to eager at B=1 and B=4, 32 flash_fwd per
-           predict) and VLAServer, the int8 KV cache on it, 3 LoRA steps
-           (B=16, 112 + 256 tokens, full remat: 64/32/32 flash launches per
-           step, losses finite), then packed to int4 and served w4a8 (192
-           int4_mm_a8 and quantize_a8 per decoder pass), then 3 QLoRA steps
-           over the int4 base with w8a8 off (384 int4_mm per step at Phi's
-           shapes, 64/32/32 flash launches, losses finite), merged and
+           (prism-phi-dinosiglip+3b, cut to 16 of its 32 layers, head dim
+           80) served through graphs (ids equal to eager at B=1 and B=4, 16
+           flash_fwd per predict) and VLAServer, the int8 KV cache on it, 3
+           LoRA steps (B=16, 112 + 256 tokens, full remat: 32/16/16 flash
+           launches per step, losses finite), then packed to int4 and served
+           w4a8 (96 int4_mm_a8 and quantize_a8 per decoder pass), then 3
+           QLoRA steps over the int4 base with w8a8 off (192 int4_mm per step
+           at Phi's shapes, 32/16/16 flash launches, losses finite), merged and
            predicting through the merged int4 weights; Mistral
            (prism-mistral-dinosiglip+7b) cut to 4 of its 32 layers (ids equal
            to eager, 8 flash_fwd per predict). The int8 cache: ids of graphs
@@ -207,12 +224,20 @@ of which fails the run:
            logits' gathers, replayed inside the CUDA graphs) and its /act
            median beside the same deploy's without --mesh_spec, started
            with it and answering the same requests (the baseline of this
-           run); then finetune.main --mesh_shape fsdp=W for 3 steps over the
-           finetune phase's store with its first run's flags: losses bit-equal
-           to that run's first 3 at W = 1 (its one-rank NCCL group released
-           after), collectives per step, step ms, peak GB. It prints the NCCL
-           version and says when no collective crossed a device; with more
-           than one card tensor=2 and fsdp=2 run as well.
+           run); then finetune.main --mesh_shape fsdp=W and again with
+           tensor=W (the decoder tensor-parallel: its adapters used by
+           block, the loss over the vocabulary blocks) for 3 steps each over
+           the finetune phase's store with its first run's flags: losses
+           bit-equal to that run's first 3 at W = 1 (its one-rank NCCL group
+           released after), collectives per step, step ms, peak GB; after
+           the finetune phase's train.main runs, train.main --attention_impl
+           ring --vla.mesh_shape fsdp=W on the same 2-layer cut for 2 steps:
+           at W = 1 the ring's axis has one rank (the JAX rule's fallback,
+           the flash kernels) and the losses are bit-equal to the run
+           without the flag. It prints the NCCL version and says when no
+           collective crossed a device; with more than one card tensor=2
+           and fsdp=2 run as well (and fsdp=2,tensor=W/2 from 4 cards), the
+           ring then runs over fsdp=W.
   pretrain VLM pretraining through pretrain.run (what pretrain.main runs),
            random fp32 weights from the seed, over a LLaVA-layout directory
            written here (558k-shaped captions, mix665k-shaped chats with
@@ -220,10 +245,10 @@ of which fails the run:
            fixtures), 16 x (2048 + 256) fused tokens per micro-batch, "full"
            remat, grad_accum 2, 4 micro-steps per stage: every fixture read
            to Pillow's manifest hashes first; the align stage on the 7B at
-           full width, cut to 8 of 32 decoder layers (only the projector changes; the epoch-end
+           full width, cut to 4 of 32 decoder layers (only the projector changes; the epoch-end
            checkpoint of the whole state read back for the projector and its
-           moments, bit-equal; 64/32/32 flash launches per micro-step); the
-           finetune stage on the 7B cut to 4 decoder layers (LLM and
+           moments, bit-equal; 8/4/4 flash launches per micro-step); the
+           finetune stage on the 7B cut to 2 decoder layers (LLM and
            projector change, the towers do not); then the flash kernels at
            T = 2304 against their plain versions (B = 2, the runs' lengths)
            and timed at B = 16 beside SDPA and the bound. Step ms, padded
@@ -453,6 +478,23 @@ def grad_tolerance_use(got, want) -> float:
     return float(((got.float() - w).abs() / allowed).max())
 
 
+def ring_tolerance_use(got, want, magnitude) -> float:
+    """`grad_tolerance_use` for a ring's gradients, GRAD_TOL taken of the
+    blocks' shares: `magnitude` is the sum of the blocks' |gradient| (the
+    plain virtual ring's, ops/ring_attention.virtual_ring_backward with
+    magnitudes). A kernel returns each block's share in the inputs' dtype,
+    one GRAD_TOL from its exact value at most, and the ring rounds the fp32
+    sum of the shares once more, so an element where the blocks cancel
+    moves by ulps of the shares, not of the sum:
+    |got - want| <= rtol (magnitude + |want|) + atol rms(magnitude)."""
+    import torch
+
+    rtol, atol = GRAD_TOL[str(want.dtype).replace("torch.", "")]
+    w, m = want.float(), magnitude.float()
+    allowed = (rtol * (m + w.abs()) + atol * m.square().mean().sqrt()).clamp_min(torch.finfo(torch.float32).tiny)
+    return float(((got.float() - w).abs() / allowed).max())
+
+
 def check_backward_kernels():
     """dq, dk, dv from the kernels against flash_attention_bwd_plain under
     GRAD_TOL, then timings at the training shapes (BWD_TIMED)."""
@@ -615,6 +657,170 @@ def check_kernels(serve_t: int):
                 f"sdpa (yardstick) {library_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
                 f"share of bound {b_ms / kernel_ms:.3f}, kernel / sdpa {kernel_ms / library_ms:.2f}")
     return rows, max(worst.values())
+
+
+# --- phase ring: the ring attention's blocks on one card -----------------------------
+
+RING_T = 2304            # pretraining's fused length (2048 + 256 patches)
+RING_B = 2
+RING_NS = (2, 4, 8)      # virtual ring sizes on the 7B's heads
+RING_GQA_N = 4           # Mistral's GQA heads (32 / 8) at one ring size
+RING_TIMED_REPS = 5
+TP_TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_T, 16, 16, 128)  # a tensor=2 rank's LoRA step: B, T, H, Hkv, D
+
+
+def block_bound_ms(q, k, causal: bool, which: str):
+    """Least time for one ring block (every key valid): max(bytes / HBM rate,
+    FLOPs / peak). Bytes: q, k, v read once, and o and lse written once
+    ("fwd"); q, k, v, dO, lse and delta read once, and dq or dk and dv
+    written once ("dq", "dkv"). FLOPs per attended (row, key) pair: 4 D
+    forward, 6 D for dq, 8 D for dk/dv; a diagonal block attends T (T + 1) / 2
+    pairs per head, a full block T S."""
+    b, t, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    e = q.element_size()
+    qb, kb, stats = b * t * h * d * e, b * s * hkv * d * e, 4 * b * h * t
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * s)
+    n_bytes = {"fwd": 2 * qb + 2 * kb + stats, "dq": 3 * qb + 2 * kb + 2 * stats,
+               "dkv": 2 * qb + 4 * kb + 2 * stats}[which]
+    flops = {"fwd": 4, "dq": 6, "dkv": 8}[which] * d * pairs
+    peak = PEAK_FLOPS[str(q.dtype).replace("torch.", "")]
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ring_case(label: str, h: int, hkv: int, n: int, seed: int, timed: bool) -> dict:
+    """One virtual ring of n blocks of a bf16 sequence of RING_T tokens on
+    the card, through ops/ring_attention's block functions (the flash
+    kernels): the forward's o within FWD_ATOL and lse within 1e-3 of the
+    plain forward over the whole sequence and of the whole-sequence kernel;
+    the backward, given the whole sequence's o and lse, against the
+    whole-sequence kernels, and given the ring's own o and lse against the
+    plain virtual ring, each under ring_tolerance_use (GRAD_TOL of the
+    blocks' shares); exactly n (n + 1) / 2 launches of each flash kernel per
+    ring pass. With `timed`, CUDA event times of the ring's forward and
+    backward beside the whole-sequence kernels'."""
+    import torch
+
+    from bridgelang_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_plain)
+    from bridgelang_tpu_torch.ops.ring_attention import virtual_ring_backward, virtual_ring_forward
+
+    q, k, v, _ = attention_case(RING_B, RING_T, RING_T, h, hkv, 128, [RING_T] * RING_B, None, torch.bfloat16, seed)
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(seed + 1), device="cuda",
+                     dtype=q.dtype)
+    blocks = n * (n + 1) // 2
+    o_w, lse_w = flash_attention(q, k, v, causal=True)
+    whole = flash_attention_bwd(q, k, v, o_w, lse_w, do, causal=True)
+    po, plse = flash_attention_plain(q, k, v, causal=True)
+    reset_launch_counts()
+    o, lse = virtual_ring_forward(q, k, v, n)
+    expect_counts(launch_counts(), {"flash_fwd": blocks}, f"ring {label} n={n} forward")
+    reset_launch_counts()
+    grads = virtual_ring_backward(q, k, v, o, lse, do, n)
+    expect_counts(launch_counts(), {"flash_bwd_dq": blocks, "flash_bwd_dkv": blocks}, f"ring {label} n={n} backward")
+    given_whole = virtual_ring_backward(q, k, v, o_w, lse_w, do, n)
+    launches = {"flash_fwd": blocks, "flash_bwd_dq": 2 * blocks, "flash_bwd_dkv": 2 * blocks}
+    plain_own, mags_own = virtual_ring_backward(q, k, v, o, lse, do, n, magnitudes=True, plain=True)
+    _, mags_whole = virtual_ring_backward(q, k, v, o_w, lse_w, do, n, magnitudes=True, plain=True)
+    err = {"o_vs_plain": (o.float() - po.float()).abs().max().item(),
+           "o_vs_kernel": (o.float() - o_w.float()).abs().max().item(),
+           "lse_vs_plain": (lse - plse).abs().max().item()}
+    uses = {}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        uses[f"{name}_vs_whole_kernel"] = ring_tolerance_use(given_whole[i], whole[i], mags_whole[i])
+        uses[f"{name}_vs_plain_ring"] = ring_tolerance_use(grads[i], plain_own[i], mags_own[i])
+        # for the record: the ring end to end (its own o) against the whole-sequence kernels, in GRAD_TOL units
+        uses[f"{name}_end_to_end_grad_tol"] = grad_tolerance_use(grads[i], whole[i])
+    del plain_own, mags_own, mags_whole
+    finite = all(torch.isfinite(x).all() for x in (o, *grads, *given_whole))
+    ok = (finite and err["o_vs_plain"] <= FWD_ATOL["bfloat16"] and err["o_vs_kernel"] <= FWD_ATOL["bfloat16"]
+          and err["lse_vs_plain"] <= 1e-3
+          and max(u for key, u in uses.items() if not key.endswith("grad_tol")) <= 1.0)
+    log(f"ring {label} n={n}: B={RING_B} T={RING_T} H={h}/{hkv} D=128 bf16, {blocks} blocks per pass: "
+        + ", ".join(f"{key} {val:.3e}" for key, val in err.items()) + "; tolerance use "
+        + ", ".join(f"{key} {val:.3g}" for key, val in uses.items()) + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"ring {label} n={n}: the ring's blocks disagree with the whole sequence")
+    out = dict(n=n, heads=f"{h}/{hkv}", blocks=blocks, errors=err, tolerance_use=uses, launches=launches)
+    if timed:
+        ring_fwd = cuda_ms(lambda: virtual_ring_forward(q, k, v, n), RING_TIMED_REPS)
+        ring_bwd = cuda_ms(lambda: virtual_ring_backward(q, k, v, o, lse, do, n), RING_TIMED_REPS)
+        whole_fwd = cuda_ms(lambda: flash_attention(q, k, v, causal=True), RING_TIMED_REPS)
+        whole_bwd = cuda_ms(lambda: flash_attention_bwd(q, k, v, o_w, lse_w, do, causal=True), RING_TIMED_REPS)
+        out["ms"] = dict(ring_fwd=ring_fwd, ring_bwd=ring_bwd, whole_fwd=whole_fwd, whole_bwd=whole_bwd)
+        log(f"timing ring {label} n={n} (CUDA events, one card, the n ranks' blocks one after another): forward "
+            f"{ring_fwd:.3f} ms against the whole-sequence kernel's {whole_fwd:.3f} ms; backward {ring_bwd:.3f} ms "
+            f"against {whole_bwd:.3f} ms (both backward kernels and delta)")
+    del q, k, v, do, o_w, lse_w, whole, po, plse, o, lse, grads, given_whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_block(label: str, b: int, t: int, s: int, h: int, hkv: int, causal: bool, seed: int) -> dict:
+    """The flash kernels at one block shape (every key valid): forward, dq
+    and dk/dv each timed with CUDA events, beside the plain versions, SDPA
+    (memory-efficient backend: forward, and autograd backward for dq, dk and
+    dv together) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from bridgelang_tpu_torch.ops.flash_attention import (
+        _launch, flash_attention_bwd_plain, flash_attention_plain, flash_bwd_dkv, flash_bwd_dq)
+    from bridgelang_tpu_torch.ops.ring_attention import row_delta
+
+    q, k, v, lens = attention_case(b, t, s, h, hkv, 128, [s] * b, None, torch.bfloat16, seed)
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(seed + 1), device="cuda",
+                     dtype=q.dtype)
+    o, lse = _launch(q, k, v, lens, causal, None)
+    delta = row_delta(o, do)
+    ms = {"fwd": cuda_ms(lambda: _launch(q, k, v, lens, causal, None), 20),
+          "dq": cuda_ms(lambda: flash_bwd_dq(q, k, v, do, lse, delta, lens, causal), 20),
+          "dkv": cuda_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, lens, causal), 20),
+          "plain_fwd": cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal), 3),
+          "plain_bwd": cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal), 3)}
+    rep = h // hkv
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)))
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        ms["library_fwd"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), 20)
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        ms["library_bwd"] = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do.transpose(1, 2),
+                                                                retain_graph=True), 20)
+    bounds = {w: block_bound_ms(q, k, causal, w) for w in ("fwd", "dq", "dkv")}
+    log(f"timing block {label}: B={b} T={t} S={s} H={h}/{hkv} D=128 bf16 {'causal' if causal else 'full'}: "
+        + ", ".join(f"{key} {val:.4f} ms" for key, val in ms.items()) + "; bounds "
+        + ", ".join(f"{w} {bd[0]:.4f} ms ({bd[1]})" for w, bd in bounds.items())
+        + " (library: SDPA memory-efficient; GQA keys repeated for it, outside the timing)")
+    del q, k, v, do, o, lse, delta, qt, kt, vt, qg, kg, vg, out
+    torch.cuda.empty_cache()
+    return dict(shape=f"B={b} T={t} S={s} H={h}/{hkv} D=128 bf16 {'causal' if causal else 'full'}", ms=ms,
+                bounds=bounds)
+
+
+def ring_phase() -> dict:
+    """The ring attention's per-block compute on the card: a virtual ring of
+    n blocks of one sequence (ops/ring_attention.virtual_ring_forward /
+    virtual_ring_backward, the block functions the ranks call, the rotations
+    replaced by indexing) at the 7B's heads for n in RING_NS, timed against
+    the whole-sequence kernels, and at Mistral's GQA heads for one n; then
+    the kernels at the shapes this slice launches them at: a full and a
+    diagonal block of the 8-block ring, and a tensor=2 rank's LoRA step
+    (16 of the 7B's 32 heads, B=16, T=352, causal)."""
+    t0 = time.perf_counter()
+    cases = [ring_case("7B", 32, 32, n, 900 + n, timed=True) for n in RING_NS]
+    cases.append(ring_case("mistral", 32, 8, RING_GQA_N, 950, timed=False))
+    tb = RING_T // RING_NS[-1]
+    blocks = {"full": time_block(f"ring n={RING_NS[-1]} full", RING_B, tb, tb, 32, 32, False, 960),
+              "diagonal": time_block(f"ring n={RING_NS[-1]} diagonal", RING_B, tb, tb, 32, 32, True, 962)}
+    b, t, h, hkv, _ = TP_TRAIN_SHAPE
+    tensor_rank = time_block("tensor=2 rank", b, t, t, h, hkv, True, 964)
+    launches = {name: sum(c["launches"].get(name, 0) for c in cases) for name in KERNEL_NAMES}
+    result = dict(cases=cases, blocks=blocks, tensor_rank=tensor_rank, launches=launches,
+                  phase_s=time.perf_counter() - t0)
+    log(f"ring phase: {result['phase_s']:.1f} s; launches {launches}; {nvidia_smi_line()}")
+    return result
 
 
 def int4_bound_ms(m: int, k: int, n: int, group: int, mode: str):
@@ -2468,6 +2674,7 @@ PHI_IDS = ("prism-phi-dinosiglip+3b", "dinosiglip-vit-so-224px", "phi-2-3b", "no
 MISTRAL_IDS = ("prism-mistral-dinosiglip+7b", "dinosiglip-vit-so-224px", "mistral-v0.1-7b-pure",
                "no-align+fused-gelu-mlp")
 MISTRAL_LAYERS = 4       # of its 32 decoder layers: bounds the phase's time
+PHI_LAYERS = 16          # of its 32 decoder layers: bounds the whole smoke's time
 PHI_LORA_STEPS = 3       # timed LoRA steps of the Phi VLA after one warm step
 KV8_BAND = 0.05          # int8 against bf16 KV cache: |dlogit| <= 0.05 max|logit| (the w8a8 paths' rule)
 
@@ -2607,18 +2814,19 @@ def kv_cache_int8(model, params, label: str) -> dict:
 
 
 def phi_phase() -> dict:
-    """Phi-2 (prism-phi-dinosiglip+3b) at full width and depth, bf16 random
-    weights: served through graphs (ids equal to eager, 32 flash_fwd at
-    D=80 per predict) and VLAServer; the int8 KV cache; LoRA steps (64/32/32
-    flash launches at D=80 per step); then packed to int4 and served w4a8
-    (6 projections x 32 layers = 192 int4_mm_a8 and quantize_a8 per pass);
-    then QLoRA over the int4 base with w8a8 off (384 int4_mm per step at
-    Phi's shapes, 64/32/32 flash launches), merged and predicting."""
+    """Phi-2 (prism-phi-dinosiglip+3b) at full width, its decoder cut to
+    PHI_LAYERS (L) of 32 layers, bf16 random weights: served through graphs
+    (ids equal to eager, L flash_fwd at D=80 per predict) and VLAServer; the
+    int8 KV cache; LoRA steps (2L/L/L flash launches at D=80 per step); then
+    packed to int4 and served w4a8 (6 projections x L layers int4_mm_a8 and
+    quantize_a8 per pass); then QLoRA over the int4 base with w8a8 off (12 L
+    int4_mm per step at Phi's shapes, 2L/L/L flash launches), merged and
+    predicting."""
     import torch
 
     from bridgelang_tpu_torch.ops.quant import quantize_llm_int4
 
-    model, params = build_registered(PHI_IDS, SEED)
+    model, params = build_registered(PHI_IDS, SEED, n_layers=PHI_LAYERS)
     n_layers = model.cfg.llm.n_layers
     out = {"llm_gb": tensor_gb(params["llm"]), "model_gb": tensor_gb(params)}
     ids, _ = model.pad_prompt([model.prepare_prompt_ids(INSTRUCTIONS[0])])
@@ -2655,7 +2863,7 @@ def phi_phase() -> dict:
     model4.graphs.clear()
     release_memory()
     # QLoRA over the int4 base (w8a8 off, as the 7B qlora phase): int4_mm at Phi's shapes in the forward and
-    # the full-remat recompute (2 x 6 projections x 32 layers), the flash pair at head dim 80 in the backward;
+    # the full-remat recompute (2 x 6 projections x the layers), the flash pair at head dim 80 in the backward;
     # then the merge (dequantize, add, requantize) and one action through the merged int4 weights.
     out["qlora"] = train_adapters(w8a8_model(model, w8a8=False), params, SEED, "phi_qlora", PHI_LORA_STEPS,
                                   {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers,
@@ -3357,6 +3565,10 @@ def finetune_phase(ckpt_dir: str, dots_peak_gb: float, mesh: bool = False) -> di
                 state_b = train.main(parse_cli(train.TrainConfig, targs + [
                     "--run_id", "b", "--pretrained_checkpoint", ckpt4[0], "--resume_step", str(FT_TRAIN_STEPS - 1)]))
             res = probe_b.summary()
+            if mesh:  # the ring on the same cut, from the same flags
+                t_ring = time.perf_counter()
+                result["mesh"]["train_ring"] = mesh_ring_train(targs, tr["losses"], cut_step)
+                result["mesh"]["phase_s"] += time.perf_counter() - t_ring
         finally:
             llama.LLM_CONFIGS["llama2-7b-pure"] = full_llm
         la, lb = tr["losses"][-1], res["losses"][0]
@@ -3517,14 +3729,17 @@ def finish_mesh_deploy(h: dict, model, params) -> dict:
     return r
 
 
-def mesh_finetune(world: int, common: list, unsharded: list) -> dict:
-    """finetune.main --mesh_shape fsdp=<world> for MESH_FT_STEPS steps (bf16
-    LoRA r=32, batch 16, the unsharded run's flags): at one card in this
-    process (a one-rank NCCL group, released after), its losses bit-equal to
-    the unsharded run's first steps, launches and collectives per step, step
-    ms and peak GB; on more cards through torchrun (each rank its share of
-    the data), its losses within 1e-2 relative of the unsharded run's."""
+def mesh_finetune(shape: str, world: int, common: list, unsharded: list) -> dict:
+    """finetune.main --mesh_shape <shape> for MESH_FT_STEPS steps (bf16 LoRA
+    r=32, batch 16, the unsharded run's flags; "fsdp=W", or "tensor=W" with
+    the decoder tensor-parallel, the adapters used by block and the loss over
+    the vocabulary blocks): at one card in this process (a one-rank NCCL
+    group, released after), its losses bit-equal to the unsharded run's
+    first steps, launches and collectives per step, step ms and peak GB; on
+    more cards through torchrun (each data rank its share of the data), its
+    losses within 1e-2 relative of the unsharded run's."""
     import glob
+    import shutil
 
     import torch
     import torch.distributed as dist
@@ -3534,11 +3749,12 @@ def mesh_finetune(world: int, common: list, unsharded: list) -> dict:
     from bridgelang_tpu_torch.parallel.collectives import collective_launches
 
     args = common + ["--max_steps", str(MESH_FT_STEPS), "--image_aug", "true", "--export_hf", "false",
-                     "--mesh_shape", f"fsdp={world}", "--trackers", "jsonl"]
+                     "--mesh_shape", shape, "--trackers", "jsonl"]
     lora_step = {"flash_fwd": 2 * N_LAYERS_7B, "flash_bwd_dq": N_LAYERS_7B, "flash_bwd_dkv": N_LAYERS_7B}
+    runs = common[common.index("--run_root_dir") + 1]
     if world == 1:
         before = collective_launches()
-        with EntryPointProbe(f"finetune fsdp={world}", lora_step, profile=None) as probe:
+        with EntryPointProbe(f"finetune {shape}", lora_step, profile=None) as probe:
             run = finetune.main(parse_cli(finetune.FinetuneConfig, args))
         r = probe.summary()
         r["collectives_per_step"] = (collective_launches() - before) / max(1, r["steps"])
@@ -3548,63 +3764,156 @@ def mesh_finetune(world: int, common: list, unsharded: list) -> dict:
         release_memory()
         losses = r["losses"]
         if losses != unsharded[:MESH_FT_STEPS]:
-            fail(f"finetune fsdp={world}: losses {losses} != the unsharded run's {unsharded[:MESH_FT_STEPS]}")
-        log(f"mesh finetune fsdp={world}: losses {losses} bit-equal to the unsharded finetune.main's first "
+            fail(f"finetune {shape}: losses {losses} != the unsharded run's {unsharded[:MESH_FT_STEPS]}")
+        log(f"mesh finetune {shape}: losses {losses} bit-equal to the unsharded finetune.main's first "
             f"{MESH_FT_STEPS}; {r['collectives_per_step']:.0f} collectives per step (each leaf's gather at use, "
-            f"the regather in the recompute, the adapters' and the count's sums); step ms "
-            f"{[round(x, 1) for x in r['step_ms']]}; peak {r['step_peak_gb']:.2f} GB")
+            f"the regather in the recompute, the decoder's tensor-parallel sums and copies, the logits' gathers, "
+            f"the adapters' and the count's sums); step ms {[round(x, 1) for x in r['step_ms']]}; peak "
+            f"{r['step_peak_gb']:.2f} GB")
     else:
         t0 = time.perf_counter()
-        log_path = os.path.join(os.path.dirname(common[common.index("--run_root_dir") + 1]), "mesh_finetune.log")
+        log_path = os.path.join(os.path.dirname(runs), f"mesh_finetune_{shape.replace(',', '_')}.log")
         with open(log_path, "w") as out:
             rc = subprocess.call(_launcher(world, "bridgelang_tpu_torch.finetune") + args, cwd=ROOT, stdout=out,
                                  stderr=subprocess.STDOUT)
         if rc != 0:
             with open(log_path) as f:
-                fail(f"finetune fsdp={world} (torchrun): exit code {rc}\n{f.read()[-3000:]}")
-        rows = [json.loads(line) for p in glob.glob(os.path.join(common[common.index("--run_root_dir") + 1], "*",
-                                                                 "*.jsonl")) for line in open(p)]
+                fail(f"finetune {shape} (torchrun): exit code {rc}\n{f.read()[-3000:]}")
+        rows = [json.loads(line) for p in glob.glob(os.path.join(runs, "*", "*.jsonl")) for line in open(p)]
         losses = [row["train/loss"] for row in rows if "train/loss" in row][:MESH_FT_STEPS]
         if not losses or any(abs(a - b) > 1e-2 * abs(b) for a, b in zip(losses, unsharded)):
-            fail(f"finetune fsdp={world}: losses {losses} vs the unsharded run's {unsharded[:MESH_FT_STEPS]}")
+            fail(f"finetune {shape}: losses {losses} vs the unsharded run's {unsharded[:MESH_FT_STEPS]}")
         r = dict(losses=losses, wall_s=time.perf_counter() - t0)
-        log(f"mesh finetune fsdp={world} (torchrun): losses {losses} (unsharded {unsharded[:MESH_FT_STEPS]})")
+        log(f"mesh finetune {shape} (torchrun): losses {losses} (unsharded {unsharded[:MESH_FT_STEPS]})")
+    for run_dir in glob.glob(os.path.join(runs, "*")):  # the next mesh run's losses are read from this root
+        shutil.rmtree(run_dir, ignore_errors=True)
     return r
 
 
-def fsdp_state_gb(fsdp_sizes=(1, 2, 4, 8)) -> dict:
+RING_TRAIN_STEPS = 2     # train.main --attention_impl ring steps, held to the first steps of the run without it
+# train.main on torchrun's ranks with the decoder cut as in this process (the registry is patched per process)
+RING_TRAIN_SCRIPT = """import dataclasses, sys
+sys.path.insert(0, {root!r})
+from bridgelang_tpu_torch.models.llm import llama
+llama.LLM_CONFIGS["llama2-7b-pure"] = dataclasses.replace(llama.LLM_CONFIGS["llama2-7b-pure"], n_layers={layers})
+from bridgelang_tpu_torch import train
+from bridgelang_tpu_torch.conf import parse_cli
+train.main(parse_cli(train.TrainConfig, sys.argv[1:]))
+"""
+
+
+def with_flags(argv: list, flags: dict) -> list:
+    """`argv` ("--name value" pairs) with `flags` set (replaced or added)."""
+    pairs = dict(zip(argv[::2], argv[1::2]))
+    pairs.update(flags)
+    return [x for kv in pairs.items() for x in kv]
+
+
+def mesh_ring_train(targs: list, unsharded: list, per_step: dict) -> dict:
+    """train.main --attention_impl ring --vla.mesh_shape fsdp=W for
+    RING_TRAIN_STEPS steps on the finetune phase's depth-cut 7B, from the
+    flags of its run without the flag: at one card (a one-rank NCCL group in
+    this process, released after) the ring's axis has one rank, so the
+    decoder takes the JAX rule's fallback, the flash kernels, and the losses
+    are bit-equal to that run's first steps; on more cards through torchrun
+    the ring runs over fsdp=W (each data rank its share of the data, the
+    losses within 1e-2 relative of the one-card run's)."""
+    import glob
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from bridgelang_tpu_torch import train
+    from bridgelang_tpu_torch.conf import parse_cli
+    from bridgelang_tpu_torch.models.llm import llama
+    from bridgelang_tpu_torch.parallel.collectives import collective_launches
+
+    world = torch.cuda.device_count()
+    runs = targs[targs.index("--run_root_dir") + 1]
+    args = with_flags(targs, {"--run_id": "ring", "--max_steps_override": str(RING_TRAIN_STEPS),
+                              "--vla.save_interval": "1000", "--attention_impl": "ring",
+                              "--vla.mesh_shape": f"fsdp={world}"})
+    want = unsharded[:RING_TRAIN_STEPS]
+    if world == 1:
+        before = collective_launches()
+        with EntryPointProbe("train ring fsdp=1", per_step, profile=None) as probe:
+            train.main(parse_cli(train.TrainConfig, args))
+        r = probe.summary()
+        r["collectives_per_step"] = (collective_launches() - before) / max(1, r["steps"])
+        dist.destroy_process_group()
+        del probe
+        if r["losses"] != want:
+            fail(f"train --attention_impl ring fsdp=1: losses {r['losses']} != the run without it {want}")
+        log(f"mesh train --attention_impl ring --vla.mesh_shape fsdp=1: losses {r['losses']} bit-equal to the run "
+            f"without the flag (one rank on the ring's axis: the flash kernels); step ms "
+            f"{[round(x, 1) for x in r['step_ms']]}; {r['collectives_per_step']:.0f} collectives per step")
+    else:
+        t0 = time.perf_counter()
+        script = os.path.join(runs, "ring_train.py")
+        with open(script, "w") as f:
+            f.write(RING_TRAIN_SCRIPT.format(root=ROOT, layers=llama.LLM_CONFIGS["llama2-7b-pure"].n_layers))
+        log_path = os.path.join(runs, "ring_train.log")
+        with open(log_path, "w") as out:
+            rc = subprocess.call([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                                  str(world), script] + args, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+        if rc != 0:
+            with open(log_path) as f:
+                fail(f"train ring fsdp={world} (torchrun): exit code {rc}\n{f.read()[-3000:]}")
+        rows = [json.loads(line) for p in glob.glob(os.path.join(runs, "ring", "*.jsonl")) for line in open(p)]
+        losses = [row["train/loss"] for row in rows if "train/loss" in row][:RING_TRAIN_STEPS]
+        if not losses or any(abs(a - b) > 1e-2 * abs(b) for a, b in zip(losses, want)):
+            fail(f"train ring fsdp={world}: losses {losses} vs the one-card run's {want}")
+        r = dict(losses=losses, wall_s=time.perf_counter() - t0)
+        log(f"mesh train --attention_impl ring fsdp={world} (torchrun): losses {losses} (one card {want})")
+    shutil.rmtree(os.path.join(runs, "ring"), ignore_errors=True)  # its final save (~11 GB)
+    release_memory()
+    return r
+
+
+MESH_STATE_SHAPES = ((1, 1), (2, 1), (4, 1), (8, 1), (1, 2), (2, 2), (4, 2), (2, 4))  # (fsdp, tensor)
+
+
+def fsdp_state_gb(shapes=MESH_STATE_SHAPES) -> dict:
     """Worked out, not measured: each rank's bytes of the 7B's pretraining
     finetune stage (projector + LLM trained, every parameter fp32, AdamW's
     mu and nu and the grad_accum 2 accumulator for the trained tensors) at
-    each fsdp size, from the placements (`param_pspecs`: a leaf the rules
-    shard over fsdp is split, the rest whole), on a meta-device tree; plus
-    the step's transients: this rank's fp32 gradients, the towers, projector,
-    embedding and head gathered in bf16, one decoder layer gathered in bf16."""
+    each (fsdp, tensor) shape, from the placements (`param_pspecs`: a leaf
+    is split over each axis its spec names), on a meta-device tree; plus the
+    step's transients: this rank's fp32 gradients, the towers, projector,
+    embedding and head gathered over fsdp in bf16 (the head a vocabulary
+    block), one decoder layer gathered over fsdp in bf16 (its tensor
+    blocks)."""
     import torch
 
     from bridgelang_tpu_torch.models.load import _expected_llm_shapes
     from bridgelang_tpu_torch.models.vlm import PrismaticVLM, VLMConfig
-    from bridgelang_tpu_torch.parallel.fsdp import _leaves, fsdp_dim
+    from bridgelang_tpu_torch.parallel.fsdp import _flat_axes, _leaves
     from bridgelang_tpu_torch.parallel.sharding import param_pspecs
 
     model = PrismaticVLM(VLMConfig(), device="cpu")
-    shapes = _expected_llm_shapes(model.cfg.llm)
+    shapes_7b = _expected_llm_shapes(model.cfg.llm)
     layer = ("wq", "wk", "wv", "wo", "attn_norm", "w_gate", "w_up", "w_down", "mlp_norm")
-    llm = {k: torch.empty(shapes[k], device="meta") for k in ("embed", "final_norm", "lm_head")}
-    llm["layers"] = [{k: torch.empty(shapes[k], device="meta") for k in layer} for _ in range(N_LAYERS_7B)]
+    llm = {k: torch.empty(shapes_7b[k], device="meta") for k in ("embed", "final_norm", "lm_head")}
+    llm["layers"] = [{k: torch.empty(shapes_7b[k], device="meta") for k in layer} for _ in range(N_LAYERS_7B)]
     params = {"vision": dict(model.vision_module.named_parameters()), "projector": dict(model.projector.named_parameters()),
               "llm": llm}
     leaves, specs = _leaves(params), _leaves(param_pspecs(params))
     marks = _leaves(model.trainable_mask(params, "finetune"))
-    eager = sum(p.numel() for name in ("vision", "projector") for p in params[name].values()) + 2 * llm["embed"].numel()
+    layer_specs = param_pspecs(params)["llm"]["layers"][0]
     out = {}
-    for f in fsdp_sizes:
-        share = [t.numel() / (f if fsdp_dim(s) is not None else 1) for t, s in zip(leaves, specs)]
+    for f, t in shapes:
+        share = [x.numel() / (f if "fsdp" in _flat_axes(sp) else 1) / (t if "tensor" in _flat_axes(sp) else 1)
+                 for x, sp in zip(leaves, specs)]
         trained = sum(n for n, m in zip(share, marks) if m)
-        out[f"fsdp={f}"] = dict(params=4e-9 * sum(share), moments=8e-9 * trained, accumulator=4e-9 * trained,
-                                grads=4e-9 * trained, gathered_bf16=2e-9 * eager,
-                                layer_bf16=2e-9 * sum(t.numel() for t in llm["layers"][0].values()))
-        out[f"fsdp={f}"]["state"] = sum(out[f"fsdp={f}"][k] for k in ("params", "moments", "accumulator"))
+        eager = (sum(p.numel() for name in ("vision", "projector") for p in params[name].values())
+                 + llm["embed"].numel() + llm["lm_head"].numel() / t)
+        one_layer = sum(x.numel() / (t if "tensor" in _flat_axes(layer_specs[k]) else 1)
+                        for k, x in llm["layers"][0].items())
+        key = f"fsdp={f},tensor={t}"
+        out[key] = dict(params=4e-9 * sum(share), moments=8e-9 * trained, accumulator=4e-9 * trained,
+                        grads=4e-9 * trained, gathered_bf16=2e-9 * eager, layer_bf16=2e-9 * one_layer)
+        out[key]["state"] = sum(out[key][k] for k in ("params", "moments", "accumulator"))
     log("worked out, not measured: per-rank GB of the 7B's pretraining finetune stage (fp32 params, AdamW mu + nu, "
         "the accumulator; then the step's transients) " + "; ".join(
             f"{k}: state {v['state']:.1f} (params {v['params']:.1f}, mu + nu {v['moments']:.1f}, accumulator "
@@ -3664,8 +3973,10 @@ def mesh_phase(ckpt_dir: str, common: list, unsharded_losses: list) -> dict:
             model.graphs.clear()
             del model, params
             release_memory()
-        reset_launch_counts()  # the main path's launches: the mesh finetune (the deploys report theirs)
-        result["finetune"][f"fsdp={world}"] = mesh_finetune(world, common, unsharded_losses)
+        reset_launch_counts()  # the main path's launches: the mesh finetunes (the deploys report theirs)
+        shapes = [f"fsdp={world}", f"tensor={world}"] + ([f"fsdp=2,tensor={world // 2}"] if world >= 4 else [])
+        for shape in shapes:
+            result["finetune"][shape] = mesh_finetune(shape, world, common, unsharded_losses)
     result["launches"] = launch_counts()
     result["phase_s"] = time.perf_counter() - t_phase
     log(f"mesh phase: {result['phase_s']:.1f} s; launches of the mesh finetune {result['launches']}; "
@@ -3834,9 +4145,9 @@ PT_MICRO_STEPS = 4       # max_steps_override: 4 micro-steps, 2 accumulated upda
 PT_ALIGN_EXAMPLES = 64   # the align chat.json (558k shape): 4 micro-batches of 16
 PT_FT_IMAGE_EXAMPLES = 48  # the finetune JSON (mix665k shape): 3 multimodal micro-batches
 PT_FT_TEXT_EXAMPLES = 16   # and 1 text-only one, some past the 2048-token bucket
-PT_ALIGN_LAYERS = 8      # the align stage's cut, for the smoke's time: 8 of 32 layers, full width
-PT_FT_LAYERS = 4         # the finetune stage's cut: AdamW's fp32 state of all 32 layers (~109 GB) needs FSDP;
-#                          4, not 8 (PR 12), keeps the whole smoke near 1000 s of its 1200 s limit
+PT_ALIGN_LAYERS = 4      # the align stage's cut, for the smoke's time: 4 of 32 layers, full width
+PT_FT_LAYERS = 2         # the finetune stage's cut: AdamW's fp32 state of all 32 layers (~109 GB) needs FSDP;
+#                          2 keeps the whole smoke under its 1200 s limit
 PT_KERNEL_B = 2          # rows 1-3 against their plain versions at T=2304 (the plain scores: ~1.4 GB of fp32)
 PT_PATCHES = 256
 WORDS = ("a the red blue green small large wooden metal table cup block spoon towel drawer robot arm gripper "
@@ -4812,7 +5123,7 @@ def release_memory() -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description="torch port smoke run on one GPU")
     ap.add_argument("--phases",
-                    default="build,load,kernels,serve,spec,parallel,train,int8,int4,qlora,variants,tfds,scripts,"
+                    default="build,load,kernels,ring,serve,spec,parallel,train,int8,int4,qlora,variants,tfds,scripts,"
                             "robot,finetune,mesh,pretrain,parity",
                     help="comma-separated subset, for bring-up; the full run is the default; `cold` (not in "
                          "the default) runs only the device-side cold-L2 timings of the kernels phase")
@@ -4894,6 +5205,10 @@ def main() -> None:
     if phases & {"kernels", "cold"}:
         cold = cold_timings("this checkout" if os.path.abspath(args.package_root) == ROOT else args.package_root)
         mark("kernels")
+    ring = None
+    if "ring" in phases:
+        ring = ring_phase()
+        mark("ring")
 
     served = parallel = None
     spec = {}
@@ -5052,6 +5367,7 @@ def main() -> None:
                    "finetune": (tuned or {}).get("launches", zero), "tfds": (tfds or {}).get("launches", zero),
                    "scripts": (scripts or {}).get("launches", zero), "robot": (robot or {}).get("launches", zero),
                    "pretrain": (pretrained or {}).get("launches", zero),
+                   "ring_blocks": (ring or {}).get("launches", zero),
                    "mesh_finetune": (tuned or {}).get("mesh", {}).get("launches", zero),
                    **{f"mesh_deploy {k}": d["launches"] for k, d in (tuned or {}).get("mesh", {}).get("deploy", {}).items()},
                    **{f"spec_{kind}": result["launches"] for kind, result in spec.items()}}
@@ -5101,6 +5417,11 @@ def main() -> None:
             entry["tfds"] = {k: v for k, v in tfds.items() if k != "launches"}
         if variants:
             entry["variants"] = variants
+        if ring:
+            entry["ring"] = dict(cases=ring["cases"], block=ring["blocks"], tensor_rank=ring["tensor_rank"],
+                                 note="the virtual ring: n blocks of one B=2 T=2304 bf16 sequence through the ring's "
+                                      "block functions on one card; block and tensor_rank: the kernels at one ring "
+                                      "block (n=8) and at a tensor=2 rank's LoRA step, CUDA events")
         if scripts:
             entry["scripts"] = {k: v for k, v in scripts.items() if k != "launches"}
         if robot:
@@ -5135,6 +5456,10 @@ def main() -> None:
                     note="medians of interleaved rounds at B=16 T=2304 with each stage's first micro-batch's "
                          "lengths; library_ms: SDPA's memory-efficient autograd backward (dq, dk, dv together); "
                          "plain_ms_b2: the plain backward at B=2")
+            if ring:
+                extra_t2304["ring"] = {key: dict(shape=x["shape"], ms=x["ms"][err], plain_ms=x["ms"]["plain_bwd"],
+                                                 library_ms=x["ms"]["library_bwd"], bound=x["bounds"][err])
+                                       for key, x in (*ring["blocks"].items(), ("tensor_rank", ring["tensor_rank"]))}
             entries.append(kernel_entry(
                 name, "bridgelang_tpu_torch/csrc/flash_bwd.cu", line, launches(name), timing, **extra_t2304,
                 tolerance_use=max(r[w]["use"] for r in bwd_readings.values()

@@ -166,7 +166,7 @@ def test_full_attention_equals_jax_under_a_general_mask():
     with pytest.raises(ValueError, match="attention="):
         tllama.llm_forward(llm_params_from_jax(_np(_float_tree()[1])), tllama.LLMConfig(**SMALL_VOCAB),
                            torch.zeros((1, 2, 256)), torch.zeros((1, 2), dtype=torch.long),
-                           torch.ones((1, 1, 2, 2), dtype=torch.bool), attention="einsum")
+                           torch.ones((1, 1, 2, 2), dtype=torch.bool), attention="bogus")
 
 
 def _int8_vla(pair_, w8a8):

@@ -12,6 +12,11 @@ no causal mask, and NaN in dead key slots, at head dims 64, 80 and 128. The emul
 order than the tensor cores, so the rules are the card's: the forward's o
 within FWD_ATOL and lse within 1e-3 on valid rows; the backward per element
 under GRAD_TOL (grad_tolerance_use <= 1), dead key slots exactly zero.
+The ring attention's blocks (ops/ring_attention.py with the emulated
+kernels behind its wrappers): a full block and a causal diagonal block at
+T = S = 72, and a ring of two such blocks forward and backward, the
+backward kernels given the whole sequence's lse and delta, against the
+plain versions over the whole sequence, under the same rules.
 
 The w4a8 kernels of csrc/int4_matmul.cu (the split-K decode kernel and the
 wgmma prefill kernel) and its activation quantization sum integers, so the
@@ -24,6 +29,7 @@ holding a NaN gets a NaN scale, as in the plain version; a K shard
 quantized with a given (the whole row's) absmax. Skips without g++.
 """
 
+import contextlib
 import ctypes
 import re
 import shutil
@@ -41,7 +47,7 @@ from bridgelang_tpu_torch.ops.quant import pack_int4, quantize_activations_per_t
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-from chip_smoke import FWD_ATOL, grad_tolerance_use  # noqa: E402
+from chip_smoke import FWD_ATOL, grad_tolerance_use, ring_tolerance_use  # noqa: E402
 
 CSRC = ROOT / "bridgelang_tpu_torch" / "csrc"
 EMU = Path(__file__).resolve().parent / "cuda_emu"
@@ -164,6 +170,106 @@ def test_emulated_flash_backward_matches_plain(emulated, name, nan_in_dead_slots
         assert grad_tolerance_use(got, w) <= 1.0, what
     for i, L in enumerate(lens.tolist()):
         assert not dk[i, L:].any() and not dv[i, L:].any()
+
+
+# --- the ring's blocks ----------------------------------------------------------------
+
+
+@pytest.fixture
+def emulated_ring(emulated):
+    """A context in which ops/ring_attention.py runs the emulated kernels in
+    place of the card's: its block functions take the CUDA route (every key
+    valid, the wrappers' argument order) on CPU tensors."""
+    from bridgelang_tpu_torch.ops import ring_attention as ra
+
+    fwd, dq_fn, dkv_fn = emulated
+
+    def dims(q, k, causal):
+        b, t, h, d = q.shape
+        return [b, t, k.shape[1], h, k.shape[2], d, DTYPE_CODES[q.dtype], int(causal), 0]
+
+    def launch(q, k, v, lengths, causal, window):
+        assert window is None
+        o, lse = torch.full_like(q, float("nan")), torch.full((q.shape[0], q.shape[2], q.shape[1]), float("nan"))
+        assert fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                   *dims(q, k, causal), q.shape[3] ** -0.5, None) == 0
+        return o, lse
+
+    def bwd_ptrs(q, k, v, do, lse, delta, lengths):
+        assert lse.is_contiguous() and delta.is_contiguous() and delta.dtype == torch.float32
+        return [x.data_ptr() for x in (q, k, v, do, lse, delta, lengths)]
+
+    def dq(q, k, v, do, lse, delta, lengths, causal=True, window=None):
+        out = torch.full_like(q, float("nan"))
+        assert dq_fn(*bwd_ptrs(q, k, v, do, lse, delta, lengths), out.data_ptr(), *dims(q, k, causal),
+                     q.shape[3] ** -0.5, None) == 0
+        return out
+
+    def dkv(q, k, v, do, lse, delta, lengths, causal=True, window=None):
+        dk, dv = torch.full_like(k, float("nan")), torch.full_like(v, float("nan"))
+        assert dkv_fn(*bwd_ptrs(q, k, v, do, lse, delta, lengths), dk.data_ptr(), dv.data_ptr(), *dims(q, k, causal),
+                      q.shape[3] ** -0.5, None) == 0
+        return dk, dv
+
+    @contextlib.contextmanager
+    def on():
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(ra, "_device", lambda x: "cuda")
+            mp.setattr(ra, "_launch", launch)
+            mp.setattr(ra, "flash_bwd_dq", dq)
+            mp.setattr(ra, "flash_bwd_dkv", dkv)
+            yield
+
+    return on
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full_block", "diagonal_block"])
+def test_emulated_ring_block_matches_plain(emulated_ring, causal):
+    """One block at T = S = 72 (a ring of 144 tokens over 2 ranks): the full
+    (non-causal) block and the causal diagonal block, against the plain
+    forward."""
+    from bridgelang_tpu_torch.ops import ring_attention as ra
+
+    g = torch.Generator().manual_seed(41)
+    q = torch.randn((2, 72, 4, 64), generator=g).to(torch.bfloat16)
+    k, v = (torch.randn((2, 72, 2, 64), generator=g).to(torch.bfloat16) for _ in range(2))
+    with emulated_ring():
+        o, lse = ra.block_forward(q, k, v, causal)
+    po, plse = flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(o.float(), po.float(), atol=FWD_ATOL["bfloat16"], rtol=0)
+    torch.testing.assert_close(lse, plse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "not_causal"])
+def test_emulated_ring_matches_the_whole_sequence(emulated_ring, causal):
+    """The virtual ring of 2 blocks of 72 through the emulated kernels (full
+    and diagonal blocks forward, merged in fp32; both backward kernels of
+    each block given the whole sequence's lse and delta, not the block's
+    own) against the plain versions over all 144 tokens (GQA 4 over 2
+    heads, bf16): o within FWD_ATOL and lse 1e-3 of the whole sequence's;
+    the gradients, given the whole sequence's o and lse, against the whole
+    sequence's, and, given the ring's own o and lse, against the plain
+    virtual ring's, each under GRAD_TOL of the blocks' summed magnitudes
+    (chip_smoke.ring_tolerance_use: each block's gradient is rounded to
+    bf16 by the kernel before the fp32 sum)."""
+    from bridgelang_tpu_torch.ops import ring_attention as ra
+
+    g = torch.Generator().manual_seed(42)
+    q, do = (torch.randn((1, 144, 4, 64), generator=g).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((1, 144, 2, 64), generator=g).to(torch.bfloat16) for _ in range(2))
+    po, plse = flash_attention_plain(q, k, v, causal=causal)
+    with emulated_ring():
+        o, lse = ra.virtual_ring_forward(q, k, v, 2, causal)
+    torch.testing.assert_close(o.float(), po.float(), atol=FWD_ATOL["bfloat16"], rtol=0)
+    torch.testing.assert_close(lse, plse, atol=1e-3, rtol=0)
+    whole = flash_attention_bwd_plain(q, k, v, po, plse, do, causal=causal)
+    for fo, flse, want in ((po, plse, whole), (o, lse, None)):
+        with emulated_ring():
+            got = ra.virtual_ring_backward(q, k, v, fo, flse, do, 2, causal)
+        plain, mags = ra.virtual_ring_backward(q, k, v, fo, flse, do, 2, causal, magnitudes=True)
+        for a, w, m, what in zip(got, want or plain, mags, ("dq", "dk", "dv")):
+            assert torch.isfinite(a).all(), what
+            assert ring_tolerance_use(a, w, m) <= 1.0, what
 
 
 # --- w4a8: int4_mm_a8 and quantize_a8 ------------------------------------------------

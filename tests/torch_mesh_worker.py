@@ -49,7 +49,8 @@ def build_vla(spec: Dict[str, Any], norm_stats, w8a8: bool = False, int4_shards:
 
     llm = LLMConfig(**spec["llm"], w8a8=w8a8, int4_shards=int4_shards)
     towers = tuple(ViTConfig(**v) for v in spec["towers"])
-    cfg = dataclasses.replace(VLMConfig(), llm=llm, vision_override=towers if len(towers) > 1 else towers[0])
+    cfg = dataclasses.replace(VLMConfig(), llm=llm, vision_override=towers if len(towers) > 1 else towers[0],
+                              attention_impl=spec.get("attention_impl"))
     model = OpenVLA(cfg, norm_stats, tokenizer=StubTokenizer(), dtype=torch.float32, device="cpu",
                     prompt_bucket=spec.get("prompt_bucket", 32))
     model.image_transform = ImageTransformConfig("resize-naive", tuple(
@@ -160,28 +161,64 @@ def suite_spmd(job, rank: int) -> Dict[str, Any]:
     return out
 
 
+_MESHES: Dict[str, Any] = {}
+
+
+def _gathered(x: torch.Tensor, group, size: int) -> list:
+    """Every rank of `group`'s `x` (same shape), in group rank order."""
+    out = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(out, x.contiguous(), group=group)
+    return out
+
+
 def _train_case(job, case, model):
     """One training case on its mesh: steps over this rank's rows, the
-    metrics and the whole parameters after each step."""
+    metrics and the whole parameters after each step. A case may name a
+    parameter file of its own (`params`), train the LoRA adapters only
+    (`lora`), and ask for the embedding block of every rank (`embed_blocks`,
+    in global rank order); on a mesh with tensor > 1 each rank's adapters
+    are compared with its tensor peers' after the steps."""
     from bridgelang_tpu_torch.parallel.fsdp import MeshTraining, full_params
+    from bridgelang_tpu_torch.parallel.mesh import mesh_sizes
     from bridgelang_tpu_torch.parallel.sharding import shard_batch
     from bridgelang_tpu_torch.training import trainer as T
     from bridgelang_tpu_torch.training.checkpointing import CheckpointManager
+    from bridgelang_tpu_torch.training.lora import lora_trainable_mask
 
-    mesh = make_mesh(case["mesh"], "cpu")
-    params = torch.load(job["params"], weights_only=True)
-    mask = model.trainable_mask(params, case["stage"]) if case.get("stage") else None
+    if case["mesh"] not in _MESHES:  # a DeviceMesh per shape: its groups are made once
+        _MESHES[case["mesh"]] = make_mesh(case["mesh"], "cpu")
+    mesh = _MESHES[case["mesh"]]
+    params = torch.load(case.get("params", job["params"]), weights_only=True)
+    if case.get("lora"):
+        mask = lora_trainable_mask(params)
+    else:
+        mask = model.trainable_mask(params, case["stage"]) if case.get("stage") else None
     opt = T.make_optimizer(T.OptimConfig(**case["optim"]), params, trainable_mask=mask,
                            grad_accum_steps=case.get("accum", 1))
     mt = MeshTraining.for_params(mesh, params, case.get("strategy", "full-shard"))
+    ring_passes = []
+    if case.get("attention_impl"):
+        from bridgelang_tpu_torch.ops import ring_attention
+
+        model = build_vla(dict(job["model"], attention_impl=case["attention_impl"]), job["norm_stats"])
+        forward = ring_attention.ring_forward
+
+        def counted(*a, **k):
+            ring_passes.append(1)
+            return forward(*a, **k)
+
+        ring_attention.ring_forward = counted  # this process runs one case at a time
     step = T.make_vla_train_step(model, opt, trainable_mask=mask, compute_dtype=torch.float32,
                                  image_transform=model.image_transform, mesh=mt)
     state = T.init_train_state(mt.shard(params), opt, trainable_mask=mask, mesh=mt)
-    if case.get("restore"):
-        state = CheckpointManager(case["restore"]).restore(CheckpointManager(case["restore"]).latest(), state, mesh=mt)
-        out = {"restored": T.tree_map(lambda t: t.detach().clone(), full_params(mt, state.params))}
+    if case.get("embed_blocks"):  # this rank's block of the embedding as sharded, every rank's
+        out = {"embed_blocks": _gathered(state.params["llm"]["embed"].detach(), dist.group.WORLD,
+                                         dist.get_world_size())}
     else:
         out = {}
+    if case.get("restore"):
+        state = CheckpointManager(case["restore"]).restore(CheckpointManager(case["restore"]).latest(), state, mesh=mt)
+        out["restored"] = T.tree_map(lambda t: t.detach().clone(), full_params(mt, state.params))
     metrics = []
     for batch in case["batches"]:
         local = shard_batch(mesh, {k: torch.as_tensor(v) for k, v in batch.items() if k != "dataset_names"})
@@ -191,6 +228,14 @@ def _train_case(job, case, model):
             CheckpointManager(case["save"]).save(state, step=state.step, epoch=0, loss=metrics[-1]["loss"], mesh=mt)
             out["saved"] = T.tree_map(lambda t: t.detach().clone(), full_params(mt, state.params))
     out.update(metrics=metrics, params=full_params(mt, state.params))
+    if case.get("attention_impl"):
+        ring_attention.ring_forward = forward
+        out["ring_passes"] = len(ring_passes)
+    tensor = mesh_sizes(mesh)["tensor"]
+    adapters = [t.detach().reshape(-1) for lp in state.params["llm"]["layers"] for k, t in lp.items() if "_lora_" in k]
+    if tensor > 1 and adapters:
+        peers = _gathered(torch.cat(adapters), mesh.get_group("tensor"), tensor)
+        out["adapters_equal_over_tensor"] = all(torch.equal(p, peers[0]) for p in peers)
     return out
 
 
@@ -208,18 +253,22 @@ def suite_train(job, rank: int) -> Dict[str, Any]:
 
 class GlobalRows:
     """A dataset whose batches are the global batches of a one-rank run,
-    each rank taking its rows (`shard_batch`'s layout), so that a mesh run
-    and a one-rank run train on the same global batches."""
+    each data rank taking its rows (`shard_batch`'s layout), so that a mesh
+    run and a one-rank run train on the same global batches. The rows of
+    the first batch are kept in `seen`."""
 
-    def __init__(self, ds, rank: int, world: int):
-        self.ds, self.rank, self.world = ds, rank, world
+    def __init__(self, ds, rank: int, world: int, seen: list):
+        self.ds, self.rank, self.world, self.seen = ds, rank, world, seen
 
     def __getattr__(self, name):
         return getattr(self.ds, name)
 
     def _rows(self, batch):
         k = len(batch["dataset_names"]) // self.world
-        return {name: v[self.rank * k:(self.rank + 1) * k] for name, v in batch.items()}
+        rows = {name: v[self.rank * k:(self.rank + 1) * k] for name, v in batch.items()}
+        if not self.seen:
+            self.seen.append(np.asarray(rows["input_ids"]).copy())
+        return rows
 
     def __iter__(self):
         return self._wrap(iter(self.ds))
@@ -243,11 +292,12 @@ class GlobalRows:
         return Rows()
 
 
-def _patch_entry_points(job, rank: int, world: int) -> None:
+def _patch_entry_points(job, rank: int, world: int, asked: list) -> None:
     """The tiny configs under the real ids and the tiny transform (as the
     one-rank run in the test's process), and the RLDS data read as one rank
-    reads it (no per-process sharding, the global batch) with each rank
-    keeping its rows."""
+    reads it (no per-process sharding, the global batch) with each data
+    rank keeping its rows: the data shard the entry point asks for says
+    which (`asked` gets it, the per-rank batch size and the first rows)."""
     import functools
 
     from bridgelang_tpu_torch.models import vlm as tvlm
@@ -265,10 +315,13 @@ def _patch_entry_points(job, rank: int, world: int) -> None:
     rds.rlds_reader = functools.partial(rds.rlds_reader, shard_by_process=False)
     real = materialize.get_vla_dataset_and_collator
 
-    def global_rows(*a, batch_size, shuffle_buffer_size, **k):
-        scale = world if job.get("scale_shuffle") else 1  # train.main divides the buffer by the world size
-        ds, tok, coll = real(*a, batch_size=batch_size * world, shuffle_buffer_size=shuffle_buffer_size * scale, **k)
-        return GlobalRows(ds, rank, world), tok, coll
+    def global_rows(*a, batch_size, shuffle_buffer_size, data_shard, **k):
+        count, index = data_shard
+        scale = count if job.get("scale_shuffle") else 1  # train.main divides the buffer by the data ranks
+        ds, tok, coll = real(*a, batch_size=batch_size * count, shuffle_buffer_size=shuffle_buffer_size * scale, **k)
+        seen = []
+        asked.append({"data_shard": tuple(data_shard), "batch_size": batch_size, "rows": seen})
+        return GlobalRows(ds, index, count, seen), tok, coll
 
     materialize.get_vla_dataset_and_collator = global_rows
 
@@ -294,35 +347,104 @@ def _losses():
 
 
 def suite_entry(job, rank: int) -> Dict[str, Any]:
-    """finetune.main, train.main and pretrain.run on a mesh of every rank
-    (fsdp), each on the global batches of the one-rank run."""
+    """finetune.main, train.main and pretrain.run on a mesh of every rank,
+    fsdp and then tensor, each on the global batches of the one-rank run;
+    what each rank's pipelines asked for and read, from every rank."""
     from bridgelang_tpu_torch import finetune, pretrain, train
-    from bridgelang_tpu_torch.conf import parse_cli
+    from bridgelang_tpu_torch.conf import DatasetConfig, ModelConfig, parse_cli
 
     world = dist.get_world_size()
     os.environ["HOME"] = job["home"]
     out: Dict[str, Any] = {}
-    _patch_entry_points(job, rank, world)
+    asked: list = []
+    _patch_entry_points(job, rank, world, asked)
     losses = _losses()
-    run = finetune.main(parse_cli(finetune.FinetuneConfig, job["finetune"] + ["--mesh_shape", f"fsdp={world}"]))
-    out["finetune"], out["finetune_run"] = list(losses), str(run)
-    losses.clear()
-    job["scale_shuffle"] = True
-    train.main(parse_cli(train.TrainConfig, job["train"] + ["--vla.mesh_shape", f"fsdp={world}"]))
-    out["train"] = list(losses)
-    losses.clear()
-    from bridgelang_tpu_torch.conf import DatasetConfig, ModelConfig
-
     spec = job["pretrain"]
     model = dataclasses.replace(ModelConfig.get(spec["model"][0]), **spec["model"][1])
     data = dataclasses.replace(DatasetConfig.get(spec["dataset"][0]), **spec["dataset"][1])
-    cfg = pretrain.PretrainConfig(model=model, dataset=data, **dict(spec["fields"], mesh_shape=f"fsdp={world}"))
-    pretrain.run(cfg, pretrain.vlm_config(cfg.model))
-    out["pretrain"] = list(losses)
+    for axis in ("fsdp", "tensor"):
+        mesh = f"{axis}={world}"
+        key = "" if axis == "fsdp" else "|tensor"
+        job["scale_shuffle"] = False
+        fields = dict(job["finetune"], **{"--run_root_dir": job["finetune"]["--run_root_dir"] + key})
+        run = finetune.main(parse_cli(finetune.FinetuneConfig, _argv(fields) + ["--mesh_shape", mesh]))
+        out["finetune" + key], out["finetune_run" + key] = list(losses), str(run)
+        losses.clear()
+        job["scale_shuffle"] = True
+        fields = dict(job["train"], **{"--run_root_dir": job["train"]["--run_root_dir"] + key})
+        train.main(parse_cli(train.TrainConfig, _argv(fields) + ["--vla.mesh_shape", mesh]))
+        out["train" + key] = list(losses)
+        losses.clear()
+        base = dict(spec["fields"], run_root_dir=spec["fields"]["run_root_dir"] + key)
+        if axis == "tensor":  # one data rank: the per-device batch the one-rank run's tensor reference takes
+            model = dataclasses.replace(model, **spec["tensor_model"])
+        cfg = pretrain.PretrainConfig(model=model, dataset=data, **dict(base, mesh_shape=mesh))
+        pretrain.run(cfg, pretrain.vlm_config(cfg.model))
+        out["pretrain" + key] = list(losses)
+        losses.clear()
+    everyone = [None] * world
+    dist.all_gather_object(everyone, asked)
+    out["asked"] = everyone  # per rank: finetune fsdp, train fsdp, finetune tensor, train tensor
     return out
 
 
-SUITES = {"serving": suite_serving, "spmd": suite_spmd, "train": suite_train, "entry": suite_entry}
+def _argv(fields: Dict[str, str]) -> list:
+    return [x for kv in fields.items() for x in kv]
+
+
+def suite_ring(job, rank: int) -> Dict[str, Any]:
+    """Ring attention on a fsdp=world mesh, for each case of global q, k, v
+    and an output cotangent g: `ring_attention` on this rank's block of time
+    and `ring_attention_sharded` on this rank's rows, outputs and input
+    gradients gathered back into whole tensors; the error of a length the
+    ring does not divide; the decoder's "ring" on a mesh whose fsdp axis has
+    one rank against its default attention; the rotations a ring pass makes."""
+    from bridgelang_tpu_torch.models.llm import llama
+    from bridgelang_tpu_torch.ops.ring_attention import ring_attention, ring_attention_sharded
+    from bridgelang_tpu_torch.parallel.collectives import Ring, all_gather_dim, collective_launches
+
+    world = dist.get_world_size()
+    mesh = make_mesh(f"fsdp={world}", "cpu")
+    ring = Ring.of(mesh, "fsdp")
+    out: Dict[str, Any] = {}
+    for case in job["cases"]:
+        q, k, v, g = (torch.as_tensor(case[n]) for n in ("q", "k", "v", "g"))
+        causal, res = case["causal"], {}
+        for layout, dim in (("blocks", 1), ("rows", 0)):
+            n = q.shape[dim] // world
+            mine = [x.narrow(dim, rank * n, n).clone().requires_grad_(True) for x in (q, k, v)]
+            before = collective_launches()
+            if layout == "blocks":
+                o = ring_attention(*mine, ring, causal)
+            else:
+                o = ring_attention_sharded(*mine, mesh, "fsdp", causal)
+            res[f"{layout}/collectives"] = collective_launches() - before
+            (o * g.narrow(dim, rank * n, n)).sum().backward()
+            for name, t in zip(("o", "dq", "dk", "dv"), (o.detach(), *(x.grad for x in mine))):
+                res[f"{layout}/{name}"] = all_gather_dim(t.contiguous(), dim, dist.group.WORLD, world)
+        out[case["name"]] = res
+    q = torch.as_tensor(job["cases"][0]["q"])
+    try:
+        ring_attention_sharded(q[:, :-1], q[:, :-1], q[:, :-1], mesh, "fsdp")
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    # the decoder's dispatch at fsdp = 1: replica = world
+    flat = make_mesh(f"replica={world}", "cpu")
+    cfg = llama.TensorParallelLLMConfig.of(llama.LLMConfig(**job["llm"]), None, mesh=flat)
+    g = torch.Generator().manual_seed(5)
+    params = llama.init_llm_params(g, cfg)
+    x = torch.randn((2, 16, cfg.dim), generator=g)
+    pos = torch.arange(16).expand(2, 16)
+    mask = torch.ones((2, 1, 16, 16), dtype=torch.bool).tril()
+    lengths = torch.tensor([16, 11], dtype=torch.int32)
+    ring_h, _ = llama.llm_forward(params, cfg, x, pos, mask, lengths=lengths, attention="ring")
+    flash_h, _ = llama.llm_forward(params, cfg, x, pos, mask, lengths=lengths)
+    out["axis_of_one_is_flash"] = torch.equal(ring_h, flash_h)
+    return out
+
+
+SUITES = {"serving": suite_serving, "spmd": suite_spmd, "train": suite_train, "entry": suite_entry,
+          "ring": suite_ring}
 
 
 def run_group(job: Dict[str, Any], world: int, tmp, timeout: float = 600.0) -> Dict[str, Any]:
@@ -330,6 +452,13 @@ def run_group(job: Dict[str, Any], world: int, tmp, timeout: float = 600.0) -> D
     a file store under `tmp`) and return rank 0's results. Each rank gets
     one CPU thread (the compute is small and the test workers share the
     cores); any rank's failure raises with its output."""
+    return start_group(job, world, tmp, timeout)()
+
+
+def start_group(job: Dict[str, Any], world: int, tmp, timeout: float = 600.0):
+    """`run_group` without the wait: the ranks start, and the returned
+    function waits for them and gives rank 0's results (the caller computes
+    its references meanwhile)."""
     import subprocess
     from pathlib import Path
 
@@ -343,19 +472,23 @@ def run_group(job: Dict[str, Any], world: int, tmp, timeout: float = 600.0) -> D
     logs = [open(tmp / f"rank{r}.log", "w+") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(job_path), str(r), str(world), str(store),
                                str(out)], env=env, stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
-    try:
-        rcs = [p.wait(timeout=timeout) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    if any(rcs):
-        text = []
-        for r, f in enumerate(logs):
-            f.seek(0)
-            text.append(f"--- rank {r} (rc {rcs[r]}) ---\n" + f.read()[-4000:])
-        raise RuntimeError("a rank failed:\n" + "\n".join(text))
-    return torch.load(out, weights_only=False)
+
+    def finish() -> Dict[str, Any]:
+        try:
+            rcs = [p.wait(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        if any(rcs):
+            text = []
+            for r, f in enumerate(logs):
+                f.seek(0)
+                text.append(f"--- rank {r} (rc {rcs[r]}) ---\n" + f.read()[-4000:])
+            raise RuntimeError("a rank failed:\n" + "\n".join(text))
+        return torch.load(out, weights_only=False)
+
+    return finish
 
 
 def main() -> None:
