@@ -10,4 +10,4 @@ Entry points default to `device="cuda"` and raise when no card is present;
 pass `device="cpu"` to run the plain-torch versions of the kernels (tests).
 """
 
-__version__ = "0.1.0"
+from bridgelang_tpu_torch.version import __version__  # noqa: F401

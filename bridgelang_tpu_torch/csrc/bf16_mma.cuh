@@ -1,7 +1,7 @@
 // bf16 tensor-core building blocks for Hopper (sm_90a), shared by
 // flash_fwd.cu and flash_bwd.cu: cp.async copies that zero-fill what they do
 // not read, ldmatrix operand loads, mma.sync m16n8k16 (bf16 in, fp32 sums),
-// and the 16-byte-chunk swizzle of a [64][D] bf16 tile in shared memory
+// the hi + lo bf16 split of an fp32 operand, and the 16-byte-chunk swizzle of a [64][D] bf16 tile in shared memory
 // (D = 64, 80 or 128).
 // ops/_build.py hashes every csrc/*.cuh into each library's name, so an
 // edit here rebuilds both kernels.
@@ -61,6 +61,24 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// (x0, x1) as two bf16 pairs: hi = bf16(x), lo = bf16(x - hi), which carry
+// ~16 bits of x where one bf16 rounding carries 8.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// The hi and lo A fragments of 16 columns (accumulator tiles 2kk, 2kk + 1).
+template <int N>
+__device__ __forceinline__ void split_frag(const float (&x)[N][4], int kk, uint32_t hi[4], uint32_t lo[4]) {
+  split_bf16(x[2 * kk][0], x[2 * kk][1], hi[0], lo[0]);
+  split_bf16(x[2 * kk][2], x[2 * kk][3], hi[1], lo[1]);
+  split_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1], hi[2], lo[2]);
+  split_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3], hi[3], lo[3]);
 }
 
 // Byte offset of 16-byte chunk `c` of row `r` in a [64][D] bf16 tile. Each

@@ -13,7 +13,9 @@
 // per query head in f32 and sums the groups outside (_flash_bwd, :456); here
 // one block per KV head loops over the heads of its group and accumulates in
 // fp32 registers, so there is no f32 [B, H, S, D] scratch and each output is
-// written once, in k's type. Key slots at or past `lengths` get exactly zero
+// written once, in k's type (or in fp32 from bf16 inputs, `out_dtype`: a ring
+// block's share, which the ring sums in fp32 and rounds once, as the JAX
+// ring's fp32 gradients are). Key slots at or past `lengths` get exactly zero
 // gradient: their rows are zero-filled in shared memory, never read, so a
 // non-finite dead cache slot cannot leak through a zero probability.
 //
@@ -356,32 +358,17 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, c
 
 constexpr int TC_NT = 128;  // threads of a bf16 block: 4 warps
 
-// (x0, x1) as two bf16 pairs: hi = bf16(x), lo = bf16(x - hi).
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
-}
-
-// The hi and lo A fragments of 16 columns (accumulator tiles 2kk, 2kk + 1).
-__device__ __forceinline__ void split_frag(const float (&x)[4][4], int kk, uint32_t hi[4], uint32_t lo[4]) {
-  split_bf16(x[2 * kk][0], x[2 * kk][1], hi[0], lo[0]);
-  split_bf16(x[2 * kk][2], x[2 * kk][3], hi[1], lo[1]);
-  split_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1], hi[2], lo[2]);
-  split_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3], hi[3], lo[3]);
-}
-
 template <int D>
 constexpr size_t dq_bf16_smem_bytes() {
   return (size_t)6 * 64 * D * 2;  // Q, dO, then K and V twice each
 }
 
-template <int D>
+// F32_OUT: `dq_out` is float [B, T, H, D], else bf16.
+template <int D, bool F32_OUT>
 __global__ void __launch_bounds__(TC_NT, 2)
 flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                          const bf16* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, const int* __restrict__ lengths, bf16* __restrict__ dq,
+                         const float* __restrict__ delta, const int* __restrict__ lengths, void* __restrict__ dq_out,
                          int T_len, int S, int H, int Hkv, int causal, int window, float scale) {
   constexpr int TILE = 64 * D * 2;  // bytes of one 64-row tile
   constexpr int KS = D / 16;        // mma k-steps over the head dim
@@ -504,7 +491,23 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait_all();  // a block with no key tile still has its Q and dO loads in flight
   __syncthreads();      // ... issued by every thread, into every warp's rows
 
-  // Stage the warp's 16 dq rows in its own rows of the Q tile, then write them as 16-byte rows.
+  if constexpr (F32_OUT) {
+    // fp32: each thread writes its rows' column pairs from registers as 8-byte stores.
+    float* dq = static_cast<float*>(dq_out);
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = row_lo + 8 * hr;
+        if (row < T_len)
+          *reinterpret_cast<float2*>(dq + q_off + (long)row * q_stride + 8 * j + 2 * t) =
+              make_float2(acc[j][2 * hr] * scale, acc[j][2 * hr + 1] * scale);
+      }
+    }
+    return;
+  }
+  // bf16: stage the warp's 16 dq rows in its own rows of the Q tile, then write them as 16-byte rows.
+  bf16* dq = static_cast<bf16*>(dq_out);
   uint8_t* sQp = smem;
 #pragma unroll
   for (int j = 0; j < NO; ++j) {
@@ -553,12 +556,13 @@ __device__ __forceinline__ void load_query_tile(uint32_t sq, uint32_t sdo, uint3
   }
 }
 
-template <int D>
+// F32_OUT: `dk_out` and `dv_out` are float [B, S, Hkv, D], else bf16.
+template <int D, bool F32_OUT>
 __global__ void __launch_bounds__(TC_NT, 2)
 flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                           const bf16* __restrict__ dout, const float* __restrict__ lse,
-                          const float* __restrict__ delta, const int* __restrict__ lengths, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, int T_len, int S, int H, int Hkv, int causal, int window,
+                          const float* __restrict__ delta, const int* __restrict__ lengths, void* __restrict__ dk_out,
+                          void* __restrict__ dv_out, int T_len, int S, int H, int Hkv, int causal, int window,
                           float scale) {
   constexpr int TILE = 64 * D * 2;  // bytes of one 64-row tile
   constexpr int KS = D / 16;        // mma k-steps over the head dim
@@ -681,7 +685,27 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   cp_async_wait_all();  // a block with no query tile still has its K and V loads in flight
   __syncthreads();      // ... issued by every thread, into every warp's rows
 
-  // Stage the warp's 16 dk and dv rows in its own rows of the K and V tiles, then write them as 16-byte rows.
+  if constexpr (F32_OUT) {
+    // fp32: each thread writes its keys' column pairs from registers as 8-byte stores.
+    float* dk = static_cast<float*>(dk_out);
+    float* dv = static_cast<float*>(dv_out);
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int key = key_lo + 8 * hr;
+        if (key < S) {
+          const long out = kv_off + (long)key * kv_stride + 8 * j + 2 * t;
+          *reinterpret_cast<float2*>(dk + out) = make_float2(dka[j][2 * hr] * scale, dka[j][2 * hr + 1] * scale);
+          *reinterpret_cast<float2*>(dv + out) = make_float2(dva[j][2 * hr], dva[j][2 * hr + 1]);
+        }
+      }
+    }
+    return;
+  }
+  // bf16: stage the warp's 16 dk and dv rows in its own rows of the K and V tiles, then write them as 16-byte rows.
+  bf16* dk = static_cast<bf16*>(dk_out);
+  bf16* dv = static_cast<bf16*>(dv_out);
   uint8_t* sKp = smem;
   uint8_t* sVp = smem + TILE;
 #pragma unroll
@@ -752,55 +776,60 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool F32_OUT>
 cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                            const void* delta, const void* lengths, void* dq, int B, int T_len, int S, int H, int Hkv,
                            int causal, int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = dq_bf16_smem_bytes<D>();
   static bool configured = false;
-  cudaError_t err = allow_smem(flash_bwd_dq_bf16_kernel<D>, smem, configured);
+  cudaError_t err = allow_smem(flash_bwd_dq_bf16_kernel<D, F32_OUT>, smem, configured);
   if (err != cudaSuccess) return err;
   const dim3 grid(cdiv(T_len, BQ), H, B);
-  flash_bwd_dq_bf16_kernel<D><<<grid, TC_NT, smem, stream>>>(
+  flash_bwd_dq_bf16_kernel<D, F32_OUT><<<grid, TC_NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(lengths), static_cast<bf16*>(dq), T_len, S, H, Hkv, causal, window, scale);
+      static_cast<const int*>(lengths), dq, T_len, S, H, Hkv, causal, window, scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool F32_OUT>
 cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                             const void* delta, const void* lengths, void* dk, void* dv, int B, int T_len, int S, int H,
                             int Hkv, int causal, int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = dkv_bf16_smem_bytes<D>();
   static bool configured = false;
-  cudaError_t err = allow_smem(flash_bwd_dkv_bf16_kernel<D>, smem, configured);
+  cudaError_t err = allow_smem(flash_bwd_dkv_bf16_kernel<D, F32_OUT>, smem, configured);
   if (err != cudaSuccess) return err;
   const dim3 grid(cdiv(S, BK), Hkv, B);
-  flash_bwd_dkv_bf16_kernel<D><<<grid, TC_NT, smem, stream>>>(
+  flash_bwd_dkv_bf16_kernel<D, F32_OUT><<<grid, TC_NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(lengths), static_cast<bf16*>(dk), static_cast<bf16*>(dv), T_len, S, H, Hkv, causal,
-      window, scale);
+      static_cast<const int*>(lengths), dk, dv, T_len, S, H, Hkv, causal, window, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. window <= 0 means no window.
-// Each returns the cudaError_t of its launch (0 on success).
+// dtype: the inputs' type, 0 = float32, 1 = bfloat16; out_dtype: the
+// gradients' type, the same codes (bf16 inputs may write fp32 gradients; fp32
+// inputs write fp32). window <= 0 means no window. Each returns the
+// cudaError_t of its launch (0 on success).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                             const void* delta, const void* lengths, void* dq, int B, int T_len, int S, int H,
-                            int Hkv, int D, int dtype, int causal, int window, float scale, void* stream) {
+                            int Hkv, int D, int dtype, int out_dtype, int causal, int window, float scale,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define DQ_ARGS q, k, v, dout, lse, delta, lengths, dq, B, T_len, S, H, Hkv, causal, window, scale, st
-  switch (dtype * 1000 + D) {
+  switch (dtype * 10000 + out_dtype * 1000 + D) {
     case 64: return launch_dq_f32<64>(DQ_ARGS);
     case 80: return launch_dq_f32<80>(DQ_ARGS);
     case 128: return launch_dq_f32<128>(DQ_ARGS);
-    case 1064: return launch_dq_bf16<64>(DQ_ARGS);
-    case 1080: return launch_dq_bf16<80>(DQ_ARGS);
-    case 1128: return launch_dq_bf16<128>(DQ_ARGS);
+    case 11064: return launch_dq_bf16<64, false>(DQ_ARGS);
+    case 11080: return launch_dq_bf16<80, false>(DQ_ARGS);
+    case 11128: return launch_dq_bf16<128, false>(DQ_ARGS);
+    case 10064: return launch_dq_bf16<64, true>(DQ_ARGS);
+    case 10080: return launch_dq_bf16<80, true>(DQ_ARGS);
+    case 10128: return launch_dq_bf16<128, true>(DQ_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DQ_ARGS
@@ -808,16 +837,20 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                              const void* delta, const void* lengths, void* dk, void* dv, int B, int T_len, int S,
-                             int H, int Hkv, int D, int dtype, int causal, int window, float scale, void* stream) {
+                             int H, int Hkv, int D, int dtype, int out_dtype, int causal, int window, float scale,
+                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define DKV_ARGS q, k, v, dout, lse, delta, lengths, dk, dv, B, T_len, S, H, Hkv, causal, window, scale, st
-  switch (dtype * 1000 + D) {
+  switch (dtype * 10000 + out_dtype * 1000 + D) {
     case 64: return launch_dkv_f32<64>(DKV_ARGS);
     case 80: return launch_dkv_f32<80>(DKV_ARGS);
     case 128: return launch_dkv_f32<128>(DKV_ARGS);
-    case 1064: return launch_dkv_bf16<64>(DKV_ARGS);
-    case 1080: return launch_dkv_bf16<80>(DKV_ARGS);
-    case 1128: return launch_dkv_bf16<128>(DKV_ARGS);
+    case 11064: return launch_dkv_bf16<64, false>(DKV_ARGS);
+    case 11080: return launch_dkv_bf16<80, false>(DKV_ARGS);
+    case 11128: return launch_dkv_bf16<128, false>(DKV_ARGS);
+    case 10064: return launch_dkv_bf16<64, true>(DKV_ARGS);
+    case 10080: return launch_dkv_bf16<80, true>(DKV_ARGS);
+    case 10128: return launch_dkv_bf16<128, true>(DKV_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DKV_ARGS

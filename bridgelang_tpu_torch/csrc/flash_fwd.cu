@@ -8,7 +8,13 @@
 // sliding window (row r attends keys in (r - window, r]); keys at least as
 // long as queries (queries sit at key slots 0..T-1). Outputs are `o` in the
 // input type and the row log-sum-exp `lse` as f32 [B, H, T]. The TPU
-// kernel's replicated STAT_W lane width is dropped.
+// kernel's replicated STAT_W lane width is dropped. bf16 inputs may also
+// write `o` in fp32 (`out_dtype`): a ring block's output, which the ring
+// merges in fp32 and rounds once, as the JAX ring's fp32 blocks do. That
+// variant also carries P into PV as a bf16 pair hi + lo, since the ring's
+// backward forms delta = rowsum(dO * O) from this o: with P rounded once,
+// o's error (~2e-3 at T = 144) moves dq and dk 3-5 times past GRAD_TOL from
+// JAX's fp32 arithmetic (tests/test_torch_kernels_emulated.py).
 //
 // Layouts are the public API's: q/o [B, T, H, D], k/v [B, S, Hkv, D], all
 // contiguous, so no transpose runs before or after the kernel. Both variants
@@ -222,10 +228,12 @@ constexpr size_t smem_bytes_bf16() {
   return (size_t)5 * 64 * D * 2;  // Q, then K and V twice each
 }
 
-template <int D>
+// F32_OUT: `out` is float [B, T, H, D] (a ring block's output, merged in fp32 by
+// the caller), else bf16.
+template <int D, bool F32_OUT>
 __global__ void __launch_bounds__(NT, 2)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                      const int* __restrict__ lengths, bf16* __restrict__ o, float* __restrict__ lse, int T_len,
+                      const int* __restrict__ lengths, void* __restrict__ out, float* __restrict__ lse, int T_len,
                       int S, int H, int Hkv, int causal, int window, float scale_log2) {
   constexpr int TILE = 64 * D * 2;  // bytes of one 64-row tile
   constexpr int KS = D / 16;        // mma k-steps over the head dim
@@ -350,14 +358,13 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
       acc[j][3] *= alpha[1];
     }
 
-    // O += P V: P's accumulator layout is PV's A-fragment layout.
+    // O += P V: P's accumulator layout is PV's A-fragment layout. With an
+    // fp32 output, P enters as a bf16 pair hi + lo (two mma each), as in
+    // flash_bwd.cu, so o keeps ~16 bits of P where one rounding keeps 8.
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {  // keys 16kk .. 16kk + 15
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      uint32_t pa[4], pl[4];
+      split_frag(s, kk, pa, pl);
 #pragma unroll
       for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t r[4];
@@ -365,6 +372,10 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
         ldsm_x4_t(r, vbuf + swz<D>(16 * kk + (i & 1) * 8 + (lane & 7), 2 * dp + (i >> 1)));
         mma_bf16(acc[2 * dp], pa, r[0], r[1]);
         mma_bf16(acc[2 * dp + 1], pa, r[2], r[3]);
+        if constexpr (F32_OUT) {
+          mma_bf16(acc[2 * dp], pl, r[0], r[1]);
+          mma_bf16(acc[2 * dp + 1], pl, r[2], r[3]);
+        }
       }
     }
   }
@@ -383,9 +394,25 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
       lse[((long)b * H + h) * T_len + row] = (l == 0.f) ? NEG_INF : (m_run[hrow] + log2f(l)) * LN2;
   }
 
-  // Stage the warp's 16 output rows in its own rows of the Q tile (read only
-  // by this warp, into registers, before its first key tile), then write
+  if constexpr (F32_OUT) {
+    // fp32: each thread writes its rows' column pairs from registers as 8-byte stores.
+    float* o = static_cast<float*>(out);
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+#pragma unroll
+      for (int hrow = 0; hrow < 2; ++hrow) {
+        const int row = row_lo + 8 * hrow;
+        if (row < T_len)
+          *reinterpret_cast<float2*>(o + ((long)b * T_len * H + (long)row * H + h) * D + 8 * j + 2 * t) =
+              make_float2(acc[j][2 * hrow] * inv[hrow], acc[j][2 * hrow + 1] * inv[hrow]);
+      }
+    }
+    return;
+  }
+  // bf16: stage the warp's 16 output rows in its own rows of the Q tile (read
+  // only by this warp, into registers, before its first key tile), then write
   // them as 16-byte rows.
+  bf16* o = static_cast<bf16*>(out);
   uint8_t* sQp = smem;
 #pragma unroll
   for (int j = 0; j < NO; ++j) {
@@ -432,42 +459,45 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool F32_OUT>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* lengths, void* o, void* lse, int B,
                         int T_len, int S, int H, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes_bf16<D>();
   static bool configured = false;
-  cudaError_t err = set_smem(flash_fwd_bf16_kernel<D>, smem, configured);
+  cudaError_t err = set_smem(flash_fwd_bf16_kernel<D, F32_OUT>, smem, configured);
   if (err != cudaSuccess) return err;
   const dim3 grid(cdiv(T_len, BQ), H, B);
-  flash_fwd_bf16_kernel<D><<<grid, NT, smem, stream>>>(
+  flash_fwd_bf16_kernel<D, F32_OUT><<<grid, NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int*>(lengths), static_cast<bf16*>(o), static_cast<float*>(lse), T_len, S, H, Hkv, causal,
-      window, scale * LOG2E);
+      static_cast<const int*>(lengths), o, static_cast<float*>(lse), T_len, S, H, Hkv, causal, window,
+      scale * LOG2E);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. window <= 0 means no window.
-// Returns the cudaError_t of the launch (0 on success).
+// dtype: the inputs' type, 0 = float32, 1 = bfloat16; out_dtype: o's type,
+// the same codes (bf16 inputs may write fp32 o; fp32 inputs write fp32).
+// window <= 0 means no window. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* lengths, void* o,
-                         void* lse, int B, int T_len, int S, int H, int Hkv, int D, int dtype, int causal,
-                         int window, float scale, void* stream) {
+                         void* lse, int B, int T_len, int S, int H, int Hkv, int D, int dtype, int out_dtype,
+                         int causal, int window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch_f32<64>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
-  if (dtype == 0 && D == 80)
-    return launch_f32<80>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
-  if (dtype == 0 && D == 128)
-    return launch_f32<128>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
-  if (dtype == 1 && D == 64)
-    return launch_bf16<64>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
-  if (dtype == 1 && D == 80)
-    return launch_bf16<80>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
-  if (dtype == 1 && D == 128)
-    return launch_bf16<128>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st);
-  return (int)cudaErrorInvalidValue;
+#define FWD_ARGS q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale, st
+  switch (dtype * 10000 + out_dtype * 1000 + D) {
+    case 64: return launch_f32<64>(FWD_ARGS);
+    case 80: return launch_f32<80>(FWD_ARGS);
+    case 128: return launch_f32<128>(FWD_ARGS);
+    case 11064: return launch_bf16<64, false>(FWD_ARGS);
+    case 11080: return launch_bf16<80, false>(FWD_ARGS);
+    case 11128: return launch_bf16<128, false>(FWD_ARGS);
+    case 10064: return launch_bf16<64, true>(FWD_ARGS);
+    case 10080: return launch_bf16<80, true>(FWD_ARGS);
+    case 10128: return launch_bf16<128, true>(FWD_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FWD_ARGS
 }
 
 // Dynamic shared memory of one block (bytes), for the build report.

@@ -1,7 +1,8 @@
 """ctypes bindings for the port's native (C++) library: TFRecord framing with
 CRC32C checks and the action bin codec (`src/tfrecord.cc`), and the JPEG
-decoder, PNG unfilter and PIL-equal bicubic resize of `native.image`
-(`src/image_decode.cc`).
+decoder, PNG unfilter and PIL-equal bicubic resize (`src/image_decode.cc`),
+GIF LZW decoding (`src/gif_decode.cc`) and the PIL-equal JPEG encoder
+(`src/jpeg_encode.cc`) of `native.image`.
 
 Counterpart of bridgelang_tpu/native/__init__.py, over the port's own copy
 of the record source. The library is compiled at first use with
@@ -28,8 +29,8 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
-SOURCES = (Path(__file__).resolve().parent / "src" / "tfrecord.cc",
-           Path(__file__).resolve().parent / "src" / "image_decode.cc")
+SOURCES = tuple(Path(__file__).resolve().parent / "src" / name
+                for name in ("tfrecord.cc", "image_decode.cc", "gif_decode.cc", "jpeg_encode.cc"))
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 CXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
 
@@ -50,8 +51,8 @@ def build() -> Path:
         return out
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found: the port's native library (records, image decoding) is built with g++ "
-                           "at first use")
+        raise RuntimeError("g++ not found: the port's native library (records, image decoding and encoding) is "
+                           "built with g++ at first use")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES)], capture_output=True, text=True)
@@ -100,6 +101,11 @@ def _load() -> ctypes.CDLL:
             lib.blx_resize_bicubic_pil.restype = ctypes.c_int
             lib.blx_resize_bicubic_pil.argtypes = [ctypes.c_void_p] + [ctypes.c_int32] * 3 + [ctypes.c_void_p] + \
                 [ctypes.c_int32] * 2
+            lib.blx_gif_lzw.restype = ctypes.c_int64
+            lib.blx_gif_lzw.argtypes = [ctypes.c_char_p, ctypes.c_int64] + [ctypes.c_int32] * 4 + [ctypes.c_void_p]
+            lib.blx_jpeg_encode.restype = ctypes.c_int64
+            lib.blx_jpeg_encode.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_char_p,
+                                            ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
             _lib = lib
     return _lib
 

@@ -27,7 +27,15 @@ gives, and `load_image(path, size)` what `...convert("RGB").resize((size,
 size))` gives (Pillow's BICUBIC resample, `resize_bicubic_pil`), bit for bit.
 PIL decodes JPEG with libjpeg-turbo's accurate integer IDCT (JDCT_ISLOW),
 which `decode_jpeg(data, dct_method="INTEGER_ACCURATE")` selects (TF's name
-for it); the rest of the JPEG path is shared with decode_image.
+for it); the rest of the JPEG path is shared with decode_image. open_rgb
+also reads GIF's first frame as Pillow 12.1 does (`decode_gif`: the LZW
+stream in `src/gif_decode.cc`).
+
+`encode_jpeg(rgb, comment)` writes the bytes Pillow 12.1 writes for
+`Image.fromarray(rgb).save(path, "JPEG")` (`src/jpeg_encode.cc`: quality
+75, 4:2:0, libjpeg-turbo's accurate integer DCT and standard Huffman
+tables), with the image's comment as a COM marker as Pillow carries it:
+the OCR-VQA conversion of preprocessing/download.py.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import struct
 import zlib
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -42,6 +51,7 @@ from bridgelang_tpu_torch import native
 
 JPEG_MAGIC = b"\xff\xd8\xff"
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+GIF_MAGICS = (b"GIF87a", b"GIF89a")
 _OTHER_MAGIC = {b"GIF8": "GIF", b"BM": "BMP", b"RIFF": "WebP"}
 _ERR_LEN = 256
 
@@ -220,22 +230,167 @@ def open_rgb(src) -> np.ndarray:
     chunk is dropped); "RGB" and "RGBA" keep the colour samples. Alpha is
     dropped, never composited. 16-bit samples keep their high byte (PIL's
     RGB;16B, RGBA;16B and LA;16B unpackers), except 16-bit gray, which PIL
-    opens as "I;16" and converts by clipping each value to 255. Any other
-    format raises ValueError naming it."""
-    data = _read(src)
+    opens as "I;16" and converts by clipping each value to 255. GIF: the
+    first frame (`decode_gif`). Any other format raises ValueError naming
+    it."""
+    return _open(_read(src), "open_rgb")[0]
+
+
+def open_rgb_and_comment(src) -> Tuple[np.ndarray, Optional[bytes]]:
+    """`open_rgb`'s pixels and the comment PIL keeps in the image's
+    info["comment"] (and its JPEG writer carries): a GIF's comment
+    extensions before the first frame, a JPEG's last COM marker; None where
+    there is none (and for PNG, whose text chunks PIL files under other
+    keys)."""
+    return _open(_read(src), "open_rgb_and_comment")
+
+
+def _open(data: bytes, caller: str) -> Tuple[np.ndarray, Optional[bytes]]:
+    comment = None
     if data[:3] == JPEG_MAGIC:
         image = decode_jpeg(data, dct_method="INTEGER_ACCURATE")
+        comment = _jpeg_comment(data)
     elif data[:8] == PNG_MAGIC:
         color, depth = _png_color_and_depth(data)
         if color == 0 and depth == 16:
             image = np.minimum(decode_png(data, bits=16), 255).astype(np.uint8)
         else:
             image = decode_png(data, bits=8)
+    elif data[:6] in GIF_MAGICS:
+        return decode_gif(data)
     else:
-        _refuse(data, "open_rgb")
+        _refuse(data, caller)
     if image.shape[-1] in (1, 2):
-        return np.repeat(image[..., :1], 3, axis=-1)
-    return np.ascontiguousarray(image[..., :3])
+        return np.repeat(image[..., :1], 3, axis=-1), comment
+    return np.ascontiguousarray(image[..., :3]), comment
+
+
+def _jpeg_comment(data: bytes) -> Optional[bytes]:
+    """The body of the last COM marker before the first scan (PIL's JPEG
+    reader keeps that one in info["comment"])."""
+    comment, pos = None, 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker = data[pos + 1]
+        if marker == 0xFF:  # fill byte
+            pos += 1
+            continue
+        if marker == 0xDA:
+            break
+        length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if marker == 0xFE:
+            comment = data[pos + 4:pos + 2 + length]
+        pos += 2 + length
+    return comment
+
+
+def _gif_blocks(data: bytes, pos: int) -> Tuple[list, int]:
+    """A GIF's data sub-blocks from `pos` up to the empty one -> (blocks, the position after it)."""
+    blocks = []
+    while pos < len(data) and data[pos]:
+        blocks.append(data[pos + 1:pos + 1 + data[pos]])
+        pos += 1 + data[pos]
+    return blocks, pos + 1
+
+
+def _gif_palette(p: bytes) -> Optional[np.ndarray]:
+    """A GIF colour table as [n, 3] uint8, or None where every entry i is
+    (i, i, i): PIL then opens the frame as "L" (the indices are the grays)."""
+    table = np.frombuffer(p, np.uint8).reshape(-1, 3)
+    if np.array_equal(table, np.repeat(np.arange(len(table), dtype=np.uint8)[:, None], 3, axis=1)):
+        return None
+    return table
+
+
+def decode_gif(data) -> Tuple[np.ndarray, Optional[bytes]]:
+    """A GIF's first frame as Pillow 12.1 gives it after
+    Image.open(p).convert("RGB") (uint8 [H, W, 3]) and the comment it keeps
+    in info["comment"] (None where there is none).
+
+    As Pillow: the frame's local colour table, else the global one; a table
+    whose entries i are all (i, i, i) is no palette (the indices are gray
+    levels, mode "L"), nor is a missing one; indices past the table are
+    black. The canvas is the logical screen, grown to hold a frame that
+    runs past it; a frame smaller than the canvas, or offset within it,
+    lies on a canvas filled with the transparency index of the frame's
+    graphic control extension where there is one (the last such extension
+    before the frame), else with index 0; the transparency index is
+    otherwise ignored (convert("RGB") keeps its colour). Comment extensions
+    before the frame are joined with b"\n"; an empty result is no comment.
+    An interlaced frame's rows are put back in order (`src/gif_decode.cc`,
+    which also decodes the LZW stream). A stream that ends before the frame
+    is full, or holds a code its table does not, raises ValueError."""
+    data = bytes(data)
+    if data[:6] not in GIF_MAGICS or len(data) < 13:
+        raise ValueError(f"decode_gif: not a GIF stream (first bytes {data[:8]!r})")
+    width, height, flags = struct.unpack("<HHB", data[6:11])
+    pos, palette = 13, None
+    if flags & 0x80:
+        n = 3 << ((flags & 7) + 1)
+        palette = _gif_palette(data[pos:pos + n])
+        pos += n
+    transparency, comment = None, None
+    while True:
+        if pos >= len(data) or data[pos] == 0x3B:
+            raise ValueError("decode_gif: no image in the GIF stream")
+        kind = data[pos]
+        pos += 1
+        if kind == 0x21:  # an extension
+            label = data[pos] if pos < len(data) else 0
+            blocks, pos = _gif_blocks(data, pos + 1)
+            if label == 0xF9 and blocks and len(blocks[0]) >= 4 and blocks[0][0] & 1:
+                transparency = blocks[0][3]
+            elif label == 0xFE:
+                text = b"".join(blocks)
+                comment = text if comment is None else comment + b"\n" + text
+        elif kind == 0x2C:  # the first image descriptor
+            x0, y0, fw, fh, fflags = struct.unpack("<HHHHB", data[pos:pos + 9])
+            pos += 9
+            if fflags & 0x80:
+                n = 3 << ((fflags & 7) + 1)
+                palette = _gif_palette(data[pos:pos + n])
+                pos += n
+            min_code_size = data[pos]
+            blocks, _ = _gif_blocks(data, pos + 1)
+            break
+    canvas = np.full((max(height, y0 + fh), max(width, x0 + fw)), 0 if transparency is None else transparency,
+                     np.uint8)
+    if fw and fh:
+        frame = np.ascontiguousarray(canvas[y0:y0 + fh, x0:x0 + fw])
+        stream = b"".join(blocks)
+        got = native._load().blx_gif_lzw(stream, len(stream), min_code_size, fw, fh, int(bool(fflags & 0x40)),
+                                         frame.ctypes.data)
+        if got < 0:
+            raise ValueError({-1: "decode_gif: corrupt LZW stream (a code past the table)",
+                              -2: f"decode_gif: bad LZW minimum code size {min_code_size}",
+                              -3: "decode_gif: truncated LZW stream"}[got])
+        canvas[y0:y0 + fh, x0:x0 + fw] = frame
+    if palette is None:
+        rgb = np.repeat(canvas[..., None], 3, axis=-1)
+    else:
+        table = np.zeros((256, 3), np.uint8)
+        table[:len(palette)] = palette[:256]
+        rgb = table[canvas]
+    return rgb, (comment or None)
+
+
+def encode_jpeg(rgb: np.ndarray, comment: Optional[bytes] = None) -> bytes:
+    """The JPEG Pillow 12.1 writes for Image.fromarray(rgb).save(f, "JPEG")
+    of uint8 [H, W, 3], byte for byte (`src/jpeg_encode.cc`), with
+    `comment` (bytes, up to 65533) as a COM marker after the JFIF header,
+    where PIL writes an image's info["comment"]."""
+    rgb = np.ascontiguousarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[-1] != 3 or 0 in rgb.shape:
+        raise ValueError(f"encode_jpeg: needs uint8 [H, W, 3], got {rgb.dtype} {list(rgb.shape)}")
+    comment = bytes(comment or b"")
+    h, w = rgb.shape[:2]
+    # headers, then at most 420 bytes per block (26 bits a coefficient, each byte stuffed) and 6 blocks per MCU
+    cap = 1024 + len(comment) + ((h + 15) // 16) * ((w + 15) // 16) * 6 * 420
+    out = np.empty(cap, np.uint8)
+    n = native._load().blx_jpeg_encode(rgb.ctypes.data, h, w, comment, len(comment), out.ctypes.data, cap)
+    if n < 0:
+        raise ValueError(f"encode_jpeg: cannot encode a {w}x{h} image with a comment of {len(comment)} bytes "
+                         "(at most 65535 pixels a side, 65533 comment bytes)")
+    return out[:n].tobytes()
 
 
 def resize_bicubic_pil(rgb: np.ndarray, size) -> np.ndarray:

@@ -21,6 +21,11 @@ q's dtype and layout, lse f32 [B, H, T]. Only `o` is differentiable (the JAX
 forward; in the backward they enter dk/dv through the keys they attend,
 exactly as in the JAX kernels. Key slots at or past `lengths` get zero
 gradient.
+
+`out_dtype` (the kernels' and the plain versions' keyword): the forward's o
+and the backward's gradients in fp32 from bf16 inputs, rounded nowhere, for
+a caller that sums blocks in fp32 and rounds once (ops/ring_attention.py,
+as the JAX ring's fp32 blocks). The default is the inputs' dtype.
 """
 
 from __future__ import annotations
@@ -79,9 +84,10 @@ def flash_attention_plain(
     lengths: Optional[torch.Tensor] = None,
     causal: bool = True,
     window: Optional[int] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward in plain torch (fp32 math): the CPU path, and the version
-    the kernel is held against on the card."""
+    the kernel is held against on the card. o in `out_dtype` (default q's)."""
     _check(q, k, v)
     b, t, h, d = q.shape
     s = k.shape[1]
@@ -99,7 +105,7 @@ def flash_attention_plain(
     l_safe = torch.where(l_sum == 0, torch.ones_like(l_sum), l_sum)
     o = torch.einsum("bhts,bshd->bthd", p, vf) / l_safe.permute(0, 2, 1, 3)
     lse = (m + torch.log(l_safe))[..., 0]
-    return o.to(q.dtype), lse
+    return o.to(out_dtype or q.dtype), lse
 
 
 def flash_attention_bwd_plain(
@@ -112,11 +118,13 @@ def flash_attention_bwd_plain(
     lengths: Optional[torch.Tensor] = None,
     causal: bool = True,
     window: Optional[int] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward in plain torch, as the JAX `_flash_bwd`: fp32 math, P
     recomputed from `lse` under the forward's mask, delta = rowsum(dO * O),
-    GQA summed per KV head; dq in q's dtype, dk/dv in k's dtype. The CPU
-    path, and the version the kernels are held against on the card."""
+    GQA summed per KV head; dq in q's dtype, dk/dv in k's dtype, or all in
+    `out_dtype`. The CPU path, and the version the kernels are held against
+    on the card."""
     _check(q, k, v)
     b, t, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
@@ -136,15 +144,15 @@ def flash_attention_bwd_plain(
     dq = torch.einsum("bhts,bshd->bthd", ds, kf) * scale
     dk = torch.einsum("bhts,bthd->bshd", ds, qf).reshape(b, s, hkv, n_rep, d).sum(dim=3)
     dv = torch.einsum("bhts,bthd->bshd", p, dof).reshape(b, s, hkv, n_rep, d).sum(dim=3)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dq.to(out_dtype or q.dtype), dk.to(out_dtype or k.dtype), dv.to(out_dtype or v.dtype)
 
 
 # --- the kernels (CUDA tensors only) ---------------------------------------------
 
 
-# The flash kernels' trailing C arguments: 9 dims (b, t, s, h, hkv, d, dtype,
-# causal, window), the softmax scale and the stream.
-_DIMS_SCALE_STREAM = [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+# The flash kernels' trailing C arguments: 10 dims (b, t, s, h, hkv, d, dtype,
+# out_dtype, causal, window), the softmax scale and the stream.
+_DIMS_SCALE_STREAM = [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _check_kernel_inputs(named, d: int) -> None:
@@ -160,13 +168,22 @@ def _check_kernel_inputs(named, d: int) -> None:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _launch(q, k, v, lengths, causal, window) -> Tuple[torch.Tensor, torch.Tensor]:
+def _out_dtype(x: torch.Tensor, out_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """The kernels' output dtype: the inputs' by default; fp32 from bf16 inputs on request."""
+    out = out_dtype or x.dtype
+    if out != x.dtype and out != torch.float32:
+        raise TypeError(f"flash kernels write {x.dtype} inputs' outputs in {x.dtype} or float32, not {out}")
+    return out
+
+
+def _launch(q, k, v, lengths, causal, window, out_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
     from bridgelang_tpu_torch.ops import _build
 
     b, t, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     _check_kernel_inputs((("q", q), ("k", k), ("v", v)), d)
-    o = torch.empty_like(q)
+    out_dtype = _out_dtype(q, out_dtype)
+    o = torch.empty_like(q, dtype=out_dtype)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if t == 0 or b == 0:
         return o, lse
@@ -174,7 +191,8 @@ def _launch(q, k, v, lengths, causal, window) -> Tuple[torch.Tensor, torch.Tenso
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, t, s, h, hkv, d, _DTYPE_CODES[q.dtype], int(causal), int(window or 0), d ** -0.5, stream,
+        b, t, s, h, hkv, d, _DTYPE_CODES[q.dtype], _DTYPE_CODES[out_dtype], int(causal), int(window or 0), d ** -0.5,
+        stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed with CUDA error {err}")
@@ -182,7 +200,7 @@ def _launch(q, k, v, lengths, causal, window) -> Tuple[torch.Tensor, torch.Tenso
     return o, lse
 
 
-def _bwd_args(q, k, v, do, lse, delta, lengths, causal, window):
+def _bwd_args(q, k, v, do, lse, delta, lengths, causal, window, out_dtype):
     b, t, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     _check_kernel_inputs((("q", q), ("k", k), ("v", v), ("do", do)), d)
@@ -190,16 +208,18 @@ def _bwd_args(q, k, v, do, lse, delta, lengths, causal, window):
         if x.dtype != torch.float32 or x.shape != (b, h, t) or not x.is_contiguous() or x.device != q.device:
             raise ValueError(f"{name} must be a contiguous float32 [B, H, T] tensor on q's device")
     ptrs = [x.data_ptr() for x in (q, k, v, do, lse, delta, lengths)]
-    dims = [b, t, s, h, hkv, d, _DTYPE_CODES[q.dtype], int(causal), int(window or 0)]
+    dims = [b, t, s, h, hkv, d, _DTYPE_CODES[q.dtype], _DTYPE_CODES[out_dtype], int(causal), int(window or 0)]
     return ptrs, dims, d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, lengths, causal=True, window=None) -> torch.Tensor:
-    """dq from csrc/flash_bwd.cu (CUDA tensors only); counts its launch."""
+def flash_bwd_dq(q, k, v, do, lse, delta, lengths, causal=True, window=None, out_dtype=None) -> torch.Tensor:
+    """dq from csrc/flash_bwd.cu (CUDA tensors only), in `out_dtype` (default
+    q's); counts its launch."""
     from bridgelang_tpu_torch.ops import _build
 
-    ptrs, dims, scale, stream = _bwd_args(q, k, v, do, lse, delta, lengths, causal, window)
-    dq = torch.empty_like(q)
+    out_dtype = _out_dtype(q, out_dtype)
+    ptrs, dims, scale, stream = _bwd_args(q, k, v, do, lse, delta, lengths, causal, window, out_dtype)
+    dq = torch.empty_like(q, dtype=out_dtype)
     if q.numel() == 0:
         return dq
     fn = _build.function("flash_bwd", "flash_bwd_dq", [ctypes.c_void_p] * 8 + _DIMS_SCALE_STREAM)
@@ -210,13 +230,15 @@ def flash_bwd_dq(q, k, v, do, lse, delta, lengths, causal=True, window=None) -> 
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, lengths, causal=True, window=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_bwd_dkv(q, k, v, do, lse, delta, lengths, causal=True, window=None,
+                  out_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk, dv from csrc/flash_bwd.cu (CUDA tensors only), the GQA group sum
-    folded in; counts its launch."""
+    folded in, in `out_dtype` (default k's); counts its launch."""
     from bridgelang_tpu_torch.ops import _build
 
-    ptrs, dims, scale, stream = _bwd_args(q, k, v, do, lse, delta, lengths, causal, window)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    out_dtype = _out_dtype(k, out_dtype)
+    ptrs, dims, scale, stream = _bwd_args(q, k, v, do, lse, delta, lengths, causal, window, out_dtype)
+    dk, dv = torch.empty_like(k, dtype=out_dtype), torch.empty_like(v, dtype=out_dtype)
     if k.numel() == 0:
         return dk, dv
     fn = _build.function("flash_bwd", "flash_bwd_dkv", [ctypes.c_void_p] * 9 + _DIMS_SCALE_STREAM)

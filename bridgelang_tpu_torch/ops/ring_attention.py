@@ -9,13 +9,15 @@ O(T/n).
 
 The blocks go through the flash kernels (ops/flash_attention.py) with full
 lengths, on CUDA tensors; on CPU tensors through their plain versions. The
-JAX package computes each block as fp32 einsums and merges unnormalized sums;
-here a block returns its normalized output and its log-sum-exp, and the
-merge is
+JAX package computes each block as fp32 einsums, merges unnormalized sums
+and casts once, at the end; here a block returns its normalized output in
+fp32 (the kernels' `out_dtype`: bf16 inputs, fp32 o) and its log-sum-exp,
+and the merge is
 
     lse = logsumexp_i lse_i,    o = sum_i exp(lse_i - lse) o_i
 
-in fp32 (plain torch, elementwise work that the JAX package leaves to XLA).
+in fp32 (plain torch, elementwise work that the JAX package leaves to XLA);
+o is cast to the inputs' dtype once, after the last block.
 Under the causal mask, rank `idx` holding the block of rank `src` computes
 a full (non-causal) block when src < idx and a causal diagonal block when
 src == idx; a block with src > idx is fully masked: the JAX package
@@ -26,12 +28,14 @@ so is masked by causality, as in the JAX package.
 
 The backward (`_RingAttention`, a torch.autograd.Function; JAX gets it from
 differentiating `ppermute`) computes delta = rowsum(dO * O) once from the
-merged output, rotates K/V round the ring again, and runs both backward
-kernels of each block with the global lse and delta, which makes each
-block's P the global probabilities, so the block gradients sum to the true
-ones. dk and dv accumulators (fp32) travel with their blocks and reach
-their owner after a last rotate; dq accumulates in fp32 on the rank. Only
-this rank's q, k, v, o and lse are saved.
+merged fp32 output, rotates K/V round the ring again, and runs both
+backward kernels of each block with the global lse and delta, which makes
+each block's P the global probabilities, so the block gradients (fp32 from
+the kernels) sum to the true ones. dk and dv accumulators (fp32) travel
+with their blocks and reach their owner after a last rotate; dq accumulates
+in fp32 on the rank; each is cast to its input's dtype once, at the end, as
+JAX casts its fp32 gradients. Only this rank's q, k, v, fp32 o and lse are
+saved.
 
 `block_forward`, `merge` and `block_backward` are the per-block steps;
 `virtual_ring_forward` / `virtual_ring_backward` run them for n blocks of
@@ -75,23 +79,24 @@ def block_kind(idx: int, src: int, causal: bool) -> Optional[bool]:
 
 
 def block_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> Merged:
-    """(o, lse) of one query block against one key block, every key valid:
-    the flash forward kernel on CUDA, its plain version on the CPU."""
+    """(o fp32, lse) of one query block against one key block, every key
+    valid: the flash forward kernel on CUDA, its plain version on the CPU."""
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if _device(q) == "cuda":
-        return _launch(q, k, v, _lengths(None, q.shape[0], k.shape[1], q.device), causal, None)
-    return flash_attention_plain(q, k, v, causal=causal)
+        return _launch(q, k, v, _lengths(None, q.shape[0], k.shape[1], q.device), causal, None,
+                       out_dtype=torch.float32)
+    return flash_attention_plain(q, k, v, causal=causal, out_dtype=torch.float32)
 
 
 def merge(acc: Optional[Merged], o: torch.Tensor, lse: torch.Tensor) -> Merged:
-    """Fold one block's (o, lse) into the running (o, lse), in fp32."""
+    """Fold one block's (o, lse), o fp32, into the running (o, lse)."""
     if acc is None:
-        return o.float(), lse
+        return o, lse
     o_acc, lse_acc = acc
     new = torch.logaddexp(lse_acc, lse)
     w_acc = torch.exp(lse_acc - new).transpose(1, 2)[..., None]
     w_blk = torch.exp(lse - new).transpose(1, 2)[..., None]
-    return o_acc * w_acc + o.float() * w_blk, new
+    return o_acc * w_acc + o * w_blk, new
 
 
 def row_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -101,26 +106,27 @@ def row_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def block_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
                    do: torch.Tensor, delta: torch.Tensor, causal: bool):
-    """(dq, dk, dv) of one query block against one key block given the whole
-    sequence's `o`, `lse` and `delta` for these queries (so P is the global
-    probabilities): both backward kernels on CUDA, the plain backward on the
-    CPU (which forms delta from `o` and `do`, the same numbers)."""
+    """(dq, dk, dv), fp32, of one query block against one key block given
+    the whole sequence's `o`, `lse` and `delta` for these queries (so P is
+    the global probabilities): both backward kernels on CUDA, the plain
+    backward on the CPU (which forms delta from `o` and `do`, the same
+    numbers)."""
     q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
+    f32 = torch.float32
     if _device(q) == "cuda":
         lengths = _lengths(None, q.shape[0], k.shape[1], q.device)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, lengths, causal)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, lengths, causal)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, lengths, causal, out_dtype=f32)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, lengths, causal, out_dtype=f32)
         return dq, dk, dv
-    return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, out_dtype=f32)
 
 
 # --- the ring over ranks --------------------------------------------------------------
 
 
 def ring_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ring, causal: bool) -> Merged:
-    """This rank's (o in q's dtype, lse) over the whole sequence: n - 1
-    rotations of (k, v), each posted before the block it follows is
-    computed."""
+    """This rank's (o fp32, lse) over the whole sequence: n - 1 rotations of
+    (k, v), each posted before the block it follows is computed."""
     n, idx = ring.size, ring.index
     acc, kb, vb = None, k, v
     for i in range(n):
@@ -130,12 +136,13 @@ def ring_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ring, causal
             acc = merge(acc, *block_forward(q, kb, vb, kind))
         if wait is not None:
             kb, vb = wait()
-    return acc[0].to(q.dtype), acc[1]
+    return acc
 
 
 def ring_backward(q, k, v, o, lse, do, ring, causal: bool):
-    """(dq, dk, dv) of this rank's blocks: (k, v) rotate as in the forward
-    with their fp32 (dk, dv) accumulators, which a last rotate brings home."""
+    """(dq, dk, dv) of this rank's blocks, in the inputs' dtypes, given the
+    fp32 `o`: (k, v) rotate as in the forward with their fp32 (dk, dv)
+    accumulators, which a last rotate brings home."""
     n, idx = ring.size, ring.index
     delta = row_delta(o, do)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
@@ -147,9 +154,9 @@ def ring_backward(q, k, v, o, lse, do, ring, causal: bool):
         kind = block_kind(idx, (idx - i) % n, causal)
         if kind is not None:
             dq_i, dk_i, dv_i = block_backward(q, kb, vb, o, lse, do, delta, kind)
-            dq += dq_i.float()
-            dkb += dk_i.float()
-            dvb += dv_i.float()
+            dq += dq_i
+            dkb += dk_i
+            dvb += dv_i
         dkb, dvb = ring.rotate([dkb, dvb])  # after the n-th, each block's sums are at its owner
         if wait is not None:
             kb, vb = wait()
@@ -162,7 +169,7 @@ class _RingAttention(torch.autograd.Function):
         o, lse = ring_forward(q, k, v, ring, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.ring, ctx.causal = ring, causal
-        return o
+        return o.to(q.dtype)
 
     @staticmethod
     def backward(ctx, do):
@@ -211,8 +218,8 @@ def _blocks(x: torch.Tensor, n: int) -> List[torch.Tensor]:
 def virtual_ring_forward(q, k, v, n: int, causal: bool = True) -> Merged:
     """The ring's forward for all n ranks of one sequence on one device:
     each rank's steps in ring order through `block_forward` and `merge`,
-    the blocks indexed where the ring rotates them. Returns (o in q's dtype
-    [B, T, H, D], lse [B, H, T])."""
+    the blocks indexed where the ring rotates them. Returns (o fp32
+    [B, T, H, D], lse [B, H, T]), as `ring_forward` for each rank."""
     qs, ks, vs = _blocks(q, n), _blocks(k, n), _blocks(v, n)
     outs, lses = [], []
     for idx in range(n):
@@ -222,45 +229,28 @@ def virtual_ring_forward(q, k, v, n: int, causal: bool = True) -> Merged:
             kind = block_kind(idx, src, causal)
             if kind is not None:
                 acc = merge(acc, *block_forward(qs[idx], ks[src], vs[src], kind))
-        outs.append(acc[0].to(q.dtype))
+        outs.append(acc[0])
         lses.append(acc[1])
     return torch.cat(outs, dim=1), torch.cat(lses, dim=2)
 
 
-def virtual_ring_backward(q, k, v, o, lse, do, n: int, causal: bool = True, magnitudes: bool = False,
-                          plain: bool = False):
+def virtual_ring_backward(q, k, v, o, lse, do, n: int, causal: bool = True):
     """The ring's backward for all n ranks on one device through
-    `block_backward` with each rank's global lse and delta, the dk/dv
-    accumulators summed per block in the order their travel visits the
-    ranks. Returns (dq, dk, dv) in the inputs' dtypes; with `magnitudes`
-    also the fp32 sums of the blocks' |dq|, |dk| and |dv| (each block's
-    gradient is rounded to the inputs' dtype before the sum, so an element
-    may sit one rounding of each block's share from the whole sequence's).
-    `plain`: every block through the plain backward, on any device (the
-    reference the kernels' ring is held against on the card)."""
+    `block_backward` with each rank's global lse and delta (from `o`, fp32
+    from `virtual_ring_forward`), the fp32 dk/dv accumulators summed per
+    block in the order their travel visits the ranks. Returns (dq, dk, dv)
+    in the inputs' dtypes, each cast once."""
     qs, ks, vs, os_, dos = (_blocks(x, n) for x in (q, k, v, o, do))
     lses = [x.contiguous() for x in lse.chunk(n, dim=2)]
-
-    def zeros(blocks):
-        return [torch.zeros(b.shape, dtype=torch.float32, device=b.device) for b in blocks]
-
-    acc = (zeros(qs), zeros(ks), zeros(vs))
-    mag = (zeros(qs), zeros(ks), zeros(vs)) if magnitudes else None
-    deltas = [None if plain else row_delta(o_i, do_i) for o_i, do_i in zip(os_, dos)]  # once per rank, as the ring
+    acc = tuple([torch.zeros(b.shape, dtype=torch.float32, device=b.device) for b in blocks] for blocks in (qs, ks, vs))
+    deltas = [row_delta(o_i, do_i) for o_i, do_i in zip(os_, dos)]  # once per rank, as the ring
     for i in range(n):  # step i: rank idx holds block (idx - i) % n
         for idx in range(n):
             src = (idx - i) % n
             kind = block_kind(idx, src, causal)
             if kind is None:
                 continue
-            if plain:
-                grads = flash_attention_bwd_plain(qs[idx], ks[src], vs[src], os_[idx], lses[idx], dos[idx],
-                                                  causal=kind)
-            else:
-                grads = block_backward(qs[idx], ks[src], vs[src], os_[idx], lses[idx], dos[idx], deltas[idx], kind)
+            grads = block_backward(qs[idx], ks[src], vs[src], os_[idx], lses[idx], dos[idx], deltas[idx], kind)
             for j, (at, g) in enumerate(zip((idx, src, src), grads)):
-                acc[j][at] += g.float()
-                if magnitudes:
-                    mag[j][at] += g.float().abs()
-    out = tuple(torch.cat(sums, dim=1).to(like.dtype) for sums, like in zip(acc, (q, k, v)))
-    return (out, tuple(torch.cat(m, dim=1) for m in mag)) if magnitudes else out
+                acc[j][at] += g
+    return tuple(torch.cat(sums, dim=1).to(like.dtype) for sums, like in zip(acc, (q, k, v)))

@@ -160,18 +160,58 @@ def _leaves(tree) -> List[Any]:
     return [tree]
 
 
+# The gradient sync's staging buffer per dtype: the tensors' elements pass
+# through it in order, one all-reduce each time it fills, so the sync holds
+# 64 MiB more than the gradients, not a second copy of all of them (one
+# all-reduce per 16 M fp32 elements).
+ALL_REDUCE_BUCKET_BYTES = 64 << 20
+
+
 def _coalesced_all_reduce(tensors: List[torch.Tensor], group) -> None:
-    """Sum each tensor over `group` in place, with one all-reduce per dtype."""
+    """Sum each tensor over `group` in place. Per dtype, the tensors'
+    elements, in order, are copied into one buffer of at most
+    ALL_REDUCE_BUCKET_BYTES, all-reduced each time it fills, and
+    copied back; a bucket may end inside a tensor, which then spans two. A
+    tensor that is not contiguous goes through a contiguous copy of itself,
+    and its bucket is reduced early so that the copy can be written back.
+    Each element's sum over the ranks is the one a single flat all-reduce
+    gives."""
     by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
     for ts in by_dtype.values():
-        flat = torch.cat([t.reshape(-1) for t in ts])
-        all_reduce_(flat, group)
-        offset = 0
+        total = sum(t.numel() for t in ts)
+        if total == 0:
+            continue
+        cap = max(1, min(total, ALL_REDUCE_BUCKET_BYTES // ts[0].element_size()))
+        buf = torch.empty(cap, dtype=ts[0].dtype, device=ts[0].device)
+        parts: List[Tuple[torch.Tensor, int]] = []  # (a slice of a tensor's elements, its offset in buf)
+        fill = 0
+
+        def flush() -> None:
+            nonlocal fill
+            all_reduce_(buf[:fill], group)
+            for dst, at in parts:
+                dst.copy_(buf[at:at + dst.numel()])
+            parts.clear()
+            fill = 0
+
         for t in ts:
-            t.copy_(flat[offset:offset + t.numel()].view_as(t))
-            offset += t.numel()
+            flat = t.view(-1) if t.is_contiguous() else t.contiguous().view(-1)
+            start = 0
+            while start < flat.numel():
+                n = min(flat.numel() - start, cap - fill)
+                buf[fill:fill + n].copy_(flat[start:start + n])
+                parts.append((flat[start:start + n], fill))
+                fill, start = fill + n, start + n
+                if fill == cap:
+                    flush()
+            if not t.is_contiguous():
+                if fill:
+                    flush()
+                t.copy_(flat.view_as(t))
+        if fill:
+            flush()
 
 
 def _data_group(mesh):

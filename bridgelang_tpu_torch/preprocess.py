@@ -6,10 +6,10 @@ Counterpart of scripts/preprocess.py: fetch (or, without network egress,
 name what to stage where) the LLaVA-family datasets of
 `preprocessing.download.DATASET_REGISTRY` under `<root_dir>/download/<id>/`,
 and build the merged instruct-tuning mixtures (LVIS-Instruct-4V, LRV-Instruct)
-that the `llava-lvis4v*` / `llava-lrv*` dataset configs name. OCR-VQA's
-GIF/PNG -> JPEG conversion is not ported: where
-`<root>/download/<id>/ocr_vqa/images` exists, `main` raises
-NotImplementedError.
+that the `llava-lvis4v*` / `llava-lrv*` dataset configs name. Where
+`<root>/download/<id>/ocr_vqa/images` exists, its GIF and PNG images are
+written beside themselves as JPEG, byte for byte as the JAX package's PIL
+conversion writes them (`preprocessing.download.convert_gif_png_to_jpg`).
 """
 
 from __future__ import annotations

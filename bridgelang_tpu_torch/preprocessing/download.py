@@ -87,9 +87,16 @@ def _fetch(url: str, target: Path, extract: bool) -> None:
 
 def convert_gif_png_to_jpg(image_dir: Path) -> None:
     """OCR-VQA ships GIF/PNG files that must be JPG (the reference's
-    preprocessing quirk). Not ported: the JAX package re-encodes them with
-    PIL, and an equal result needs a GIF decoder and PIL's JPEG encoder."""
-    raise NotImplementedError(
-        f"convert_gif_png_to_jpg({image_dir}): the OCR-VQA GIF/PNG -> JPEG conversion needs a GIF decoder and a "
-        "JPEG encoder equal to PIL's, which the port does not have yet (ROADMAP.md Queue 1); convert the images "
-        "with the JAX package's scripts/preprocess.py")
+    preprocessing quirk): every *.gif, then every *.png, of `image_dir` is
+    written beside itself as p.with_suffix(".jpg"), the original kept, so a
+    PNG's JPEG replaces a GIF's of the same stem. The JAX package runs
+    Image.open(p).convert("RGB").save(p.with_suffix(".jpg"), "JPEG"); here
+    native/image.py reads the file by its content as PIL does
+    (open_rgb_and_comment) and writes Pillow's JPEG bytes (encode_jpeg),
+    the image's comment (a GIF comment extension, a JPEG COM marker) carried
+    to a COM marker as PIL carries it."""
+    from bridgelang_tpu_torch.native.image import encode_jpeg, open_rgb_and_comment
+
+    for p in list(Path(image_dir).glob("*.gif")) + list(Path(image_dir).glob("*.png")):
+        rgb, comment = open_rgb_and_comment(p)
+        p.with_suffix(".jpg").write_bytes(encode_jpeg(rgb, comment))

@@ -6,6 +6,13 @@ of which fails the run:
   build    compile every bridgelang_tpu_torch/csrc/*.cu with nvcc (sm_90a),
            all sources in parallel; print the build seconds, the ptxas
            register report, and the card's name and power limit.
+  leftovers the last port slice's host-only modules (this machine has no
+           Pillow): preprocessing.download.convert_gif_png_to_jpg over a copy
+           of tests/data/images/ocr (GIF: global and local tables,
+           interlaced, offset and oversized frames, transparency, comments;
+           PNG at every colour type and depth), each JPEG's sha256 equal to
+           the Pillow 12.1 bytes of the folder's manifest; extern/timm_shim
+           building every tower id it models (meta device); version.
   kernels  the flash-attention forward kernel against its plain torch
            version at the serving path's shapes (bf16, H=32, D=128 and
            Phi-2's D=80, ragged lengths, B in {1, 4}) and at GQA, S > T,
@@ -43,19 +50,21 @@ of which fails the run:
            the card: a virtual ring of n = 2, 4 and 8 blocks of one bf16
            sequence (B=2, T=2304, the 7B's 32 heads, D=128; Mistral's GQA
            32/8 at n=4), through the block functions the ranks call with the
-           rotations replaced by indexing. The forward's o and lse against
-           the plain forward over the whole sequence and the whole-sequence
-           kernel (FWD_ATOL, 1e-3); the backward given the whole sequence's
-           o and lse against the whole-sequence kernels, and given the
-           ring's own against the plain virtual ring, each under
-           ring_tolerance_use (GRAD_TOL of the blocks' shares: each block's
-           gradient leaves the kernel rounded to bf16); n (n + 1) / 2
-           launches of each flash kernel per ring pass, exactly. CUDA event
-           times of the ring's forward and backward beside the
-           whole-sequence kernels'; the kernels at one full and one diagonal
-           block of the 8-block ring and at a tensor=2 rank's LoRA step (16
-           heads, B=16, T=352), beside the plain versions, SDPA and the
-           bound.
+           rotations replaced by indexing; the blocks' kernels write fp32
+           o, dq, dk and dv, merged and summed in fp32 and cast once, as the
+           JAX ring. Held to JAX's arithmetic (the plain whole-sequence
+           forward and backward on the inputs upcast to fp32, cast once):
+           o within FWD_ATOL, lse 1e-3, the ring's own gradients under
+           GRAD_TOL per element; given the whole-sequence kernel's o and
+           lse, the gradients under GRAD_TOL of the whole-sequence kernels';
+           the gap of the ring's own gradients to those kernels logged;
+           n (n + 1) / 2 launches of each flash kernel per ring pass,
+           exactly. CUDA event times of the ring's forward and backward
+           beside the whole-sequence kernels'; the kernels at one full and
+           one diagonal block of the 8-block ring (bf16 and fp32 outputs,
+           the fp32 ones against the plain versions with fp32 out_dtype)
+           and at a tensor=2 rank's LoRA step (16 heads, B=16, T=352),
+           beside the plain versions, SDPA and the bound.
   load     right after the 7B's random weights are drawn: write them in the
            published HF layout (bf16, three shards with an index,
            config.json, dataset_statistics.json; plus the source-only tensors
@@ -467,32 +476,31 @@ def bwd_bound_ms(q, k, lengths, window, which):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def grad_tolerance_use(got, want) -> float:
+def grad_tolerance_use(got, want, rule=None) -> float:
     """The share of GRAD_TOL that `got` uses against `want`: the max over
-    elements of |got - want| / (rtol |want| + atol rms(want)). Above 1 fails."""
+    elements of |got - want| / (rtol |want| + atol rms(want)). Above 1 fails.
+    `rule`: GRAD_TOL's key, by default want's dtype (an fp32 output of bf16
+    inputs is held to the bf16 rule: its error is the bf16 operands')."""
     import torch
 
-    rtol, atol = GRAD_TOL[str(want.dtype).replace("torch.", "")]
+    rtol, atol = GRAD_TOL[rule or str(want.dtype).replace("torch.", "")]
     w = want.float()
     allowed = (rtol * w.abs() + atol * w.square().mean().sqrt()).clamp_min(torch.finfo(torch.float32).tiny)
     return float(((got.float() - w).abs() / allowed).max())
 
 
-def ring_tolerance_use(got, want, magnitude) -> float:
-    """`grad_tolerance_use` for a ring's gradients, GRAD_TOL taken of the
-    blocks' shares: `magnitude` is the sum of the blocks' |gradient| (the
-    plain virtual ring's, ops/ring_attention.virtual_ring_backward with
-    magnitudes). A kernel returns each block's share in the inputs' dtype,
-    one GRAD_TOL from its exact value at most, and the ring rounds the fp32
-    sum of the shares once more, so an element where the blocks cancel
-    moves by ulps of the shares, not of the sum:
-    |got - want| <= rtol (magnitude + |want|) + atol rms(magnitude)."""
-    import torch
+def jax_arithmetic_ring_reference(q, k, v, do, causal: bool = True):
+    """What the JAX ring (bridgelang_tpu/ops/ring_attention.py, fp32 einsums
+    per block, one cast at the end) computes for these bf16 inputs, up to
+    fp32 summation order: the plain whole-sequence forward and backward on
+    q, k, v and dO upcast to fp32, o and the gradients cast to the inputs'
+    dtype once. Returns (o, lse, (dq, dk, dv))."""
+    from bridgelang_tpu_torch.ops.flash_attention import flash_attention_bwd_plain, flash_attention_plain
 
-    rtol, atol = GRAD_TOL[str(want.dtype).replace("torch.", "")]
-    w, m = want.float(), magnitude.float()
-    allowed = (rtol * (m + w.abs()) + atol * m.square().mean().sqrt()).clamp_min(torch.finfo(torch.float32).tiny)
-    return float(((got.float() - w).abs() / allowed).max())
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    o, lse = flash_attention_plain(qf, kf, vf, causal=causal)
+    grads = flash_attention_bwd_plain(qf, kf, vf, o, lse, dof, causal=causal)
+    return o.to(q.dtype), lse, tuple(g.to(x.dtype) for g, x in zip(grads, (q, k, v)))
 
 
 def check_backward_kernels():
@@ -669,20 +677,22 @@ RING_TIMED_REPS = 5
 TP_TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_T, 16, 16, 128)  # a tensor=2 rank's LoRA step: B, T, H, Hkv, D
 
 
-def block_bound_ms(q, k, causal: bool, which: str):
+def block_bound_ms(q, k, causal: bool, which: str, out_bytes: int = 0):
     """Least time for one ring block (every key valid): max(bytes / HBM rate,
     FLOPs / peak). Bytes: q, k, v read once, and o and lse written once
     ("fwd"); q, k, v, dO, lse and delta read once, and dq or dk and dv
-    written once ("dq", "dkv"). FLOPs per attended (row, key) pair: 4 D
-    forward, 6 D for dq, 8 D for dk/dv; a diagonal block attends T (T + 1) / 2
-    pairs per head, a full block T S."""
+    written once ("dq", "dkv"), the outputs in `out_bytes` per element
+    (default the inputs'). FLOPs per attended (row, key) pair: 4 D forward,
+    6 D for dq, 8 D for dk/dv; a diagonal block attends T (T + 1) / 2 pairs
+    per head, a full block T S."""
     b, t, h, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     e = q.element_size()
+    oe = out_bytes or e
     qb, kb, stats = b * t * h * d * e, b * s * hkv * d * e, 4 * b * h * t
     pairs = b * h * (t * (t + 1) // 2 if causal else t * s)
-    n_bytes = {"fwd": 2 * qb + 2 * kb + stats, "dq": 3 * qb + 2 * kb + 2 * stats,
-               "dkv": 2 * qb + 4 * kb + 2 * stats}[which]
+    n_bytes = {"fwd": qb * (1 + oe / e) + 2 * kb + stats, "dq": qb * (2 + oe / e) + 2 * kb + 2 * stats,
+               "dkv": 2 * qb + kb * (2 + 2 * oe / e) + 2 * stats}[which]
     flops = {"fwd": 4, "dq": 6, "dkv": 8}[which] * d * pairs
     peak = PEAK_FLOPS[str(q.dtype).replace("torch.", "")]
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
@@ -692,18 +702,21 @@ def block_bound_ms(q, k, causal: bool, which: str):
 def ring_case(label: str, h: int, hkv: int, n: int, seed: int, timed: bool) -> dict:
     """One virtual ring of n blocks of a bf16 sequence of RING_T tokens on
     the card, through ops/ring_attention's block functions (the flash
-    kernels): the forward's o within FWD_ATOL and lse within 1e-3 of the
-    plain forward over the whole sequence and of the whole-sequence kernel;
-    the backward, given the whole sequence's o and lse, against the
-    whole-sequence kernels, and given the ring's own o and lse against the
-    plain virtual ring, each under ring_tolerance_use (GRAD_TOL of the
-    blocks' shares); exactly n (n + 1) / 2 launches of each flash kernel per
-    ring pass. With `timed`, CUDA event times of the ring's forward and
-    backward beside the whole-sequence kernels'."""
+    kernels with fp32 outputs, merged and summed in fp32, cast once), held
+    to JAX's arithmetic (jax_arithmetic_ring_reference: the plain
+    whole-sequence forward and backward on the inputs upcast to fp32, cast
+    once): o within FWD_ATOL of it and of the whole-sequence kernel's, lse
+    within 1e-3; the ring's own gradients (from its fp32 o and lse) under
+    GRAD_TOL of it (`*_end_to_end`); given the whole-sequence kernel's o and
+    lse, under GRAD_TOL of the whole-sequence kernels' gradients
+    (`*_vs_whole_kernel`); exactly n (n + 1) / 2 launches of each flash
+    kernel per ring pass. Logged, not gated: the ring's own gradients
+    against the whole-sequence kernels' (`*_vs_whole_kernels_grad_tol`: those
+    form delta from their bf16 o). With `timed`, CUDA event times of the
+    ring's forward and backward beside the whole-sequence kernels'."""
     import torch
 
-    from bridgelang_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_plain)
+    from bridgelang_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
     from bridgelang_tpu_torch.ops.ring_attention import virtual_ring_backward, virtual_ring_forward
 
     q, k, v, _ = attention_case(RING_B, RING_T, RING_T, h, hkv, 128, [RING_T] * RING_B, None, torch.bfloat16, seed)
@@ -712,7 +725,7 @@ def ring_case(label: str, h: int, hkv: int, n: int, seed: int, timed: bool) -> d
     blocks = n * (n + 1) // 2
     o_w, lse_w = flash_attention(q, k, v, causal=True)
     whole = flash_attention_bwd(q, k, v, o_w, lse_w, do, causal=True)
-    po, plse = flash_attention_plain(q, k, v, causal=True)
+    ref_o, ref_lse, ref = jax_arithmetic_ring_reference(q, k, v, do)
     reset_launch_counts()
     o, lse = virtual_ring_forward(q, k, v, n)
     expect_counts(launch_counts(), {"flash_fwd": blocks}, f"ring {label} n={n} forward")
@@ -721,27 +734,25 @@ def ring_case(label: str, h: int, hkv: int, n: int, seed: int, timed: bool) -> d
     expect_counts(launch_counts(), {"flash_bwd_dq": blocks, "flash_bwd_dkv": blocks}, f"ring {label} n={n} backward")
     given_whole = virtual_ring_backward(q, k, v, o_w, lse_w, do, n)
     launches = {"flash_fwd": blocks, "flash_bwd_dq": 2 * blocks, "flash_bwd_dkv": 2 * blocks}
-    plain_own, mags_own = virtual_ring_backward(q, k, v, o, lse, do, n, magnitudes=True, plain=True)
-    _, mags_whole = virtual_ring_backward(q, k, v, o_w, lse_w, do, n, magnitudes=True, plain=True)
-    err = {"o_vs_plain": (o.float() - po.float()).abs().max().item(),
-           "o_vs_kernel": (o.float() - o_w.float()).abs().max().item(),
-           "lse_vs_plain": (lse - plse).abs().max().item()}
+    ob = o.to(q.dtype)
+    err = {"o_vs_jax_arithmetic": (ob.float() - ref_o.float()).abs().max().item(),
+           "o_vs_kernel": (ob.float() - o_w.float()).abs().max().item(),
+           "lse_vs_plain": (lse - ref_lse).abs().max().item()}
     uses = {}
     for i, name in enumerate(("dq", "dk", "dv")):
-        uses[f"{name}_vs_whole_kernel"] = ring_tolerance_use(given_whole[i], whole[i], mags_whole[i])
-        uses[f"{name}_vs_plain_ring"] = ring_tolerance_use(grads[i], plain_own[i], mags_own[i])
-        # for the record: the ring end to end (its own o) against the whole-sequence kernels, in GRAD_TOL units
-        uses[f"{name}_end_to_end_grad_tol"] = grad_tolerance_use(grads[i], whole[i])
-    del plain_own, mags_own, mags_whole
+        uses[f"{name}_end_to_end"] = grad_tolerance_use(grads[i], ref[i])
+        uses[f"{name}_vs_whole_kernel"] = grad_tolerance_use(given_whole[i], whole[i])
+        # for the record: the ring end to end against the whole-sequence kernels (delta from their bf16 o)
+        uses[f"{name}_vs_whole_kernels_grad_tol"] = grad_tolerance_use(grads[i], whole[i])
     finite = all(torch.isfinite(x).all() for x in (o, *grads, *given_whole))
-    ok = (finite and err["o_vs_plain"] <= FWD_ATOL["bfloat16"] and err["o_vs_kernel"] <= FWD_ATOL["bfloat16"]
+    ok = (finite and err["o_vs_jax_arithmetic"] <= FWD_ATOL["bfloat16"] and err["o_vs_kernel"] <= FWD_ATOL["bfloat16"]
           and err["lse_vs_plain"] <= 1e-3
           and max(u for key, u in uses.items() if not key.endswith("grad_tol")) <= 1.0)
     log(f"ring {label} n={n}: B={RING_B} T={RING_T} H={h}/{hkv} D=128 bf16, {blocks} blocks per pass: "
         + ", ".join(f"{key} {val:.3e}" for key, val in err.items()) + "; tolerance use "
         + ", ".join(f"{key} {val:.3g}" for key, val in uses.items()) + f" {'ok' if ok else 'FAIL'}")
     if not ok:
-        fail(f"ring {label} n={n}: the ring's blocks disagree with the whole sequence")
+        fail(f"ring {label} n={n}: the ring disagrees with JAX's arithmetic or the whole-sequence kernels")
     out = dict(n=n, heads=f"{h}/{hkv}", blocks=blocks, errors=err, tolerance_use=uses, launches=launches)
     if timed:
         ring_fwd = cuda_ms(lambda: virtual_ring_forward(q, k, v, n), RING_TIMED_REPS)
@@ -752,16 +763,21 @@ def ring_case(label: str, h: int, hkv: int, n: int, seed: int, timed: bool) -> d
         log(f"timing ring {label} n={n} (CUDA events, one card, the n ranks' blocks one after another): forward "
             f"{ring_fwd:.3f} ms against the whole-sequence kernel's {whole_fwd:.3f} ms; backward {ring_bwd:.3f} ms "
             f"against {whole_bwd:.3f} ms (both backward kernels and delta)")
-    del q, k, v, do, o_w, lse_w, whole, po, plse, o, lse, grads, given_whole
+    del q, k, v, do, o_w, lse_w, whole, ref_o, ref_lse, ref, o, lse, ob, grads, given_whole
     torch.cuda.empty_cache()
     return out
 
 
-def time_block(label: str, b: int, t: int, s: int, h: int, hkv: int, causal: bool, seed: int) -> dict:
+def time_block(label: str, b: int, t: int, s: int, h: int, hkv: int, causal: bool, seed: int,
+               f32_out: bool = False) -> dict:
     """The flash kernels at one block shape (every key valid): forward, dq
     and dk/dv each timed with CUDA events, beside the plain versions, SDPA
     (memory-efficient backend: forward, and autograd backward for dq, dk and
-    dv together) and the bound."""
+    dv together) and the bound. `f32_out` (a ring block): also the fp32
+    outputs the ring launches, held against the plain versions with the same
+    out_dtype (o within FWD_ATOL["bfloat16"], lse 1e-3, the gradients under
+    GRAD_TOL's bf16 rule) and timed (`*_f32`; the bound counts their 4-byte
+    outputs)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -780,6 +796,25 @@ def time_block(label: str, b: int, t: int, s: int, h: int, hkv: int, causal: boo
           "dkv": cuda_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, lens, causal), 20),
           "plain_fwd": cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal), 3),
           "plain_bwd": cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal), 3)}
+    checks = {}
+    if f32_out:
+        f32 = torch.float32
+        o32, lse32 = _launch(q, k, v, lens, causal, None, out_dtype=f32)
+        po32, plse = flash_attention_plain(q, k, v, causal=causal, out_dtype=f32)
+        got = (flash_bwd_dq(q, k, v, do, lse, delta, lens, causal, out_dtype=f32),
+               *flash_bwd_dkv(q, k, v, do, lse, delta, lens, causal, out_dtype=f32))
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, out_dtype=f32)
+        checks = {"o_f32": (o32 - po32).abs().max().item(), "lse": (lse32 - plse).abs().max().item(),
+                  **{f"{w}_f32_use": grad_tolerance_use(a, b_, rule="bfloat16")
+                     for w, a, b_ in zip(("dq", "dk", "dv"), got, want)}}
+        if not (all(x.dtype == f32 for x in (o32, *got)) and checks["o_f32"] <= FWD_ATOL["bfloat16"]
+                and checks["lse"] <= 1e-3 and max(checks[f"{w}_f32_use"] for w in ("dq", "dk", "dv")) <= 1.0):
+            fail(f"block {label}: the fp32-output kernels disagree with the plain versions: {checks}")
+        ms.update(fwd_f32=cuda_ms(lambda: _launch(q, k, v, lens, causal, None, out_dtype=f32), 20),
+                  dq_f32=cuda_ms(lambda: flash_bwd_dq(q, k, v, do, lse, delta, lens, causal, out_dtype=f32), 20),
+                  dkv_f32=cuda_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, lens, causal, out_dtype=f32), 20),
+                  plain_fwd_f32=cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal, out_dtype=f32), 3))
+        del o32, lse32, po32, plse, got, want
     rep = h // hkv
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2)))
     with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
@@ -789,14 +824,17 @@ def time_block(label: str, b: int, t: int, s: int, h: int, hkv: int, causal: boo
         ms["library_bwd"] = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do.transpose(1, 2),
                                                                 retain_graph=True), 20)
     bounds = {w: block_bound_ms(q, k, causal, w) for w in ("fwd", "dq", "dkv")}
+    if f32_out:
+        bounds.update({f"{w}_f32": block_bound_ms(q, k, causal, w, out_bytes=4) for w in ("fwd", "dq", "dkv")})
     log(f"timing block {label}: B={b} T={t} S={s} H={h}/{hkv} D=128 bf16 {'causal' if causal else 'full'}: "
         + ", ".join(f"{key} {val:.4f} ms" for key, val in ms.items()) + "; bounds "
         + ", ".join(f"{w} {bd[0]:.4f} ms ({bd[1]})" for w, bd in bounds.items())
-        + " (library: SDPA memory-efficient; GQA keys repeated for it, outside the timing)")
+        + " (library: SDPA memory-efficient; GQA keys repeated for it, outside the timing)"
+        + (f"; fp32 outputs against the plain versions: {checks}" if checks else ""))
     del q, k, v, do, o, lse, delta, qt, kt, vt, qg, kg, vg, out
     torch.cuda.empty_cache()
     return dict(shape=f"B={b} T={t} S={s} H={h}/{hkv} D=128 bf16 {'causal' if causal else 'full'}", ms=ms,
-                bounds=bounds)
+                bounds=bounds, f32_checks=checks)
 
 
 def ring_phase() -> dict:
@@ -812,8 +850,9 @@ def ring_phase() -> dict:
     cases = [ring_case("7B", 32, 32, n, 900 + n, timed=True) for n in RING_NS]
     cases.append(ring_case("mistral", 32, 8, RING_GQA_N, 950, timed=False))
     tb = RING_T // RING_NS[-1]
-    blocks = {"full": time_block(f"ring n={RING_NS[-1]} full", RING_B, tb, tb, 32, 32, False, 960),
-              "diagonal": time_block(f"ring n={RING_NS[-1]} diagonal", RING_B, tb, tb, 32, 32, True, 962)}
+    blocks = {"full": time_block(f"ring n={RING_NS[-1]} full", RING_B, tb, tb, 32, 32, False, 960, f32_out=True),
+              "diagonal": time_block(f"ring n={RING_NS[-1]} diagonal", RING_B, tb, tb, 32, 32, True, 962,
+                                     f32_out=True)}
     b, t, h, hkv, _ = TP_TRAIN_SHAPE
     tensor_rank = time_block("tensor=2 rank", b, t, t, h, hkv, True, 964)
     launches = {name: sum(c["launches"].get(name, 0) for c in cases) for name in KERNEL_NAMES}
@@ -3138,10 +3177,15 @@ class EntryPointProbe:
     batch), the dataset's batches are timed as they come (RLDS: the wait for
     each batch; LLaVA: each batch's host work, its items and the collator),
     and checkpoint saves and HF exports are timed. `per_step`: the launches
-    every step must make (else the run fails)."""
+    every step must make (else the run fails). `memory_steps` = N: the
+    caching allocator's history recorded over the first N steps, and the
+    device memory live at its peak by allocation site (`memory_sites`,
+    in `self.memory`); `entry_gb`: the memory allocated when the first step
+    begins."""
 
-    def __init__(self, label: str, per_step: dict, profile=FT_TIMED, on_first_step=None):
+    def __init__(self, label: str, per_step: dict, profile=FT_TIMED, on_first_step=None, memory_steps: int = 0):
         self.label, self.per_step, self.profile, self.on_first_step = label, per_step, profile, on_first_step
+        self.memory_steps, self.memory, self.entry_gb = memory_steps, None, None
         self.steps, self.waits, self.saves, self.exports, self.dataset_names = [], [], [], [], []
         self.host_batch_ms, self._items_ms = [], 0.0
         self.model = self.optimizer = self.mask = self.state = self.batch = self.dataset = None
@@ -3241,6 +3285,10 @@ class EntryPointProbe:
                     if probe.on_first_step is not None:
                         probe.on_first_step(state)
                     torch.cuda.reset_peak_memory_stats()
+                    probe.entry_gb = torch.cuda.memory_allocated() / 1e9
+                    if probe.memory_steps:
+                        probe._history_base = torch.cuda.memory_allocated()
+                        torch.cuda.memory._record_memory_history(max_entries=MEMORY_HISTORY_ENTRIES, stacks="python")
                 prof = None
                 if probe.profile and i == probe.profile[0]:
                     from torch.profiler import ProfilerActivity, profile
@@ -3259,6 +3307,11 @@ class EntryPointProbe:
                 probe.steps.append(dict(ms=ms, loss=loss, launches=counts,
                                         mask_sums=batch["attention_mask"].sum(dim=1).tolist()))
                 probe.step_peak_gb = max(probe.step_peak_gb, torch.cuda.max_memory_allocated() / 1e9)
+                if probe.memory_steps and i == probe.memory_steps - 1:
+                    snapshot = torch.cuda.memory._snapshot()
+                    torch.cuda.memory._record_memory_history(enabled=None)
+                    probe.memory = memory_sites(snapshot, probe._history_base)
+                    del snapshot
                 if probe.profile and i == probe.profile[1] - 1 and getattr(probe, "_prof", None) is not None:
                     probe._finish_profile()
                 if not math.isfinite(loss):
@@ -3309,7 +3362,11 @@ class EntryPointProbe:
         self._prof = None
 
     def __exit__(self, *exc):
+        import torch
+
         self.wall_s = time.perf_counter() - self._t0
+        if self.memory_steps and self.memory is None and self.steps:  # fewer steps than asked for
+            torch.cuda.memory._record_memory_history(enabled=None)
         for obj, name, value in reversed(self._patches):
             setattr(obj, name, value)
         self._patches.clear()
@@ -3325,7 +3382,8 @@ class EntryPointProbe:
                  step_ms=[s["ms"] for s in self.steps], data_wait_ms=waits,
                  median_step_ms=statistics.median(s["ms"] for s in timed) if timed else None,
                  median_data_wait_ms=statistics.median(waits[a:b]) if waits[a:b] else None,
-                 step_peak_gb=self.step_peak_gb, reader_rss_gb=self.reader_rss_gb, profile=self.profile_result,
+                 step_peak_gb=self.step_peak_gb, entry_gb=self.entry_gb, memory=self.memory,
+                 reader_rss_gb=self.reader_rss_gb, profile=self.profile_result,
                  saves=self.saves, exports=self.exports, host_batch_ms=self.host_batch_ms,
                  launches={k: sum(s["launches"][k] for s in self.steps) for k in KERNEL_NAMES})
         idle = (self.profile_result or {}).get("idle_share")
@@ -3340,6 +3398,50 @@ class EntryPointProbe:
             f"{[(s['step'], round(s['seconds'], 2), round(s['bytes'] / 1e9, 2)) for s in self.saves]} (step, s, GB); "
             f"exports {[(round(e['seconds'], 2), round(e['bytes'] / 1e9, 2)) for e in self.exports]} (s, GB)")
         return r
+
+
+MEMORY_HISTORY_ENTRIES = 1_000_000  # allocator events kept: two steps of the 2-layer cut need ~1e4-1e5
+
+
+def memory_sites(snapshot, base_bytes: int, top: int = 8) -> dict:
+    """The device memory live at the peak of a window the caching allocator
+    recorded (torch.cuda.memory._record_memory_history, then _snapshot), by
+    allocation site: the device trace's allocs and completed frees replayed
+    from `base_bytes`, the memory allocated when the recording began. A
+    site is an allocation's innermost frame in the port's package (else in
+    this script, else its innermost frame); "before the window" is what was
+    live when the recording began and still is at the peak. Returns the
+    peak and the `top` sites, in GB."""
+    import torch
+
+    trace = [e for e in snapshot["device_traces"][torch.cuda.current_device()]
+             if e["action"] in ("alloc", "free_completed")]
+
+    def site(frames) -> str:
+        for key in ("bridgelang_tpu_torch", "chip_smoke"):
+            for f in frames:
+                if key in f["filename"]:
+                    return f"{key}{f['filename'].split(key, 1)[1]}:{f['line']} {f['name']}"
+        return f"{frames[0]['filename']}:{frames[0]['line']} {frames[0]['name']}" if frames else "no frame"
+
+    cur = peak = base_bytes
+    peak_at = -1
+    for i, e in enumerate(trace):
+        cur += e["size"] if e["action"] == "alloc" else -e["size"]
+        if cur > peak:
+            peak, peak_at = cur, i
+    live, before = {}, base_bytes
+    for e in trace[:peak_at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = (e["size"], e.get("frames", []))
+        elif live.pop(e["addr"], None) is None:
+            before -= e["size"]
+    by_site = {"before the window": before}
+    for size, frames in live.values():
+        key = site(frames)
+        by_site[key] = by_site.get(key, 0) + size
+    ranked = sorted(by_site.items(), key=lambda kv: -kv[1])[:top]
+    return dict(peak_gb=peak / 1e9, events=len(trace), sites_gb=[(k, v / 1e9) for k, v in ranked])
 
 
 def vm_rss_gb(pid: int):
@@ -3551,8 +3653,9 @@ def finetune_phase(ckpt_dir: str, dots_peak_gb: float, mesh: bool = False) -> di
                      "--vla.freeze_vision_backbone", "true", "--vla.save_interval", str(FT_TRAIN_STEPS - 1),
                      "--max_steps_override", str(FT_TRAIN_STEPS), "--data_root_dir", data, "--run_root_dir", runs]
             cut_step = {"flash_fwd": 2 * FT_CUT_LAYERS, "flash_bwd_dq": FT_CUT_LAYERS, "flash_bwd_dkv": FT_CUT_LAYERS}
-            # profiled: steps 2-4, before the save that follows step 4
-            with EntryPointProbe("train (2 layers)", cut_step, profile=(1, FT_TRAIN_STEPS - 1)) as probe_a:
+            # profiled: steps 2-4, before the save that follows step 4; the allocator's history over step 1
+            with EntryPointProbe("train (2 layers)", cut_step, profile=(1, FT_TRAIN_STEPS - 1),
+                                 memory_steps=1) as probe_a:
                 state_a = train.main(parse_cli(train.TrainConfig, targs + ["--run_id", "a"]))
             tr = probe_a.summary()
             ckpt4 = glob.glob(os.path.join(runs, "a", "checkpoints", f"step-{FT_TRAIN_STEPS - 1:06d}-*"))
@@ -3565,18 +3668,28 @@ def finetune_phase(ckpt_dir: str, dots_peak_gb: float, mesh: bool = False) -> di
                 state_b = train.main(parse_cli(train.TrainConfig, targs + [
                     "--run_id", "b", "--pretrained_checkpoint", ckpt4[0], "--resume_step", str(FT_TRAIN_STEPS - 1)]))
             res = probe_b.summary()
+            la, lb = tr["losses"][-1], res["losses"][0]
+            leaves_equal = all(torch.equal(x, y) for x, y in zip(tree_leaves(state_a.params),
+                                                                 tree_leaves(state_b.params)))
+            moments_equal = all(not isinstance(x, torch.Tensor) or torch.equal(x, y)
+                                for x, y in zip(tree_leaves(state_a.opt_state), tree_leaves(state_b.opt_state)))
+            n_params = sum(t.numel() for t in tree_leaves(state_a.params))
+            steps_equal = state_a.step == state_b.step
+            # Both runs' states go before the ring run, whose peak is held to run a's (PR 15's ring run began
+            # with both still allocated).
+            tr["states_gb"] = [sum(t.numel() * t.element_size() for t in tree_leaves([st.params, st.opt_state])
+                                   if isinstance(t, torch.Tensor) and t.is_cuda) / 1e9 for st in (state_a, state_b)]
+            log(f"train: the two runs' states (parameters and moments) hold {tr['states_gb'][0]:.2f} + "
+                f"{tr['states_gb'][1]:.2f} GB on the card; freed before the ring run")
+            del state_a, state_b, probe_a, probe_b
+            release_memory()
             if mesh:  # the ring on the same cut, from the same flags
                 t_ring = time.perf_counter()
-                result["mesh"]["train_ring"] = mesh_ring_train(targs, tr["losses"], cut_step)
+                result["mesh"]["train_ring"] = mesh_ring_train(targs, tr, cut_step)
                 result["mesh"]["phase_s"] += time.perf_counter() - t_ring
         finally:
             llama.LLM_CONFIGS["llama2-7b-pure"] = full_llm
-        la, lb = tr["losses"][-1], res["losses"][0]
-        leaves_equal = all(torch.equal(x, y) for x, y in zip(tree_leaves(state_a.params), tree_leaves(state_b.params)))
-        moments_equal = all(not isinstance(x, torch.Tensor) or torch.equal(x, y)
-                            for x, y in zip(tree_leaves(state_a.opt_state), tree_leaves(state_b.opt_state)))
-        n_params = sum(t.numel() for t in tree_leaves(state_a.params))
-        if la != lb or not leaves_equal or not moments_equal or state_a.step != state_b.step:
+        if la != lb or not leaves_equal or not moments_equal or not steps_equal:
             fail(f"train resume: step {FT_TRAIN_STEPS} from the checkpoint differs from the uninterrupted one: loss "
                  f"{lb} vs {la}, parameters equal {leaves_equal}, moments equal {moments_equal}")
         log(f"train: OpenVLA at full width, {FT_CUT_LAYERS} decoder layers ({n_params / 1e9:.3f} B fp32 params, vision "
@@ -3585,8 +3698,6 @@ def finetune_phase(ckpt_dir: str, dots_peak_gb: float, mesh: bool = False) -> di
         tr.update(resume=dict(loss=[la, lb], bit_equal=True, saves=res["saves"], step_ms=res["step_ms"]),
                   params=n_params)
         result["train"] = tr
-        del state_a, state_b, probe_a, probe_b
-        release_memory()
     finally:
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -3809,15 +3920,21 @@ def with_flags(argv: list, flags: dict) -> list:
     return [x for kv in pairs.items() for x in kv]
 
 
-def mesh_ring_train(targs: list, unsharded: list, per_step: dict) -> dict:
+MESH_PEAK_RATIO = 1.25    # the one-rank mesh's train.main peak, at most this times the run without a mesh
+
+
+def mesh_ring_train(targs: list, unsharded: dict, per_step: dict) -> dict:
     """train.main --attention_impl ring --vla.mesh_shape fsdp=W for
     RING_TRAIN_STEPS steps on the finetune phase's depth-cut 7B, from the
-    flags of its run without the flag: at one card (a one-rank NCCL group in
-    this process, released after) the ring's axis has one rank, so the
-    decoder takes the JAX rule's fallback, the flash kernels, and the losses
-    are bit-equal to that run's first steps; on more cards through torchrun
-    the ring runs over fsdp=W (each data rank its share of the data, the
-    losses within 1e-2 relative of the one-card run's)."""
+    flags of its run without the flag (`unsharded`: that run's probe
+    summary): at one card (a one-rank NCCL group in this process, released
+    after) the ring's axis has one rank, so the decoder takes the JAX rule's
+    fallback, the flash kernels, and the losses are bit-equal to that run's
+    first steps; its step peak is at most MESH_PEAK_RATIO times that run's,
+    and both first steps' memory is attributed by allocation site. On more
+    cards through torchrun the ring runs over fsdp=W (each data rank its
+    share of the data, the losses within 1e-2 relative of the one-card
+    run's)."""
     import glob
     import shutil
 
@@ -3834,10 +3951,10 @@ def mesh_ring_train(targs: list, unsharded: list, per_step: dict) -> dict:
     args = with_flags(targs, {"--run_id": "ring", "--max_steps_override": str(RING_TRAIN_STEPS),
                               "--vla.save_interval": "1000", "--attention_impl": "ring",
                               "--vla.mesh_shape": f"fsdp={world}"})
-    want = unsharded[:RING_TRAIN_STEPS]
+    want = unsharded["losses"][:RING_TRAIN_STEPS]
     if world == 1:
         before = collective_launches()
-        with EntryPointProbe("train ring fsdp=1", per_step, profile=None) as probe:
+        with EntryPointProbe("train ring fsdp=1", per_step, profile=None, memory_steps=1) as probe:
             train.main(parse_cli(train.TrainConfig, args))
         r = probe.summary()
         r["collectives_per_step"] = (collective_launches() - before) / max(1, r["steps"])
@@ -3845,9 +3962,20 @@ def mesh_ring_train(targs: list, unsharded: list, per_step: dict) -> dict:
         del probe
         if r["losses"] != want:
             fail(f"train --attention_impl ring fsdp=1: losses {r['losses']} != the run without it {want}")
+        ratio = r["step_peak_gb"] / unsharded["step_peak_gb"]
+        r["peak_ratio"] = ratio
         log(f"mesh train --attention_impl ring --vla.mesh_shape fsdp=1: losses {r['losses']} bit-equal to the run "
             f"without the flag (one rank on the ring's axis: the flash kernels); step ms "
-            f"{[round(x, 1) for x in r['step_ms']]}; {r['collectives_per_step']:.0f} collectives per step")
+            f"{[round(x, 1) for x in r['step_ms']]}; {r['collectives_per_step']:.0f} collectives per step; peak "
+            f"{r['step_peak_gb']:.2f} GB against {unsharded['step_peak_gb']:.2f} GB without a mesh ({ratio:.3f}x; "
+            f"allocated at the first step {r['entry_gb']:.2f} and {unsharded['entry_gb']:.2f} GB)")
+        for label, m in (("ring fsdp=1", r["memory"]), ("without a mesh", unsharded["memory"])):
+            log(f"mesh memory, first step of train.main {label}: peak {m['peak_gb']:.2f} GB ({m['events']} allocator "
+                "events); live at the peak by allocation site: "
+                + "; ".join(f"{site} {gb:.3f} GB" for site, gb in m["sites_gb"]))
+        if ratio > MESH_PEAK_RATIO:
+            fail(f"train --attention_impl ring fsdp=1: peak {r['step_peak_gb']:.2f} GB is {ratio:.3f}x the run "
+                 f"without a mesh ({unsharded['step_peak_gb']:.2f} GB), above {MESH_PEAK_RATIO}")
     else:
         t0 = time.perf_counter()
         script = os.path.join(runs, "ring_train.py")
@@ -5064,6 +5192,75 @@ def robot_phase(ckpt_dir: str, written: dict) -> dict:
     return result
 
 
+# --- phase leftovers: the host-only modules of the last port slice ------------------
+
+OCR_FIXTURE_DIR = os.path.join(ROOT, "tests", "data", "images", "ocr")
+
+
+def leftovers_phase() -> dict:
+    """The port's last host-only modules on this machine, which has no
+    Pillow: preprocessing.download.convert_gif_png_to_jpg over a copy of the
+    committed OCR-VQA fixtures (tests/data/images/ocr: GIF and PNG of every
+    kind preprocess meets), each JPEG's sha256 equal to the one Pillow 12.1
+    wrote where the fixtures were made (manifest.json `jpegs`, the JAX
+    package's conversion), the same file names; extern/timm_shim.create_model
+    for every tower id it models, on the meta device (its module tree, and
+    every kept block's weights named as the checkpoint loader maps them into
+    the port's towers); version.__version__."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bridgelang_tpu_torch import version
+    from bridgelang_tpu_torch.extern import timm_shim
+    from bridgelang_tpu_torch.models.load import hf_to_port
+    from bridgelang_tpu_torch.models.vision.vit import VIT_CONFIGS
+    from bridgelang_tpu_torch.preprocessing.download import convert_gif_png_to_jpg
+
+    t0 = time.perf_counter()
+    with open(os.path.join(OCR_FIXTURE_DIR, "manifest.json")) as f:
+        want = json.load(f)["jpegs"]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="smoke_ocr_", dir=os.path.join(ROOT, "build"))
+    try:
+        for name in os.listdir(OCR_FIXTURE_DIR):
+            if name.endswith((".gif", ".png")):
+                shutil.copy(os.path.join(OCR_FIXTURE_DIR, name), os.path.join(work, name))
+        t_conv = time.perf_counter()
+        convert_gif_png_to_jpg(work)
+        conv_s = time.perf_counter() - t_conv
+        got = {}
+        for name in sorted(os.listdir(work)):
+            if name.endswith(".jpg"):
+                with open(os.path.join(work, name), "rb") as f:
+                    got[name] = hashlib.sha256(f.read()).hexdigest()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    bad = sorted(n for n in set(got) | set(want) if got.get(n) != want.get(n))
+    if bad:
+        fail(f"leftovers: the OCR-VQA conversion differs from Pillow's bytes (or file set) for {bad}")
+    towers = {}
+    for timm_id, (ours, _) in sorted(timm_shim._TIMM_ID_TO_OURS.items()):
+        with torch.device("meta"):
+            model = timm_shim.create_model(timm_id)
+        cfg = VIT_CONFIGS[ours]
+        names = model.state_dict().keys()
+        mapped = [n for n in names if hf_to_port(f"vision_backbone.featurizer.{n}", 1, {"featurizer": cfg.depth})]
+        params = sum(p.numel() for p in model.parameters())
+        if len(model.blocks) != cfg.depth or not any(n.startswith(f"blocks.{cfg.depth - 2}.") for n in mapped):
+            fail(f"leftovers: timm_shim.create_model({timm_id!r}) does not build the {ours} tower")
+        towers[timm_id] = dict(ours=ours, params=params, tensors=len(names), mapped=len(mapped))
+    result = dict(jpegs=len(got), conversion_s=conv_s, towers=towers, version=version.__version__,
+                  phase_s=time.perf_counter() - t0)
+    log(f"leftovers: convert_gif_png_to_jpg wrote {len(got)} JPEGs in {conv_s:.2f} s, every sha256 equal to "
+        f"Pillow 12.1's (tests/data/images/ocr/manifest.json); timm_shim built {len(towers)} tower ids ("
+        + ", ".join(f"{k} {v['params'] / 1e6:.1f} M" for k, v in towers.items())
+        + f"); version {version.__version__}; phase {result['phase_s']:.1f} s")
+    return result
+
+
 def report_build(logs: dict) -> None:
     """Each kernel's ptxas report (registers, spills, static shared memory)
     and the dynamic shared memory its launcher asks for."""
@@ -5123,8 +5320,8 @@ def release_memory() -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description="torch port smoke run on one GPU")
     ap.add_argument("--phases",
-                    default="build,load,kernels,ring,serve,spec,parallel,train,int8,int4,qlora,variants,tfds,scripts,"
-                            "robot,finetune,mesh,pretrain,parity",
+                    default="build,leftovers,load,kernels,ring,serve,spec,parallel,train,int8,int4,qlora,variants,"
+                            "tfds,scripts,robot,finetune,mesh,pretrain,parity",
                     help="comma-separated subset, for bring-up; the full run is the default; `cold` (not in "
                          "the default) runs only the device-side cold-L2 timings of the kernels phase")
     ap.add_argument("--package-root", default=ROOT,
@@ -5174,6 +5371,9 @@ def main() -> None:
         f"{os.path.basename(lib_path)} ({', '.join(s.name for s in native.SOURCES)}, g++) in {lib_s:.1f} s")
     report_build(logs)
     mark("build")
+    if "leftovers" in phases:
+        leftovers_phase()
+        mark("leftovers")
 
     model = params = None
     serve_t = 352
@@ -5420,8 +5620,9 @@ def main() -> None:
         if ring:
             entry["ring"] = dict(cases=ring["cases"], block=ring["blocks"], tensor_rank=ring["tensor_rank"],
                                  note="the virtual ring: n blocks of one B=2 T=2304 bf16 sequence through the ring's "
-                                      "block functions on one card; block and tensor_rank: the kernels at one ring "
-                                      "block (n=8) and at a tensor=2 rank's LoRA step, CUDA events")
+                                      "block functions (the kernels' fp32 outputs) on one card; block and "
+                                      "tensor_rank: the kernels at one ring block (n=8; bf16 and fp32 outputs, *_f32) "
+                                      "and at a tensor=2 rank's LoRA step, CUDA events")
         if scripts:
             entry["scripts"] = {k: v for k, v in scripts.items() if k != "launches"}
         if robot:
@@ -5458,7 +5659,10 @@ def main() -> None:
                          "plain_ms_b2: the plain backward at B=2")
             if ring:
                 extra_t2304["ring"] = {key: dict(shape=x["shape"], ms=x["ms"][err], plain_ms=x["ms"]["plain_bwd"],
-                                                 library_ms=x["ms"]["library_bwd"], bound=x["bounds"][err])
+                                                 library_ms=x["ms"]["library_bwd"], bound=x["bounds"][err],
+                                                 f32_ms=x["ms"].get(err + "_f32"),
+                                                 f32_bound=x["bounds"].get(err + "_f32"),
+                                                 f32_checks=x["f32_checks"])
                                        for key, x in (*ring["blocks"].items(), ("tensor_rank", ring["tensor_rank"]))}
             entries.append(kernel_entry(
                 name, "bridgelang_tpu_torch/csrc/flash_bwd.cu", line, launches(name), timing, **extra_t2304,

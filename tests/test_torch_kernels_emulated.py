@@ -12,11 +12,16 @@ no causal mask, and NaN in dead key slots, at head dims 64, 80 and 128. The emul
 order than the tensor cores, so the rules are the card's: the forward's o
 within FWD_ATOL and lse within 1e-3 on valid rows; the backward per element
 under GRAD_TOL (grad_tolerance_use <= 1), dead key slots exactly zero.
-The ring attention's blocks (ops/ring_attention.py with the emulated
-kernels behind its wrappers): a full block and a causal diagonal block at
-T = S = 72, and a ring of two such blocks forward and backward, the
-backward kernels given the whole sequence's lse and delta, against the
-plain versions over the whole sequence, under the same rules.
+The bf16 kernels' fp32 outputs (`out_dtype`, what the ring launches): o,
+dq, dk and dv written in fp32 at T = S = 72, GQA, head dims 64, 80 and 128,
+full and causal, against the plain versions with the same out_dtype under
+the bf16 inputs' rules. The ring attention's blocks (ops/ring_attention.py
+with the emulated kernels behind its wrappers): a full block and a causal
+diagonal block at T = S = 72, and a ring of two such blocks forward and
+backward: o against the whole sequence's; the gradients given the whole
+sequence's o and lse against the whole sequence's backward, and the ring's
+own (from its fp32 o) against JAX's arithmetic, the plain whole-sequence
+forward and backward on the inputs upcast to fp32, cast to bf16 once.
 
 The w4a8 kernels of csrc/int4_matmul.cu (the split-K decode kernel and the
 wgmma prefill kernel) and its activation quantization sum integers, so the
@@ -47,7 +52,7 @@ from bridgelang_tpu_torch.ops.quant import pack_int4, quantize_activations_per_t
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-from chip_smoke import FWD_ATOL, grad_tolerance_use, ring_tolerance_use  # noqa: E402
+from chip_smoke import FWD_ATOL, grad_tolerance_use, jax_arithmetic_ring_reference  # noqa: E402
 
 CSRC = ROOT / "bridgelang_tpu_torch" / "csrc"
 EMU = Path(__file__).resolve().parent / "cuda_emu"
@@ -118,7 +123,7 @@ def libraries(tmp_path_factory):
 def emulated(libraries):
     fwd, dq, dkv = libraries["flash_fwd"].flash_fwd, libraries["flash_bwd"].flash_bwd_dq, libraries["flash_bwd"].flash_bwd_dkv
     for fn, n_ptrs in ((fwd, 6), (dq, 8), (dkv, 9)):
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fwd, dq, dkv
 
@@ -128,7 +133,7 @@ def _case(name, seed):
     g = torch.Generator().manual_seed(seed)
     q, do = (torch.randn((b, t, h, d), generator=g).to(dtype) for _ in range(2))
     k, v = (torch.randn((b, s, hkv, d), generator=g).to(dtype) for _ in range(2))
-    dims = [b, t, s, h, hkv, d, DTYPE_CODES[dtype], int(causal), int(window or 0)]
+    dims = [b, t, s, h, hkv, d, DTYPE_CODES[dtype], DTYPE_CODES[dtype], int(causal), int(window or 0)]
     return q, k, v, do, torch.tensor(lengths, dtype=torch.int32), window, causal, dims
 
 
@@ -184,31 +189,33 @@ def emulated_ring(emulated):
 
     fwd, dq_fn, dkv_fn = emulated
 
-    def dims(q, k, causal):
+    def dims(q, k, causal, out_dtype):
         b, t, h, d = q.shape
-        return [b, t, k.shape[1], h, k.shape[2], d, DTYPE_CODES[q.dtype], int(causal), 0]
+        return [b, t, k.shape[1], h, k.shape[2], d, DTYPE_CODES[q.dtype], DTYPE_CODES[out_dtype or q.dtype],
+                int(causal), 0]
 
-    def launch(q, k, v, lengths, causal, window):
+    def launch(q, k, v, lengths, causal, window, out_dtype=None):
         assert window is None
-        o, lse = torch.full_like(q, float("nan")), torch.full((q.shape[0], q.shape[2], q.shape[1]), float("nan"))
+        o = torch.full_like(q, float("nan"), dtype=out_dtype or q.dtype)
+        lse = torch.full((q.shape[0], q.shape[2], q.shape[1]), float("nan"))
         assert fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                   *dims(q, k, causal), q.shape[3] ** -0.5, None) == 0
+                   *dims(q, k, causal, out_dtype), q.shape[3] ** -0.5, None) == 0
         return o, lse
 
     def bwd_ptrs(q, k, v, do, lse, delta, lengths):
         assert lse.is_contiguous() and delta.is_contiguous() and delta.dtype == torch.float32
         return [x.data_ptr() for x in (q, k, v, do, lse, delta, lengths)]
 
-    def dq(q, k, v, do, lse, delta, lengths, causal=True, window=None):
-        out = torch.full_like(q, float("nan"))
-        assert dq_fn(*bwd_ptrs(q, k, v, do, lse, delta, lengths), out.data_ptr(), *dims(q, k, causal),
+    def dq(q, k, v, do, lse, delta, lengths, causal=True, window=None, out_dtype=None):
+        out = torch.full_like(q, float("nan"), dtype=out_dtype or q.dtype)
+        assert dq_fn(*bwd_ptrs(q, k, v, do, lse, delta, lengths), out.data_ptr(), *dims(q, k, causal, out_dtype),
                      q.shape[3] ** -0.5, None) == 0
         return out
 
-    def dkv(q, k, v, do, lse, delta, lengths, causal=True, window=None):
-        dk, dv = torch.full_like(k, float("nan")), torch.full_like(v, float("nan"))
-        assert dkv_fn(*bwd_ptrs(q, k, v, do, lse, delta, lengths), dk.data_ptr(), dv.data_ptr(), *dims(q, k, causal),
-                      q.shape[3] ** -0.5, None) == 0
+    def dkv(q, k, v, do, lse, delta, lengths, causal=True, window=None, out_dtype=None):
+        dk, dv = (torch.full_like(x, float("nan"), dtype=out_dtype or x.dtype) for x in (k, v))
+        assert dkv_fn(*bwd_ptrs(q, k, v, do, lse, delta, lengths), dk.data_ptr(), dv.data_ptr(),
+                      *dims(q, k, causal, out_dtype), q.shape[3] ** -0.5, None) == 0
         return dk, dv
 
     @contextlib.contextmanager
@@ -235,23 +242,23 @@ def test_emulated_ring_block_matches_plain(emulated_ring, causal):
     k, v = (torch.randn((2, 72, 2, 64), generator=g).to(torch.bfloat16) for _ in range(2))
     with emulated_ring():
         o, lse = ra.block_forward(q, k, v, causal)
-    po, plse = flash_attention_plain(q, k, v, causal=causal)
-    torch.testing.assert_close(o.float(), po.float(), atol=FWD_ATOL["bfloat16"], rtol=0)
+    po, plse = flash_attention_plain(q, k, v, causal=causal, out_dtype=torch.float32)
+    assert o.dtype == torch.float32
+    torch.testing.assert_close(o, po, atol=FWD_ATOL["bfloat16"], rtol=0)
     torch.testing.assert_close(lse, plse, atol=1e-3, rtol=0)
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "not_causal"])
 def test_emulated_ring_matches_the_whole_sequence(emulated_ring, causal):
     """The virtual ring of 2 blocks of 72 through the emulated kernels (full
-    and diagonal blocks forward, merged in fp32; both backward kernels of
-    each block given the whole sequence's lse and delta, not the block's
-    own) against the plain versions over all 144 tokens (GQA 4 over 2
-    heads, bf16): o within FWD_ATOL and lse 1e-3 of the whole sequence's;
-    the gradients, given the whole sequence's o and lse, against the whole
-    sequence's, and, given the ring's own o and lse, against the plain
-    virtual ring's, each under GRAD_TOL of the blocks' summed magnitudes
-    (chip_smoke.ring_tolerance_use: each block's gradient is rounded to
-    bf16 by the kernel before the fp32 sum)."""
+    and diagonal blocks forward with fp32 o, merged in fp32; both backward
+    kernels of each block with fp32 outputs, given the whole sequence's lse
+    and delta, not the block's own) against the whole sequence (GQA 4 over 2
+    heads, bf16): o, cast once, within FWD_ATOL and lse 1e-3 of the whole
+    sequence's; the gradients given the whole sequence's o and lse against
+    the whole sequence's plain backward, and the ring's own (its fp32 o and
+    lse) against JAX's arithmetic (chip_smoke.jax_arithmetic_ring_reference),
+    each under GRAD_TOL per element."""
     from bridgelang_tpu_torch.ops import ring_attention as ra
 
     g = torch.Generator().manual_seed(42)
@@ -260,16 +267,47 @@ def test_emulated_ring_matches_the_whole_sequence(emulated_ring, causal):
     po, plse = flash_attention_plain(q, k, v, causal=causal)
     with emulated_ring():
         o, lse = ra.virtual_ring_forward(q, k, v, 2, causal)
-    torch.testing.assert_close(o.float(), po.float(), atol=FWD_ATOL["bfloat16"], rtol=0)
+    torch.testing.assert_close(o.to(q.dtype).float(), po.float(), atol=FWD_ATOL["bfloat16"], rtol=0)
     torch.testing.assert_close(lse, plse, atol=1e-3, rtol=0)
     whole = flash_attention_bwd_plain(q, k, v, po, plse, do, causal=causal)
-    for fo, flse, want in ((po, plse, whole), (o, lse, None)):
+    jax_o, _, jax_grads = jax_arithmetic_ring_reference(q, k, v, do, causal)
+    torch.testing.assert_close(o.to(q.dtype).float(), jax_o.float(), atol=FWD_ATOL["bfloat16"], rtol=0)
+    for fo, flse, want in ((po, plse, whole), (o, lse, jax_grads)):
         with emulated_ring():
             got = ra.virtual_ring_backward(q, k, v, fo, flse, do, 2, causal)
-        plain, mags = ra.virtual_ring_backward(q, k, v, fo, flse, do, 2, causal, magnitudes=True)
-        for a, w, m, what in zip(got, want or plain, mags, ("dq", "dk", "dv")):
-            assert torch.isfinite(a).all(), what
-            assert ring_tolerance_use(a, w, m) <= 1.0, what
+        for a, w, what in zip(got, want, ("dq", "dk", "dv")):
+            assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), what
+            assert grad_tolerance_use(a, w) <= 1.0, what
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_emulated_flash_fp32_outputs_match_plain(emulated_ring, d, causal):
+    """The bf16 kernels with fp32 outputs (out_dtype, the ring's blocks) at
+    T = S = 72, GQA 4 over 2 heads, against the plain versions with the
+    same out_dtype: o within FWD_ATOL["bfloat16"], lse 1e-3, dq/dk/dv under
+    GRAD_TOL's bf16 rule (the error is the bf16 operands', not the output's
+    rounding)."""
+    from bridgelang_tpu_torch.ops import ring_attention as ra
+
+    g = torch.Generator().manual_seed(43 + d)
+    q, do = (torch.randn((2, 72, 4, d), generator=g).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((2, 72, 2, d), generator=g).to(torch.bfloat16) for _ in range(2))
+    f32 = torch.float32
+    lengths = torch.full((2,), 72, dtype=torch.int32)
+    po, plse = flash_attention_plain(q, k, v, causal=causal, out_dtype=f32)
+    want = flash_attention_bwd_plain(q, k, v, po, plse, do, causal=causal, out_dtype=f32)
+    with emulated_ring():
+        o, lse = ra._launch(q, k, v, lengths, causal, None, out_dtype=f32)
+        delta = ra.row_delta(po, do)
+        got = (ra.flash_bwd_dq(q, k, v, do, plse, delta, lengths, causal, out_dtype=f32),
+               *ra.flash_bwd_dkv(q, k, v, do, plse, delta, lengths, causal, out_dtype=f32))
+    assert o.dtype == f32 and all(x.dtype == f32 for x in got)
+    torch.testing.assert_close(o, po, atol=FWD_ATOL["bfloat16"], rtol=0)
+    torch.testing.assert_close(lse, plse, atol=1e-3, rtol=0)
+    for a, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert torch.isfinite(a).all(), what
+        assert grad_tolerance_use(a, w, rule="bfloat16") <= 1.0, what
 
 
 # --- w4a8: int4_mm_a8 and quantize_a8 ------------------------------------------------

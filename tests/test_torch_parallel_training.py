@@ -36,6 +36,13 @@ every rank on its rows of the same global batches, fp32 compute.
   tensor=2, on fsdp=2 and in one process without a mesh, bit-equal, with the
   next step as JAX's.
 
+* the gradient sync's bucketed all-reduce (parallel/fsdp.py, a bounded
+  staging buffer per dtype in place of one flat copy of every gradient) on
+  2 ranks: every element equal to one flat all-reduce per dtype (fp32,
+  bf16, fp64; transposed views), with bucket bounds inside tensors; and on
+  one rank, fsdp=1 steps with buckets that split leaves bit-equal to the
+  steps without a mesh (losses and parameters).
+
 The entry points on a mesh: tests/test_torch_parallel_entry_points.py.
 """
 
@@ -332,3 +339,36 @@ def test_two_axis_checkpoint_restores_at_other_mesh_shapes(trained):
     summary = inspect_checkpoint.main(inspect_checkpoint.InspectConfig(path=str(ckpt_tp), device="cpu"))
     assert summary["tensors"] > 0 and "params" in summary["by_prefix"] and "opt_state" in summary["by_prefix"]
     assert not torch.distributed.is_initialized()
+
+
+# (shape, dtype, transposed): 2 x 163 fp32 elements split by every bucket below
+GRAD_SYNC_TENSORS = [((3, 5), "float32", False), ((7, 11), "float32", True), ((0,), "float32", False),
+                     ((4, 9), "bfloat16", False), ((5, 6), "bfloat16", True), ((13,), "float64", False),
+                     ((6, 9), "float32", False)]
+GRAD_SYNC_BUCKETS = [4, 28, 64, 1 << 20]  # bytes: one element of fp32 ... everything in one bucket
+
+
+def test_bucketed_gradient_sync_equals_the_flat_all_reduce(tmp_path):
+    job = {"suite": "grad_sync", "tensors": GRAD_SYNC_TENSORS, "bucket_bytes": GRAD_SYNC_BUCKETS}
+    out = start_group(job, 2, tmp_path)()
+    for bucket, r in out["buckets"].items():
+        assert r["equal"], f"bucket of {bucket} bytes"
+    counts = {b: out["buckets"][b]["collectives"] for b in GRAD_SYNC_BUCKETS}
+    # one bucket per dtype, and fp32's transposed view closes its bucket early: 2 + 1 + 1
+    assert counts[1 << 20] == 4 and counts[4] > counts[28] > counts[64] > counts[1 << 20]
+
+
+def test_one_rank_mesh_steps_with_split_buckets_are_bit_equal(pair, tmp_path):
+    """fsdp=1 with 1 KiB buckets (most of the tiny VLA's leaves span several)
+    against the steps without a mesh, in one gloo process: losses and
+    parameters bit for bit."""
+    _, jparams, _ = pair
+    params_file = tmp_path / "params.pt"
+    torch.save(params_from_jax(_np(jparams)), params_file)
+    _, b1 = _batches(8, seed=31)
+    _, b2 = _batches(8, seed=32)
+    job = {"suite": "grad_sync", "tensors": [], "bucket_bytes": [], "model": _spec(), "norm_stats": TINY_NORM_STATS,
+           "params": str(params_file), "optim": FULL, "steps": [b1, b2], "step_bucket_bytes": 1024}
+    out = start_group(job, 1, tmp_path / "w1")()
+    assert out["losses"]["mesh"] == out["losses"]["plain"]
+    assert out["params_equal"]

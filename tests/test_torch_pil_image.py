@@ -16,7 +16,8 @@ Every comparison is bit-equal (tolerance 0):
 * `decode_jpeg(dct_method="INTEGER_ACCURATE")` against
   tf.io.decode_jpeg(dct_method="INTEGER_ACCURATE"), and the default fast
   path still against tf.io.decode_image.
-* GIF, BMP, WebP and CMYK JPEGs raise ValueError naming what they are.
+* BMP, WebP and CMYK JPEGs raise ValueError naming what they are; a GIF reads
+  as PIL reads it (its first frame).
 """
 
 import hashlib
@@ -197,9 +198,11 @@ def test_open_rgb_png_modes_match_pil(case):
 
 def test_unsupported_formats_raise_naming_them():
     rgb = _frame(16, 16, seed=1)
-    for fmt, word in (("GIF", "GIF"), ("BMP", "BMP"), ("WEBP", "WebP")):
+    for fmt, word in (("BMP", "BMP"), ("WEBP", "WebP")):
         with pytest.raises(ValueError, match=word):
             im.open_rgb(_pil_encode(rgb, fmt))
+    gif = _pil_encode(Image.fromarray(rgb).quantize(64), "GIF")  # GIF reads as PIL reads it (native/image.decode_gif)
+    _assert_same(im.open_rgb(gif), _pil_rgb(gif), "gif")
     cmyk = _pil_encode(Image.fromarray(rgb).convert("CMYK"), "JPEG")
     assert Image.open(io.BytesIO(cmyk)).mode == "CMYK"
     with pytest.raises(ValueError, match="component"):

@@ -15,13 +15,16 @@ and image directory go through both packages.
 * The download registry; `download_extract` without network raising the
   same message (the network probe is patched out: no test opens a socket);
   the `preprocess` entry point's mixture files equal to scripts/preprocess.py's
-  on a local directory.
+  on a local directory; the OCR-VQA GIF/PNG -> JPEG conversion
+  (tests/data/images/ocr), alone and through both entry points, writing the
+  same bytes as the JAX package's (PIL's).
 """
 
 import dataclasses
 import importlib.util
 import io
 import json
+import shutil
 import sys
 from pathlib import Path
 
@@ -41,6 +44,8 @@ from bridgelang_tpu_torch.preprocessing import datasets as tds
 from bridgelang_tpu_torch.preprocessing import download as tdl
 from bridgelang_tpu_torch.preprocessing import materialize as tmat
 from tests.helpers import StubTokenizer
+
+OCR_FIXTURES = Path(__file__).resolve().parent / "data" / "images" / "ocr"
 
 ROOT = Path(__file__).resolve().parent.parent
 FIXTURES = ROOT / "tests" / "data" / "images"
@@ -219,8 +224,14 @@ def test_download_registry_and_no_network_message_match_jax(tmp_path, monkeypatc
         for comp in tdl.DATASET_REGISTRY[dataset_id]:
             (tmp_path / "download" / dataset_id / comp.name).mkdir(parents=True, exist_ok=True)
         tdl.download_extract(dataset_id, tmp_path)
-    with pytest.raises(NotImplementedError, match="OCR-VQA"):
-        tdl.convert_gif_png_to_jpg(tmp_path)
+    # the OCR-VQA conversion: the same files with the same bytes as the JAX package's (PIL's)
+    for mod, name in ((tdl, "port"), (jdl, "jax")):
+        (tmp_path / name).mkdir()
+        for src in list(OCR_FIXTURES.glob("*.gif")) + list(OCR_FIXTURES.glob("*.png")):
+            shutil.copy(src, tmp_path / name / src.name)
+        mod.convert_gif_png_to_jpg(tmp_path / name)
+    got, want = ({p.name: p.read_bytes() for p in (tmp_path / name).iterdir()} for name in ("port", "jax"))
+    assert got == want and any(n.endswith(".jpg") for n in got)
 
 
 def _fake_instruct_root(root: Path):
@@ -261,10 +272,18 @@ def test_preprocess_mixtures_match_jax_script(tmp_path, monkeypatch):
 
     with pytest.raises(SystemExit, match="Unknown dataset"):
         tprep.main(tprep.PreprocessConfig(dataset_id="nope", root_dir=str(tmp_path / "x")))
-    root = tmp_path / "torch"
-    (root / "download" / "llava-v1.5-instruct" / "ocr_vqa" / "images").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="OCR-VQA"):
-        tprep.main(tprep.PreprocessConfig(dataset_id="llava-v1.5-instruct", root_dir=str(root)))
+    # with OCR-VQA's images staged, both entry points convert them to the same JPEG bytes
+    images = {}
+    for name, mod in (("torch", tprep), ("jax", jscript)):
+        ocr = tmp_path / name / "download" / "llava-v1.5-instruct" / "ocr_vqa" / "images"
+        ocr.mkdir(parents=True)
+        for src in ("pillow_comment_24x18.gif", "pair.gif", "pair.png", "rgba8.png"):
+            shutil.copy(OCR_FIXTURES / src, ocr / src)
+        mod.main(mod.PreprocessConfig(dataset_id="llava-v1.5-instruct", root_dir=str(tmp_path / name)))
+        images[name] = {p.name: p.read_bytes() for p in ocr.iterdir()}
+    assert images["torch"] == images["jax"]
+    assert sorted(n for n in images["torch"] if n.endswith(".jpg")) == ["pair.jpg", "pillow_comment_24x18.jpg",
+                                                                          "rgba8.jpg"]
 
 
 def test_preprocess_cli_parses_as_jax():

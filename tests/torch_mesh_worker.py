@@ -394,7 +394,8 @@ def _argv(fields: Dict[str, str]) -> list:
 
 def suite_ring(job, rank: int) -> Dict[str, Any]:
     """Ring attention on a fsdp=world mesh, for each case of global q, k, v
-    and an output cotangent g: `ring_attention` on this rank's block of time
+    and an output cotangent g (in the case's `dtype`, float32 by default):
+    `ring_attention` on this rank's block of time
     and `ring_attention_sharded` on this rank's rows, outputs and input
     gradients gathered back into whole tensors; the error of a length the
     ring does not divide; the decoder's "ring" on a mesh whose fsdp axis has
@@ -408,7 +409,8 @@ def suite_ring(job, rank: int) -> Dict[str, Any]:
     ring = Ring.of(mesh, "fsdp")
     out: Dict[str, Any] = {}
     for case in job["cases"]:
-        q, k, v, g = (torch.as_tensor(case[n]) for n in ("q", "k", "v", "g"))
+        dtype = getattr(torch, case.get("dtype", "float32"))
+        q, k, v, g = (torch.as_tensor(case[n]).to(dtype) for n in ("q", "k", "v", "g"))
         causal, res = case["causal"], {}
         for layout, dim in (("blocks", 1), ("rows", 0)):
             n = q.shape[dim] // world
@@ -443,8 +445,79 @@ def suite_ring(job, rank: int) -> Dict[str, Any]:
     return out
 
 
+def suite_grad_sync(job, rank: int) -> Dict[str, Any]:
+    """The gradient sync's bucketed all-reduce (parallel/fsdp.
+    _coalesced_all_reduce) against one flat all-reduce per dtype of the same
+    tensors (several dtypes, views that are not contiguous), at bucket sizes
+    whose bounds fall inside tensors: whether every element and stride is
+    equal, and the all-reduces each made. With `steps` (a group of one
+    rank): MeshTraining steps at fsdp=1 with buckets smaller than most
+    leaves against the same steps without a mesh in this process, the
+    losses and the parameters after."""
+    from bridgelang_tpu_torch.parallel import fsdp
+    from bridgelang_tpu_torch.parallel.collectives import all_reduce_, collective_launches
+
+    g = torch.Generator().manual_seed(7 + rank)
+    tensors = []
+    for shape, dtype, transposed in job["tensors"]:
+        t = torch.randn(shape, generator=g, dtype=torch.float64).to(getattr(torch, dtype))
+        tensors.append(t.transpose(0, 1) if transposed else t)
+    want: Dict[torch.dtype, torch.Tensor] = {}
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        want[dtype] = all_reduce_(torch.cat([t.reshape(-1) for t in tensors if t.dtype == dtype]), dist.group.WORLD)
+    out: Dict[str, Any] = {"buckets": {}}
+    saved = fsdp.ALL_REDUCE_BUCKET_BYTES
+    for bucket in job["bucket_bytes"]:
+        got = [t.clone() for t in tensors]
+        before = collective_launches()
+        fsdp.ALL_REDUCE_BUCKET_BYTES = bucket
+        try:
+            fsdp._coalesced_all_reduce(got, dist.group.WORLD)
+        finally:
+            fsdp.ALL_REDUCE_BUCKET_BYTES = saved
+        offsets, equal = dict.fromkeys(want, 0), True
+        for t, t0 in zip(got, tensors):
+            at, n = offsets[t.dtype], t.numel()
+            equal = equal and t.stride() == t0.stride() and torch.equal(t.reshape(-1), want[t.dtype][at:at + n])
+            offsets[t.dtype] = at + n
+        out["buckets"][bucket] = dict(equal=equal, collectives=collective_launches() - before)
+    if job.get("steps"):
+        out.update(_one_rank_steps(job))
+    return out
+
+
+def _one_rank_steps(job) -> Dict[str, Any]:
+    """MeshTraining at fsdp=1 (every collective on this one rank) with the
+    sync's buckets at job["step_bucket_bytes"], and the same steps without a
+    mesh: each one's losses and parameters after the steps."""
+    from bridgelang_tpu_torch.parallel import fsdp
+    from bridgelang_tpu_torch.training import trainer as T
+
+    model = build_vla(job["model"], job["norm_stats"])
+    runs = {}
+    for name in ("mesh", "plain"):
+        params = torch.load(job["params"], weights_only=True)
+        opt = T.make_optimizer(T.OptimConfig(**job["optim"]), params)
+        mt = fsdp.MeshTraining.for_params(make_mesh("fsdp=1", "cpu"), params) if name == "mesh" else None
+        step = T.make_vla_train_step(model, opt, compute_dtype=torch.float32, image_transform=model.image_transform,
+                                     mesh=mt)
+        state = T.init_train_state(mt.shard(params) if mt else params, opt, mesh=mt)
+        losses = []
+        saved, fsdp.ALL_REDUCE_BUCKET_BYTES = fsdp.ALL_REDUCE_BUCKET_BYTES, job["step_bucket_bytes"]
+        try:
+            for batch in job["steps"]:
+                state, m = step(state, {k: torch.as_tensor(v) for k, v in batch.items() if k != "dataset_names"})
+                losses.append(float(m["loss"]))
+        finally:
+            fsdp.ALL_REDUCE_BUCKET_BYTES = saved
+        runs[name] = (losses, T.tree_leaves(fsdp.full_params(mt, state.params)))
+    (ml, mp), (pl, pp) = runs["mesh"], runs["plain"]
+    return {"losses": {"mesh": ml, "plain": pl},
+            "params_equal": len(mp) == len(pp) and all(torch.equal(a, b) for a, b in zip(mp, pp))}
+
+
 SUITES = {"serving": suite_serving, "spmd": suite_spmd, "train": suite_train, "entry": suite_entry,
-          "ring": suite_ring}
+          "ring": suite_ring, "grad_sync": suite_grad_sync}
 
 
 def run_group(job: Dict[str, Any], world: int, tmp, timeout: float = 600.0) -> Dict[str, Any]:
