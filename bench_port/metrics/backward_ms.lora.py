@@ -1,0 +1,7 @@
+"""Device time of the step's backward (autograd.grad) per step, from the step's device marks, over the steps just before the trace (_spans.py), ms."""
+
+from _spans import *  # noqa: F401,F403
+
+
+def read(ctx):
+    return step_mean(ctx, "backward_ms")

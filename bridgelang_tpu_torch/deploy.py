@@ -27,6 +27,17 @@ of the bf16 cache) and turns the speculative default off too. The device
 defaults to CUDA and the command fails without a card unless `--device cpu`
 (or `--force_cpu true`) is given.
 
+GET /healthz answers {"status": "ok"}; GET /stats the request, error and
+model-pass counts and, from the server's spans and counters
+(util/profiling.py): `latency_ms` (p50 / p90 / p99 / last of the last 512
+requests), `stages_ms` (count, p50 and p99 of each span: serve:parse,
+serve:wait, serve:pass, serve:respond, predict:prepare, graphs:copy_in,
+graphs:replay, predict:wait, predict:unpack), `passes_by_rows`, `windows`
+(the batcher's windows closed full / at the deadline / by shutdown),
+`graph_captures` (graphs built since listening; after `--warmup` a capture
+here is a graph built on a live request) and `memory` (per card, live and
+peak GB).
+
 `--mesh_spec` ("tensor=N", "replica=R,tensor=T") serves over a device mesh:
 one process per device, started by torchrun (`--nproc_per_node` = the mesh's
 size; torchrun's WORLD_SIZE / RANK / LOCAL_RANK, MASTER_ADDR / MASTER_PORT,

@@ -35,6 +35,14 @@ one `torch.cuda.CUDAGraph` per key and replays it:
   decoder's all-reduces and the logits' gather as NCCL launches on the
   capture stream; the warm-up before the capture creates the communicator.
   Every rank captures and replays the same keys in the same order.
+* Device marks (util/profiling.DeviceMarks, external events): graph A of a
+  key records the predict's marks (`PREDICT_MARKS`: its start,
+  after the towers, after token 0, after the last decode step), so every
+  replay times itself; each run leaves its key's marks in the model's
+  `last_marks`.
+* Spans: `graphs:copy_in` (the static buffers' copies), `graphs:capture`
+  (a key's first use; counted in the `graphs:captures` counter) and
+  `graphs:replay` (the replays, and the speculative step index's read).
 * Launch counts: the kernel wrappers (and a mesh's tensor group, its
   collectives) count launches on the host, which a replay never reaches.
   Each graph records the launches its capture made and adds them to the
@@ -56,7 +64,13 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from bridgelang_tpu_torch.util import profiling
+
 MODES = ("greedy", "parallel", "speculative")
+# The device marks of a predict, and the times the host reads from them into
+# the enclosing span once the predict's output is on the host.
+PREDICT_MARKS = ("start", "vision", "token0", "last")
+PREDICT_TIMES = {"vision_ms": ("start", "vision"), "prefill_ms": ("start", "token0"), "decode_ms": ("token0", "last")}
 
 
 def counted_wrappers() -> List[Callable]:
@@ -111,6 +125,7 @@ class GraphEntry:
         self.graphs: List[CapturedGraph] = []
         self.state = None   # speculative: the verify state the step graph reads
         self.step: Optional[torch.Tensor] = None  # speculative: the device step index
+        self.marks: Optional[profiling.DeviceMarks] = None  # graph A's device marks
 
 
 class PredictGraphs:
@@ -155,18 +170,23 @@ class PredictGraphs:
         fresh = entry is None
         if fresh:
             entry = self._new_entry(inputs, n_tokens)
-        for name, x in inputs.items():
-            entry.statics[name].copy_(torch.as_tensor(x))
-        if mode == "speculative":
-            entry.statics["margin"].fill_(float(margin))
+        with profiling.span("graphs:copy_in"):
+            for name, x in inputs.items():
+                entry.statics[name].copy_(torch.as_tensor(x))
+            if mode == "speculative":
+                entry.statics["margin"].fill_(float(margin))
         if fresh:
-            self._capture(mode, entry, n_tokens)
+            with profiling.span("graphs:capture"):
+                self._capture(mode, entry, n_tokens)
+            profiling.count("graphs:captures")
             self.entries[key] = entry
-        entry.graphs[0].replay()
-        if mode == "speculative":
-            j0 = int(entry.step.item())  # the one read in the middle of a predict
-            for _ in range(n_tokens - j0):
-                entry.graphs[1].replay()
+        with profiling.span("graphs:replay"):
+            entry.graphs[0].replay()
+            if mode == "speculative":
+                j0 = int(entry.step.item())  # the one read in the middle of a predict
+                for _ in range(n_tokens - j0):
+                    entry.graphs[1].replay()
+        self.model.last_marks = entry.marks
         return entry.packed
 
     # --- capture -------------------------------------------------------------
@@ -219,7 +239,14 @@ class PredictGraphs:
         first, second = self._body(mode, entry, n_tokens)
         if second is not None:
             entry.step = torch.ones(1, dtype=torch.long, device=self.model.device)
-        entry.graphs.append(self._capture_one(first))
+        entry.marks = profiling.DeviceMarks(PREDICT_MARKS, external=True)
+
+        def marked():
+            with profiling.marking(entry.marks):
+                profiling.mark("start")
+                first()
+
+        entry.graphs.append(self._capture_one(marked))
         if second is not None and n_tokens > 1:  # at n = 1 the verify graph is the whole predict
             # The step graph reads the verify graph's state: fill it for real
             # first, and warm the step up at j = 1, a position every n > 1 has.

@@ -29,10 +29,12 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from bridgelang_tpu_torch.models.graphs import PredictGraphs, pack_outputs, unpack_outputs
+from bridgelang_tpu_torch.models.graphs import (PREDICT_MARKS, PREDICT_TIMES, PredictGraphs, pack_outputs,
+                                                unpack_outputs)
 from bridgelang_tpu_torch.models.llm.prompting import build_vla_prompt
 from bridgelang_tpu_torch.models.vlm import LLAMA_EMPTY_TOKEN, Params, PrismaticVLM, VLMConfig
 from bridgelang_tpu_torch.ops.image_ops import preprocess_batch
+from bridgelang_tpu_torch.util import profiling
 from bridgelang_tpu_torch.vla.action_tokenizer import make_bins, token_ids_to_actions, unnormalize_actions
 
 DEFAULT_PROMPT_BUCKET = 48
@@ -75,6 +77,7 @@ class OpenVLA(PrismaticVLM):
         self.graphs = PredictGraphs(self)
         self.serving_mesh = None
         self.mesh_predictor = None
+        self.last_marks: Optional[profiling.DeviceMarks] = None  # the last CUDA predict's device marks
 
     # --- multi-device serving ---
 
@@ -164,11 +167,16 @@ class OpenVLA(PrismaticVLM):
 
     def _predict_local(self, mode: str, params: Params, inputs: Dict[str, Any], n_tokens: int) -> torch.Tensor:
         if self.device.type == "cuda" and self.use_graphs:
-            return self.graphs.run(mode, params, dict(inputs), n_tokens)
-        t = {k: torch.as_tensor(v, device=self.device) for k, v in inputs.items() if k != "margin"}
-        pixels = t["pixels"] if "pixels" in t else self.preprocess_frames(t["frames"])
-        return self.predict_packed(mode, params, t["ids"], t["mask"], pixels, t["q01"], t["q99"], t["stat_mask"],
-                                   n_tokens, t.get("draft"), inputs.get("margin", 0.25))
+            return self.graphs.run(mode, params, dict(inputs), n_tokens)  # sets last_marks
+        marks = profiling.DeviceMarks(PREDICT_MARKS) if self.device.type == "cuda" else None
+        with profiling.span("predict:eager"), profiling.marking(marks):
+            profiling.mark("start")
+            t = {k: torch.as_tensor(v, device=self.device) for k, v in inputs.items() if k != "margin"}
+            pixels = t["pixels"] if "pixels" in t else self.preprocess_frames(t["frames"])
+            out = self.predict_packed(mode, params, t["ids"], t["mask"], pixels, t["q01"], t["q99"], t["stat_mask"],
+                                      n_tokens, t.get("draft"), inputs.get("margin", 0.25))
+        self.last_marks = marks
+        return out
 
     def predict_action_device(
         self,
@@ -280,22 +288,40 @@ class OpenVLA(PrismaticVLM):
                       margin_threshold: float = 0.25) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Host frames and instructions -> (actions, ids, accepted counts) as
         numpy, through one device-to-host copy. The stats tile across
-        `horizon` steps (the same dims at every future step)."""
-        stats = self.get_action_stats(unnorm_key)
-        action_dim = len(stats["q01"])
-        inputs: Dict[str, Any] = {
-            "q01": np.tile(np.asarray(stats["q01"], np.float32), horizon),
-            "q99": np.tile(np.asarray(stats["q99"], np.float32), horizon),
-            "stat_mask": np.tile(np.asarray(stats.get("mask", [True] * action_dim), bool), horizon),
-        }
-        inputs["ids"], inputs["mask"] = self.pad_prompt([self.prepare_prompt_ids(t) for t in instructions])
-        inputs["frames"] = np.ascontiguousarray(
-            np.stack([np.asarray(im.convert("RGB") if hasattr(im, "convert") else im) for im in images]),
-            dtype=np.uint8)
-        if mode == "speculative":
-            inputs["draft"] = np.asarray(draft_tokens, np.int32).reshape(len(images), action_dim)
-            inputs["margin"] = float(margin_threshold)
-        return unpack_outputs(self._predict(mode, params, inputs, action_dim * horizon).cpu().numpy())
+        `horizon` steps (the same dims at every future step).
+
+        Spans: `predict:prepare` (stats, tokenize, pad, stack frames), the
+        predict's own (`graphs:copy_in` and `graphs:replay`, or
+        `predict:eager`), `predict:wait` (the device-to-host copy: the host
+        waits for the card) and `predict:unpack`. A CUDA predict's device
+        times (`PREDICT_TIMES`, ms, from its marks) and its token count go
+        into the enclosing span's attrs (the server's `serve:pass`)."""
+        with profiling.span("predict:prepare"):
+            stats = self.get_action_stats(unnorm_key)
+            action_dim = len(stats["q01"])
+            inputs: Dict[str, Any] = {
+                "q01": np.tile(np.asarray(stats["q01"], np.float32), horizon),
+                "q99": np.tile(np.asarray(stats["q99"], np.float32), horizon),
+                "stat_mask": np.tile(np.asarray(stats.get("mask", [True] * action_dim), bool), horizon),
+            }
+            inputs["ids"], inputs["mask"] = self.pad_prompt([self.prepare_prompt_ids(t) for t in instructions])
+            inputs["frames"] = np.ascontiguousarray(
+                np.stack([np.asarray(im.convert("RGB") if hasattr(im, "convert") else im) for im in images]),
+                dtype=np.uint8)
+            if mode == "speculative":
+                inputs["draft"] = np.asarray(draft_tokens, np.int32).reshape(len(images), action_dim)
+                inputs["margin"] = float(margin_threshold)
+        self.last_marks = None
+        packed = self._predict(mode, params, inputs, action_dim * horizon)
+        with profiling.span("predict:wait"):
+            host = packed.cpu()
+        with profiling.span("predict:unpack"):
+            out = unpack_outputs(host.numpy())
+            # the copy waited for the predict: its marks have passed
+            times = self.last_marks.elapsed_ms(PREDICT_TIMES) if self.last_marks is not None else None
+        if times is not None:
+            profiling.note(tokens=action_dim * horizon, **times)
+        return out
 
     def predict_action(
         self,

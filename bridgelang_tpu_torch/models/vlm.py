@@ -60,6 +60,7 @@ from bridgelang_tpu_torch.models.llm.llama import (
 from bridgelang_tpu_torch.models.projector import Projector, init_projector_params
 from bridgelang_tpu_torch.models.vision.vit import FusedViT, ViT, build_vision_backbone, init_vision_params
 from bridgelang_tpu_torch.ops.image_ops import transform_config_for_backbone
+from bridgelang_tpu_torch.util import profiling
 
 IGNORE_INDEX = -100
 # Llama SPIECE_UNDERLINE token ('▁'): training prompts end with it, so inference must too.
@@ -318,6 +319,7 @@ class PrismaticVLM:
         b = input_ids.shape[0]
         dev = input_ids.device
         patch_embeds = self.encode_vision(params, pixel_values)
+        profiling.mark("vision")
         token_embeds = embed_tokens(params["llm"], input_ids, dtype=self.dtype)
         fused, fused_mask, _ = self.fuse_after_bos(token_embeds, patch_embeds, attention_mask)
         f_len = fused.shape[1]
@@ -367,7 +369,9 @@ class PrismaticVLM:
         """input_ids / attention_mask [B, T] right-padded prompts (BOS first)
         -> token ids [B, max_new_tokens]: the argmax over the padded vocab,
         or, with `temperature` > 0 and a `generator` (on the model's device),
-        samples from softmax(logits / temperature)."""
+        samples from softmax(logits / temperature). Under active device marks
+        (util/profiling.marking) it marks "vision" after the towers, "token0"
+        after the prefill's token and "last" after the last decode step."""
         cfg = self.cfg.llm
         sample = temperature > 0.0 and generator is not None
 
@@ -380,12 +384,14 @@ class PrismaticVLM:
         last_hidden, cache, true_len = self._prefill(params, input_ids, attention_mask, pixel_values,
                                                      max_new_tokens, cache_dtype)
         token = select(lm_logits(params["llm"], last_hidden, cfg))  # token 0, from the last real row
+        profiling.mark("token0")
         tokens = [token]
         # Prefill produced token 0, so only max_new_tokens - 1 decode passes run.
         # Step i writes its K/V at slot true_len + i (over the prefill's pad rows).
         for i in range(max_new_tokens - 1):
             token = select(self._decode_logits(params, cfg, token, (true_len + i)[:, None], cache))
             tokens.append(token)
+        profiling.mark("last")
         return torch.cat(tokens, dim=1)
 
     def speculative_verify(
@@ -411,6 +417,7 @@ class PrismaticVLM:
         dev = input_ids.device
         last_hidden, cache, true_len = self._prefill(params, input_ids, attention_mask, pixel_values, n, cache_dtype)
         token0 = lm_logits(params["llm"], last_hidden, cfg).argmax(dim=-1)  # [B, 1]
+        profiling.mark("token0")
         if n == 1:
             return SpeculativeState(token0, torch.ones(b, dtype=torch.long, device=dev),
                                     torch.ones((), dtype=torch.long, device=dev), cache, true_len, cfg)

@@ -13,11 +13,27 @@ graphs run one predict at a time. On a serving mesh (deploy --mesh_spec)
 rank 0 runs this server and leads each predict (serving/mesh.py); /stats
 adds the world size, the mesh shape, the predicts and the decoder's
 collectives.
+
+Every /act request is traced (util/profiling.py): one request id runs from
+the handler to the reply through the spans `serve:request` and its children
+`serve:parse` (body read, JSON, image decode), `serve:wait` (the model lock,
+or the batcher's queue from put to the pass's start), `serve:pass` (the
+model pass: the predict's own spans inside it, and its device times) and
+`serve:respond` (encode, JSON, write). GET /stats reports, besides the
+request and pass counts: `latency_ms` (p50 / p90 / p99 / last of this
+server's last 512 `serve:request` spans), `stages_ms` (each span name's
+count and p50 / p99 of its last 512 in this process,
+`profiling.stage_summary`), `passes_by_rows` (model passes by the requests
+they carried), `windows` (batcher windows closed full, at the deadline, and
+by `close()`), `graph_captures` (CUDA graphs captured since the server
+started listening: one on a live request is a graph built again) and
+`memory` (per card, live and peak).
 """
 
 from __future__ import annotations
 
 import base64
+import collections
 import json
 import queue
 import threading
@@ -31,11 +47,13 @@ import numpy as np
 import torch
 
 from bridgelang_tpu_torch._device import resolve_device
+from bridgelang_tpu_torch.util import profiling
 
 # Each horizon is its own graph shape (7 x H decode positions); requests past
 # any sane control-chunk length are refused rather than captured.
 MAX_HORIZON = 32
 DRAFT_CACHE_SIZE = 64  # (instruction, unnorm_key) histories the speculative default keeps
+LATENCY_SPANS = 512  # this server's last serve:request spans that /stats latency_ms reads
 
 
 def decode_image(payload: Any) -> np.ndarray:
@@ -85,7 +103,8 @@ def batch_buckets(max_batch: int) -> List[int]:
 class _Pending:
     """One queued request awaiting a batch slot."""
 
-    __slots__ = ("image", "instruction", "unnorm_key", "event", "result", "error", "abandoned")
+    __slots__ = ("image", "instruction", "unnorm_key", "event", "result", "error", "abandoned", "span", "thread",
+                 "t_put")
 
     def __init__(self, image, instruction, unnorm_key):
         self.image, self.instruction, self.unnorm_key = image, instruction, unnorm_key
@@ -93,6 +112,8 @@ class _Pending:
         self.result = None
         self.error: Optional[BaseException] = None
         self.abandoned = False  # the submitter gave up; the worker skips it
+        # the submitter's open span (its serve:request), thread and time of the put: its serve:wait
+        self.span, self.thread, self.t_put = profiling.current(), threading.get_ident(), time.perf_counter_ns()
 
 
 class VLAServer:
@@ -138,8 +159,10 @@ class VLAServer:
         self._n_requests = 0
         self._n_errors = 0
         self._n_batches = 0
-        self._recent_ms: List[float] = []
         self._started = time.time()
+        self._latency_ms: "collections.deque[float]" = collections.deque(maxlen=LATENCY_SPANS)  # serve:request
+        self._counters0 = profiling.counters()
+        self._listening()
         # One model pass at a time: the batch-1 path runs on the HTTP threads.
         self._model_lock = threading.Lock()
         if self.max_batch > 1:
@@ -147,21 +170,37 @@ class VLAServer:
             self._worker = threading.Thread(target=self._batch_worker, daemon=True)
             self._worker.start()
 
-    def _record(self, dt_s: float, error: bool) -> None:
+    def _record(self, error: bool) -> None:
         with self._stats_lock:
             self._n_requests += 1
             self._n_errors += int(error)
-            self._recent_ms.append(dt_s * 1e3)
-            if len(self._recent_ms) > 512:
-                del self._recent_ms[: len(self._recent_ms) - 512]
+
+    def _ended(self, request: profiling.Span) -> None:
+        """A `serve:request` span of this server has ended: its time for /stats latency_ms."""
+        self._latency_ms.append(request.ms)
+
+    def _listening(self) -> None:
+        """Graph captures count from here (again when the server starts
+        listening: warm-up is over)."""
+        self._captures0 = profiling.counters("graphs:").get("graphs:captures", 0)
+
+    def _since_start(self, prefix: str) -> Dict[str, int]:
+        return {k[len(prefix):]: v - self._counters0.get(k, 0) for k, v in profiling.counters(prefix).items()
+                if v != self._counters0.get(k, 0)}
 
     def stats(self) -> Dict[str, Any]:
         with self._stats_lock:
-            recent = list(self._recent_ms)
             n, e, nb = self._n_requests, self._n_errors, self._n_batches
+        recent = list(self._latency_ms)
+        windows = self._since_start("serve:window_")
         payload: Dict[str, Any] = {
             "requests": n, "errors": e, "model_passes": nb, "uptime_s": round(time.time() - self._started, 1),
             "max_batch": self.max_batch,
+            "passes_by_rows": self._since_start("serve:pass_rows="),
+            "windows": {k: windows.get(k, 0) for k in ("full", "deadline", "close")},
+            "graph_captures": profiling.counters("graphs:").get("graphs:captures", 0) - self._captures0,
+            "stages_ms": profiling.stage_summary(),
+            "memory": profiling.device_memory_stats(),
         }
         mesh = getattr(self.model, "serving_mesh", None)
         if mesh is not None:  # a tensor-parallel deploy: its shape, predicts and the decoder's collectives
@@ -183,10 +222,28 @@ class VLAServer:
             }
         return payload
 
-    def _model_pass(self, fn, *args, **kwargs):
-        """One model pass under the lock, counted in /stats."""
-        with self._model_lock:
-            out = fn(self.params, *args, **kwargs)
+    def _model_pass(self, fn, *args, queued: Optional[List[_Pending]] = None, **kwargs):
+        """One model pass under the lock, counted in /stats. Called on a
+        request's own thread, its wait for the lock is its `serve:wait`; from
+        the batch worker with the `queued` requests of the group, each one's
+        wait runs from its put to the pass's start."""
+        if queued is None:
+            with profiling.span("serve:wait"):
+                self._model_lock.acquire()
+            attrs: Dict[str, Any] = {"rows": 1}
+        else:
+            self._model_lock.acquire()
+            t = time.perf_counter_ns()
+            for p in queued:
+                profiling.record("serve:wait", p.t_put, t, rid=p.span.rid if p.span else None,
+                                 parent=p.span.id if p.span else None, thread=p.thread)
+            attrs = {"rows": len(queued), "request_ids": [p.span.rid if p.span else None for p in queued]}
+        try:
+            with profiling.span("serve:pass", **attrs):
+                out = fn(self.params, *args, **kwargs)
+        finally:
+            self._model_lock.release()
+        profiling.count(f"serve:pass_rows={attrs['rows']}")
         with self._stats_lock:
             self._n_batches += 1
         return out
@@ -195,9 +252,13 @@ class VLAServer:
         action, tokens = self._model_pass(self.model.predict_action_speculative, image, instruction,
                                           draft_tokens=draft, unnorm_key=unnorm_key,
                                           margin_threshold=self.speculative_margin)
-        return {"action": encode_array(action), "tokens": encode_array(tokens)}
+        return {"action": action, "tokens": tokens}
 
     def predict(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        """One /act request's JSON object -> the response's (arrays as lists)."""
+        return {k: encode_array(v) for k, v in self._answer(request).items()}
+
+    def _answer(self, request: Dict[str, Any]) -> Dict[str, np.ndarray]:
         image = decode_image(request["image"])
         instruction = request["instruction"]
         # Clients may send an explicit null: `or` resolves it to the server key.
@@ -210,7 +271,7 @@ class VLAServer:
                 raise ValueError(f"horizon must be in [1, {MAX_HORIZON}], got {horizon}")
             chunk = self._model_pass(self.model.predict_action_chunk, image, instruction, horizon=horizon,
                                      unnorm_key=unnorm_key)
-            return {"action": encode_array(chunk)}
+            return {"action": chunk}
         if request.get("draft_tokens") is not None and not getattr(self.model, "parallel_decode", False):
             # The client's draft (its previous response's tokens); a
             # parallel-decode model ignores it and decodes in parallel below.
@@ -234,7 +295,7 @@ class VLAServer:
                 return out
             action = self._model_pass(self.model.predict_action_batch, [image], [instruction],
                                       unnorm_key=unnorm_key)[0]
-            return {"action": encode_array(action)}
+            return {"action": action}
         pending = _Pending(image, instruction, unnorm_key)
         self._queue.put(pending)
         if not pending.event.wait(timeout=self.request_timeout_s):
@@ -242,7 +303,7 @@ class VLAServer:
             raise TimeoutError("batched predict timed out")
         if pending.error is not None:
             raise pending.error
-        return {"action": encode_array(pending.result)}
+        return {"action": pending.result}
 
     # --- micro-batching worker -------------------------------------------
 
@@ -259,18 +320,23 @@ class VLAServer:
                 return
             batch = [first]
             deadline = time.monotonic() + self.batch_window_s
+            closed = "full"
             while len(batch) < self.max_batch:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
+                    closed = "deadline"
                     break
                 try:
                     nxt = self._queue.get(timeout=remaining)
                 except queue.Empty:
+                    closed = "deadline"
                     break
                 if nxt is None:  # close(): finish this batch, then stop
                     self._queue.put(None)
+                    closed = "close"
                     break
                 batch.append(nxt)
+            profiling.count(f"serve:window_{closed}")
             live = [p for p in batch if not p.abandoned]
             for group in self._group_compatible(live):
                 self._run_group(group)
@@ -292,7 +358,7 @@ class VLAServer:
             images = [p.image for p in group] + [group[0].image] * (bucket - n)
             instructions = [p.instruction for p in group] + [group[0].instruction] * (bucket - n)
             actions = self._model_pass(self.model.predict_action_batch, images, instructions,
-                                       unnorm_key=group[0].unnorm_key)
+                                       unnorm_key=group[0].unnorm_key, queued=group)
             for p, action in zip(group, actions[:n]):
                 p.result = np.asarray(action)
         except Exception as e:  # noqa: BLE001 — delivered to each request of the group
@@ -327,28 +393,38 @@ class VLAServer:
                 if self.path != "/act":
                     self._send(404, {"error": "not found"})
                     return
-                t0 = time.perf_counter()
+                with profiling.span("serve:request", rid=profiling.new_request_id()) as request:
+                    self._act()
+                server_self._ended(request)
+
+            def _act(self):
                 try:
-                    length = int(self.headers.get("Content-Length", "0"))
-                    request = json.loads(self.rfile.read(length))
-                    out = server_self.predict(request)
+                    with profiling.span("serve:parse"):
+                        length = int(self.headers.get("Content-Length", "0"))
+                        request = json.loads(self.rfile.read(length))
+                        if isinstance(request, dict) and "image" in request:
+                            request["image"] = decode_image(request["image"])
+                    out = server_self._answer(request)
                 except Exception:  # per-request error containment: report and keep serving
-                    server_self._record(time.perf_counter() - t0, error=True)
+                    server_self._record(error=True)
                     traceback.print_exc()
-                    try:
-                        self._send(500, {"error": "error", "detail": traceback.format_exc(limit=3)})
-                    except OSError:
-                        pass  # client already gone
+                    with profiling.span("serve:respond"):
+                        try:
+                            self._send(500, {"error": "error", "detail": traceback.format_exc(limit=3)})
+                        except OSError:
+                            pass  # client already gone
                     return
-                server_self._record(time.perf_counter() - t0, error=False)
-                try:
-                    self._send(200, out)
-                except OSError:
-                    pass  # client closed; the result is lost
+                server_self._record(error=False)
+                with profiling.span("serve:respond"):
+                    try:
+                        self._send(200, {k: encode_array(v) for k, v in out.items()})
+                    except OSError:
+                        pass  # client closed; the result is lost
 
         return Handler
 
     def run(self, host: str = "0.0.0.0", port: int = 8000):
+        self._listening()
         httpd = ThreadingHTTPServer((host, port), self.make_handler())
         print(f"[serve] listening on {host}:{port} (POST /act)")
         try:
@@ -358,6 +434,7 @@ class VLAServer:
 
     def serve_background(self, host: str = "127.0.0.1", port: int = 8000) -> ThreadingHTTPServer:
         """Serve from a daemon thread; stop with `httpd.shutdown(); httpd.server_close()`."""
+        self._listening()
         httpd = ThreadingHTTPServer((host, port), self.make_handler())
         threading.Thread(target=httpd.serve_forever, daemon=True).start()
         return httpd

@@ -45,6 +45,7 @@ size is the run's).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -56,6 +57,7 @@ import torch
 
 from bridgelang_tpu_torch.conf import VLAConfig, config_to_dict, parse_cli, save_config
 from bridgelang_tpu_torch.overwatch import initialize_overwatch
+from bridgelang_tpu_torch.util import profiling
 
 overwatch = initialize_overwatch(__name__)
 
@@ -210,7 +212,7 @@ def main(cfg: TrainConfig):
         pending.clear()
 
     step, last_loss = start_step, None
-    profiler = None
+    profiler = contextlib.ExitStack()  # holds profiling.trace over steps 10-12
     try:
         for batch in batches:
             if step >= total_steps:
@@ -218,19 +220,13 @@ def main(cfg: TrainConfig):
             names = batch["dataset_names"]
             device_batch = to_device(batch, device)
             if cfg.profile_dir and step == 9:
-                profiler = torch.profiler.profile(activities=_profiler_activities(device))
-                profiler.__enter__()
+                profiler.enter_context(profiling.trace(cfg.profile_dir, f"{run_id}-steps-10-12.json"))
             state, m = step_fn(state, device_batch)
             step += 1
             last_loss = m["loss"]
-            if profiler is not None and step == 12:
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                profiler.__exit__(None, None, None)
-                Path(cfg.profile_dir).mkdir(parents=True, exist_ok=True)
-                profiler.export_chrome_trace(str(Path(cfg.profile_dir) / f"{run_id}-steps-10-12.json"))
+            if cfg.profile_dir and step == 12:
+                profiler.close()
                 overwatch.info("Wrote profiler trace to %s", cfg.profile_dir)
-                profiler = None
             pending.append((step, m, names))
             if step % cfg.log_interval == 0:
                 flush()
@@ -249,6 +245,7 @@ def main(cfg: TrainConfig):
         ckpt.save(state, step=step, epoch=0, loss=0.0, data_state=batches.state(step - start_step))
         raise
     finally:
+        profiler.close()
         batches.close()
     flush()
     ckpt.save(state, step=step, epoch=0, loss=float(last_loss) if last_loss is not None else float("nan"),
@@ -256,12 +253,6 @@ def main(cfg: TrainConfig):
     metrics.finalize()
     overwatch.info("Training complete at step %d", step)
     return state
-
-
-def _profiler_activities(device: torch.device):
-    from torch.profiler import ProfilerActivity
-
-    return [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
 
 
 if __name__ == "__main__":

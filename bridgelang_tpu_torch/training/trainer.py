@@ -50,10 +50,15 @@ from torch.utils.checkpoint import checkpoint
 from bridgelang_tpu_torch.models.llm.llama import lm_logits
 from bridgelang_tpu_torch.models.vlm import IGNORE_INDEX, PrismaticVLM
 from bridgelang_tpu_torch.ops.image_ops import preprocess_batch
+from bridgelang_tpu_torch.util import profiling
 from bridgelang_tpu_torch.vla.action_tokenizer import make_bins
 
 Params = Any
 CE_CHUNK = 128  # sequence chunk of the LM head in the loss: peak logits [B, 128, vocab]
+# The device marks of a CUDA train step, and the times they give its train:step span.
+STEP_MARKS = ("start", "forward", "backward", "optimizer")
+STEP_TIMES = {"forward_ms": ("start", "forward"), "backward_ms": ("forward", "backward"),
+              "optimizer_ms": ("backward", "optimizer")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -380,7 +385,15 @@ def make_vla_train_step(
     `mesh` (a parallel/fsdp.MeshTraining): the step runs on this rank's
     rows of the global batch over the state `init_train_state(mesh=mesh)`
     made, the decoder on the mesh's tensor blocks (`MeshTraining.bind`);
-    the metrics are the global batch's on every rank."""
+    the metrics are the global batch's on every rank.
+
+    Spans (util/profiling): `train:step` from entry to return (the step
+    never waits for the card), with `train:forward` (cast, preprocessing,
+    forward, chunked CE), `train:backward` (autograd.grad, and on a mesh the
+    gradients' reduction) and `train:optimizer` (global norm, AdamW). On a
+    card, device marks at the same boundaries give the step's span
+    `STEP_TIMES` (ms) once the card has passed them, read at a later step's
+    entry or by `profiling.spans`, never waited for."""
     _, bin_centers = make_bins(n_action_bins)
     if mesh is not None:
         model = mesh.bind(model)
@@ -391,36 +404,49 @@ def make_vla_train_step(
         return p.to(compute_dtype) if p.dtype == torch.float32 else p
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        trainable = trainable_tensors(state.params, trainable_mask)
-        if mesh is None:
-            compute_params = tree_map(cast, state.params)
-        else:
-            specs = mesh.leaf_specs(trainable_marks(state.params, trainable_mask))
-            compute_params = mesh.compute_params(state.params, cast)
-        if "pixel_values" in batch:
-            pixel_values = batch["pixel_values"]
-        else:
-            if image_transform is None:
-                raise ValueError("raw frames need an image_transform")
-            pixel_values = preprocess_batch(batch["frames"], image_transform, dtype=compute_dtype)
-        hidden, fused_labels = model.forward_hidden(
-            compute_params, batch["input_ids"], batch["attention_mask"], pixel_values, batch["labels"],
-            remat=remat, remat_policy=remat_policy, parallel_actions=parallel_decode_objective,
-        )
-        loss, metrics = chunked_ce_and_metrics(compute_params["llm"], model.cfg.llm, hidden, fused_labels,
-                                               action_begin, bin_centers, mesh=mesh)
-        grads = list(torch.autograd.grad(loss, trainable))
-        if mesh is None:
-            gnorm = global_norm(grads)
-            optimizer.update(grads, state.opt_state, trainable)
-        else:
-            grads = mesh.sync_grads(grads, specs)
-            norm_fn = functools.partial(mesh.global_norm, specs=specs)
-            gnorm = norm_fn(grads)
-            optimizer.update(grads, state.opt_state, mesh.optimizer_params(trainable, specs), norm_fn)
-            mesh.after_update(trainable, specs)
-            loss = mesh.sum_(loss)
-        state.step += 1
+        profiling.resolve()
+        marks = profiling.DeviceMarks(STEP_MARKS) if batch["input_ids"].is_cuda else None
+        with profiling.span("train:step") as rec, profiling.marking(marks):
+            profiling.mark("start")
+            with profiling.span("train:forward"):
+                trainable = trainable_tensors(state.params, trainable_mask)
+                if mesh is None:
+                    compute_params = tree_map(cast, state.params)
+                else:
+                    specs = mesh.leaf_specs(trainable_marks(state.params, trainable_mask))
+                    compute_params = mesh.compute_params(state.params, cast)
+                if "pixel_values" in batch:
+                    pixel_values = batch["pixel_values"]
+                else:
+                    if image_transform is None:
+                        raise ValueError("raw frames need an image_transform")
+                    pixel_values = preprocess_batch(batch["frames"], image_transform, dtype=compute_dtype)
+                hidden, fused_labels = model.forward_hidden(
+                    compute_params, batch["input_ids"], batch["attention_mask"], pixel_values, batch["labels"],
+                    remat=remat, remat_policy=remat_policy, parallel_actions=parallel_decode_objective,
+                )
+                loss, metrics = chunked_ce_and_metrics(compute_params["llm"], model.cfg.llm, hidden, fused_labels,
+                                                       action_begin, bin_centers, mesh=mesh)
+            profiling.mark("forward")
+            with profiling.span("train:backward"):
+                grads = list(torch.autograd.grad(loss, trainable))
+                if mesh is not None:
+                    grads = mesh.sync_grads(grads, specs)
+            profiling.mark("backward")
+            with profiling.span("train:optimizer"):
+                if mesh is None:
+                    gnorm = global_norm(grads)
+                    optimizer.update(grads, state.opt_state, trainable)
+                else:
+                    norm_fn = functools.partial(mesh.global_norm, specs=specs)
+                    gnorm = norm_fn(grads)
+                    optimizer.update(grads, state.opt_state, mesh.optimizer_params(trainable, specs), norm_fn)
+                    mesh.after_update(trainable, specs)
+                    loss = mesh.sum_(loss)
+            profiling.mark("optimizer")
+            state.step += 1
+        if marks is not None:
+            profiling.resolve_later(marks, rec, STEP_TIMES)
         return state, dict(metrics, loss=loss.detach(), grad_norm=gnorm)
 
     return train_step

@@ -16,7 +16,7 @@ ids follow such flips.
 * generate: two turns fed on standard input; each reply's token ids equal
   the JAX script's (recorded from its model's generate_greedy), and the
   printed conversation equal.
-* util/profiling: a trace file with the annotated range, StepTimer, and {}
+* util/profiling: a trace file with a span's range, the span's own dump, and {}
   for device memory without a card.
 """
 
@@ -125,15 +125,14 @@ def test_generate_and_demo_default_to_cuda(ckpts, registries, image):  # noqa: F
 
 
 def test_profiling_on_the_cpu(tmp_path):
-    timer = profiling.StepTimer()
     with profiling.trace(str(tmp_path)):
-        with profiling.annotate("tiny_matmul"):
-            x = torch.ones(64, 64) @ torch.ones(64, 64)
-    dt = timer.tick(sync_on=x)
-    assert dt > 0 and timer.avg == dt
-    assert timer.tick() > 0 and 0 < timer.avg
+        with profiling.span("tiny_matmul") as rec:
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    assert rec.t1 > rec.t0 and profiling.spans(rec.t0, rec.t1, name="tiny_matmul") == [rec]
     trace = json.loads((tmp_path / "trace.json").read_text())
     assert any(e.get("name") == "tiny_matmul" for e in trace["traceEvents"])
+    spans = json.loads(open(profiling.dump(str(tmp_path / "spans.json"))).read())
+    assert any(e["name"] == "tiny_matmul" and e["args"]["id"] == rec.id for e in spans["traceEvents"])
     assert profiling.device_memory_stats() == {}
 
 
