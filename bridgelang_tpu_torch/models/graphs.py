@@ -77,8 +77,9 @@ def counted_wrappers() -> List[Callable]:
     """The kernel wrappers that count their launches in `.launches`."""
     from bridgelang_tpu_torch.ops.flash_attention import flash_attention, flash_bwd_dkv, flash_bwd_dq
     from bridgelang_tpu_torch.ops.int4_matmul import int4_mm, int4_mm_a8, quantize_a8
+    from bridgelang_tpu_torch.ops.int8_matmul import int8_gemv
 
-    return [flash_attention, flash_bwd_dq, flash_bwd_dkv, int4_mm_a8, int4_mm, quantize_a8]
+    return [flash_attention, flash_bwd_dq, flash_bwd_dkv, int4_mm_a8, int4_mm, quantize_a8, int8_gemv]
 
 
 def weight_kind(llm_params: Dict[str, Any], w8a8: bool) -> str:

@@ -55,9 +55,11 @@ package's bytes, `<proj>` [in, out/2] int8 with `<proj>_scale4`
 [in/group, out] bf16, and `proj` runs it through the int4 kernels
 (ops/int4_matmul.py); an int8 projection is `<proj>` [out, in] int8 with
 `<proj>_scale` [out, 1] bf16; the int8 embedding [V, D] and head [V, D] carry
-`embed_scale` / `lm_head_scale` [V, 1]. Under the "dots" remat policy the int4
-kernel's output is recomputed in the backward: its launch is no aten `mm`,
-so `_save_dots` does not keep it.
+`embed_scale` / `lm_head_scale` [V, 1]. Without w8a8, a short bf16 product
+over int8 codes (decode, the verify chunk, the head) goes through the int8
+weight-only GEMV (ops/int8_matmul.py) instead of casting the weight. Under
+the "dots" remat policy the int4 kernel's output is recomputed in the
+backward: its launch is no aten `mm`, so `_save_dots` does not keep it.
 """
 
 from __future__ import annotations
@@ -78,8 +80,10 @@ from torch.utils.checkpoint import (
 
 from bridgelang_tpu_torch.ops.flash_attention import flash_attention
 from bridgelang_tpu_torch.ops.int4_matmul import matmul_int4, matmul_int4_a8
+from bridgelang_tpu_torch.ops.int8_matmul import int8_gemv, int8_gemv_plain
 from bridgelang_tpu_torch.ops.quant import INT4_COLUMN_PARALLEL, quantize_activations_per_token
 from bridgelang_tpu_torch.parallel.collectives import row_product
+from bridgelang_tpu_torch.util import profiling
 
 Params = Dict[str, Any]
 
@@ -332,6 +336,11 @@ def lengths_from_mask(mask: torch.Tensor) -> torch.Tensor:
 # under `cfg.w8a8` (the JAX package's gate): shorter chunks, decode and the
 # speculative verify chunk, cast the weight to the activation dtype.
 W8A8_MIN_CHUNK = 8
+# Most rows (B x T) of a bf16 product over int8 codes that runs the int8
+# weight-only GEMV (ops/int8_matmul.py) rather than casting the weight: the
+# largest M at which the kernel beat the cast at every Mistral-7B shape on an
+# H100 (PERF.md), at most the kernel's 16.
+INT8_GEMV_M = 16
 # Attention over a chunk without a cache: the flash kernel, `full_attention`
 # under the mask ("masked", JAX impl "xla"), `cached_attention` ("einsum"),
 # or ring attention over a mesh axis ("ring", "ring:<axis>"; fsdp by default).
@@ -379,8 +388,11 @@ def proj(x: torch.Tensor, lp: Params, name: str, cfg: LLMConfig, row_tp=None) ->
     (x is [B, T, in]): the activations quantized per token
     (`quantize_activations_per_token`), the exact int8 x int8 -> int32
     product (`_int8_product`), then acc * token scale * column scale in fp32,
-    cast to x's dtype. Otherwise the weight is cast to x's dtype, multiplied,
-    and each output column scaled in x's dtype.
+    cast to x's dtype. Otherwise the product takes `int8_gemv` (the int8
+    weight-only GEMV, the column scale in its epilogue) where
+    `_int8_gemv_route` says so, else its plain version: the weight cast to
+    x's dtype, multiplied, each output column scaled in x's dtype, with the
+    same two roundings.
 
     `row_tp` (a TensorParallel): x and the weight are this rank's blocks of
     the contraction dim, multiplied under `TensorParallel.row_product`'s
@@ -410,7 +422,11 @@ def proj(x: torch.Tensor, lp: Params, name: str, cfg: LLMConfig, row_tp=None) ->
     elif s8 is not None and joins_reduce:  # each column scaled before the reduce, which the partial joins
         y = row_product(row_tp, x, lambda x: F.linear(x, lp[name].to(x.dtype)) * s8[:, 0].to(x.dtype) + lora(x))[0]
     elif s8 is not None:
-        y = row_product(row_tp, x, lambda x: F.linear(x, lp[name].to(x.dtype)))[0] * s8[:, 0].to(x.dtype)
+        product = int8_gemv if _int8_gemv_route(x) else int8_gemv_plain
+        if row_tp is None:
+            y = product(x, lp[name], s8[:, 0])
+        else:  # the rounded partials meet in x's dtype, then each column is scaled
+            y = row_tp.row_product(x, lambda x: product(x, lp[name]))[0] * s8[:, 0].to(x.dtype)
     elif joins_reduce:
         y = row_product(row_tp, x, lambda x: F.linear(x, lp[name]) + lora(x))[0]
     else:
@@ -418,6 +434,18 @@ def proj(x: torch.Tensor, lp: Params, name: str, cfg: LLMConfig, row_tp=None) ->
     if lora is not None and not joins_reduce:
         y = y + lora(x)
     return y
+
+
+def _int8_gemv_route(x: torch.Tensor) -> bool:
+    """Whether a product of x [..., K] over int8 codes runs `int8_gemv`:
+    bf16 x (the kernel's type) of at most INT8_GEMV_M rows, K % 16 == 0, and
+    no gradient wanted (training over an int8 base keeps the cast, whose
+    backward autograd knows). Counts each decision as `proj:int8_gemv` or
+    `proj:int8_cast` (under a CUDA graph: once, at capture)."""
+    take = (x.dtype == torch.bfloat16 and x.numel() <= INT8_GEMV_M * x.shape[-1] and x.shape[-1] % 16 == 0
+            and not (torch.is_grad_enabled() and x.requires_grad))
+    profiling.count("proj:int8_gemv" if take else "proj:int8_cast")
+    return take
 
 
 def _lora_update(lp: Params, name: str, tp, column_block: bool, row_block: bool):
@@ -670,7 +698,8 @@ def embed_tokens(params: Params, input_ids: torch.Tensor, dtype: Optional[torch.
 def lm_logits(params: Params, hidden: torch.Tensor, cfg: LLMConfig) -> torch.Tensor:
     """Logits over the PADDED vocabulary (argmax runs over all of it). An
     int8 head ([V, D] with `lm_head_scale` [V, 1]) runs in the hidden dtype
-    and scales each vocabulary column after the product, as the JAX package;
+    and scales each vocabulary column after the product, as the JAX package
+    (through `int8_gemv` where `_int8_gemv_route` takes it);
     a Phi head adds `lm_head_bias` after both. A vocab-split head (tensor
     parallelism) computes this rank's block of the vocabulary and gathers the
     blocks in order, so an argmax over the result breaks ties at the lowest
@@ -684,7 +713,7 @@ def lm_logits(params: Params, hidden: torch.Tensor, cfg: LLMConfig) -> torch.Ten
         scale = params["lm_head_scale"]
         if scale.shape[0] != head.shape[0]:  # a whole per-row scale beside a vocab block
             scale = tp.block(scale, 0)
-        logits = F.linear(hidden, head.to(hidden.dtype)) * scale.to(hidden.dtype)[:, 0]
+        logits = (int8_gemv if _int8_gemv_route(hidden) else int8_gemv_plain)(hidden, head, scale[:, 0])
     else:
         logits = F.linear(hidden, head)
     if cfg.arch == "phi":

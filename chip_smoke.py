@@ -358,12 +358,27 @@ INT4_SHAPES_PHI = {"phi wq": (2560, 2560), "phi w_up": (2560, 10240), "phi w_dow
 INT4_SHAPES_TP = {"t2 wq block": (4096, 2048), "t2 w_gate block": (4096, 5504), "t2 wo rows": (2048, 4096),
                   "t2 w_down rows": (5504, 4096), "13b t4 w_gate block": (5120, 3456)}
 INT4_SHAPES = {**INT4_SHAPES_7B, **INT4_SHAPES_PHI, **INT4_SHAPES_TP}
+# The int8 weight-only GEMV at Mistral-7B's (K, N) (wo is wq's shape, wv wk's, w_up w_gate's) and its int8
+# head; Phi-2's projections and head for the check only. Timed at every M it may route, 1 to 16.
+INT8_GEMV_SHAPES = {"wq": (4096, 4096), "wk": (4096, 1024), "w_gate": (4096, 14336), "w_down": (14336, 4096),
+                    "head": (4096, 32000)}
+INT8_GEMV_PHI = {"phi wq": (2560, 2560), "phi w_up": (2560, 10240), "phi w_down": (10240, 2560),
+                 "phi head": (2560, 51200)}
+INT8_GEMV_MS = (1, 2, 4, 8, 16)
 PHI_QLORA_M = 16 * 368  # int4_mm's M in a Phi-2 QLoRA step: B = 16 x (112 + 256) fused tokens
 INT4_PER_PASS = 7 * N_LAYERS_7B   # int4 launches per decoder pass: 7 projections x 32 layers
 ACTION_DIM = 7           # decoder passes per predict: the prefill and 6 decode steps
+# int8_gemv launches: an int8 7B decode step runs its 224 projections and the int8 head through it (225); a
+# predict adds the prefill's head row (its projections, 352 rows, stay w8a8). An int4 decoder's int8 head
+# takes it once per pass.
+INT8_GEMV_PER_STEP = 7 * N_LAYERS_7B + 1
+INT8_GEMV_PER_PREDICT = (ACTION_DIM - 1) * INT8_GEMV_PER_STEP + 1
+INT8_PER_PREDICT = {"flash_fwd": N_LAYERS_7B, "int8_gemv": INT8_GEMV_PER_PREDICT}
+INT4_PER_PREDICT = {"flash_fwd": N_LAYERS_7B, "int4_mm_a8": ACTION_DIM * INT4_PER_PASS,
+                    "quantize_a8": ACTION_DIM * INT4_PER_PASS, "int8_gemv": ACTION_DIM}
 QLORA_STEPS = 6          # timed QLoRA steps after one warm step
 PEAK_OPS = {"a8": 1979e12, "bfloat16": 989e12, "float32": 67e12}  # int8 and bf16 tensor cores; fp32 FMAs
-KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "int4_mm_a8", "int4_mm", "quantize_a8")
+KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "int4_mm_a8", "int4_mm", "quantize_a8", "int8_gemv")
 # substrings of the kernels' names in a profiler trace ("int4_mm_a8_": the split-K and the wgmma kernel)
 PROFILE_NAMES = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq", "flash_bwd_dkv": "flash_bwd_dkv",
                  "int4_mm_a8": "int4_mm_a8_", "quantize_a8": "quantize_a8_kernel",
@@ -1003,6 +1018,92 @@ def check_int4_kernels() -> dict:
     weights.clear()
     torch.cuda.empty_cache()
     return dict(rows=rows, worst=worst, blocked=blocked)
+
+
+def int8_gemv_bound_ms(m: int, k: int, n: int) -> float:
+    """Least time for one int8 GEMV: bytes (x and the codes and scales read
+    once, the bf16 output written once) at the HBM rate; its 2 M K N
+    operations take under a hundredth of that at M <= 16."""
+    return 1e3 * (2 * m * k + n * k + 2 * n + 2 * m * n) / HBM_BYTES_PER_S
+
+
+def check_int8_gemv() -> dict:
+    """int8_gemv against int8_gemv_plain at Mistral-7B's shapes and head (M =
+    1, 8, 16) and Phi-2's (M = 1, 8), a ragged N and an odd M: the unscaled
+    product under INT4_TOL's bf16 rule, the scaled one bit-equal to
+    bf16(unscaled * scale), its epilogue. Then device time per launch, cold
+    (a captured graph over rotated weight copies), at each Mistral shape and
+    M in INT8_GEMV_MS: the kernel, the plain version (the cast route: the
+    codes cast to bf16, F.linear, the scale), F.linear over bf16 weights cast
+    ahead of time (the yardstick), and the byte bound; and the largest M at
+    which the kernel beats the cast route at every shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from bridgelang_tpu_torch.ops.int8_matmul import int8_gemv, int8_gemv_plain
+
+    def operands(k, n, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        w = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
+        s = (torch.rand((n,), generator=g, device="cuda") * 0.02 + 1e-3).to(torch.bfloat16)
+        return w, s
+
+    def use(got, want):
+        rtol, atol = INT4_TOL["bfloat16"]
+        w = want.float()
+        allowed = (rtol * w.abs() + atol * w.square().mean().sqrt()).clamp_min(torch.finfo(torch.float32).tiny)
+        return float(((got.float() - w).abs() / allowed).max()), float((got.float() - w).abs().max())
+
+    cases = [(sh, k, n, m) for sh, (k, n) in INT8_GEMV_SHAPES.items() for m in (1, 8, 16)]
+    cases += [(sh, k, n, m) for sh, (k, n) in INT8_GEMV_PHI.items() for m in (1, 8)]
+    cases += [("ragged", 4096, 1000, 3), ("ragged", 80, 37, 5)]
+    worst = (0.0, 0.0)
+    for i, (shape, k, n, m) in enumerate(cases):
+        w, s = operands(k, n, 800 + i)
+        x = torch.randn((m, k), generator=torch.Generator(device="cuda").manual_seed(900 + i), device="cuda",
+                        dtype=torch.bfloat16)
+        before = int8_gemv.launches
+        raw, scaled = int8_gemv(x, w), int8_gemv(x, w, s)
+        torch.cuda.synchronize()
+        if int8_gemv.launches != before + 2:
+            fail(f"int8_gemv {shape} M={m}: expected two launches, counted {int8_gemv.launches - before}")
+        share, err = use(raw, int8_gemv_plain(x, w))
+        exact = torch.equal(scaled, (raw.float() * s.float()).to(torch.bfloat16))
+        log(f"kernel int8_gemv {shape} M={m} K={k} N={n}: unscaled max|err| {err:.3e} against the plain version "
+            f"(tolerance use {share:.3g}, rule one bf16 ulp + 1e-3 rms); scaled {'bit-equal' if exact else 'DIFFERS'} "
+            f"to bf16(unscaled * scale)")
+        if share > 1.0 or not exact or not torch.isfinite(scaled).all():
+            fail(f"int8_gemv disagrees with its plain version in case {shape} M={m}")
+        worst = (max(worst[0], err), max(worst[1], share))
+
+    rows = []
+    for shape, (k, n) in INT8_GEMV_SHAPES.items():
+        w, s = operands(k, n, 1000)
+        copies = rotated((w, s), w.numel() + 2 * s.numel())
+        w_copies = rotated((w.to(torch.bfloat16),), 2 * w.numel())
+        for m in INT8_GEMV_MS:
+            x = torch.randn((m, k), device="cuda", dtype=torch.bfloat16)
+            r = dict(case=shape, shape=f"M={m} K={k} N={n}", m=m, k=k, n=n, copies=len(copies))
+            r["kernel_ms"] = graph_ms([lambda w=w, s=s: int8_gemv(x, w, s) for w, s in copies])
+            r["plain_ms"] = graph_ms([lambda w=w, s=s: int8_gemv_plain(x, w, s) for w, s in copies])
+            r["library_ms"] = graph_ms([lambda w=w: F.linear(x, w) for (w,) in w_copies])
+            r["bound_ms"], r["bound_by"] = int8_gemv_bound_ms(m, k, n), "bytes"
+            r["bound_share"] = r["bound_ms"] / r["kernel_ms"]
+            rows.append(r)
+            log(f"timing int8_gemv {shape} {r['shape']} (device, cold over {len(copies)} weight copies): kernel "
+                f"{1e3 * r['kernel_ms']:.2f} us, plain (cast route) {1e3 * r['plain_ms']:.2f} us, F.linear over "
+                f"bf16 weights (yardstick) {1e3 * r['library_ms']:.2f} us, bound {1e3 * r['bound_ms']:.2f} us "
+                f"(bytes); share of bound {r['bound_share']:.3f}, kernel / cast route "
+                f"{r['kernel_ms'] / r['plain_ms']:.3f}")
+        del copies, w_copies
+        torch.cuda.empty_cache()
+    limit = 0
+    for m in INT8_GEMV_MS:
+        if not all(r["kernel_ms"] < r["plain_ms"] for r in rows if r["m"] == m):
+            break
+        limit = m
+    log(f"int8_gemv beats the cast route at every Mistral shape up to M = {limit} (of {INT8_GEMV_MS})")
+    return dict(rows=rows, worst=worst, m_limit=limit)
 
 
 _WARM_STREAM = []  # one side stream for every capture's warm-up: cuBLAS keeps a workspace per stream
@@ -1751,10 +1852,8 @@ def load_phase(model, params, keep_ckpt: bool = False):
         release_memory()
 
         for kind, quantize, per_pass in (
-                ("int8", lambda llm: quantize_llm_int8(llm), {"flash_fwd": N_LAYERS_7B}),
-                ("int4", lambda llm: quantize_llm_int4(llm, group=INT4_GROUP),
-                 {"flash_fwd": N_LAYERS_7B, "int4_mm_a8": ACTION_DIM * INT4_PER_PASS,
-                  "quantize_a8": ACTION_DIM * INT4_PER_PASS})):
+                ("int8", lambda llm: quantize_llm_int8(llm), INT8_PER_PREDICT),
+                ("int4", lambda llm: quantize_llm_int4(llm, group=INT4_GROUP), INT4_PER_PREDICT)):
             qmodel, qparams, result[kind] = timed_load(ckpt, kind, n_bytes, cold=True, **{f"quantize_{kind}": True})
             mem = dict(lparams, llm=quantize(lparams["llm"]))
             n = assert_params_bit_equal(qparams, mem, f"load {kind}")
@@ -1811,6 +1910,16 @@ def expect_counts(counts: dict, want: dict, what: str) -> None:
     full = {name: want.get(name, 0) for name in KERNEL_NAMES}
     if counts != full:
         fail(f"{what}: expected launches {full}, got {counts}")
+
+
+def int8_decode_steps(gemv: int, prefills: int, what: str) -> int:
+    """The decode steps of an int8 7B behind `gemv` int8_gemv launches:
+    each prefill's head row, then INT8_GEMV_PER_STEP per step."""
+    steps, rest = divmod(gemv - prefills, INT8_GEMV_PER_STEP)
+    if steps < 0 or rest:
+        fail(f"{what}: {gemv} int8_gemv launches are not {prefills} head rows and whole decode steps of "
+             f"{INT8_GEMV_PER_STEP}")
+    return steps
 
 
 def lora_batch(model, batch_size: int, seed: int) -> dict:
@@ -2187,15 +2296,21 @@ def serve_kind(model, params, label: str, per_pass: dict) -> dict:
 
 
 def int8_routes(model8, params8) -> dict:
-    """Which route each int8 projection of one eager 7-token predict takes:
-    the w8a8 int8 x int8 product (torch._int_mm) must run the prefill's 224
-    projections (T = 352 >= W8A8_MIN_CHUNK) and nothing else; the decode's
-    6 x 224 cast the weight. Then the device time of what one decode step
-    casts (224 weights and the head), from a captured graph of the casts."""
+    """Which route each int8 product of one eager 7-token predict takes: the
+    w8a8 int8 x int8 product (torch._int_mm) must run the prefill's 224
+    projections (T = 352 >= W8A8_MIN_CHUNK) and nothing else; the int8
+    weight-only GEMV every decode step's 224 projections and the head
+    (INT8_GEMV_PER_STEP launches a step, by `int8_gemv.launches`) and the
+    prefill's head row, with no product cast (`proj:` counters). Then, from
+    captured graphs, the device time of one decode step's products through
+    the GEMV at M = 1 (224 weights and the head) against what casting the
+    same weights to bf16 alone takes."""
     import torch
 
     from bridgelang_tpu_torch.models.llm import llama
     from bridgelang_tpu_torch.ops.image_ops import frames_to_tensor, preprocess_batch
+    from bridgelang_tpu_torch.ops.int8_matmul import int8_gemv
+    from bridgelang_tpu_torch.util import profiling
 
     counts = {"proj": 0, "int8_product": 0}
     real_proj, real_product = llama.proj, llama._int8_product
@@ -2208,9 +2323,14 @@ def int8_routes(model8, params8) -> dict:
         counts["int8_product"] += 1
         return real_product(*a, **k)
 
+    def routes():
+        c = profiling.counters("proj:")
+        return int8_gemv.launches, c.get("proj:int8_gemv", 0), c.get("proj:int8_cast", 0)
+
     ids, mask = model8.pad_prompt([model8.prepare_prompt_ids(INSTRUCTIONS[0])])
     pix = preprocess_batch(frames_to_tensor(frames(1, seed=3)[0][None], model8.device), model8.image_transform,
                            dtype=model8.dtype)
+    before = routes()
     llama.proj, llama._int8_product = proj, product
     try:
         model8.generate_greedy(params8, torch.as_tensor(ids, device="cuda"), torch.as_tensor(mask, device="cuda"),
@@ -2218,17 +2338,27 @@ def int8_routes(model8, params8) -> dict:
         torch.cuda.synchronize()
     finally:
         llama.proj, llama._int8_product = real_proj, real_product
-    want = {"proj": ACTION_DIM * 7 * N_LAYERS_7B, "int8_product": 7 * N_LAYERS_7B}
+    counts["int8_gemv"], counts["route_gemv"], counts["route_cast"] = (a - b for a, b in zip(routes(), before))
+    want = {"proj": ACTION_DIM * 7 * N_LAYERS_7B, "int8_product": 7 * N_LAYERS_7B, "int8_gemv": INT8_GEMV_PER_PREDICT,
+            "route_gemv": INT8_GEMV_PER_PREDICT, "route_cast": 0}
     log(f"int8 routes over one 7-token predict: {counts} (want {want}: the prefill's projections on torch._int_mm, "
-        f"the {ACTION_DIM - 1} decode steps' {(ACTION_DIM - 1) * 7 * N_LAYERS_7B} on the weight cast)")
+        f"the {ACTION_DIM - 1} decode steps' {INT8_GEMV_PER_STEP} products each (224 projections and the head) "
+        f"and the prefill's head row on int8_gemv, nothing cast)")
     if counts != want:
-        fail(f"int8: projection routes {counts}, expected {want}")
-    weights = [lp[k] for lp in params8["llm"]["layers"] for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")]
-    weights.append(params8["llm"]["lm_head"])
-    cast_ms = graph_ms([lambda w=w: w.to(torch.bfloat16) for w in weights], launches=len(weights), replays=3) * len(weights)
-    log(f"int8: casting one decode step's weights to bf16 ({len(weights)} tensors, "
-        f"{sum(w.numel() for w in weights) / 1e9:.3f} G codes) takes {cast_ms:.3f} ms on the device")
-    return dict(counts, decode_cast_ms_per_step=cast_ms)
+        fail(f"int8: product routes {counts}, expected {want}")
+    lp_names = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    products = [(lp[k], lp[k + "_scale"][:, 0]) for lp in params8["llm"]["layers"] for k in lp_names]
+    products.append((params8["llm"]["lm_head"], params8["llm"]["lm_head_scale"][:, 0]))
+    xs = {k: torch.randn((1, k), device="cuda", dtype=torch.bfloat16) for k in {w.shape[1] for w, _ in products}}
+    gemv_ms = graph_ms([lambda w=w, s=s: int8_gemv(xs[w.shape[1]], w, s) for w, s in products],
+                       launches=len(products), replays=3) * len(products)
+    cast_ms = graph_ms([lambda w=w: w.to(torch.bfloat16) for w, _ in products], launches=len(products),
+                       replays=3) * len(products)
+    log(f"int8: one decode step's {len(products)} products ({sum(w.numel() for w, _ in products) / 1e9:.3f} G "
+        f"codes) through int8_gemv at M = 1 take {gemv_ms:.3f} ms on the device (bound "
+        f"{1e3 * sum(w.numel() for w, _ in products) / HBM_BYTES_PER_S:.3f} ms); casting the same weights to "
+        f"bf16 alone takes {cast_ms:.3f} ms")
+    return dict(counts, decode_gemv_ms_per_step=gemv_ms, decode_cast_ms_per_step=cast_ms)
 
 
 def spec_phase(model, params, label: str, int4: bool) -> dict:
@@ -2335,6 +2465,13 @@ def spec_phase(model, params, label: str, int4: bool) -> dict:
         fail(f"spec ({label}): int4 launches {counts} are no whole number of decoder passes per tick")
     if not int4 and (counts["int4_mm_a8"] or counts["quantize_a8"] or counts["int4_mm"]):
         fail(f"spec ({label}): unexpected int4 launches {counts}")
+    # int8: the head row of each prefill, then 225 per later pass (the verify chunk's 7 rows, the fix-up
+    # steps); int4: the int8 head once per pass; bf16: none
+    if label == "int8":
+        int8_decode_steps(counts["int8_gemv"], SPEC_TICKS, f"spec ({label})")
+    elif counts["int8_gemv"] != (passes if int4 else 0):
+        fail(f"spec ({label}): int8_gemv launched {counts['int8_gemv']} times, expected "
+             f"{passes if int4 else 0} (the int8 head per pass)")
     return dict(accepts=accepts, calibrated_margin=calib, warmup_s=warm_s, tick_accepts=tick_accepts, margin0=full,
                 median_ms=out["speculative"]["median_ms"], latencies_ms=out["speculative"]["latencies_ms"],
                 greedy_median_ms=out["greedy"]["median_ms"], greedy_latencies_ms=out["greedy"]["latencies_ms"],
@@ -2892,7 +3029,8 @@ def phi_phase() -> dict:
     release_memory()
     model4 = w8a8_model(model, w8a8=True)
     per_pass = 6 * n_layers  # wq, wk, wv, wo, w_up, w_down: Phi has no w_gate
-    per_predict = {"flash_fwd": n_layers, "int4_mm_a8": ACTION_DIM * per_pass, "quantize_a8": ACTION_DIM * per_pass}
+    per_predict = {"flash_fwd": n_layers, "int4_mm_a8": ACTION_DIM * per_pass, "quantize_a8": ACTION_DIM * per_pass,
+                   "int8_gemv": ACTION_DIM}  # the int8 head, one row per pass
     peaks4, _ = graphs_equal_eager(model4, params, "phi int4 w4a8", imgs, buckets=(1, 4))
     _, counts4 = counted_ids(model4, params, imgs[0], INSTRUCTIONS[0], per_predict, "phi int4 w4a8 predict")
     out["int4"] = dict(llm_gb=tensor_gb(params["llm"]), warmup_peak_gb=peaks4, launches=counts4,
@@ -3830,6 +3968,11 @@ def finish_mesh_deploy(h: dict, model, params) -> dict:
              f"passes of {INT4_PER_PASS} int4_mm_a8 and quantize_a8")
     if label != "int4" and (launches["int4_mm_a8"] or launches["quantize_a8"] or launches["int4_mm"]):
         fail(f"mesh deploy {what}: unexpected int4 launches {launches}")
+    # the int8 head once per int4 pass; an int8 deploy's decode products and head rows on every rank's blocks
+    if label == "int4" and launches["int8_gemv"] != passes:
+        fail(f"mesh deploy {what}: {launches['int8_gemv']} int8_gemv launches over {passes} int4 passes")
+    if label == "int8":
+        int8_decode_steps(launches["int8_gemv"], predicts, f"mesh deploy {what}")
     r = dict(listen_s=listen_s, act_ms=lat, act_median_ms=statistics.median(lat), predicts=predicts,
              collectives_per_predict=collectives / predicts, launches=launches)
     log(f"mesh deploy {what}: listened after {listen_s:.1f} s (started beside the other deploys); "
@@ -4677,7 +4820,9 @@ def scripts_phase(ckpt_dir: str) -> dict:
         load_mod.load_vla = real_load
     launches = launch_counts()
     gen_launches = {k: launches[k] - demo_launches[k] for k in launches}
-    expect_counts(gen_launches, {"flash_fwd": N_LAYERS_7B * len(GEN_TURNS)}, "generate.main (one prefill per turn)")
+    gen_steps = int8_decode_steps(gen_launches["int8_gemv"], len(GEN_TURNS), "generate.main")
+    expect_counts(gen_launches, {"flash_fwd": N_LAYERS_7B * len(GEN_TURNS), "int8_gemv": gen_launches["int8_gemv"]},
+                  f"generate.main (one prefill per turn, {gen_steps} int8 decode steps)")
     if demo_launches["flash_fwd"] < N_LAYERS_7B:
         fail(f"demo.main launched flash_fwd {demo_launches['flash_fwd']} times, fewer than one prefill")
 
@@ -4955,7 +5100,7 @@ def verify_phase(ckpt_dir: str, tmp: str) -> dict:
 
     # One capture per key: the first predict's warm-up runs eagerly (and counts), then the graph replays.
     out["int8"], counts = verify_run("default (int8 w8a8)", checkpoint=ckpt_dir, calls=VERIFY_CALLS)
-    expect_counts(counts, {"flash_fwd": N_LAYERS_7B * (VERIFY_CALLS + 1)}, "verify default")
+    expect_counts(counts, {k: v * (VERIFY_CALLS + 1) for k, v in INT8_PER_PREDICT.items()}, "verify default")
     add(counts)
     golden = os.path.join(tmp, "golden_7b_bf16.npz")
     out["record"], counts = verify_run("--golden_record (bf16)", checkpoint=ckpt_dir, quantize_int8=False,
@@ -4974,8 +5119,7 @@ def verify_phase(ckpt_dir: str, tmp: str) -> dict:
     out["int4"], counts = verify_run("--quantize_int4 true", checkpoint=ckpt_dir, quantize_int4=True,
                                      calls=VERIFY_INT4_CALLS)
     predicts = VERIFY_INT4_CALLS + 1
-    expect_counts(counts, {"flash_fwd": N_LAYERS_7B * predicts, "int4_mm_a8": ACTION_DIM * INT4_PER_PASS * predicts,
-                           "quantize_a8": ACTION_DIM * INT4_PER_PASS * predicts}, "verify --quantize_int4")
+    expect_counts(counts, {k: v * predicts for k, v in INT4_PER_PREDICT.items()}, "verify --quantize_int4")
     add(counts)
     log(f"robot: verify p50 / p90: int8 w8a8 {out['int8']['p50_ms']:.1f} / {out['int8']['p90_ms']:.1f} ms, int4 w4a8 "
         f"{out['int4']['p50_ms']:.1f} / {out['int4']['p90_ms']:.1f} ms; golden bf16 {GOLDEN_RECORDS}/{GOLDEN_RECORDS} "
@@ -5396,12 +5540,13 @@ def main() -> None:
         log(f"serving prefill length: {ids.shape[1]}-token prompt bucket + {model.num_patches} patches = {serve_t}")
         mark("load")
     timing_rows, max_err, bwd_timing, bwd_err, bwd_readings, int4_checks, cold = [], None, None, None, None, None, None
-    quantize_errs = None
+    quantize_errs = int8_checks = None
     if "kernels" in phases:
         timing_rows, max_err = check_kernels(serve_t)
         bwd_timing, bwd_err, bwd_readings = check_backward_kernels()
         int4_checks = check_int4_kernels()
         quantize_errs = check_quantize_and_route()
+        int8_checks = check_int8_gemv()
     if phases & {"kernels", "cold"}:
         cold = cold_timings("this checkout" if os.path.abspath(args.package_root) == ROOT else args.package_root)
         mark("kernels")
@@ -5450,15 +5595,15 @@ def main() -> None:
         params = dict(params, llm=tree_map(lambda t: t.cpu(), params["llm"]))
         release_memory()
         model8 = w8a8_model(model, w8a8=True)
-        served8 = serve_kind(model8, params8, "int8", {"flash_fwd": N_LAYERS_7B})
+        served8 = serve_kind(model8, params8, "int8", INT8_PER_PREDICT)
         served8.update(int8_routes(model8, params8))
         prof = served8["profile"]
-        share = (ACTION_DIM - 1) * served8["decode_cast_ms_per_step"] / prof["device_ms"]
-        served8["decode_cast_share"] = share
+        share = (ACTION_DIM - 1) * served8["decode_gemv_ms_per_step"] / prof["device_ms"]
+        served8["decode_gemv_share"] = share
         served8["direct_copy_share"] = prof["direct_copy_ms"] / prof["device_ms"]
         log(f"int8 serve: model {served8['model_gb']:.2f} GB (decoder + embedding + head {served8['llm_gb']:.2f} GB), "
-            f"peak {max(served8['warmup_peak_gb'].values()):.2f} GB after the warm-up; the decode's weight casts, "
-            f"timed alone, {(ACTION_DIM - 1) * served8['decode_cast_ms_per_step']:.2f} ms of a predict's "
+            f"peak {max(served8['warmup_peak_gb'].values()):.2f} GB after the warm-up; the decode's int8 GEMVs, "
+            f"timed alone, {(ACTION_DIM - 1) * served8['decode_gemv_ms_per_step']:.2f} ms of a predict's "
             f"{prof['device_ms']:.2f} ms of device time ({100 * share:.1f}%); in the profile ATen's direct_copy "
             f"kernels take {prof['direct_copy_ms']:.2f} ms ({100 * served8['direct_copy_share']:.1f}%; bf16: "
             f"{(served or {}).get('profile', {}).get('direct_copy_ms', float('nan')):.2f} ms)")
@@ -5490,9 +5635,7 @@ def main() -> None:
             f"embedding and head {tensor_gb(params['llm']):.2f} GB, card holds {torch.cuda.memory_allocated() / 1e9:.2f} GB")
         model4 = w8a8_model(model, w8a8=True)
         if "int4" in phases:
-            served4 = serve_kind(model4, params, "int4", {"flash_fwd": N_LAYERS_7B,
-                                                         "int4_mm_a8": ACTION_DIM * INT4_PER_PASS,
-                                                         "quantize_a8": ACTION_DIM * INT4_PER_PASS})
+            served4 = serve_kind(model4, params, "int4", INT4_PER_PREDICT)
             if "spec" in phases:
                 spec["int4"] = spec_phase(model4, params, "int4", int4=True)
             model4.graphs.clear()
@@ -5598,7 +5741,8 @@ def main() -> None:
             entry["serve"] = {k: served[k] for k in serve_keys}
         if served8:
             entry["int8_serve"] = {k: served8[k] for k in serve_keys + (
-                "model_gb", "llm_gb", "proj", "int8_product", "decode_cast_ms_per_step", "decode_cast_share")}
+                "model_gb", "llm_gb", "proj", "int8_product", "int8_gemv", "decode_gemv_ms_per_step",
+                                 "decode_cast_ms_per_step", "decode_gemv_share")}
         if spec:
             entry["spec"] = spec
         if parallel:
@@ -5715,6 +5859,19 @@ def main() -> None:
                  "quantize_activations_per_token (random, zero, tie and NaN rows, bf16 and fp32); route_max_abs_err: "
                  "the w4a8 route against its plain composition; ms, plain_ms: device time per launch (captured CUDA graph); bound: M K 2 bytes read, M K + 4 M "
                  "written"))
+        head = next(r for r in int8_checks["rows"] if r["case"] == "w_gate" and r["m"] == 1)
+        entries.append(kernel_entry(
+            "int8_gemv", "bridgelang_tpu_torch/csrc/int8_matmul.cu",
+            "none (the JAX package's int8 route casts the weight inside one XLA fusion: models/llm/llama.py "
+            "_block.proj, lm_logits)", launches("int8_gemv"),
+            dict(head, ms=head["kernel_ms"], max_abs_err=int8_checks["worst"][0]),
+            tolerance_use=int8_checks["worst"][1], shape=head["shape"], timings=int8_checks["rows"],
+            m_limit=int8_checks["m_limit"],
+            int8_serve=served8 and {k: served8[k] for k in ("int8_gemv", "decode_gemv_ms_per_step",
+                                                             "decode_cast_ms_per_step")},
+            note="ms, plain_ms, library_ms: device time per launch, cold L2 (a captured CUDA graph rotating over "
+                 "weight copies of 100 MB or more); plain: the cast route (codes cast to bf16, F.linear, the "
+                 "scale); library: F.linear over bf16 weights cast ahead of time; bound: bytes"))
         print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

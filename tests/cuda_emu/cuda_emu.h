@@ -68,6 +68,12 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class K>
 cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// Resident blocks per SM: a fixed 4 here (the card's depends on the compiled kernel).
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 4;
+  return cudaSuccess;
+}
 enum cudaStreamCaptureStatus { cudaStreamCaptureStatusNone, cudaStreamCaptureStatusActive };
 inline cudaError_t cudaStreamGetCaptureInfo(cudaStream_t, cudaStreamCaptureStatus* status, unsigned long long* id) {
   *status = cudaStreamCaptureStatusNone;  // the emulation runs no graphs
@@ -218,6 +224,16 @@ inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __ldcg(const float* p) { return *p; }
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  return u;
+}
 inline float __bfloat162float(__nv_bfloat16 h) { return emu_bf2f(h.x); }
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {{emu_f2bf(a)}, {emu_f2bf(b)}}; }
 inline float2 __bfloat1622float2(__nv_bfloat162 h) { return {emu_bf2f(h.x.x), emu_bf2f(h.y.x)}; }

@@ -14,6 +14,11 @@ Tolerances, and why:
   activations are equal (the integer product is exact on both sides) unless
   one sits on a rounding tie ~1e-6 apart, which moves a logit by far less.
 * greedy ids over int8 with w8a8 off: exactly equal.
+* the int8 weight-only GEMV's routing (llama._int8_gemv_route, read through
+  the `proj:int8_gemv` / `proj:int8_cast` counters): on the CPU the GEMV
+  runs its plain version, the cast route's composition, so the routed
+  products, and a bf16 greedy decode over them, equal the cast route's bit
+  for bit.
 """
 
 import dataclasses
@@ -30,6 +35,7 @@ from bridgelang_tpu.ops import quant as jq
 from bridgelang_tpu_torch.convert import llm_params_from_jax, params_from_jax
 from bridgelang_tpu_torch.models.llm import llama as tllama
 from bridgelang_tpu_torch.ops import quant as tq
+from bridgelang_tpu_torch.util import profiling
 from tests.test_torch_int4 import SMALL_VOCAB, _f32, _np
 from tests.test_torch_vla import INSTRUCTIONS, _frames, pair  # noqa: F401 (pair is a fixture)
 
@@ -101,8 +107,13 @@ def test_quantized_bytes_and_int8_init():
     assert torch.isfinite(tllama.lm_logits(p, h, cfg)).all()
 
 
+def _route_counts():
+    got = profiling.counters("proj:")
+    return got.get("proj:int8_gemv", 0), got.get("proj:int8_cast", 0)
+
+
 @pytest.mark.parametrize("w8a8", [False, True])
-@pytest.mark.parametrize("t", [5, tllama.W8A8_MIN_CHUNK, 12])
+@pytest.mark.parametrize("t", [1, 5, tllama.W8A8_MIN_CHUNK, 12])
 def test_proj_on_int8_weights_below_and_above_the_w8a8_gate(w8a8, t):
     jcfg, jtree = _float_tree(seed=9)
     jcfg = dataclasses.replace(jcfg, w8a8=w8a8)
@@ -123,14 +134,100 @@ def test_proj_on_int8_weights_below_and_above_the_w8a8_gate(w8a8, t):
         return real(x)
 
     tllama.quantize_activations_per_token = counting
+    before = _route_counts()
     try:
         temb = tllama.embed_tokens(t8, torch.from_numpy(ids), torch.float32)
         th, _ = tllama.llm_forward(t8, cfg, temb, torch.from_numpy(pos.copy()), torch.from_numpy(mask.copy()))
         got = tllama.lm_logits(t8, th, cfg).numpy()
     finally:
         tllama.quantize_activations_per_token = real
-    assert calls["n"] == (7 * 2 if w8a8 and t >= tllama.W8A8_MIN_CHUNK else 0)  # the w8a8 route, per projection
+    w8a8_route = w8a8 and t >= tllama.W8A8_MIN_CHUNK
+    assert calls["n"] == (7 * 2 if w8a8_route else 0)  # the w8a8 route, per projection
+    # fp32 activations: every other int8 product, the head's included, casts (the GEMV takes bf16)
+    assert tuple(a - b for a, b in zip(_route_counts(), before)) == (0, (0 if w8a8_route else 7 * 2) + 1)
     np.testing.assert_allclose(got, want, atol=1e-4 * np.abs(want).max(), rtol=0)
+
+
+# case: (x's shape, dtype, K, gradient wanted, GEMV taken)
+GEMV_ROUTES = {
+    "decode_one_row": ((1, 1), torch.bfloat16, 256, False, True),
+    "rows_at_the_limit": ((2, tllama.INT8_GEMV_M // 2), torch.bfloat16, 256, False, True),
+    "rows_over_the_limit": ((1, tllama.INT8_GEMV_M + 1), torch.bfloat16, 256, False, False),
+    "gradient_wanted": ((1, 1), torch.bfloat16, 256, True, False),
+    "k_not_a_multiple_of_16": ((1, 1), torch.bfloat16, 264, False, False),
+    "float32": ((1, 1), torch.float32, 256, False, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GEMV_ROUTES))
+def test_int8_gemv_route_by_rows_gradient_and_k(case):
+    """`proj` and `lm_logits` over int8 codes: the GEMV at most
+    INT8_GEMV_M bf16 rows with no gradient wanted and K % 16 == 0, else the
+    cast; either way the product equals the cast route's composition bit for
+    bit on the CPU, and each decision counts once."""
+    lead, dtype, k, grad, gemv = GEMV_ROUTES[case]
+    rng = np.random.default_rng(len(case))
+    cfg = tllama.LLMConfig(**SMALL_VOCAB)
+    w = torch.from_numpy(rng.integers(-127, 128, size=(48, k)).astype(np.int8))
+    scale = torch.from_numpy(rng.uniform(1e-3, 2e-2, size=(48, 1)).astype(np.float32)).to(torch.bfloat16)
+    x = torch.from_numpy(rng.normal(size=(*lead, k)).astype(np.float32)).to(dtype).requires_grad_(grad)
+    want = torch.nn.functional.linear(x, w.to(dtype)) * scale[:, 0].to(dtype)
+    for run in (lambda: tllama.proj(x, {"wq": w, "wq_scale": scale}, "wq", cfg),
+                lambda: tllama.lm_logits({"lm_head": w, "lm_head_scale": scale}, x, cfg)):
+        before = _route_counts()
+        got = run()
+        assert tuple(a - b for a, b in zip(_route_counts(), before)) == ((1, 0) if gemv else (0, 1))
+        assert got.dtype == dtype and torch.equal(got, want)
+        assert got.requires_grad == grad
+
+
+def test_int8_gemv_row_block_scales_after_the_reduce(monkeypatch):
+    """A row-parallel block (`row_tp`) runs the GEMV without the column scale
+    and scales the reduced partials, as the cast route does: with a one-rank
+    reduce the result is the cast route's bit for bit."""
+
+    class OneRank:  # TensorParallel.row_product on a group of one: the product is the sum
+        def row_product(self, x, product, quantize=None):
+            return product(x), None
+
+    seen = []
+    real = tllama.int8_gemv
+    monkeypatch.setattr(tllama, "int8_gemv", lambda x, w, scale=None: seen.append(scale) or real(x, w, scale))
+    rng = np.random.default_rng(13)
+    w = torch.from_numpy(rng.integers(-127, 128, size=(48, 256)).astype(np.int8))
+    scale = torch.from_numpy(rng.uniform(1e-3, 2e-2, size=(48, 1)).astype(np.float32)).to(torch.bfloat16)
+    x = torch.from_numpy(rng.normal(size=(1, 1, 256)).astype(np.float32)).to(torch.bfloat16)
+    got = tllama.proj(x, {"wo": w, "wo_scale": scale}, "wo", tllama.LLMConfig(**SMALL_VOCAB), row_tp=OneRank())
+    assert seen == [None]
+    assert torch.equal(got, torch.nn.functional.linear(x, w.to(torch.bfloat16)) * scale[:, 0])
+
+
+def test_int8_bf16_greedy_through_the_gemv_equals_the_cast(pair):
+    """A bf16 greedy decode over the int8 decoder (w8a8 off): the prefill's
+    projections (more than INT8_GEMV_M rows) cast, the prefill's head row and
+    every decode step's products take the GEMV, and the ids equal those of
+    the same decode with every product cast."""
+    import dataclasses as dc
+
+    from bridgelang_tpu.ops import image_ops as jimg
+    from bridgelang_tpu_torch.models.vla import OpenVLA
+
+    _, _, tm32, tp = _int8_vla(pair, w8a8=False)
+    tm = OpenVLA(dc.replace(tm32.cfg), tm32.norm_stats, tokenizer=tm32.tokenizer, dtype=torch.bfloat16, device="cpu")
+    tm.image_transform = tm32.image_transform
+    ids, mask = tm.pad_prompt([tm.prepare_prompt_ids(t) for t in INSTRUCTIONS])
+    pixels = np.array(jimg.preprocess_batch(jnp.asarray(_frames(2, seed=23)), pair[0].image_transform))
+    args = [torch.from_numpy(ids), torch.from_numpy(mask), torch.from_numpy(pixels).to(torch.bfloat16)]
+    n, layers = 7, tm.cfg.llm.n_layers
+    before = _route_counts()
+    routed = tm.generate_greedy(tp, *args, max_new_tokens=n)
+    assert tuple(a - b for a, b in zip(_route_counts(), before)) == (1 + (n - 1) * (7 * layers + 1), 7 * layers)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tllama, "INT8_GEMV_M", 0)
+        before = _route_counts()
+        cast = tm.generate_greedy(tp, *args, max_new_tokens=n)
+        assert tuple(a - b for a, b in zip(_route_counts(), before)) == (0, n * (7 * layers + 1))
+    torch.testing.assert_close(routed, cast, rtol=0, atol=0)
 
 
 def test_int8_product_is_exact_and_pads_short_rows():

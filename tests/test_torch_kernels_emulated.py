@@ -31,7 +31,17 @@ that do not divide the group count (the C function's split_groups), a
 column block of a wider pack written into a column block of a wider output,
 the fused token scale in bf16 and f32, zero rows and rounding ties; a row
 holding a NaN gets a NaN scale, as in the plain version; a K shard
-quantized with a given (the whole row's) absmax. Skips without g++.
+quantized with a given (the whole row's) absmax.
+
+The int8 weight-only GEMV (csrc/int8_matmul.cu) against int8_gemv_plain at
+M of 1, 3, 8 and 16 (one and two 8-row halves of the mma's x operand), K of
+16, 80 and 4112 (a partial 128-k step; 33 steps through a 6-slot ring), N
+ragged against the 8-row groups and N = 1024, at each of the block shapes
+the launcher picks (1, 2, 4 and 8 row groups, and blocks that walk several
+units of rows): the unscaled product under INT4_TOL's
+bf16 rule (one bf16 ulp plus 1e-3 rms; the sums differ in fp32 order only),
+and the scaled one bit-equal to bf16(that product * scale), the epilogue's
+arithmetic. Skips without g++.
 """
 
 import contextlib
@@ -48,11 +58,13 @@ import torch
 
 from bridgelang_tpu_torch.ops.flash_attention import flash_attention_bwd_plain, flash_attention_plain
 from bridgelang_tpu_torch.ops.int4_matmul import _SIGNATURES, int4_matmul_a8_plain
+from bridgelang_tpu_torch.ops.int8_matmul import _SIGNATURE as INT8_GEMV_SIGNATURE
+from bridgelang_tpu_torch.ops.int8_matmul import int8_gemv_plain
 from bridgelang_tpu_torch.ops.quant import pack_int4, quantize_activations_per_token
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-from chip_smoke import FWD_ATOL, grad_tolerance_use, jax_arithmetic_ring_reference  # noqa: E402
+from chip_smoke import FWD_ATOL, INT4_TOL, grad_tolerance_use, jax_arithmetic_ring_reference  # noqa: E402
 
 CSRC = ROOT / "bridgelang_tpu_torch" / "csrc"
 EMU = Path(__file__).resolve().parent / "cuda_emu"
@@ -105,7 +117,7 @@ def libraries(tmp_path_factory):
         pytest.skip("needs g++ to build the emulated kernels")
     out = tmp_path_factory.mktemp("cuda_emu")
     jobs = {}
-    for name in ("flash_fwd", "flash_bwd", "int4_matmul"):
+    for name in ("flash_fwd", "flash_bwd", "int4_matmul", "int8_matmul"):
         cpp = out / f"{name}.cpp"
         cpp.write_text(_emulated_source(name))
         cmd = [gxx, "-std=c++20", "-O2", "-fno-strict-aliasing", "-shared", "-fPIC", "-w",
@@ -473,3 +485,95 @@ def test_emulated_quantize_a8_with_given_absmax_equals_plain(emulated_a8, what, 
               xs.data_ptr(), m, k, None) == 0
     want_q, want_s = quantize_activations_per_token(shard, absmax)
     assert torch.equal(q, want_q) and torch.equal(xs, want_s[:, 0])
+
+
+# --- the int8 weight-only GEMV -------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def emulated_gemv(libraries):
+    lib = libraries["int8_matmul"]
+    gemv, groups, blocks = lib.int8_gemv, lib.int8_gemv_row_groups, lib.int8_gemv_blocks
+    gemv.argtypes, groups.argtypes, blocks.argtypes = INT8_GEMV_SIGNATURE, [ctypes.c_int] * 2, [ctypes.c_int] * 2
+    gemv.restype = groups.restype = blocks.restype = ctypes.c_int
+    return gemv, groups, blocks
+
+
+def _gemv_operands(m, k, n, seed):
+    """bf16 x [M, K], int8 codes [N, K] over the whole range, bf16 scales of both signs."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.integers(-128, 128, size=(n, k)).astype(np.int8))
+    scale = torch.from_numpy(rng.normal(size=n).astype(np.float32) * 0.02).to(torch.bfloat16)
+    return x, w, scale
+
+
+def _run_gemv(gemv, x, w, scale):
+    out = torch.full((x.shape[0], w.shape[0]), float("nan"), dtype=torch.bfloat16)
+    assert gemv(x.data_ptr(), w.data_ptr(), None if scale is None else scale.data_ptr(), out.data_ptr(),
+                x.shape[0], w.shape[0], x.shape[1], None) == 0
+    return out
+
+
+def _int8_tolerance_use(got, want):
+    rtol, atol = INT4_TOL["bfloat16"]
+    w = want.float()
+    allowed = (rtol * w.abs() + atol * w.square().mean().sqrt()).clamp_min(torch.finfo(torch.float32).tiny)
+    return float(((got.float() - w).abs() / allowed).max())
+
+
+def _check_gemv(gemv, m, k, n, seed):
+    x, w, scale = _gemv_operands(m, k, n, seed)
+    raw = _run_gemv(gemv, x, w, None)
+    assert _int8_tolerance_use(raw, int8_gemv_plain(x, w)) <= 1.0
+    scaled = _run_gemv(gemv, x, w, scale)
+    assert torch.equal(scaled, (raw.float() * scale.float()).to(torch.bfloat16))
+    # and the scaled product against the plain composition: the same rule on twice the ulp (a sum one ulp
+    # apart may round the scaled value two ulps apart)
+    want = int8_gemv_plain(x, w, scale).float()
+    assert float(((scaled.float() - want).abs() / (2 * 2.0 ** -7 * want.abs() + 1e-3 * want.square().mean().sqrt()
+                                                   ).clamp_min(1e-30)).max()) <= 1.0
+
+
+@pytest.mark.parametrize("n", [61, 1024], ids=["n61_ragged", "n1024"])
+@pytest.mark.parametrize("k", [16, 80, 4112])
+@pytest.mark.parametrize("m", [1, 3, 8, 16])
+def test_emulated_int8_gemv_matches_plain(emulated_gemv, m, k, n):
+    gemv, groups, _ = emulated_gemv
+    assert groups(m, n) == 1  # 8 or 128 groups of 8 rows: one group a block
+    _check_gemv(gemv, m, k, n, seed=m * 10_000 + k + n)
+
+
+# (M, N) -> the row groups a block takes (the emulation reports 4 resident blocks per SM: 528 on 132 SMs): at
+# M <= 4 the smallest R of 1, 2, 4, 8 whose blocks all fit at once, above the largest that leaves >= 132
+# blocks. GEMV_BLOCKS run (N ragged; the last, 529 units of 8 groups, on 265 blocks walking two units
+# each); GEMV_CHOICES check the launcher's choice only.
+GEMV_BLOCKS = {(8, 2115): 2, (9, 4227): 4, (16, 8451): 8, (1, 33800): 8}
+GEMV_CHOICES = {(1, 4227): 2, (3, 8451): 4, (4, 16899): 8, (4, 8448): 2, (5, 8448): 8, (1, 1024): 1,
+                (16, 1024): 1, (1, 14336): 4, (8, 14336): 8, (1, 32000): 8, (1, 4096): 1, (8, 4096): 2}
+
+
+def test_emulated_int8_gemv_block_choice(emulated_gemv):
+    _, groups, blocks = emulated_gemv
+    assert {mn: groups(*mn) for mn in GEMV_CHOICES} == GEMV_CHOICES
+    assert blocks(1, 4096) == 512 and blocks(1, 33800) == 265 and blocks(1, 51200) == 400  # 800 units, 2 each
+
+
+@pytest.mark.parametrize("m, n, k", [(m, n, k) for m, n in sorted(GEMV_BLOCKS) for k in ((16,) if n > 9000 else (80, 528))],
+                         ids=lambda v: str(v))
+def test_emulated_int8_gemv_block_shapes(emulated_gemv, m, n, k):
+    """The blocks of 2, 4 and 8 row groups (K split 4, 2 and 1 ways inside a
+    block), their last unit ragged, at K = 80 (one partial 128-k step) and
+    528 (5 steps: the ring's slots reused at 8 row groups); and blocks that
+    walk two units, at K = 16."""
+    gemv, groups, _ = emulated_gemv
+    assert groups(m, n) == GEMV_BLOCKS[(m, n)]
+    _check_gemv(gemv, m, k, n, seed=m + n + k)
+
+
+def test_emulated_int8_gemv_refuses_other_shapes(emulated_gemv):
+    gemv, _, _ = emulated_gemv
+    x, w, _ = _gemv_operands(17, 32, 8, seed=1)
+    out = torch.empty((17, 8), dtype=torch.bfloat16)
+    for m, n, k in ((17, 8, 32), (0, 8, 32), (1, 8, 24), (1, 8, 0), (1, 0, 32)):
+        assert gemv(x.data_ptr(), w.data_ptr(), None, out.data_ptr(), m, n, k, None) != 0

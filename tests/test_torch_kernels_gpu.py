@@ -17,7 +17,9 @@ f32 before the token scale, order only; bf16: one bf16 ulp plus 1e-3 rms;
 fp32: order only). The w4a8 kernels fold in the plain order, so their cases
 also ask for bit equality, as do quantize_a8 against
 quantize_activations_per_token and the w4a8 route against its plain
-composition.
+composition. The int8 weight-only GEMV: the unscaled product under
+INT4_TOL's bf16 rule against int8_gemv_plain (the sums differ in fp32 order
+only), the scaled one bit-equal to bf16(unscaled * scale).
 """
 
 import sys
@@ -36,7 +38,8 @@ from bridgelang_tpu_torch.ops.flash_attention import (
 )
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import FWD_ATOL, GRAD_TOL, INT4_SHAPES_7B, INT4_SHAPES_PHI, INT4_TOL, grad_tolerance_use  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    FWD_ATOL, GRAD_TOL, INT4_SHAPES_7B, INT4_SHAPES_PHI, INT4_TOL, INT8_GEMV_SHAPES, grad_tolerance_use)
 
 # (b, t, s, h, hkv, d, lengths, window, causal)
 CASES = {
@@ -655,6 +658,44 @@ def test_w4a8_route_is_two_launches_equal_to_plain(cuda_device, m, dtype):
     assert got.dtype == dtype and torch.equal(got, (im.int4_matmul_a8_plain(q, packed, scales) * xs).to(dtype))
 
 
+# --- the int8 weight-only GEMV ---------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("shape", sorted(INT8_GEMV_SHAPES))
+def test_int8_gemv_matches_plain(cuda_device, shape, m):
+    """Mistral-7B's projection shapes and its int8 head, at a decode token
+    (M = 1) and a batch of 8: one launch each, the unscaled product within
+    one bf16 ulp plus 1e-3 rms of the plain version, the scaled one its
+    epilogue's bits."""
+    from bridgelang_tpu_torch.ops.int8_matmul import int8_gemv, int8_gemv_plain
+
+    k, n = INT8_GEMV_SHAPES[shape]
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    w = torch.randint(-128, 128, (n, k), generator=g, device=cuda_device, dtype=torch.int8)
+    scale = (torch.rand((n,), generator=g, device=cuda_device) * 0.02 + 1e-3).to(torch.bfloat16)
+    x = torch.randn((m, k), generator=g, device=cuda_device, dtype=torch.bfloat16)
+    before = int8_gemv.launches
+    raw, scaled = int8_gemv(x, w), int8_gemv(x[None], w, scale)[0]
+    torch.cuda.synchronize()
+    assert int8_gemv.launches == before + 2
+    assert raw.dtype == scaled.dtype == torch.bfloat16 and raw.shape == (m, n)
+    assert _int4_tolerance_use(raw, int8_gemv_plain(x, w), "bfloat16") <= 1.0
+    assert torch.equal(scaled, (raw.float() * scale.float()).to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+def test_int8_gemv_refuses_what_it_cannot_take(cuda_device):
+    from bridgelang_tpu_torch.ops.int8_matmul import int8_gemv
+
+    w = torch.zeros((64, 256), device=cuda_device, dtype=torch.int8)
+    x = torch.zeros((17, 256), device=cuda_device, dtype=torch.bfloat16)
+    for bad_x, bad_w in ((x, w), (x[:1].float(), w), (x[:1, :200], w[:, :200]), (x[:1], w.float())):
+        with pytest.raises(ValueError):
+            int8_gemv(bad_x, bad_w)
+
+
 # --- predicts replayed as CUDA graphs (models/graphs.py) -----------------------------
 # A depth-cut OpenVLA at a small width (2 decoder layers of 512, one 32 px tower)
 # on the card: replayed graphs must give the eager path's ids exactly (the same
@@ -727,6 +768,9 @@ def test_graph_predict_ids_and_launches_equal_eager(cuda_device, kind, batch):
     assert g_launch == e_launch and g_launch[0] == 2  # flash_fwd: the prefill of each of 2 layers
     if kind == "int4":
         assert g_launch[3] == g_launch[5] == 7 * 2 * 7  # int4_mm_a8, quantize_a8: 7 x 2 layers x 7 passes
+    # int8_gemv: int8, 6 decode steps of 7 x 2 projections and the head, and the prefill's head row; int4, the
+    # int8 head of each of the 7 passes
+    assert g_launch[6] == {"bf16": 0, "int8": 6 * (7 * 2 + 1) + 1, "int4": 7}[kind]
     assert len(model.graphs.entries) == 1
 
 
