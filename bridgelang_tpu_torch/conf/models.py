@@ -170,6 +170,13 @@ _register(
     llm_backbone_id="phi-2-3b",
     image_resize_strategy="resize-naive",
 )
+_register(  # DeepSeek-V2-Lite under the fused towers: latent attention, 64 routed experts (bf16 serving only)
+    "prism-deepseekv2lite-dinosiglip+16b",
+    arch_specifier="no-align+fused-gelu-mlp",
+    vision_backbone_id="dinosiglip-vit-so-224px",
+    llm_backbone_id="deepseek-v2-lite-pure",
+    image_resize_strategy="resize-naive",
+)
 
 # --- Extended registry: remaining reference variants (prismatic/conf/models.py
 # ids; hparams inherit family defaults unless noted) ---

@@ -51,7 +51,20 @@
 // causal products are ~16 GFLOP, 16 us at the 989 TFLOP/s bf16 peak. Serve
 // (B=1): 11.5 MB, 3.5 us. So the work is bound by bytes, and mma.sync's
 // share of the bf16 peak keeps the operations term under the byte term at
-// these lengths. What the design still leaves: no wgmma or
+// these lengths.
+//
+// Latent attention (DeepSeek-V2's prefill, expanded): q and k carry 192 dims
+// (128 + a 64-dim rope part), v 128, and the softmax scale is YaRN's, not
+// 192^-0.5. The bf16 kernel takes the two head dims as template parameters
+// (DQK for the Q and K tiles and the score products, DV for the V tiles, the
+// PV products and o); every other instance has DQK == DV and is the code it
+// was. The (192, 128) instance runs through `flash_fwd_dv`. Its shared memory
+// is Q 24 KB + two K tiles 48 KB + two V tiles 32 KB = 104 KB, so two blocks
+// still fit an SM. Bound at the DeepSeek-V2-Lite prefill (B=1, T=S=352,
+// H=16): q, k, v and o are 352 x 16 x (192 + 192 + 128 + 128) x 2 B = 7.2 MB,
+// 2.2 us at 3.35 TB/s; the causal products ~1.1 GFLOP, 1.1 us: bytes bind.
+//
+// What the design still leaves: no wgmma or
 // TMA (not needed while bytes bind), no persistent scheduling (the causal
 // tiles are issued heaviest first instead), and at B=1 only 6 x 32 = 192
 // blocks, about 1.5 waves on 132 SMs.
@@ -223,25 +236,26 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, c
 
 constexpr float LN2 = 0.6931471805599453f;
 
-template <int D>
+template <int DQK, int DV = DQK>
 constexpr size_t smem_bytes_bf16() {
-  return (size_t)5 * 64 * D * 2;  // Q, then K and V twice each
+  return (size_t)3 * 64 * DQK * 2 + (size_t)2 * 64 * DV * 2;  // Q, then K and V twice each
 }
 
-// F32_OUT: `out` is float [B, T, H, D] (a ring block's output, merged in fp32 by
-// the caller), else bf16.
-template <int D, bool F32_OUT>
+// DQK: q's and k's head dim; DV: v's and o's. F32_OUT: `out` is float
+// [B, T, H, DV] (a ring block's output, merged in fp32 by the caller), else bf16.
+template <int DQK, int DV, bool F32_OUT>
 __global__ void __launch_bounds__(NT, 2)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                       const int* __restrict__ lengths, void* __restrict__ out, float* __restrict__ lse, int T_len,
                       int S, int H, int Hkv, int causal, int window, float scale_log2) {
-  constexpr int TILE = 64 * D * 2;  // bytes of one 64-row tile
-  constexpr int KS = D / 16;        // mma k-steps over the head dim
-  constexpr int NO = D / 8;         // output n-tiles per warp
+  constexpr int TILE = 64 * DQK * 2;   // bytes of one 64-row Q or K tile
+  constexpr int VTILE = 64 * DV * 2;   // bytes of one 64-row V tile
+  constexpr int KS = DQK / 16;         // mma k-steps over the head dim
+  constexpr int NO = DV / 8;           // output n-tiles per warp
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t sQ = smem_u32(smem);
   const uint32_t sK = sQ + TILE;      // buffers sK + buf * TILE
-  const uint32_t sV = sK + 2 * TILE;  // buffers sV + buf * TILE
+  const uint32_t sV = sK + 2 * TILE;  // buffers sV + buf * VTILE
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest causal rows start first
   const int h = blockIdx.y, b = blockIdx.z;
@@ -249,20 +263,20 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int len = max(0, min(lengths[b], S));
-  const long q_stride = (long)H * D, kv_stride = (long)Hkv * D;
-  const bf16* qb = q + ((long)b * T_len * H + h) * D;
-  const bf16* kb = k + ((long)b * S * Hkv + hk) * D;
-  const bf16* vb = v + ((long)b * S * Hkv + hk) * D;
+  const long q_stride = (long)H * DQK, kv_stride = (long)Hkv * DQK, v_stride = (long)Hkv * DV;
+  const bf16* qb = q + ((long)b * T_len * H + h) * DQK;
+  const bf16* kb = k + ((long)b * S * Hkv + hk) * DQK;
+  const bf16* vb = v + ((long)b * S * Hkv + hk) * DV;
 
   int upper = cdiv(len, BK);
   if (causal) upper = min(cdiv(q0 + BQ, BK), upper);
   int lower = 0;
   if (window > 0) lower = max(0, (q0 - window + 1) / BK);
 
-  load_tile<D, NT>(sQ, qb, q_stride, q0, T_len);
+  load_tile<DQK, NT>(sQ, qb, q_stride, q0, T_len);
   if (lower < upper) {
-    load_tile<D, NT>(sK, kb, kv_stride, lower * BK, len);
-    load_tile<D, NT>(sV, vb, kv_stride, lower * BK, len);
+    load_tile<DQK, NT>(sK, kb, kv_stride, lower * BK, len);
+    load_tile<DV, NT>(sV, vb, v_stride, lower * BK, len);
   }
   cp_async_commit();
 
@@ -281,14 +295,14 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
     if (kt == lower) {
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
-        ldsm_x4(qf[ks], sQ + swz<D>(warp * 16 + (lane & 15), 2 * ks + (lane >> 4)));
+        ldsm_x4(qf[ks], sQ + swz<DQK>(warp * 16 + (lane & 15), 2 * ks + (lane >> 4)));
     }
     if (kt + 1 < upper) {
-      load_tile<D, NT>(sK + (buf ^ 1) * TILE, kb, kv_stride, (kt + 1) * BK, len);
-      load_tile<D, NT>(sV + (buf ^ 1) * TILE, vb, kv_stride, (kt + 1) * BK, len);
+      load_tile<DQK, NT>(sK + (buf ^ 1) * TILE, kb, kv_stride, (kt + 1) * BK, len);
+      load_tile<DV, NT>(sV + (buf ^ 1) * VTILE, vb, v_stride, (kt + 1) * BK, len);
     }
     cp_async_commit();
-    const uint32_t kbuf = sK + buf * TILE, vbuf = sV + buf * TILE;
+    const uint32_t kbuf = sK + buf * TILE, vbuf = sV + buf * VTILE;
     const int k0 = kt * BK;
 
     // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys.
@@ -301,7 +315,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
       for (int p = 0; p < 4; ++p) {  // keys 16p .. 16p + 15
         uint32_t r[4];
         const int i = lane >> 3;
-        ldsm_x4(r, kbuf + swz<D>(16 * p + (i >> 1) * 8 + (lane & 7), 2 * ks + (i & 1)));
+        ldsm_x4(r, kbuf + swz<DQK>(16 * p + (i >> 1) * 8 + (lane & 7), 2 * ks + (i & 1)));
         mma_bf16(s[2 * p], qf[ks], r[0], r[1]);
         mma_bf16(s[2 * p + 1], qf[ks], r[2], r[3]);
       }
@@ -366,10 +380,10 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
       uint32_t pa[4], pl[4];
       split_frag(s, kk, pa, pl);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DV / 16; ++dp) {
         uint32_t r[4];
         const int i = lane >> 3;
-        ldsm_x4_t(r, vbuf + swz<D>(16 * kk + (i & 1) * 8 + (lane & 7), 2 * dp + (i >> 1)));
+        ldsm_x4_t(r, vbuf + swz<DV>(16 * kk + (i & 1) * 8 + (lane & 7), 2 * dp + (i >> 1)));
         mma_bf16(acc[2 * dp], pa, r[0], r[1]);
         mma_bf16(acc[2 * dp + 1], pa, r[2], r[3]);
         if constexpr (F32_OUT) {
@@ -403,15 +417,15 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
       for (int hrow = 0; hrow < 2; ++hrow) {
         const int row = row_lo + 8 * hrow;
         if (row < T_len)
-          *reinterpret_cast<float2*>(o + ((long)b * T_len * H + (long)row * H + h) * D + 8 * j + 2 * t) =
+          *reinterpret_cast<float2*>(o + ((long)b * T_len * H + (long)row * H + h) * DV + 8 * j + 2 * t) =
               make_float2(acc[j][2 * hrow] * inv[hrow], acc[j][2 * hrow + 1] * inv[hrow]);
       }
     }
     return;
   }
   // bf16: stage the warp's 16 output rows in its own rows of the Q tile (read
-  // only by this warp, into registers, before its first key tile), then write
-  // them as 16-byte rows.
+  // only by this warp, into registers, before its first key tile; as rows of
+  // DV <= DQK), then write them as 16-byte rows.
   bf16* o = static_cast<bf16*>(out);
   uint8_t* sQp = smem;
 #pragma unroll
@@ -419,20 +433,20 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, co
 #pragma unroll
     for (int hrow = 0; hrow < 2; ++hrow) {
       const int r = warp * 16 + g + 8 * hrow;
-      *reinterpret_cast<uint32_t*>(sQp + swz<D>(r, j) + 4 * t) =
+      *reinterpret_cast<uint32_t*>(sQp + swz<DV>(r, j) + 4 * t) =
           pack_bf16(acc[j][2 * hrow] * inv[hrow], acc[j][2 * hrow + 1] * inv[hrow]);
     }
   }
   __syncwarp();
-  constexpr int CH = D / 8;
+  constexpr int CH = DV / 8;
 #pragma unroll
   for (int j = 0; j < 16 * CH / 32; ++j) {
     const int i = lane + 32 * j;
     const int r = i / CH, c = i % CH;
     const int row = q0 + warp * 16 + r;
     if (row < T_len)
-      *reinterpret_cast<uint4*>(o + ((long)b * T_len * H + (long)row * H + h) * D + c * 8) =
-          *reinterpret_cast<const uint4*>(sQp + swz<D>(warp * 16 + r, c));
+      *reinterpret_cast<uint4*>(o + ((long)b * T_len * H + (long)row * H + h) * DV + c * 8) =
+          *reinterpret_cast<const uint4*>(sQp + swz<DV>(warp * 16 + r, c));
   }
 }
 
@@ -459,15 +473,15 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-template <int D, bool F32_OUT>
+template <int D, bool F32_OUT, int DV = D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* lengths, void* o, void* lse, int B,
                         int T_len, int S, int H, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes_bf16<D>();
+  constexpr size_t smem = smem_bytes_bf16<D, DV>();
   static bool configured = false;
-  cudaError_t err = set_smem(flash_fwd_bf16_kernel<D, F32_OUT>, smem, configured);
+  cudaError_t err = set_smem(flash_fwd_bf16_kernel<D, DV, F32_OUT>, smem, configured);
   if (err != cudaSuccess) return err;
   const dim3 grid(cdiv(T_len, BQ), H, B);
-  flash_fwd_bf16_kernel<D, F32_OUT><<<grid, NT, smem, stream>>>(
+  flash_fwd_bf16_kernel<D, DV, F32_OUT><<<grid, NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(lengths), o, static_cast<float*>(lse), T_len, S, H, Hkv, causal, window,
       scale * LOG2E);
@@ -498,6 +512,16 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FWD_ARGS
+}
+
+// The bf16 forward with v's own head dim Dv (o [B, T, H, Dv]): (D, Dv) =
+// (192, 128) only, bf16 in and out. Arguments as flash_fwd's, Dv after D.
+extern "C" int flash_fwd_dv(const void* q, const void* k, const void* v, const void* lengths, void* o,
+                            void* lse, int B, int T_len, int S, int H, int Hkv, int D, int Dv, int dtype,
+                            int out_dtype, int causal, int window, float scale, void* stream) {
+  if (D != 192 || Dv != 128 || dtype != 1 || out_dtype != 1) return (int)cudaErrorInvalidValue;
+  return launch_bf16<192, false, 128>(q, k, v, lengths, o, lse, B, T_len, S, H, Hkv, causal, window, scale,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory of one block (bytes), for the build report.

@@ -36,7 +36,14 @@ graphs:replay, predict:wait, predict:unpack), `passes_by_rows`, `windows`
 (the batcher's windows closed full / at the deadline / by shutdown),
 `graph_captures` (graphs built since listening; after `--warmup` a capture
 here is a graph built on a live request) and `memory` (per card, live and
-peak GB).
+peak GB); for a mixture-of-experts decoder also `moe` (the route counters of
+latent attention and the routed experts, and the last prefill's expert load).
+
+A DeepSeek-V2 decoder (latent attention, routed experts; the checkpoint id
+prism-deepseekv2lite-dinosiglip+16b) serves in bf16 with greedy decoding
+only: `--quantize_int8 false --speculative_default false`. int8 or int4
+weights, `--kv_cache_int8`, speculative decoding and `--mesh_spec` are
+refused with a message naming the option.
 
 `--mesh_spec` ("tensor=N", "replica=R,tensor=T") serves over a device mesh:
 one process per device, started by torchrun (`--nproc_per_node` = the mesh's
@@ -217,6 +224,9 @@ def build_server(args: argparse.Namespace):
         params = model.use_mesh(mesh, params, int4_shards=args.int4_shards if args.quantize_int4 else 1)
     model.parallel_decode = args.parallel_decode
     if args.kv_cache_int8:
+        from bridgelang_tpu_torch.models.llm.llama import refuse_mla
+
+        refuse_mla(model.cfg.llm, "the int8 KV cache (--kv_cache_int8)")
         model.cache_dtype = torch.int8  # the server then turns its speculative default off
     server = VLAServer(model, params, default_unnorm_key=args.unnorm_key, max_batch=args.max_batch,
                        batch_window_ms=args.batch_window_ms, speculative_default=args.speculative_default,

@@ -50,6 +50,12 @@ Training runs `llm_forward` with `remat`: each decoder layer under
 `torch.utils.checkpoint` (non-reentrant), recomputing the whole layer
 ("full") or all but its matmul outputs ("dots") in the backward.
 
+A `DeepSeekV2Config` (arch "deepseek_v2": latent attention, routed
+experts; no JAX counterpart) takes models/llm/deepseek_v2.py's leaves and
+forward: `init_llm_params` and `llm_forward` hand over to it, and
+`init_kv_cache` makes its latent cache. Paths it does not take yet raise
+through `refuse_mla`.
+
 Quantized weights (ops/quant.py): a packed-int4 projection keeps the JAX
 package's bytes, `<proj>` [in, out/2] int8 with `<proj>_scale4`
 [in/group, out] bf16, and `proj` runs it through the int4 kernels
@@ -122,6 +128,71 @@ class LLMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DeepSeekV2Config(LLMConfig):
+    """The DeepSeek-V2 decoder (`arch="deepseek_v2"`, models/llm/deepseek_v2.py):
+    multi-head latent attention and a mixture of experts behind a leading
+    dense layer. A subclass, so that the plain config keeps exactly the JAX
+    config's fields (the JAX package has no such decoder). Names follow the
+    published config.json: no q compression; `kv_lora_rank` latent dims plus
+    one shared `qk_rope_head_dim` rope key; heads of `qk_nope_head_dim` +
+    `qk_rope_head_dim` for q and k and `v_head_dim` for v; the first
+    `first_k_dense_replace` layers take the dense SwiGLU of
+    `intermediate_size`, the others a softmax router over `n_routed_experts`
+    SwiGLU experts of `moe_intermediate_size`, `num_experts_per_tok` picked
+    greedily, plus `n_shared_experts` shared experts run as one SwiGLU of
+    n_shared * moe_intermediate_size; YaRN RoPE (`yarn_*`, the config's
+    `rope_scaling`; factor 1 turns it off)."""
+
+    arch: str = "deepseek_v2"
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    moe_intermediate_size: int = 1408
+    num_experts_per_tok: int = 6
+    first_k_dense_replace: int = 1
+    norm_topk_prob: bool = False
+    routed_scaling_factor: float = 1.0
+    yarn_factor: float = 40.0
+    yarn_original_max_position: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 0.707
+    yarn_mscale_all_dim: float = 0.707
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def rotary_dim(self) -> int:
+        return self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """Cached dims per token: the normed latent, then the rotated rope key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def n_moe_layers(self) -> int:
+        return self.n_layers - self.first_k_dense_replace
+
+
+def is_mla(cfg: LLMConfig) -> bool:
+    """Whether the decoder is the latent-attention, mixture-of-experts one."""
+    return cfg.arch == "deepseek_v2"
+
+
+def refuse_mla(cfg: LLMConfig, what: str) -> None:
+    """Raise for a path the DeepSeek-V2 decoder does not take yet."""
+    if is_mla(cfg):
+        raise ValueError(f"{what} is not supported on the DeepSeek-V2 decoder (latent attention, routed experts) "
+                         "yet: serve it in bf16 with --quantize_int8 false, the bf16 cache and greedy decoding")
+
+
+@dataclasses.dataclass(frozen=True)
 class TensorParallelLLMConfig(LLMConfig):
     """An LLMConfig whose decoder runs on a device mesh: `tp` (a
     parallel/collectives.TensorParallel, set by OpenVLA.use_mesh for serving
@@ -158,6 +229,11 @@ LLM_CONFIGS: Dict[str, LLMConfig] = {
         intermediate_size=10240, arch="phi", rotary_pct=0.4, use_bias=True, norm_eps=1e-5,
         pad_token_id=51200, bos_token_id=50256, eos_token_id=50256,
     ),
+    # deepseek-ai/DeepSeek-V2-Lite config.json; the Prismatic <PAD> at 102400, padded to a multiple of 64
+    "deepseek-v2-lite-pure": DeepSeekV2Config(
+        vocab_size=102400, padded_vocab_size=102464, dim=2048, n_layers=27, n_heads=16, n_kv_heads=16,
+        intermediate_size=10944, norm_eps=1e-6, pad_token_id=102400, bos_token_id=100000, eos_token_id=100001,
+    ),
 }
 
 LLM_FAMILIES: Dict[str, str] = {
@@ -166,6 +242,7 @@ LLM_FAMILIES: Dict[str, str] = {
     "vicuna-v15-7b": "vicuna", "vicuna-v15-13b": "vicuna",
     "mistral-v0.1-7b-pure": "mistral-pure", "mistral-v0.1-7b-instruct": "mistral-instruct",
     "phi-2-3b": "phi",
+    "deepseek-v2-lite-pure": "deepseek-v2-pure",
 }
 
 
@@ -182,7 +259,12 @@ def init_llm_params(
     Each layer draws its projections in the JAX order (wq, wk, wv, wo, then
     w_gate, w_up, w_down; a Phi layer has no w_gate). The numbers are not the
     JAX package's (another generator): the tests hand both packages the
-    same numpy arrays through `convert`."""
+    same numpy arrays through `convert`. A DeepSeek-V2 config draws
+    deepseek_v2.init_params' leaves."""
+    if is_mla(cfg):
+        from bridgelang_tpu_torch.models.llm import deepseek_v2
+
+        return deepseek_v2.init_params(generator, cfg, dtype, device)
     D, I, V = cfg.dim, cfg.intermediate_size, cfg.padded_vocab_size
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     phi = cfg.arch == "phi"
@@ -222,7 +304,13 @@ def init_kv_cache(
     exact speculative contract). dtype=torch.int8 stores codes plus bf16
     per-(token, head) scales `k_scale`/`v_scale` [L, B, S, Hkv]: half the
     bytes of the bf16 cache. Under tensor parallelism with split heads the
-    cache holds this rank's KV heads."""
+    cache holds this rank's KV heads. The DeepSeek-V2 decoder caches its
+    latent instead: {"latent": [L, B, S, kv_lora_rank + qk_rope_head_dim]}
+    (the normed latent, then the rotated rope key), bf16 or fp32 only."""
+    if is_mla(cfg):
+        if dtype == torch.int8:
+            refuse_mla(cfg, "the int8 KV cache")
+        return {"latent": torch.zeros((cfg.n_layers, batch, max_len, cfg.latent_dim), dtype=dtype, device=device)}
     tp = tensor_parallel(cfg)
     n_kv = tp.local_kv_heads(cfg.n_kv_heads) if tp is not None else cfg.n_kv_heads
     shape = (cfg.n_layers, batch, max_len, n_kv, cfg.head_dim)
@@ -231,6 +319,11 @@ def init_kv_cache(
         cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device)
         cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device)
     return cache
+
+
+def kv_cache_len(cfg: LLMConfig, cache: Params) -> int:
+    """Slots of a cache from `init_kv_cache` for `cfg`, whatever its layout."""
+    return cache["latent" if is_mla(cfg) else "k"].shape[2]
 
 
 def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -618,6 +711,7 @@ def llm_forward(
     remat: bool = False,
     remat_policy: Optional[str] = None,
     attention: str = "flash",
+    expert_load: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Run the decoder stack over input embeddings.
 
@@ -647,7 +741,18 @@ def llm_forward(
     non-reentrant `torch.utils.checkpoint` with the `remat_policy` of
     `_remat_context`. The backward then runs each layer's forward again, so
     the flash forward launches twice per layer per training step.
+
+    A DeepSeek-V2 config runs deepseek_v2.forward, where `expert_load`
+    ([MoE layers, experts] int32, or None) receives each MoE layer's picks
+    per expert.
     """
+    if is_mla(cfg):
+        from bridgelang_tpu_torch.models.llm import deepseek_v2
+
+        if remat:
+            refuse_mla(cfg, "training (finetune, LoRA)")
+        return deepseek_v2.forward(params, cfg, embeds, positions, mask, cache, cache_positions, cache_write,
+                                   lengths, attention, expert_load)
     if remat and cache is not None:
         raise ValueError("remat is for the training forward, which runs without a KV cache")
     if check_attention(attention) != "flash" and cache is not None:

@@ -163,6 +163,7 @@ def get_prompt_builder(llm_family: str, model_family: str = "openvla", system_pr
         "mistral-pure": "pure",
         "mistral-instruct": "mistral-instruct",
         "phi": "phi",
+        "deepseek-v2-pure": "pure",
     }.get(llm_family, llm_family)
     return PromptBuilder(format_id, model_family=model_family, system_prompt=system_prompt)
 

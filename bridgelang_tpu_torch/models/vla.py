@@ -78,6 +78,7 @@ class OpenVLA(PrismaticVLM):
         self.serving_mesh = None
         self.mesh_predictor = None
         self.last_marks: Optional[profiling.DeviceMarks] = None  # the last CUDA predict's device marks
+        self.last_expert_load: Optional[np.ndarray] = None  # a MoE decoder's last prefill load (`expert_load`)
 
     # --- multi-device serving ---
 
@@ -91,13 +92,14 @@ class OpenVLA(PrismaticVLM):
         does not divide the head counts (or would split a GQA group) is
         refused, as scripts/deploy.py refuses it; `int4_shards` is the
         pack-time shard count of an int4 tree."""
-        from bridgelang_tpu_torch.models.llm.llama import TensorParallelLLMConfig
+        from bridgelang_tpu_torch.models.llm.llama import TensorParallelLLMConfig, refuse_mla
         from bridgelang_tpu_torch.parallel.collectives import make_tensor_parallel
         from bridgelang_tpu_torch.parallel.mesh import mesh_sizes
         from bridgelang_tpu_torch.parallel.sharding import serving_param_pspecs, shard_params
         from bridgelang_tpu_torch.serving.mesh import MeshPredictor
 
         llm = self.cfg.llm
+        refuse_mla(llm, "tensor-parallel serving (--mesh_spec)")
         tensor = mesh_sizes(mesh)["tensor"]
         if llm.n_heads % tensor or llm.n_kv_heads % tensor:
             raise ValueError(f"tensor={tensor} does not divide the head counts ({llm.n_heads}/{llm.n_kv_heads}): "
@@ -295,7 +297,9 @@ class OpenVLA(PrismaticVLM):
         `predict:eager`), `predict:wait` (the device-to-host copy: the host
         waits for the card) and `predict:unpack`. A CUDA predict's device
         times (`PREDICT_TIMES`, ms, from its marks) and its token count go
-        into the enclosing span's attrs (the server's `serve:pass`)."""
+        into the enclosing span's attrs (the server's `serve:pass`), and a
+        mixture-of-experts decoder's prefill load (`last_expert_load`, read in
+        `predict:unpack`) as `expert_load_summary`'s two numbers."""
         with profiling.span("predict:prepare"):
             stats = self.get_action_stats(unnorm_key)
             action_dim = len(stats["q01"])
@@ -319,8 +323,13 @@ class OpenVLA(PrismaticVLM):
             out = unpack_outputs(host.numpy())
             # the copy waited for the predict: its marks have passed
             times = self.last_marks.elapsed_ms(PREDICT_TIMES) if self.last_marks is not None else None
+            load = self.expert_load()
+            if load is not None:  # the prefill's picks per expert, from the routing's own buffer
+                self.last_expert_load = load.cpu().numpy()
         if times is not None:
             profiling.note(tokens=action_dim * horizon, **times)
+        if load is not None:
+            profiling.note(**expert_load_summary(self.last_expert_load))
         return out
 
     def predict_action(
@@ -404,6 +413,17 @@ class OpenVLA(PrismaticVLM):
         action_dim = self.get_action_dim(unnorm_key)
         actions, _, _ = self._host_predict("parallel", params, [image], [instruction], unnorm_key, horizon=horizon)
         return actions[0].reshape(horizon, action_dim)
+
+
+def expert_load_summary(load: np.ndarray) -> Dict[str, float]:
+    """A prefill's expert load [MoE layers, experts] -> `experts_touched`
+    (experts with at least one pick, mean over the layers) and
+    `expert_max_over_mean` (the busiest expert's picks over the mean picks
+    an expert, mean over the layers)."""
+    load = np.asarray(load, np.float64)
+    mean = load.sum(axis=1) / load.shape[1]
+    return {"experts_touched": float((load > 0).sum(axis=1).mean()),
+            "expert_max_over_mean": float((load.max(axis=1) / np.maximum(mean, 1e-12)).mean())}
 
 
 def norm_stats_from_json(obj: Dict[str, Any]) -> Dict[str, Any]:

@@ -54,8 +54,11 @@ from bridgelang_tpu_torch.models.llm.llama import (
     embed_tokens,
     init_kv_cache,
     init_llm_params,
+    is_mla,
+    kv_cache_len,
     llm_forward,
     lm_logits,
+    refuse_mla,
 )
 from bridgelang_tpu_torch.models.projector import Projector, init_projector_params
 from bridgelang_tpu_torch.models.vision.vit import FusedViT, ViT, build_vision_backbone, init_vision_params
@@ -151,6 +154,21 @@ class PrismaticVLM:
         self.projector = Projector(cfg.arch_specifier, self.vision_dim, cfg.llm.dim, device=meta)
         self.attention = decoder_attention(cfg.attention_impl)
         self.image_transform = transform_config_for_backbone(cfg.vision_backbone_id, cfg.image_resize_strategy)
+        self._expert_load: Optional[torch.Tensor] = None
+
+    def expert_load(self) -> Optional[torch.Tensor]:
+        """A mixture-of-experts decoder's prefill load: [MoE layers, experts]
+        int32 on the device, the picks of each expert in the last prefill
+        (written by the routing in place, so a captured predict refills the
+        same buffer on every replay); None for a dense decoder."""
+        llm = self.cfg.llm
+        if not is_mla(llm):
+            return None
+        if self._expert_load is None:
+            with torch.inference_mode(False):  # a normal tensor: any predict, in inference mode or not, writes it
+                self._expert_load = torch.zeros((llm.n_moe_layers, llm.n_routed_experts), dtype=torch.int32,
+                                                device=self.device)
+        return self._expert_load
 
     # --- params ---------------------------------------------------------
 
@@ -330,6 +348,7 @@ class PrismaticVLM:
         hidden, cache = llm_forward(
             params["llm"], self.cfg.llm, fused, positions, mask,
             cache=cache, cache_positions=positions, cache_write="contiguous", lengths=true_len.to(torch.int32),
+            expert_load=self.expert_load(),
         )
         last_idx = torch.clamp(true_len - 1, 0, f_len - 1)
         return hidden[torch.arange(b, device=dev), last_idx][:, None], cache, true_len
@@ -350,7 +369,7 @@ class PrismaticVLM:
         through the cached decoder -> logits [B, T, V]."""
         hidden, _ = llm_forward(
             params["llm"], cfg, embed_tokens(params["llm"], tokens, dtype=self.dtype), pos,
-            self._chunk_mask(pos, cache["k"].shape[2]), cache=cache, cache_positions=pos,
+            self._chunk_mask(pos, kv_cache_len(cfg, cache)), cache=cache, cache_positions=pos,
         )
         return lm_logits(params["llm"], hidden, cfg)
 
@@ -414,6 +433,7 @@ class PrismaticVLM:
         min(k, n) per example and `j0` = min(min k, n)."""
         b, n = draft_tokens.shape
         cfg = self.cfg.llm
+        refuse_mla(cfg, "speculative decoding (--speculative_default)")
         dev = input_ids.device
         last_hidden, cache, true_len = self._prefill(params, input_ids, attention_mask, pixel_values, n, cache_dtype)
         token0 = lm_logits(params["llm"], last_hidden, cfg).argmax(dim=-1)  # [B, 1]

@@ -22,6 +22,11 @@ forward; in the backward they enter dk/dv through the keys they attend,
 exactly as in the JAX kernels. Key slots at or past `lengths` get zero
 gradient.
 
+Latent attention (DeepSeek-V2's prefill) gives v its own head dim: v [B, S,
+Hkv, Dv] beside q/k's D, o [B, T, H, Dv], and a softmax `scale` other than
+D^-0.5. The forward takes both (the kernel at D = 192, Dv = 128:
+`KERNEL_SPLIT_HEAD_DIMS`); the backward raises for them.
+
 `out_dtype` (the kernels' and the plain versions' keyword): the forward's o
 and the backward's gradients in fp32 from bf16 inputs, rounded nowhere, for
 a caller that sums blocks in fp32 and rounds once (ops/ring_attention.py,
@@ -38,6 +43,7 @@ import torch
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 80, 128)  # Llama and Mistral 128, Phi-2 80
+KERNEL_SPLIT_HEAD_DIMS = ((192, 128),)  # (D, Dv) of the forward: DeepSeek-V2's latent attention
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -48,8 +54,9 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"expected q [B,T,H,D] and k/v [B,S,Hkv,D], got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"expected q [B,T,H,D], k [B,S,Hkv,D] and v [B,S,Hkv,Dv], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, t, h, d = q.shape
     if k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree on batch or head dim")
@@ -85,15 +92,17 @@ def flash_attention_plain(
     causal: bool = True,
     window: Optional[int] = None,
     out_dtype: Optional[torch.dtype] = None,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward in plain torch (fp32 math): the CPU path, and the version
-    the kernel is held against on the card. o in `out_dtype` (default q's)."""
+    the kernel is held against on the card. o in `out_dtype` (default q's);
+    the scores scaled by `scale` (default D^-0.5)."""
     _check(q, k, v)
     b, t, h, d = q.shape
     s = k.shape[1]
     lengths = _lengths(lengths, b, s, q.device)
     n_rep = h // k.shape[2]
-    qf = q.float() * d ** -0.5
+    qf = q.float() * (d ** -0.5 if scale is None else scale)
     kf = _repeat_kv(k.float(), n_rep)
     vf = _repeat_kv(v.float(), n_rep)
     logits = torch.einsum("bthd,bshd->bhts", qf, kf)
@@ -155,11 +164,15 @@ def flash_attention_bwd_plain(
 _DIMS_SCALE_STREAM = [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
 
 
-def _check_kernel_inputs(named, d: int) -> None:
+def _check_kernel_inputs(named, d: int, dv: Optional[int] = None) -> None:
     first = named[0][1]
     if first.dtype not in _DTYPE_CODES or any(x.dtype != first.dtype for _, x in named):
         raise TypeError(f"flash kernels take float32 or bfloat16 tensors of one dtype, got {[x.dtype for _, x in named]}")
-    if d not in KERNEL_HEAD_DIMS:
+    if dv is not None and dv != d:
+        if (d, dv) not in KERNEL_SPLIT_HEAD_DIMS or first.dtype != torch.bfloat16:
+            raise ValueError(f"the flash forward takes v's own head dim only for bf16 (D, Dv) in "
+                             f"{KERNEL_SPLIT_HEAD_DIMS}, got ({d}, {dv}) in {first.dtype}")
+    elif d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernels support head dims {KERNEL_HEAD_DIMS}, got {d}")
     for name, x in named:
         if x.device != first.device or x.device.type != "cuda":
@@ -176,24 +189,27 @@ def _out_dtype(x: torch.Tensor, out_dtype: Optional[torch.dtype]) -> torch.dtype
     return out
 
 
-def _launch(q, k, v, lengths, causal, window, out_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(q, k, v, lengths, causal, window, out_dtype=None, scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
     from bridgelang_tpu_torch.ops import _build
 
     b, t, h, d = q.shape
-    s, hkv = k.shape[1], k.shape[2]
-    _check_kernel_inputs((("q", q), ("k", k), ("v", v)), d)
+    s, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    _check_kernel_inputs((("q", q), ("k", k), ("v", v)), d, dv)
     out_dtype = _out_dtype(q, out_dtype)
-    o = torch.empty_like(q, dtype=out_dtype)
+    o = torch.empty((b, t, h, dv), dtype=out_dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if t == 0 or b == 0:
         return o, lse
-    fn = _build.function("flash_fwd", "flash_fwd", [ctypes.c_void_p] * 6 + _DIMS_SCALE_STREAM)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, t, s, h, hkv, d, _DTYPE_CODES[q.dtype], _DTYPE_CODES[out_dtype], int(causal), int(window or 0), d ** -0.5,
-        stream,
-    )
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), o.data_ptr(), lse.data_ptr())
+    flags = (_DTYPE_CODES[q.dtype], _DTYPE_CODES[out_dtype], int(causal), int(window or 0),
+             d ** -0.5 if scale is None else float(scale), stream)
+    if dv != d:  # the (D, Dv) instance: one more dim before the flags
+        fn = _build.function("flash_fwd", "flash_fwd_dv", [ctypes.c_void_p] * 6 + [ctypes.c_int] + _DIMS_SCALE_STREAM)
+        err = fn(*ptrs, b, t, s, h, hkv, d, dv, *flags)
+    else:
+        fn = _build.function("flash_fwd", "flash_fwd", [ctypes.c_void_p] * 6 + _DIMS_SCALE_STREAM)
+        err = fn(*ptrs, b, t, s, h, hkv, d, *flags)
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed with CUDA error {err}")
     flash_attention.launches += 1
@@ -266,22 +282,24 @@ def flash_attention_bwd(q, k, v, o, lse, do, lengths=None, causal=True, window=N
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, lengths, causal, window):
+    def forward(ctx, q, k, v, lengths, causal, window, scale):
         if q.device.type == "cuda":
-            o, lse = _launch(q, k, v, lengths, causal, window)
+            o, lse = _launch(q, k, v, lengths, causal, window, scale=scale)
         else:
-            o, lse = flash_attention_plain(q, k, v, lengths, causal, window)
+            o, lse = flash_attention_plain(q, k, v, lengths, causal, window, scale=scale)
         ctx.save_for_backward(q, k, v, lengths, o, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.split = causal, window, scale is not None or v.shape[3] != q.shape[3]
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
+        if ctx.split:
+            raise NotImplementedError("the flash backward takes D^-0.5 and one head dim for q, k and v")
         q, k, v, lengths, o, lse = ctx.saved_tensors
         # Autograd may hand a strided gradient; the kernels read dO in place.
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), lengths, ctx.causal, ctx.window)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -291,17 +309,19 @@ def flash_attention(
     lengths: Optional[torch.Tensor] = None,
     causal: bool = True,
     window: Optional[int] = None,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Causal flash attention over right-padded batches -> (o, lse), with a
     gradient for `o` through the backward kernels (CUDA) or the plain
-    backward (CPU)."""
+    backward (CPU). `scale` (default D^-0.5) and a v head dim of its own are
+    forward-only."""
     _check(q, k, v)
     if q.device.type not in ("cuda", "cpu"):
         raise RuntimeError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
     if window is not None and window >= k.shape[1]:
         window = None  # the window never clips at this sequence length
     lengths = _lengths(lengths, q.shape[0], k.shape[1], q.device)
-    return _FlashAttention.apply(q, k, v, lengths, causal, window)
+    return _FlashAttention.apply(q, k, v, lengths, causal, window, scale)
 
 
 flash_attention.launches = 0

@@ -109,6 +109,14 @@ def quantize_rows_int8(table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     return _quantize_tensor(table.detach(), dim=1)
 
 
+def refuse_experts(llm_params: Params, kind: str) -> None:
+    """Raise for a decoder with routed experts (DeepSeek-V2): their leaves
+    have no quantized path yet."""
+    if any("we_gate" in lp for lp in llm_params["layers"]):
+        raise ValueError(f"{kind} quantization of a decoder with routed experts (DeepSeek-V2) is not supported "
+                         "yet: serve it in bf16 (deploy --quantize_int8 false --quantize_int4 false)")
+
+
 def quantize_llm_int8(
     llm_params: Params,
     targets: Sequence[str] = QUANT_TARGETS,
@@ -120,7 +128,8 @@ def quantize_llm_int8(
     embedding (per token row) and the LM head (per vocabulary entry). The
     returned dict shares every other tensor with `llm_params`: a target the
     tree lacks is skipped (a Phi layer has no `w_gate`) and biases stay
-    float, as in the JAX package."""
+    float, as in the JAX package. Expert leaves are refused."""
+    refuse_experts(llm_params, "int8")
     out = dict(llm_params, layers=[quantize_layer_int8(lp, targets) for lp in llm_params["layers"]])
     if quantize_embed and out["embed"].dtype != torch.int8:
         out["embed"], out["embed_scale"] = quantize_rows_int8(out["embed"])  # [V, D], [V, 1]
@@ -292,7 +301,8 @@ def quantize_llm_int4(
     group, output column) scales, one matrix of one layer at a time
     (`quantize_layer_int4`); the embedding and the LM head become int8. The
     returned dict shares every other tensor with `llm_params`; drop
-    `llm_params` to free the float weights."""
+    `llm_params` to free the float weights. Expert leaves are refused."""
+    refuse_experts(llm_params, "int4")
     out = dict(llm_params, layers=[quantize_layer_int4(lp, targets, group, n_shards) for lp in llm_params["layers"]])
     if out["embed"].dtype != torch.int8:
         out["embed"], out["embed_scale"] = quantize_rows_int8(out["embed"])  # [V, D], [V, 1]

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from bridgelang_tpu_torch._device import resolve_device
+from bridgelang_tpu_torch.models.llm.llama import is_mla, refuse_mla
 from bridgelang_tpu_torch.util import profiling
 
 # Each horizon is its own graph shape (7 x H decode positions); requests past
@@ -54,6 +55,20 @@ from bridgelang_tpu_torch.util import profiling
 MAX_HORIZON = 32
 DRAFT_CACHE_SIZE = 64  # (instruction, unnorm_key) histories the speculative default keeps
 LATENCY_SPANS = 512  # this server's last serve:request spans that /stats latency_ms reads
+
+
+def moe_stats(model) -> Dict[str, Any]:
+    """/stats "moe": the route counters of the latent attention and the
+    routed experts (counted when a path is taken; under a CUDA graph, at its
+    capture), and the last prefill's expert load summary."""
+    routes = {k: v for k, v in profiling.counters().items() if k.startswith(("moe:", "attn:mla_"))}
+    load = getattr(model, "last_expert_load", None)
+    out: Dict[str, Any] = {"routes": routes}
+    if load is not None:
+        from bridgelang_tpu_torch.models.vla import expert_load_summary
+
+        out.update(expert_load_summary(load), layers=int(load.shape[0]), experts=int(load.shape[1]))
+    return out
 
 
 def decode_image(payload: Any) -> np.ndarray:
@@ -153,6 +168,10 @@ class VLAServer:
         self.speculative_default = (bool(speculative_default)
                                     and getattr(model, "cache_dtype", None) != torch.int8
                                     and not getattr(model, "parallel_decode", False))
+        llm = getattr(getattr(model, "cfg", None), "llm", None)
+        self._mla = llm is not None and is_mla(llm)
+        if self.speculative_default and self._mla:
+            refuse_mla(llm, "speculative decoding (--speculative_default)")
         self._draft_cache: "OrderedDict[Any, tuple]" = OrderedDict()  # (prev2, prev1) ids per key, LRU
         self._draft_lock = threading.Lock()
         self._stats_lock = threading.Lock()
@@ -212,6 +231,8 @@ class VLAServer:
             from bridgelang_tpu_torch.models.graphs import counted_wrappers
 
             payload["kernel_launches"] = {fn.__name__: fn.launches for fn in counted_wrappers()}
+        if self._mla:
+            payload["moe"] = moe_stats(self.model)
         if recent:
             payload["latency_ms"] = {
                 "p50": round(float(np.percentile(recent, 50)), 1),
@@ -408,14 +429,14 @@ class VLAServer:
                 except Exception:  # per-request error containment: report and keep serving
                     server_self._record(error=True)
                     traceback.print_exc()
-                    with profiling.span("serve:respond"):
+                    with profiling.span("serve:respond", ends_parent=True):
                         try:
                             self._send(500, {"error": "error", "detail": traceback.format_exc(limit=3)})
                         except OSError:
                             pass  # client already gone
                     return
                 server_self._record(error=False)
-                with profiling.span("serve:respond"):
+                with profiling.span("serve:respond", ends_parent=True):  # the reply written ends serve:request
                     try:
                         self._send(200, {k: encode_array(v) for k, v in out.items()})
                     except OSError:

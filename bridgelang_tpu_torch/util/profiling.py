@@ -17,6 +17,12 @@ module.
   (torch 2.11 on an H100 does). Spans are always
   on; they wrap requests, passes and step phases, never a layer or a
   kernel, and none of them synchronises the device.
+  `span(..., ends_parent=True)` is its parent's last child: the parent ends
+  when it does, at the same clock read. The server's `serve:respond` ends
+  `serve:request` so: once the reply is written, the thread may wait for
+  the GIL (an in-process client's thread takes it as its reply arrives)
+  before its frames unwind to the request's own exit, and that wait is no
+  part of serving the request.
 * `note(**attrs)` adds attrs to the thread's innermost open span;
   `record(...)` adds a span whose times were taken elsewhere (a queued
   request's wait, closed by the thread that takes it).
@@ -117,12 +123,13 @@ def current() -> Optional[Span]:
 
 class span:
     """`with span("serve:pass", rows=4) as s:` records a Span (see the module
-    docstring); `s.attrs` may be filled while it is open."""
+    docstring); `s.attrs` may be filled while it is open. `ends_parent`: the
+    enclosing span ends with this one."""
 
-    __slots__ = ("name", "rid", "attrs", "rec", "_range")
+    __slots__ = ("name", "rid", "attrs", "rec", "_range", "ends_parent")
 
-    def __init__(self, name: str, rid: Optional[int] = None, **attrs):
-        self.name, self.rid, self.attrs = name, rid, attrs
+    def __init__(self, name: str, rid: Optional[int] = None, ends_parent: bool = False, **attrs):
+        self.name, self.rid, self.attrs, self.ends_parent = name, rid, attrs, ends_parent
 
     def __enter__(self) -> Span:
         stack = _stack()
@@ -139,13 +146,19 @@ class span:
 
     def __exit__(self, *exc) -> bool:
         rec = self.rec
-        rec.t1 = time.perf_counter_ns()
+        ended = rec.t1 != 0  # a child with `ends_parent` ended it
+        if not ended:
+            rec.t1 = time.perf_counter_ns()
         stack = _stack()
         if stack and stack[-1] is rec:
             stack.pop()
         if self._range is not None:
             self._range.__exit__(None, None, None)
-        _finish(rec)
+        if not ended:
+            _finish(rec)
+            if self.ends_parent and stack and not stack[-1].t1:
+                stack[-1].t1 = rec.t1
+                _finish(stack[-1])
         return False
 
 

@@ -46,6 +46,17 @@ of which fails the run:
            D=128 and 80) also device-side: a captured CUDA
            graph of launches, the int4 weights rotated over >= 100 MB of
            copies so that every launch reads them cold, as a decode pass does.
+  moe      DeepSeek-V2-Lite's kernels at its widths (no model): the routed
+           experts (ops/moe.py: router, top-6, counts and offsets, the grouped
+           gated and down products, the combine; E 64, D 2048, I 1408)
+           against their plain per-expert version at the decode shape (M 1)
+           and the prefill's (M 352: 2112 picks over 64 experts), element by
+           element (MOE_TOL), and the flash forward's (D 192, Dv 128)
+           instance against the plain forward at the prefill (B 1, T 352, H
+           16, YaRN's softmax scale); each timed (CUDA events over back-to-
+           back calls) beside its plain version, its bound and, for the flash
+           instance, F.scaled_dot_product_attention; a captured graph of one
+           MoE call replayed, whose expert load equals the eager one.
   ring     the ring attention's per-block compute (ops/ring_attention.py) on
            the card: a virtual ring of n = 2, 4 and 8 blocks of one bf16
            sequence (B=2, T=2304, the 7B's 32 heads, D=128; Mistral's GQA
@@ -1025,6 +1036,109 @@ def int8_gemv_bound_ms(m: int, k: int, n: int) -> float:
     once, the bf16 output written once) at the HBM rate; its 2 M K N
     operations take under a hundredth of that at M <= 16."""
     return 1e3 * (2 * m * k + n * k + 2 * n + 2 * m * n) / HBM_BYTES_PER_S
+
+
+# Routed experts, kernel against plain: the fp32 sums run in other orders, so each of an expert's four bf16
+# roundings (gate, up, silu * up, down) may land one ulp (2^-8) apart, which moves the weighted sum by a few
+# ulps, and by a share of the output's rms where terms cancel.
+MOE_TOL = (4 * 2.0 ** -8, 2e-2)
+DSV2 = dict(E=64, K=6, D=2048, I=1408, H=16, DQK=192, DV=128, SCALE=0.11472826)
+
+
+def moe_bound_ms(load, m: int) -> float:
+    """Least time of one moe_experts call's two grouped products: the touched
+    experts' weights once, their rows read and written once (bytes bind)."""
+    d, i = DSV2["D"], DSV2["I"]
+    picks, touched = int(load.sum()), int((load > 0).sum())
+    gated = (touched * 2 * i * d + picks * d + picks * i) * 2
+    down = (touched * d * i + picks * i + picks * d) * 2
+    flops = 2.0 * picks * d * i * 3
+    return 1e3 * max((gated + down) / HBM_BYTES_PER_S, flops / 989e12)
+
+
+def moe_phase() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from bridgelang_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from bridgelang_tpu_torch.ops.moe import moe_experts, moe_experts_plain
+
+    e, k, d, i = DSV2["E"], DSV2["K"], DSV2["D"], DSV2["I"]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    bf = torch.bfloat16
+    router = (torch.randn((e, d), generator=g, device="cuda") * d ** -0.5).to(bf)
+    wg, wu = ((torch.randn((e, i, d), generator=g, device="cuda") * d ** -0.5).to(bf) for _ in range(2))
+    wd = (torch.randn((e, d, i), generator=g, device="cuda") * i ** -0.5).to(bf)
+    rtol, atol_rms = MOE_TOL
+    out = {"card": nvidia_smi_line(), "moe": {}}
+    for m in (1, 352):
+        x = torch.randn((m, d), generator=g, device="cuda").to(bf)
+        load = torch.zeros(e, dtype=torch.int32, device="cuda")
+        before = moe_experts.launches
+        got = moe_experts(x, router, wg, wu, wd, k, False, 1.0, load)
+        torch.cuda.synchronize()
+        if moe_experts.launches != before + 5:
+            fail(f"moe_experts M={m}: expected five launches, counted {moe_experts.launches - before}")
+        want_load = torch.zeros(e, dtype=torch.int32, device="cuda")
+        want = moe_experts_plain(x, router, wg, wu, wd, k, False, 1.0, want_load).float()
+        use = float(((got.float() - want).abs() / (rtol * want.abs() + atol_rms * want.square().mean().sqrt())).max())
+        if not torch.equal(load, want_load) or use > 1.0 or not torch.isfinite(got).all():
+            fail(f"moe_experts M={m} disagrees with its plain version: tolerance use {use:.3f}, loads equal "
+                 f"{torch.equal(load, want_load)}")
+        kernel_ms = cuda_ms(lambda: moe_experts(x, router, wg, wu, wd, k, False, 1.0, load), 50)
+        plain_ms = cuda_ms(lambda: moe_experts_plain(x, router, wg, wu, wd, k, False, 1.0), 5)
+        b_ms = moe_bound_ms(load.cpu(), m)
+        # one call captured and replayed: no host sync inside, the same output and load
+        graph, load2 = torch.cuda.CUDAGraph(), torch.zeros_like(load)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            moe_experts(x, router, wg, wu, wd, k, False, 1.0, load2)
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph, stream=side):
+            replayed = moe_experts(x, router, wg, wu, wd, k, False, 1.0, load2)
+        load2.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(replayed, got) or not torch.equal(load2, load):
+            fail(f"moe_experts M={m}: the graph replay differs from the eager call")
+        row = dict(m=m, picks=int(load.sum()), experts_touched=int((load > 0).sum()), tolerance_use=use,
+                   kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_share=b_ms / kernel_ms)
+        out["moe"][f"m{m}"] = row
+        log(f"moe_experts M={m}: {row['picks']} picks over {row['experts_touched']} experts, tolerance use "
+            f"{use:.3f}; kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms (bytes), share "
+            f"{b_ms / kernel_ms:.3f}; no single PyTorch call computes it; {out['card']}")
+
+    h, t = DSV2["H"], 352
+    q = torch.randn((1, t, h, DSV2["DQK"]), generator=g, device="cuda").to(bf)
+    kk = torch.randn((1, t, h, DSV2["DQK"]), generator=g, device="cuda").to(bf)
+    v = torch.randn((1, t, h, DSV2["DV"]), generator=g, device="cuda").to(bf)
+    lens = torch.tensor([331], dtype=torch.int32, device="cuda")
+    o, lse = flash_attention(q, kk, v, lengths=lens, scale=DSV2["SCALE"])
+    po, plse = flash_attention_plain(q, kk, v, lengths=lens, scale=DSV2["SCALE"])
+    err = float((o[0, :331].float() - po[0, :331].float()).abs().max())
+    err_lse = float((lse[0, :, :331] - plse[0, :, :331]).abs().max())
+    if err > FWD_ATOL["bfloat16"] or err_lse > 1e-3:
+        fail(f"flash (192, 128) disagrees with its plain version: max|o| {err:.3e}, max|lse| {err_lse:.3e}")
+    kernel_ms = cuda_ms(lambda: flash_attention(q, kk, v, lengths=lens, scale=DSV2["SCALE"]), 100)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, kk, v, lengths=lens, scale=DSV2["SCALE"]), 20)
+    mask = valid_mask(t, t, [331], None, device="cuda")[:, None]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, kk, v))
+    try:
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                    scale=DSV2["SCALE"]), 100)
+    except RuntimeError as ex:  # a backend without v's own head dim
+        log(f"flash (192, 128): F.scaled_dot_product_attention refused the shapes ({ex})")
+        library_ms = float("nan")
+    keys = 331
+    n_bytes = t * h * (DSV2["DQK"] + DSV2["DV"]) * 2 + keys * h * (DSV2["DQK"] + DSV2["DV"]) * 2 + 4 * h * t + 4
+    pairs = sum(min(r, keys - 1) + 1 for r in range(t))
+    b_ms = 1e3 * max(n_bytes / HBM_BYTES_PER_S, 2.0 * (DSV2["DQK"] + DSV2["DV"]) * pairs * h / 989e12)
+    out["flash_192_128"] = dict(max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                bound_ms=b_ms, bound_share=b_ms / kernel_ms)
+    log(f"flash (192, 128) B=1 T=352 H=16 lengths 331: max|o-plain| {err:.3e}; kernel {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {b_ms:.5f} ms, share {b_ms / kernel_ms:.3f}")
+    return out
 
 
 def check_int8_gemv() -> dict:
@@ -5464,7 +5578,7 @@ def release_memory() -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description="torch port smoke run on one GPU")
     ap.add_argument("--phases",
-                    default="build,leftovers,load,kernels,ring,serve,spec,parallel,train,int8,int4,qlora,variants,"
+                    default="build,leftovers,load,kernels,moe,ring,serve,spec,parallel,train,int8,int4,qlora,variants,"
                             "tfds,scripts,robot,finetune,mesh,pretrain,parity",
                     help="comma-separated subset, for bring-up; the full run is the default; `cold` (not in "
                          "the default) runs only the device-side cold-L2 timings of the kernels phase")
@@ -5550,6 +5664,10 @@ def main() -> None:
     if phases & {"kernels", "cold"}:
         cold = cold_timings("this checkout" if os.path.abspath(args.package_root) == ROOT else args.package_root)
         mark("kernels")
+    moe = None
+    if "moe" in phases:
+        moe = moe_phase()
+        mark("moe")
     ring = None
     if "ring" in phases:
         ring = ring_phase()

@@ -64,7 +64,7 @@ from bridgelang_tpu_torch.ops.quant import pack_int4, quantize_activations_per_t
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-from chip_smoke import FWD_ATOL, INT4_TOL, grad_tolerance_use, jax_arithmetic_ring_reference  # noqa: E402
+from chip_smoke import FWD_ATOL, INT4_TOL, MOE_TOL, grad_tolerance_use, jax_arithmetic_ring_reference  # noqa: E402
 
 CSRC = ROOT / "bridgelang_tpu_torch" / "csrc"
 EMU = Path(__file__).resolve().parent / "cuda_emu"
@@ -117,7 +117,7 @@ def libraries(tmp_path_factory):
         pytest.skip("needs g++ to build the emulated kernels")
     out = tmp_path_factory.mktemp("cuda_emu")
     jobs = {}
-    for name in ("flash_fwd", "flash_bwd", "int4_matmul", "int8_matmul"):
+    for name in ("flash_fwd", "flash_bwd", "int4_matmul", "int8_matmul", "moe_matmul"):
         cpp = out / f"{name}.cpp"
         cpp.write_text(_emulated_source(name))
         cmd = [gxx, "-std=c++20", "-O2", "-fno-strict-aliasing", "-shared", "-fPIC", "-w",
@@ -577,3 +577,103 @@ def test_emulated_int8_gemv_refuses_other_shapes(emulated_gemv):
     out = torch.empty((17, 8), dtype=torch.bfloat16)
     for m, n, k in ((17, 8, 32), (0, 8, 32), (1, 8, 24), (1, 8, 0), (1, 0, 32)):
         assert gemv(x.data_ptr(), w.data_ptr(), None, out.data_ptr(), m, n, k, None) != 0
+
+
+# --- the flash forward's (D, Dv) = (192, 128) instance (latent attention) -----------------------
+
+
+@pytest.mark.parametrize("lengths", [[130], [70]])
+def test_emulated_flash_forward_split_head_dims_matches_plain(libraries, lengths):
+    fwd = libraries["flash_fwd"].flash_fwd_dv
+    fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
+    fwd.restype = ctypes.c_int
+    g = torch.Generator().manual_seed(7)
+    b, t, h = 1, 130, 2
+    q, k = (torch.randn((b, t, h, 192), generator=g).to(torch.bfloat16) for _ in range(2))
+    v = torch.randn((b, t, h, 128), generator=g).to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    scale = 0.11473  # DeepSeek-V2-Lite's YaRN-scaled softmax scale
+    o = torch.full((b, t, h, 128), float("nan"), dtype=torch.bfloat16)
+    lse = torch.full((b, h, t), float("nan"))
+    assert fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), o.data_ptr(), lse.data_ptr(),
+               b, t, t, h, h, 192, 128, 1, 1, 1, 0, scale, None) == 0
+    po, plse = flash_attention_plain(q, k, v, lengths=lens, causal=True, scale=scale)
+    rows = lengths[0]
+    torch.testing.assert_close(o[0, :rows].float(), po[0, :rows].float(), atol=FWD_ATOL["bfloat16"], rtol=0)
+    torch.testing.assert_close(lse[0, :, :rows], plse[0, :, :rows], atol=1e-3, rtol=0)
+    # any other pair of head dims is refused
+    assert fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), o.data_ptr(), lse.data_ptr(),
+               b, t, t, h, h, 192, 64, 1, 1, 1, 0, scale, None) != 0
+
+
+# --- the routed experts (csrc/moe_matmul.cu) -------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def emulated_moe(libraries):
+    lib = libraries["moe_matmul"]
+
+    def function(symbol, argtypes):
+        fn = getattr(lib, symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        return fn
+
+    return function
+
+
+def _moe_operands(m, d, i, e, seed, empty=None):
+    """bf16 x [M, D] of positive entries, router [E, D], experts; with
+    `empty`, that expert's router row is negative, so no token picks it."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((m, d), generator=g).abs().to(torch.bfloat16)
+    router = torch.randn((e, d), generator=g) * d ** -0.5
+    if empty is not None:
+        router[empty] = -router[empty].abs() - 1.0
+    wg, wu = (torch.randn((e, i, d), generator=g) * d ** -0.5 for _ in range(2))
+    wd = torch.randn((e, d, i), generator=g) * i ** -0.5
+    return x, *(w.to(torch.bfloat16) for w in (router, wg, wu, wd))
+
+
+MOE_RTOL, MOE_ATOL_RMS = MOE_TOL  # chip_smoke.py's, with its reason
+
+
+def _moe_tolerance_use(got, want):
+    w = want.float()
+    allowed = (MOE_RTOL * w.abs() + MOE_ATOL_RMS * w.square().mean().sqrt()).clamp_min(1e-30)
+    return float(((got.float() - w).abs() / allowed).max())
+
+
+@pytest.mark.parametrize("m, top_k, norm", [(1, 3, False), (1, 6, True), (37, 3, False), (100, 3, True)],
+                         ids=["decode_m1", "decode_m1_top6_norm", "uneven_m37", "two_tiles_m100"])
+def test_emulated_moe_matches_plain(emulated_moe, m, top_k, norm):
+    from bridgelang_tpu_torch.ops.moe import moe_experts_plain, route_plain, run_kernels, tile_rows
+
+    e, d, i = 8, 128, 64
+    x, router, wg, wu, wd = _moe_operands(m, d, i, e, seed=m + top_k, empty=5 if m > 1 else None)
+    load = torch.full((e,), -1, dtype=torch.int32)
+    out, n = run_kernels(emulated_moe, None, x, router, wg, wu, wd, top_k, norm, 1.0, load)
+    want_load = torch.zeros(e, dtype=torch.int32)
+    plain = moe_experts_plain(x, router, wg, wu, wd, top_k, norm, 1.0, want_load)
+    _, ids = route_plain(x, router, top_k, norm, 1.0)
+    assert n == 5 and torch.equal(load, want_load) and int(load.sum()) == m * top_k
+    assert torch.equal(load, torch.bincount(ids.flatten(), minlength=e).to(torch.int32))
+    if m > 1:
+        assert load[5] == 0  # an expert no token picked: no tile, no product
+    if m == 100:
+        assert tile_rows(m, top_k, e) == 64 and int(load.max()) > 64  # an expert over two tiles
+    assert _moe_tolerance_use(out, plain) <= 1.0
+    # the control one precision below: the experts' weights through fp8 e4m3 (per output row) fail it
+    fp8 = [(w.float() / (s := w.float().abs().amax(-1, keepdim=True) / 448)).to(torch.float8_e4m3fn).float() * s
+           for w in (wg, wu, wd)]
+    control = moe_experts_plain(x, router, *(w.to(torch.bfloat16) for w in fp8), top_k, norm, 1.0)
+    assert _moe_tolerance_use(control, plain) > 1.0
+
+
+def test_emulated_moe_refuses_other_shapes(emulated_moe):
+    x, router, wg, wu, wd = _moe_operands(1, 128, 64, 8, seed=1)
+    lse = torch.zeros(4, dtype=torch.int32)
+    route = emulated_moe("moe_route", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    assert route(x.data_ptr(), router.data_ptr(), lse.data_ptr(), lse.data_ptr(), 1, 128, 300, 3, 0, 1.0, None) != 0
+    gemm = emulated_moe("moe_grouped_gemm", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    assert gemm(x.data_ptr(), None, wg.data_ptr(), wu.data_ptr(), lse.data_ptr(), lse.data_ptr(), x.data_ptr(),
+                100, 128, 16, 1, 1, None) != 0  # N not a multiple of 64

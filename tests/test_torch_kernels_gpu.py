@@ -19,7 +19,10 @@ also ask for bit equality, as do quantize_a8 against
 quantize_activations_per_token and the w4a8 route against its plain
 composition. The int8 weight-only GEMV: the unscaled product under
 INT4_TOL's bf16 rule against int8_gemv_plain (the sums differ in fp32 order
-only), the scaled one bit-equal to bf16(unscaled * scale).
+only), the scaled one bit-equal to bf16(unscaled * scale). The routed
+experts (ops/moe.py): chip_smoke.py's MOE_TOL per element against
+moe_experts_plain, the expert load equal; the flash forward's (192, 128)
+instance: FWD_ATOL as the other instances.
 """
 
 import sys
@@ -39,7 +42,7 @@ from bridgelang_tpu_torch.ops.flash_attention import (
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from chip_smoke import (  # noqa: E402
-    FWD_ATOL, GRAD_TOL, INT4_SHAPES_7B, INT4_SHAPES_PHI, INT4_TOL, INT8_GEMV_SHAPES, grad_tolerance_use)
+    DSV2, FWD_ATOL, GRAD_TOL, INT4_SHAPES_7B, INT4_SHAPES_PHI, INT4_TOL, INT8_GEMV_SHAPES, MOE_TOL, grad_tolerance_use)
 
 # (b, t, s, h, hkv, d, lengths, window, causal)
 CASES = {
@@ -878,3 +881,79 @@ def test_new_params_drop_the_graphs(cuda_device):
     other = dict(params)
     model.predict_action(other, img, "x")
     assert len(model.graphs.entries) == 1 and model.graphs.params is other
+
+
+# --- DeepSeek-V2: the routed experts and the flash forward's (192, 128) instance ---------------------------
+
+
+def _moe_weights(e, d, i, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    router = (torch.randn((e, d), generator=g, device=device) * d ** -0.5).bfloat16()
+    wg, wu = ((torch.randn((e, i, d), generator=g, device=device) * d ** -0.5).bfloat16() for _ in range(2))
+    wd = (torch.randn((e, d, i), generator=g, device=device) * i ** -0.5).bfloat16()
+    return router, wg, wu, wd
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m, norm", [(1, False), (5, True), (352, False)])
+def test_moe_experts_match_plain(cuda_device, m, norm):
+    from bridgelang_tpu_torch.ops.moe import moe_experts, moe_experts_plain
+
+    e, k, d, i = DSV2["E"], DSV2["K"], DSV2["D"], DSV2["I"]
+    router, wg, wu, wd = _moe_weights(e, d, i, cuda_device, seed=m)
+    x = torch.randn((m, d), device=cuda_device).bfloat16()
+    load, want_load = (torch.zeros(e, dtype=torch.int32, device=cuda_device) for _ in range(2))
+    before = moe_experts.launches
+    got = moe_experts(x, router, wg, wu, wd, k, norm, 1.0, load)
+    want = moe_experts_plain(x, router, wg, wu, wd, k, norm, 1.0, want_load).float()
+    assert moe_experts.launches == before + 5 and torch.equal(load, want_load) and int(load.sum()) == m * k
+    rtol, atol = MOE_TOL
+    allowed = rtol * want.abs() + atol * want.square().mean().sqrt()
+    assert float(((got.float() - want).abs() / allowed).max()) <= 1.0
+
+
+@pytest.mark.gpu
+def test_moe_experts_replay_in_a_graph_without_the_plain_version(cuda_device, monkeypatch):
+    from bridgelang_tpu_torch.ops import moe
+
+    router, wg, wu, wd = _moe_weights(8, 128, 64, cuda_device, seed=3)
+    x = torch.randn((40, 128), device=cuda_device).bfloat16()
+    monkeypatch.setattr(moe, "moe_experts_plain", lambda *a, **k: pytest.fail("a CUDA tensor took the plain path"))
+    load = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    eager = moe.moe_experts(x, router, wg, wu, wd, 3, False, 1.0, load)
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=side):
+        replayed = moe.moe_experts(x, router, wg, wu, wd, 3, False, 1.0, load)
+    load.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, eager) and int(load.sum()) == 120
+
+
+@pytest.mark.gpu
+def test_moe_experts_refuse_what_they_cannot_take(cuda_device):
+    from bridgelang_tpu_torch.ops.moe import moe_experts
+
+    router, wg, wu, wd = _moe_weights(8, 128, 64, cuda_device, seed=1)
+    with pytest.raises(ValueError):
+        moe_experts(torch.zeros((2, 128), device=cuda_device), router, wg, wu, wd, 3)  # fp32 x
+    with pytest.raises(ValueError):
+        moe_experts(torch.zeros((2, 96), device=cuda_device).bfloat16(), router[:, :96].contiguous(), wg, wu, wd, 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b, t, lengths", [(1, 352, [331]), (2, 130, [130, 70])])
+def test_flash_split_head_dims_match_plain(cuda_device, b, t, lengths):
+    g = torch.Generator(device=cuda_device).manual_seed(t)
+    q, k = (torch.randn((b, t, 16, 192), generator=g, device=cuda_device).bfloat16() for _ in range(2))
+    v = torch.randn((b, t, 16, 128), generator=g, device=cuda_device).bfloat16()
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    o, lse = flash_attention(q, k, v, lengths=lens, scale=DSV2["SCALE"])
+    po, plse = flash_attention_plain(q, k, v, lengths=lens, scale=DSV2["SCALE"])
+    assert o.shape == (b, t, 16, 128)
+    for i, n in enumerate(lengths):
+        torch.testing.assert_close(o[i, :n].float(), po[i, :n].float(), atol=FWD_ATOL["bfloat16"], rtol=0)
+        torch.testing.assert_close(lse[i, :, :n], plse[i, :, :n], atol=1e-3, rtol=0)
+    with pytest.raises(ValueError):  # (192, 64) is no instance
+        flash_attention(q, k, v[..., :64].contiguous())

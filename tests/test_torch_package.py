@@ -83,7 +83,7 @@ def test_smoke_model_serves_on_cpu():
 
 
 def test_build_is_lazy_and_hashed():
-    assert _build.sources() == ["flash_bwd", "flash_fwd", "int4_matmul", "int8_matmul"]
+    assert _build.sources() == ["flash_bwd", "flash_fwd", "int4_matmul", "int8_matmul", "moe_matmul"]
     assert not _build._loaded  # nothing built or loaded at import
     for name in _build.sources():
         path = _build.library_path(name)

@@ -186,9 +186,11 @@ def test_one_act_request_is_tiled_by_its_spans(smoke):
     assert names == ["serve:parse", "serve:wait", "serve:pass", "serve:respond"]
     covered = sum(k.t1 - k.t0 for k in kids[req.id])
     assert 0.9 * (req.t1 - req.t0) <= covered <= req.t1 - req.t0
+    assert kids[req.id][-1].t1 == req.t1  # the written reply ends the request (serve:respond ends its parent)
     (pass_,) = [k for k in kids[req.id] if k.name == "serve:pass"]
     assert [k.name for k in kids[pass_.id]] == ["predict:prepare", "predict:eager", "predict:wait", "predict:unpack"]
-    assert pass_.attrs == {"rows": 1}  # no device marks on the CPU
+    # no device marks on the CPU; no expert load (experts_touched, expert_max_over_mean) on a dense decoder
+    assert pass_.attrs == {"rows": 1}
     assert {r.rid for r in records if r.rid == req.rid} == {req.rid}
     assert all(k.rid == req.rid for k in kids[req.id] + kids[pass_.id])
     assert stats["latency_ms"]["window"] == 1 and stats["latency_ms"]["last"] == round(req.ms, 1)
